@@ -9,31 +9,54 @@ exits non-zero without a result:
 1. device  — needs CUDA (else exits 1 at once); prints the card's name
    and power limit as nvidia-smi reports them; TF32 off.
 2. build   — builds every kernel from tpu_dra_torch/csrc with nvcc
-   (one process per source, in parallel) into build/torch_kernels/.
+   (one process per source, in parallel) into build/torch_kernels/;
+   prints each instantiation's registers, shared memory and spills.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
-   d=4096, ffn=14336): paged decode with B=8, page 16, 513 pages and
-   lengths [0,1,15,16,17,255,512,1000]; decode MLP with B in {1, 8}.
-   Tolerance: rtol 2e-2 plus, per row (one head of one slot, one
-   token of the MLP), an atol of two bf16 ulps of that row's largest
-   |reference| value.
+   d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
+   513 pages and lengths [0,1,15,16,17,255,512,1000], with bf16 pools
+   and with int8 pools; decode MLP with B in {1, 8}; the int8 matmul at
+   M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
+   (4096, 1024), (4096, 128256)} with an all-zero weight column; the
+   contiguous decode, bf16 and int8 caches, b=8, max_seq 1024, lengths
+   {1, 255, 256, 257, 1000}. Tolerance: rtol 2e-2 plus, per row (one
+   head of one slot, one token of the MLP, one output row of the
+   matmul), an atol of two bf16 ulps of that row's largest |reference|
+   value. At fp32 each new kernel matches its plain version within
+   1e-5 of the output's largest magnitude.
 4. timing  — CUDA events around single launches after warm-up, L2
-   flushed before each, median of 60: kernel, plain version, and the
-   least time the card could take (bytes over the memory rate vs
-   operations over the bf16 peak, whichever is larger).
-5. tiny    — fp32 TINY_LLAMA through the engine on the card (kernels)
-   and on the CPU (plain versions): greedy tokens must agree.
+   flushed before each, median of 60, the host's enqueue time kept out
+   of the interval (time_ms): kernel, plain version, and the least time
+   the card could take (bytes over the memory rate vs operations over
+   the bf16 peak, whichever is larger). Each kernel also has
+   ``ms_with_host``, timed with the wrapper's host time included.
+5. tiny    — fp32 TINY_LLAMA on the card (kernels) and on the CPU
+   (plain versions): the bf16-config engine agrees on >= 0.97 of the
+   tokens; the w8+kv8 engine and greedy_generate in all four
+   (kv_quant, weight_quant) combinations give identical tokens.
 6. engine  — Llama-3-8B widths, all 32 layers, vocab 128256, bf16,
    random weights from a seeded CUDA generator; 8 seeded requests
    (prompts 64-512, 32-64 new tokens) through the paged engine. Every
    request completes with its token count, the allocator ends
-   leak-free, and both kernels launch once per layer per decode step.
-   Then, with all 8 slots decoding the same prompts, one decode step
-   runs from one state with kernels, plain versions, fp32 reference
-   versions and each kernel alone (STEP_VARIANTS): with fp32 weights
-   every pair's logits agree above cosine 0.9999; in bf16 see
+   leak-free, and both bf16 kernels launch once per layer per decode
+   step. Then, with all 8 slots decoding the same prompts, one decode
+   step runs from one state with kernels, plain versions, fp32
+   reference versions and each kernel alone (STEP_VARIANTS): with fp32
+   weights every pair's logits agree above cosine 0.9999; in bf16 see
    step_gates. The same step with the depth cut to 2 layers, in bf16,
    holds every pair above 0.999.
+7. engine_w8kv8 — the same requests with weight_quant="int8" and
+   kv_quant="int8": every request completes, the allocator ends
+   leak-free with every pool (scales included) zero; per decode step
+   225 int8 matmul launches (7 projections x 32 layers + the lm_head),
+   32 paged-decode launches on int8 pools and no fused-MLP launch; a
+   profile of its steady decode as for the bf16 engine. The one-state
+   decode-step check with W8_STEP_VARIANTS, at bf16, fp32 activations
+   and bf16 cut to 2 layers.
+8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
+   new tokens, once in bf16 and once with int8 weights and KV: 32
+   contiguous-decode launches per decode step, and 32 fused-MLP (bf16)
+   or 225 int8 matmul (w8kv8) launches per step.
 
 The line before last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -42,6 +65,7 @@ The line before last lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -62,11 +86,18 @@ PEAKS = {
     "H100": (3.35e12, 989e12),  # SXM: "NVIDIA H100 80GB HBM3"
 }
 TIMING_ITERS = 60
+# ~1 ms of device sleep at the H100's clocks: longer than any timed call
+# takes on the host to enqueue its launches (time_ms).
+HOST_SHIELD_CYCLES = 2_000_000
 BF16_RTOL = 2e-2
+FP32_REL = 1e-5
 # Bars for the decode-step logits of the STEP_VARIANTS (step_gates).
 FP32_COSINE = 0.9999
 BF16_COSINE = 0.999
 BF16_GAP_RATIO = 1.5
+# Llama-3-8B: 7 int8 projections per layer (q, k, v, o, gate, up,
+# down) plus the lm_head.
+INT8MM_PER_LAYER = 7
 
 
 def emit(phase: str, **fields) -> None:
@@ -76,9 +107,9 @@ def emit(phase: str, **fields) -> None:
 def bf16_row_atol(ref: torch.Tensor) -> torch.Tensor:
     """Per-row atol for a bf16 result against the fp32 reference: two
     bf16 ulps of each row's own largest |reference| value (a row is the
-    last axis: one head of one slot, or one token of the MLP), so a
-    row of small values is held to its own scale. A row of zeros must
-    come out exactly zero."""
+    last axis: one head of one slot, one token of the MLP, one output
+    row of a matmul), so a row of small values is held to its own
+    scale. A row of zeros must come out exactly zero."""
     top = ref.float().abs().amax(dim=-1, keepdim=True)
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
     return torch.where(top > 0, 2 * ulp, torch.zeros_like(top))
@@ -107,13 +138,45 @@ def compare(name: str, got, ref, rtol: float = BF16_RTOL) -> dict:
     return out
 
 
-def time_ms(fn, flush: torch.Tensor) -> float:
+def compare_fp32(name: str, got, ref) -> dict:
+    """fp32 kernel vs its plain version: the same arithmetic in another
+    summation order, so every element within FP32_REL of the output's
+    largest magnitude (a matmul over K = 14336 accumulates rounding
+    error of that order relative to its outputs)."""
+    err = float((got.float() - ref.float()).abs().max())
+    top = max(float(ref.float().abs().max()), 1e-30)
+    out = {"max_abs_err": err, "max_err_over_max_ref": err / top}
+    if err > FP32_REL * top:
+        raise AssertionError(f"{name} at fp32: {out} (bar {FP32_REL})")
+    return out
+
+
+def short_name(fn: str) -> str:
+    """A demangled kernel name without namespaces and arguments."""
+    for ns in ("(anonymous namespace)::", "tpu_dra::attention::",
+               "tpu_dra::", "void "):
+        fn = fn.replace(ns, "")
+    return fn.split("(")[0]
+
+
+def time_ms(fn, flush: torch.Tensor, shield: bool = True) -> float:
+    """Median device time of one call of ``fn`` between CUDA events,
+    the L2 flushed before each. With ``shield`` the stream first sleeps
+    for HOST_SHIELD_CYCLES, so the host enqueues the call's launches
+    (wrapper checks, allocations, ctypes) while the device is still
+    busy and the interval holds device work only; without it the
+    wrapper's host time falls inside the interval whenever it exceeds
+    the kernel's. A call that syncs with the host
+    inside (the plain paged walk reads its longest length) is host
+    bound either way."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     samples = []
     for _ in range(TIMING_ITERS):
         flush.zero_()  # evict the inputs from the 50 MB L2
+        if shield:
+            torch.cuda._sleep(HOST_SHIELD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -124,11 +187,31 @@ def time_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(samples)
 
 
+def yardstick_ms(fn, flush) -> "float | str":
+    """Time a PyTorch call kept only as a yardstick; a refusal records
+    why it is absent instead of failing the run."""
+    try:
+        return time_ms(fn, flush)
+    except RuntimeError as e:
+        return f"not measured: {e}"[:200]
+
+
 def peaks(name: str) -> tuple:
     for key, rates in PEAKS.items():
         if key in name:
             return rates
     raise RuntimeError(f"no published peaks for {name!r}")
+
+
+def bound(nbytes: float, flops: float, rates: tuple) -> dict:
+    """The least time the card could take: bytes over the memory rate
+    or operations over the bf16 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / rates[1] * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
 
 
 def paged_inputs(gen, lengths, page=16, num_pages=513, kvh=8, n_rep=4,
@@ -145,6 +228,12 @@ def paged_inputs(gen, lengths, page=16, num_pages=513, kvh=8, n_rep=4,
                      device="cuda").to(bf)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, kp, vp, tables, lens
+
+
+def int8_pools(Q, kp, vp) -> tuple:
+    """bf16 pools -> (int8 k, int8 v, {"k_scale", "v_scale"})."""
+    (kq, ks), (vq, vs) = Q.quantize_kv(kp), Q.quantize_kv(vp)
+    return kq, vq, {"k_scale": ks, "v_scale": vs}
 
 
 def mlp_inputs(gen, b, d=4096, ffn=14336):
@@ -165,22 +254,56 @@ def mlp_inputs(gen, b, d=4096, ffn=14336):
     return x, scale, tree
 
 
+def int8mm_inputs(Q, gen, m, k, n, dtype=torch.bfloat16, zero_col=None):
+    """x [m, k] and one int8 weight [k, n] quantized from normal(0.02)
+    (an all-zero column at ``zero_col``)."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.empty(k, n, device="cuda").normal_(0.0, 0.02, generator=gen)
+    if zero_col is not None:
+        w[:, zero_col] = 0.0
+    q = Q.quantize_weight(w)
+    del w
+    return x, q["kernel_q"], q["scale"]
+
+
+def contiguous_inputs(Q, gen, b=8, max_seq=1024, kvh=8, n_rep=4, hd=128,
+                      dtype=torch.bfloat16, int8=False):
+    q = torch.randn(b, kvh * n_rep, hd, generator=gen, device="cuda")
+    k = torch.randn(b, max_seq, kvh, hd, generator=gen, device="cuda")
+    v = torch.randn(b, max_seq, kvh, hd, generator=gen, device="cuda")
+    if int8:
+        (k, ks), (v, vs) = Q.quantize_kv(k), Q.quantize_kv(v)
+        return q.to(dtype), k, v, {"k_scale": ks, "v_scale": vs}
+    return q.to(dtype), k.to(dtype), v.to(dtype), {}
+
+
 # The decode step is run once per variant: (paged_decode_impl,
-# decode_mlp_impl), "auto" being the kernel on the card.
+# decode_mlp_impl, int8 matmul impl), "auto" being the kernel on the
+# card. STEP_VARIANTS serve plain weights (the int8 impl is unused);
+# W8_STEP_VARIANTS serve int8 weights, whose MLP is the plain chain of
+# int8 matmuls under every decode_mlp impl but "reference".
 STEP_VARIANTS = {
-    "kernels": ("auto", "auto"),
-    "torch": ("torch", "torch"),
-    "reference": ("reference", "reference"),
-    "attn_kernel": ("auto", "torch"),
-    "mlp_kernel": ("torch", "auto"),
+    "kernels": ("auto", "auto", "auto"),
+    "torch": ("torch", "torch", "torch"),
+    "reference": ("reference", "reference", "reference"),
+    "attn_kernel": ("auto", "torch", "torch"),
+    "mlp_kernel": ("torch", "auto", "torch"),
+}
+W8_STEP_VARIANTS = {
+    "kernels": ("auto", "auto", "auto"),
+    "torch": ("torch", "torch", "torch"),
+    "reference": ("reference", "reference", "reference"),
+    "attn_kernel": ("auto", "torch", "torch"),
+    "int8mm_kernel": ("torch", "torch", "auto"),
 }
 
 
-def step_logits(E, cfg, eng, prompts) -> dict:
+def step_logits(E, I8, cfg, eng, prompts, variants) -> dict:
     """Admit ``prompts`` into ``eng`` and step until every slot decodes,
-    then run one ``_decode_step`` from that state once per
-    STEP_VARIANTS entry and compare the logits row by row (cosine,
-    worst row). The engine then finishes its requests."""
+    then run one ``_decode_step`` from that state once per variant and
+    compare the logits row by row (cosine, worst row): each variant
+    against "torch", and "torch" against "reference". The engine then
+    finishes its requests."""
     for i, p in enumerate(prompts):
         eng.add_request(E.Request(rid=f"cos{i}", prompt=p, max_new_tokens=64))
     while eng._prefilling or eng._queue:
@@ -197,10 +320,14 @@ def step_logits(E, cfg, eng, prompts) -> dict:
         eng._tables, eng._lengths, eng._last_tokens, eng._active)]
     lengths = eng._lengths.tolist()
     logits = {}
-    for name, (paged, mlp) in STEP_VARIANTS.items():
-        c = dataclasses.replace(
-            cfg, paged_decode_impl=paged, decode_mlp_impl=mlp)
-        logits[name] = E._decode_step(c, eng.params, eng.cache, *state)[2]
+    try:
+        for name, (paged, mlp, mm) in variants.items():
+            c = dataclasses.replace(
+                cfg, paged_decode_impl=paged, decode_mlp_impl=mlp)
+            I8.MM_IMPL = mm
+            logits[name] = E._decode_step(c, eng.params, eng.cache, *state)[2]
+    finally:
+        I8.MM_IMPL = "auto"
     eng.run()
 
     def cosine(a, b):
@@ -208,8 +335,9 @@ def step_logits(E, cfg, eng, prompts) -> dict:
             logits[a], logits[b], dim=-1).min().item()
 
     pairs = [("kernels", "torch"), ("kernels", "reference"),
-             ("torch", "reference"), ("attn_kernel", "torch"),
-             ("mlp_kernel", "torch")]
+             ("torch", "reference")] + [
+        (v, "torch") for v in variants
+        if v not in ("kernels", "torch", "reference")]
     return {
         "rows": len(lengths),
         "lengths": lengths,
@@ -296,6 +424,47 @@ def profile_decode(E, eng, prompts, chunks: int = 2) -> dict:
     }
 
 
+def serve(E, kernels, cfg, params, ec, reqs) -> tuple:
+    """Run ``reqs`` through a fresh engine with the launch counts set
+    to 0 just before; returns (engine, completions, launches, wall s).
+    Every request must complete with its token count and ids in range,
+    and the allocator must end leak-free."""
+    eng = E.Engine(cfg, params, ec)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for r in reqs:
+        n = len(done[r.rid].tokens)
+        if n != r.max_new_tokens:
+            raise AssertionError(f"{r.rid}: {n} tokens, want {r.max_new_tokens}")
+        if not (0 <= done[r.rid].tokens.min()
+                and done[r.rid].tokens.max() < cfg.vocab_size):
+            raise AssertionError(f"{r.rid}: token ids out of range")
+    alloc = eng.allocator
+    if alloc.free_pages != alloc.num_pages - 1 or alloc.reserved_pages:
+        raise AssertionError(
+            f"allocator leaked: {alloc.free_pages} free of "
+            f"{alloc.num_pages - 1}, {alloc.reserved_pages} reserved"
+        )
+    return eng, done, launches, wall
+
+
+def serve_summary(eng, done, launches, wall) -> dict:
+    decode_tokens = sum(len(c.tokens) - 1 for c in done.values())
+    ttft = sorted(c.ttft_s for c in done.values())
+    steps = eng.decode_steps
+    return {
+        "requests": len(done), "wall_seconds": wall, "decode_steps": steps,
+        "decode_seconds": eng.decode_seconds, "decode_tokens": decode_tokens,
+        "decode_tok_s": decode_tokens / eng.decode_seconds,
+        "ttft_p50_s": ttft[len(ttft) // 2],
+        "prefill_buckets": eng.prefill_buckets, "launches": launches,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -305,6 +474,8 @@ def main() -> int:
         sys.path.insert(0, REPO)
     from tpu_dra_torch import kernels
     from tpu_dra_torch.workloads import engine as E
+    from tpu_dra_torch.workloads import generate as G
+    from tpu_dra_torch.workloads import quantize as Q
     from tpu_dra_torch.workloads.models.llama import (
         LLAMA3_8B,
         TINY_LLAMA,
@@ -313,6 +484,7 @@ def main() -> int:
     )
     from tpu_dra_torch.workloads.ops import attention as A
     from tpu_dra_torch.workloads.ops import decode_mlp as DM
+    from tpu_dra_torch.workloads.ops import int8mm as I8
 
     t_start = time.perf_counter()
     # --- 1. device ---------------------------------------------------------
@@ -324,32 +496,51 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
-    mem_rate, bf16_rate = peaks(kind)
+    rates = peaks(kind)
     emit("device", kind=kind, nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, mem_bytes_per_s=mem_rate,
-         bf16_flops_per_s=bf16_rate)
+         cuda=torch.version.cuda, mem_bytes_per_s=rates[0],
+         bf16_flops_per_s=rates[1])
 
     # --- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     report = kernels.build()
     emit("build", seconds=time.perf_counter() - t0,
-         per_source={k: v["seconds"] for k, v in report.items()})
+         per_source={k: v["seconds"] for k, v in report.items()},
+         ptxas={src: {short_name(fn): [p["registers"], p["smem_bytes"],
+                                       p["spill_stores"]]
+                      for fn, p in kernels.ptxas_report(v["log"]).items()}
+                for src, v in report.items()},
+         ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"])
 
-    # --- 3. parity at 8B widths, bf16 ---------------------------------------
+    # --- 3. parity at 8B widths ------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
     parity = {}
-    args = paged_inputs(gen, [0, 1, 15, 16, 17, 255, 512, 1000])
-    got = A.paged_decode_attention(*args, impl="cuda")
-    plain = A.paged_decode_attention(*args, impl="torch")
-    ref = A.paged_decode_attention(*args, impl="reference")
-    torch.cuda.synchronize()
-    parity["paged_decode_attention"] = {
-        "vs_plain": compare("paged vs plain", got, plain),
-        "vs_reference": compare("paged vs reference", got, ref),
-        "dead_slot_exact_zero": bool(torch.all(got[0] == 0)),
-    }
-    if not parity["paged_decode_attention"]["dead_slot_exact_zero"]:
-        raise AssertionError("a length-0 slot must give exact zeros")
+    lengths = [0, 1, 15, 16, 17, 255, 512, 1000]
+    q, kp, vp, tables, lens = paged_inputs(gen, lengths)
+    for name, (k_, v_, sc) in (
+        ("paged_decode_attention", (kp, vp, {})),
+        ("paged_decode_attention_int8", int8_pools(Q, kp, vp)),
+    ):
+        args = (q, k_, v_, tables, lens)
+        got = A.paged_decode_attention(*args, **sc, impl="cuda")
+        plain = A.paged_decode_attention(*args, **sc, impl="torch")
+        ref = A.paged_decode_attention(*args, **sc, impl="reference")
+        torch.cuda.synchronize()
+        parity[name] = {
+            "vs_plain": compare(f"{name} vs plain", got, plain),
+            "vs_reference": compare(f"{name} vs reference", got, ref),
+            "dead_slot_exact_zero": bool(torch.all(got[0] == 0)),
+        }
+        if not parity[name]["dead_slot_exact_zero"]:
+            raise AssertionError("a length-0 slot must give exact zeros")
+        if sc:
+            q32 = q.float()
+            parity[name]["fp32_vs_plain"] = compare_fp32(
+                name, A.paged_decode_attention(q32, k_, v_, tables, lens,
+                                               **sc, impl="cuda"),
+                A.paged_decode_attention(q32, k_, v_, tables, lens, **sc,
+                                         impl="torch"))
+    del q, kp, vp, tables, lens, k_, v_, sc
     for b in (1, 8):
         x, scale, tree = mlp_inputs(gen, b)
         got = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
@@ -364,6 +555,58 @@ def main() -> int:
         }
         if not parity[f"decode_mlp_b{b}"]["rerun_bit_identical"]:
             raise AssertionError("decode_mlp reruns must give identical bits")
+    del x, scale, tree
+    for k, n in ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 128256)):
+        for m in (1, 8, 1024):
+            x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n, zero_col=n // 3)
+            got = I8.int8_matmul(x, w_q, w_s, impl="cuda")
+            plain = I8.int8_matmul(x, w_q, w_s, impl="torch")
+            ref = I8.int8_matmul(x, w_q, w_s, impl="reference")
+            again = I8.int8_matmul(x, w_q, w_s, impl="cuda")
+            torch.cuda.synchronize()
+            name = f"int8mm_m{m}_k{k}_n{n}"
+            parity[name] = {
+                "vs_plain": compare(f"{name} vs plain", got, plain),
+                "vs_reference": compare(f"{name} vs reference", got, ref),
+                "zero_column_exact_zero": bool(torch.all(got[:, n // 3] == 0)),
+                "rerun_bit_identical": bool(torch.equal(got, again)),
+            }
+            if n in (14336, 4096):
+                parity[name]["fp32_vs_plain"] = compare_fp32(
+                    name, I8.int8_matmul(x.float(), w_q, w_s, impl="cuda"),
+                    I8.int8_matmul(x.float(), w_q, w_s, impl="torch"))
+            if not (parity[name]["zero_column_exact_zero"]
+                    and parity[name]["rerun_bit_identical"]):
+                raise AssertionError(f"{name}: {parity[name]}")
+            del x, w_q, w_s, got, plain, ref, again
+    for int8 in (False, True):
+        q, k_, v_, sc = contiguous_inputs(Q, gen, int8=int8)
+        # The same cache under fp32 activations (an int8 cache as it is).
+        fp32_args = (q.float(), k_ if int8 else k_.float(),
+                     v_ if int8 else v_.float())
+        name = "decode_attention_int8" if int8 else "decode_attention"
+        parity[name] = {}
+        for length in (1, 255, 256, 257, 1000):
+            got = A.decode_attention(q, k_, v_, length, **sc, impl="cuda")
+            plain = A.decode_attention(q, k_, v_, length, **sc, impl="torch")
+            ref = A.decode_attention(q, k_, v_, length, **sc,
+                                     impl="reference")
+            parity[name][f"length_{length}"] = {
+                "vs_plain": compare(f"{name} L={length} vs plain", got,
+                                    plain),
+                "vs_reference": compare(f"{name} L={length} vs reference",
+                                        got, ref),
+                "fp32_vs_plain": compare_fp32(
+                    f"{name} L={length}",
+                    A.decode_attention(*fp32_args, length, **sc,
+                                       impl="cuda"),
+                    A.decode_attention(*fp32_args, length, **sc,
+                                       impl="torch")),
+            }
+        zero = A.decode_attention(q, k_, v_, 0, **sc, impl="cuda")
+        if not bool(torch.all(zero == 0)):
+            raise AssertionError(f"{name}: length 0 must give exact zeros")
+    del q, k_, v_, sc, fp32_args
     emit("parity", **parity)
 
     # --- 4. kernel times -----------------------------------------------------
@@ -375,53 +618,120 @@ def main() -> int:
     kvh, page = kp.shape[2], kp.shape[1]
     live = sum(lengths)
     pages_read = sum(-(-n // page) for n in lengths)
-    nbytes = (2 * q.numel() * 2 + live * kvh * hd * 2 * 2
-              + pages_read * 4 + b * 4)
     flops = 4 * live * h * hd
-    ms = time_ms(lambda: A.paged_decode_attention(
-        q, kp, vp, tables, lens, impl="cuda"), flush)
-    plain_ms = time_ms(lambda: A.paged_decode_attention(
-        q, kp, vp, tables, lens, impl="torch"), flush)
     # Yardstick only (not the same inputs): SDPA over the same live K/V
-    # already gathered into contiguous [B, kvh, L, hd] buffers.
-    kc = A._gather_flat(kp, tables)[:, :512].permute(0, 2, 1, 3).contiguous()
-    vc = A._gather_flat(vp, tables)[:, :512].permute(0, 2, 1, 3).contiguous()
-    try:
-        sdpa_ms = time_ms(
+    # already gathered into contiguous [B, kvh, L, hd] bf16 buffers
+    # (dequantized for the int8 pools).
+    k8, v8, sc8 = int8_pools(Q, kp, vp)
+    for name, (k_, v_, sc, kv_bytes) in (
+        ("paged_decode_attention", (kp, vp, {}, 2)),
+        ("paged_decode_attention_int8", (k8, v8, sc8, 1)),
+    ):
+        nbytes = (2 * q.numel() * 2 + live * kvh * hd * kv_bytes * 2
+                  + (live * kvh * 4 * 2 if sc else 0)
+                  + pages_read * 4 + b * 4)
+        args = (q, k_, v_, tables, lens)
+        call = functools.partial(
+            A.paged_decode_attention, *args, **sc, impl="cuda")
+        ms = time_ms(call, flush)
+        host_ms = time_ms(call, flush, shield=False)
+        plain_ms = time_ms(lambda: A.paged_decode_attention(
+            *args, **sc, impl="torch"), flush)
+        kd = k_.float() * sc["k_scale"][..., None] if sc else k_
+        vd = v_.float() * sc["v_scale"][..., None] if sc else v_
+        kc = A._gather_flat(kd.to(torch.bfloat16), tables)[:, :512].permute(
+            0, 2, 1, 3).contiguous()
+        vc = A._gather_flat(vd.to(torch.bfloat16), tables)[:, :512].permute(
+            0, 2, 1, 3).contiguous()
+        del kd, vd
+        sdpa_ms = yardstick_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q[:, :, None], kc, vc, enable_gqa=True), flush)
-    except RuntimeError as e:  # a yardstick only: record why it is absent
-        sdpa_ms = f"not measured: {e}"[:200]
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
-    timing["paged_decode_attention"] = {
-        "shape": "B=8 x 512 tokens, page 16, h=32 kvh=8 hd=128, bf16",
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "sdpa_contiguous_ms": sdpa_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "flops": flops,
-    }
-    del q, kp, vp, tables, lens, kc, vc
+        timing[name] = {
+            "shape": f"B=8 x 512 tokens, page 16, h=32 kvh=8 hd=128, bf16 "
+                     f"q, {'int8' if sc else 'bf16'} pools",
+            "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
+            "library_ms": None, "sdpa_contiguous_ms": sdpa_ms,
+            **bound(nbytes, flops, rates),
+        }
+        del kc, vc
+    del q, kp, vp, tables, lens, k8, v8, sc8
     x, scale, tree = mlp_inputs(gen, 8)
     d, ffn = x.shape[1], tree["w_gate"]["kernel"].shape[1]
     nbytes = 3 * d * ffn * 2 + d * 2 + 2 * x.numel() * 2
     flops = 2 * x.shape[0] * d * ffn * 3
-    ms = time_ms(lambda: DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda"),
-                 flush)
+    call = functools.partial(DM.decode_mlp, x, scale, tree, 1e-5,
+                             impl="cuda")
+    ms = time_ms(call, flush)
+    host_ms = time_ms(call, flush, shield=False)
     plain_ms = time_ms(
         lambda: DM.decode_mlp(x, scale, tree, 1e-5, impl="torch"), flush)
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / bf16_rate * 1e3
     timing["decode_mlp"] = {
         "shape": "B=8, d=4096, ffn=14336, bf16",
-        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "flops": flops,
+        "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
+        "library_ms": None,
+        **bound(nbytes, flops, rates),
     }
-    del x, scale, tree, flush
+    del x, scale, tree
+    for label, m, k, n in (("int8mm", 8, 4096, 14336),
+                           ("int8mm_lm_head", 8, 4096, 128256),
+                           ("int8mm_prefill", 1024, 4096, 14336)):
+        x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n)
+        nbytes = k * n + n * 4 + m * k * 2 + m * n * 2
+        call = functools.partial(I8.int8_matmul, x, w_q, w_s, impl="cuda")
+        ms = time_ms(call, flush)
+        host_ms = time_ms(call, flush, shield=False)
+        plain_ms = time_ms(
+            lambda: I8.int8_matmul(x, w_q, w_s, impl="torch"), flush)
+        # Yardstick only: no PyTorch call takes int8 weights with
+        # per-column scales; a bf16 matmul on a copy dequantized ahead.
+        w_bf = (w_q.float() * w_s).to(torch.bfloat16)
+        dense_ms = yardstick_ms(lambda: x @ w_bf, flush)
+        timing[label] = {
+            "shape": f"M={m}, K={k}, N={n}, bf16 x, int8 W",
+            "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "dequantized_bf16_matmul_ms": dense_ms,
+            **bound(nbytes, 2 * m * k * n, rates),
+        }
+        del x, w_q, w_s, w_bf
+    for label, int8 in (("decode_attention", False),
+                        ("decode_attention_int8", True)):
+        q, k_, v_, sc = contiguous_inputs(Q, gen, int8=int8)
+        L = 512
+        b, h, hd = q.shape
+        kvh = k_.shape[2]
+        nbytes = (2 * q.numel() * 2 + b * L * kvh * hd * (1 if int8 else 2)
+                  * 2 + (b * L * kvh * 4 * 2 if int8 else 0))
+        call = functools.partial(
+            A.decode_attention, q, k_, v_, L, **sc, impl="cuda")
+        ms = time_ms(call, flush)
+        host_ms = time_ms(call, flush, shield=False)
+        plain_ms = time_ms(lambda: A.decode_attention(q, k_, v_, L, **sc,
+                                                      impl="torch"), flush)
+        row = {
+            "shape": f"b=8, length {L} of max_seq 1024, h=32 kvh=8 hd=128, "
+                     f"bf16 q, {'int8' if int8 else 'bf16'} cache",
+            "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            **bound(nbytes, 4 * b * L * h * hd, rates),
+        }
+        if not int8:
+            # The same function in one PyTorch call: SDPA over the live
+            # keys, views of the cache (no copy).
+            row["library_ms"] = yardstick_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], k_[:, :L].transpose(1, 2),
+                    v_[:, :L].transpose(1, 2), enable_gqa=True), flush)
+            if isinstance(row["library_ms"], str):
+                row["library_note"] = row.pop("library_ms")
+                row["library_ms"] = None
+        timing[label] = row
+        del q, k_, v_, sc
+    del flush
     emit("timing", iters=TIMING_ITERS, **timing)
 
-    # --- 5. small model: the card's engine vs the CPU engine -----------------
+    # --- 5. small model: the card vs the CPU -----------------------------------
     tiny = dataclasses.replace(
         TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32, dim=256,
     )
@@ -433,24 +743,44 @@ def main() -> int:
          int(rng.integers(4, 12)))
         for i in range(5)
     ]
-    tec = E.EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=12,
-                         scan_chunk=3, prefill_chunk=8)
-    outs = {
-        dev: E.Engine(tiny, tparams, tec, device=dev).run([
-            E.Request(rid=r, prompt=p, max_new_tokens=n) for r, p, n in trace
-        ])
-        for dev in ("cuda", "cpu")
-    }
-    agree = float(np.mean([
-        np.mean(outs["cuda"][r].tokens == outs["cpu"][r].tokens)
-        for r, _, _ in trace
-    ]))
-    emit("tiny", token_agreement=agree, requests=len(trace))
-    if agree < 0.97:
-        raise AssertionError(f"tiny engine card vs CPU agreement {agree}")
+    tiny_out = {}
+    for label, quant in (("bf_config", {}),
+                         ("w8kv8", {"kv_quant": "int8",
+                                    "weight_quant": "int8"})):
+        tec = E.EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=12,
+                             scan_chunk=3, prefill_chunk=8, **quant)
+        outs = {
+            dev: E.Engine(tiny, tparams, tec, device=dev).run([
+                E.Request(rid=r, prompt=p, max_new_tokens=n)
+                for r, p, n in trace
+            ])
+            for dev in ("cuda", "cpu")
+        }
+        tiny_out[f"engine_{label}_token_agreement"] = float(np.mean([
+            np.mean(outs["cuda"][r].tokens == outs["cpu"][r].tokens)
+            for r, _, _ in trace
+        ]))
+    prompt = rng.integers(1, tiny.vocab_size, (3, 20)).astype(np.int32)
+    for kvq in ("none", "int8"):
+        for wq in ("none", "int8"):
+            outs = [
+                G.greedy_generate(tiny, tparams, prompt, 10, kv_quant=kvq,
+                                  weight_quant=wq, device=dev).numpy()
+                for dev in ("cuda", "cpu")
+            ]
+            tiny_out[f"generate_kv_{kvq}_w_{wq}_identical"] = bool(
+                np.array_equal(*outs))
+    emit("tiny", requests=len(trace), **tiny_out)
+    if tiny_out["engine_bf_config_token_agreement"] < 0.97:
+        raise AssertionError(f"tiny engine card vs CPU: {tiny_out}")
+    if tiny_out["engine_w8kv8_token_agreement"] != 1.0 or not all(
+        v for k, v in tiny_out.items() if k.endswith("_identical")
+    ):
+        raise AssertionError(f"tiny int8 / generate card vs CPU: {tiny_out}")
 
-    # --- 6. engine at Llama-3-8B widths --------------------------------------
+    # --- 6. engine at Llama-3-8B widths, bf16 --------------------------------
     cfg = LLAMA3_8B
+    L = cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -458,8 +788,6 @@ def main() -> int:
     init_s = time.perf_counter() - t0
     ec = E.EngineConfig(page_size=16, max_slots=8, max_pages_per_seq=64,
                         scan_chunk=8, prefill_chunk=128)
-    eng = E.Engine(cfg, params, ec)
-    del params
     rng = np.random.default_rng(0)
     reqs = [
         E.Request(
@@ -470,37 +798,21 @@ def main() -> int:
         )
         for i in range(8)
     ]
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    steps, decode_s = eng.decode_steps, eng.decode_seconds
-    for r in reqs:
-        n = len(done[r.rid].tokens)
-        if n != r.max_new_tokens:
-            raise AssertionError(f"{r.rid}: {n} tokens, want {r.max_new_tokens}")
-        if not (0 <= done[r.rid].tokens.min()
-                and done[r.rid].tokens.max() < cfg.vocab_size):
-            raise AssertionError(f"{r.rid}: token ids out of range")
-    alloc = eng.allocator
-    if alloc.free_pages != alloc.num_pages - 1 or alloc.reserved_pages:
-        raise AssertionError(
-            f"allocator leaked: {alloc.free_pages} free of "
-            f"{alloc.num_pages - 1}, {alloc.reserved_pages} reserved"
-        )
-    L = cfg.n_layers
+    eng, done, launches, wall = serve(E, kernels, cfg, params, ec, reqs)
+    del params
+    steps = eng.decode_steps
     want_attn = L * steps
     want_mlp = L * (steps + eng.prefill_single_token_buckets)
     if not (launches["paged_decode_attention"] == want_attn > 0
-            and launches["decode_mlp"] == want_mlp > 0):
+            and launches["decode_mlp"] == want_mlp > 0
+            and launches["int8mm"] == 0
+            and launches["paged_decode_attention_int8"] == 0):
         raise AssertionError(
             f"launches {launches} != {L} per layer per decode step "
             f"({steps} steps)"
         )
-    decode_tokens = sum(len(c.tokens) - 1 for c in done.values())
-    ttft = sorted(c.ttft_s for c in done.values())
+    engine_launches = launches
+    summary = serve_summary(eng, done, launches, wall)
 
     profile = profile_decode(E, eng, [
         np.resize(r.prompt, 128) for r in reqs
@@ -508,7 +820,8 @@ def main() -> int:
     emit("profile", **profile)
 
     step_prompts = [r.prompt for r in reqs]
-    steps_cmp = {"bf16": step_logits(E, cfg, eng, step_prompts)}
+    steps_cmp = {"bf16": step_logits(E, I8, cfg, eng, step_prompts,
+                                     STEP_VARIANTS)}
     del eng
     torch.cuda.empty_cache()
     # The same step at fp32 (the variants differ only in summation
@@ -521,37 +834,158 @@ def main() -> int:
     ):
         e = E.Engine(c, init_params(
             c, torch.Generator(device="cuda").manual_seed(0)), ec)
-        steps_cmp[name] = step_logits(E, c, e, step_prompts)
+        steps_cmp[name] = step_logits(E, I8, c, e, step_prompts,
+                                      STEP_VARIANTS)
         del e
         torch.cuda.empty_cache()
     emit(
         "engine", model="LLAMA3_8B widths, 32 layers, bf16, random weights",
-        params=num_params(cfg), init_seconds=init_s, requests=len(reqs),
-        wall_seconds=wall, decode_steps=steps, decode_seconds=decode_s,
-        decode_tokens=decode_tokens, decode_tok_s=decode_tokens / decode_s,
-        ttft_p50_s=ttft[len(ttft) // 2], launches=launches,
-        launches_per_decode_step={k: v / steps for k, v in launches.items()},
+        params=num_params(cfg), init_seconds=init_s, **summary,
+        launches_per_decode_step={
+            k: v / steps for k, v in launches.items()},
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
     emit("decode_step", **steps_cmp, gates=step_gates(steps_cmp))
 
+    # --- 7. engine at Llama-3-8B widths, int8 weights and KV ---------------
+    torch.cuda.reset_peak_memory_stats()
+    w8 = dataclasses.replace(ec, weight_quant="int8", kv_quant="int8")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng, done, launches, wall = serve(E, kernels, cfg, params, w8, reqs)
+    del params  # the engine holds the quantized tree only
+    torch.cuda.empty_cache()
+    steps = eng.decode_steps
+    mm_per_pass = INT8MM_PER_LAYER * L + 1
+    if not (launches["int8mm"] == mm_per_pass * (steps + eng.prefill_buckets)
+            and launches["paged_decode_attention_int8"] == L * steps > 0
+            and launches["paged_decode_attention"] == 0
+            and launches["decode_mlp"] == 0):
+        raise AssertionError(
+            f"w8kv8 launches {launches}: want {mm_per_pass} int8mm per "
+            f"forward pass ({steps} decode steps, {eng.prefill_buckets} "
+            f"prefill buckets), {L} int8 paged per step, no fused MLP"
+        )
+    pools_zero = all(
+        bool((layer[1:] == 0).all())
+        for _, pool in eng.cache._pools() for layer in pool
+    )
+    if not (eng.cache.quantized and pools_zero):
+        raise AssertionError("w8kv8: freed pages (values, scales) not zero")
+    w8_launches = launches
+    w8_summary = serve_summary(eng, done, launches, wall)
+    w8_summary["launches_per_decode_step"] = {
+        "int8mm": (launches["int8mm"] - mm_per_pass * eng.prefill_buckets)
+        / steps,
+        "paged_decode_attention_int8":
+            launches["paged_decode_attention_int8"] / steps,
+        "decode_mlp": launches["decode_mlp"] / steps,
+    }
+    emit("profile_w8kv8", **profile_decode(E, eng, [
+        np.resize(r.prompt, 128) for r in reqs
+    ]))
+    w8_cmp = {"bf16": step_logits(E, I8, cfg, eng, step_prompts,
+                                  W8_STEP_VARIANTS)}
+    del eng
+    torch.cuda.empty_cache()
+    for name, c in (
+        ("fp32", dataclasses.replace(
+            cfg, dtype=torch.float32, param_dtype=torch.float32)),
+        ("bf16_2_layers", dataclasses.replace(cfg, n_layers=2)),
+    ):
+        e = E.Engine(c, init_params(
+            c, torch.Generator(device="cuda").manual_seed(0)), w8)
+        torch.cuda.empty_cache()
+        w8_cmp[name] = step_logits(E, I8, c, e, step_prompts,
+                                   W8_STEP_VARIANTS)
+        del e
+        torch.cuda.empty_cache()
+    emit("engine_w8kv8",
+         model="LLAMA3_8B widths, 32 layers, bf16 activations, int8 "
+               "weights and KV, random weights",
+         **w8_summary,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("decode_step_w8kv8", **w8_cmp, gates=step_gates(w8_cmp))
+
+    # --- 8. greedy_generate at Llama-3-8B widths -----------------------------
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    b, s, new = 8, 256, 32
+    prompt = torch.from_numpy(
+        np.random.default_rng(1).integers(1, cfg.vocab_size, (b, s))
+        .astype(np.int32))
+    gen_out, gen_launches, tokens = {}, {}, {}
+    for label, quant in (("bf16", "none"), ("w8kv8", "int8")):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = G.greedy_generate(cfg, params, prompt, new, kv_quant=quant,
+                                weight_quant=quant)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        gen_launches[label] = launches
+        steps = new - 1
+        want = {"decode_attention": L * steps}
+        if quant == "none":
+            want.update(decode_mlp=L * steps, int8mm=0)
+        else:
+            want.update(decode_mlp=0, int8mm=mm_per_pass * new)
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"generate {label}: launches {launches}, "
+                                 f"want {want}")
+        if not (out.shape == (b, s + new)
+                and torch.equal(out[:, :s], prompt)
+                and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size):
+            raise AssertionError(f"generate {label}: bad output {out.shape}")
+        tokens[label] = out[:, s:]
+        gen_out[label] = {
+            "wall_seconds": wall, "tok_s": b * new / wall,
+            "launches": launches,
+            "launches_per_decode_step": {
+                "decode_attention": launches["decode_attention"] / steps,
+                "decode_mlp": launches["decode_mlp"] / steps,
+                "int8mm": (launches["int8mm"] - (mm_per_pass if quant
+                                                 == "int8" else 0)) / steps,
+            },
+        }
+    del params
+    torch.cuda.empty_cache()
+    emit("generate", model="LLAMA3_8B widths, 32 layers, random weights",
+         batch=b, prompt=s, new_tokens=new, **gen_out,
+         w8kv8_vs_bf16_token_agreement=float(
+             (tokens["bf16"] == tokens["w8kv8"]).float().mean()))
+
     # --- kernel list and result ----------------------------------------------
     rows = []
-    for name, source, replaces, par in (
+    for name, source, replaces, par, t, n_launch in (
         ("paged_decode_attention", "tpu_dra_torch/csrc/paged_decode.cu",
          "tpu_dra/workloads/ops/attention.py:1128",
-         parity["paged_decode_attention"]),
+         parity["paged_decode_attention"], timing["paged_decode_attention"],
+         engine_launches["paged_decode_attention"]),
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp.cu",
-         "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"]),
+         "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
+         timing["decode_mlp"], engine_launches["decode_mlp"]),
+        ("int8mm", "tpu_dra_torch/csrc/int8mm.cu",
+         "tpu_dra/workloads/ops/int8mm.py:47",
+         parity["int8mm_m8_k4096_n14336"], timing["int8mm"],
+         w8_launches["int8mm"]),
+        ("decode_attention", "tpu_dra_torch/csrc/decode.cu",
+         "tpu_dra/workloads/ops/attention.py:803",
+         parity["decode_attention"]["length_1000"],
+         timing["decode_attention"],
+         sum(v["decode_attention"] for v in gen_launches.values())),
+        ("paged_decode_attention_int8", "tpu_dra_torch/csrc/paged_decode.cu",
+         "tpu_dra/workloads/ops/attention.py:1128",
+         parity["paged_decode_attention_int8"],
+         timing["paged_decode_attention_int8"],
+         w8_launches["paged_decode_attention_int8"]),
     ):
-        t = timing[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_launch,
             "max_abs_err": par["vs_plain"]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "parity": par,
+            "library_ms": t["library_ms"], "ms_with_host": t["ms_with_host"],
+            "parity": par,
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)

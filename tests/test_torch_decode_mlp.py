@@ -18,6 +18,7 @@ import torch  # noqa: E402
 from tpu_dra.workloads.ops import attention as JA  # noqa: E402
 from tpu_dra.workloads.ops import decode_mlp as JDM  # noqa: E402
 from tpu_dra_torch.workloads.ops import decode_mlp as TDM  # noqa: E402
+from tpu_dra_torch.workloads.quantize import quantize_params  # noqa: E402
 
 EPS = 1e-5
 REL = 1e-5
@@ -78,9 +79,14 @@ def test_decode_mlp_dispatch_and_errors():
         TDM.decode_mlp(tx, ts, tt, EPS, impl="bogus")
     with pytest.raises(ValueError, match=r"\[b, d\]"):
         TDM.decode_mlp(tx[None], ts, tt, EPS)
-    int8_tree = {k: {"kernel_q": v["kernel"], "scale": ts} for k, v in tt.items()}
-    with pytest.raises(NotImplementedError, match="int8"):
-        TDM.decode_mlp(tx, ts, int8_tree, EPS, impl="torch")
+    # An int8 weight-only tree takes the plain chain (three int8
+    # matmuls) under "auto"; the fused kernel refuses it.
+    int8_tree = quantize_params(tt)
+    got = TDM.decode_mlp(tx, ts, int8_tree, EPS)
+    assert TDM._LAST_DECODE_MLP_IMPL == "torch"
+    ref = TDM.decode_mlp(tx, ts, int8_tree, EPS, impl="reference")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    assert rel < REL, rel
     with pytest.raises(ValueError, match="plain 2D"):
         TDM.decode_mlp(tx, ts, int8_tree, EPS, impl="cuda")
 

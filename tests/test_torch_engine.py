@@ -3,9 +3,11 @@
 The same seeded trace, on TINY_LLAMA at fp32 with the same weights (the
 flax tree converted in-process), goes through the JAX ``Engine`` and the
 port's ``Engine(device="cpu")``: greedy tokens must be identical for
-every request. Within the port: fused == unfused, paged == contiguous,
-the allocator ends leak-free, and every knob the slice does not cover
-raises instead of being ignored.
+every request, with fp32 pools and under ``kv_quant="int8"``,
+``weight_quant="int8"`` and both. Within the port: fused == unfused,
+paged == contiguous, the allocator ends leak-free with every freed page
+zero (scale pools included), and every knob not ported yet raises
+instead of being ignored.
 """
 
 import dataclasses
@@ -97,6 +99,90 @@ def test_greedy_tokens_identical_to_jax_engine(jax_done, torch_params):
     assert eng.decode_steps > 0
 
 
+QUANT_CASES = [
+    {"kv_quant": "int8"}, {"weight_quant": "int8"},
+    {"kv_quant": "int8", "weight_quant": "int8"},
+]
+QUANT_IDS = ["kv8", "w8", "w8kv8"]
+
+
+@pytest.mark.parametrize("kw", QUANT_CASES, ids=QUANT_IDS)
+def test_int8_greedy_tokens_identical_to_jax_engine(jax_params, torch_params,
+                                                    kw):
+    want = JE.Engine(JCFG, jax_params, JE.EngineConfig(**{**EC, **kw})).run([
+        JE.Request(rid=r, prompt=p, max_new_tokens=n) for r, p, n in _trace()
+    ])
+    eng, done = _torch_run(torch_params, **kw)
+    for rid, _prompt, n in _trace():
+        assert len(done[rid].tokens) == n
+        assert np.array_equal(done[rid].tokens, want[rid].tokens), rid
+    assert eng.cache.quantized == (kw.get("kv_quant") == "int8")
+    lm_head = eng.params["lm_head"]
+    assert ("kernel_q" in lm_head) == (kw.get("weight_quant") == "int8")
+
+
+@pytest.mark.parametrize("kw", QUANT_CASES, ids=QUANT_IDS)
+def test_int8_fused_unfused_contiguous_and_leak_free(torch_params, kw):
+    eng, paged = _torch_run(torch_params, **kw)
+    assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+    assert eng.allocator.reserved_pages == 0
+    # Every pool, the scale pools included, is zero on every freed page.
+    assert TP.pages_are_zero(eng.cache, range(1, eng.allocator.num_pages))
+    if eng.cache.quantized:
+        assert len(eng.cache._pools()) == 4
+    _, unfused = _torch_run(torch_params, fused=False, **kw)
+    _, contiguous = _torch_run(torch_params, contiguous=True, **kw)
+    for rid in paged:
+        for other in (unfused, contiguous):
+            assert np.array_equal(paged[rid].tokens, other[rid].tokens), rid
+
+
+def test_prefill_batch_int8_pools_match_jax(jax_params, torch_params):
+    """One batched prefill bucket into int8 pools: logits to 1e-4, the
+    written int8 K/V bit-identical to JAX's, their scales to 1e-6."""
+    tables, starts, valids, tokens = _prefill_bucket()
+    jcache = jax_init_cache(JCFG, 9, 4, kv_quant="int8")
+    jcache, jlogits = JE._prefill_batch(
+        JCFG, True, unroll_params(jax_params), jcache,
+        *map(jnp.asarray, (tables, starts, tokens, valids)),
+    )
+    tcache = TP.init_paged_cache(TCFG, 9, 4, kv_quant="int8", device="cpu")
+    tlogits = TE._prefill_batch(
+        TCFG, torch_params.tree(), tcache,
+        *map(torch.from_numpy, (tables, starts, tokens, valids)),
+    )
+    np.testing.assert_allclose(
+        tlogits[:2].numpy(), np.asarray(jlogits)[:2], atol=1e-4, rtol=0
+    )
+    for layer in range(TCFG.n_layers):
+        for jp, tp in ((jcache.k, tcache.k), (jcache.v, tcache.v)):
+            assert tp[layer].dtype == torch.int8
+            np.testing.assert_array_equal(
+                tp[layer][1:].numpy(), np.asarray(jp[layer])[1:]
+            )
+        for jp, tp in ((jcache.k_scale, tcache.k_scale),
+                       (jcache.v_scale, tcache.v_scale)):
+            np.testing.assert_allclose(
+                tp[layer][1:].numpy(), np.asarray(jp[layer])[1:],
+                atol=1e-6, rtol=0,
+            )
+
+
+def _prefill_bucket():
+    """(tables, starts, valids, tokens) of one bucket: two rows, one
+    idle pad row, pages 1-8 of a 9-page pool of 4-token pages."""
+    rng = np.random.default_rng(3)
+    tables = np.zeros((4, 4), np.int32)
+    tables[0] = [1, 2, 3, 4]
+    tables[1] = [5, 6, 7, 8]
+    starts = np.zeros((4,), np.int32)
+    valids = np.array([8, 5, 0, 0], np.int32)
+    tokens = rng.integers(1, 256, (4, 8)).astype(np.int32)
+    tokens[1, 5:] = 0
+    tokens[2:] = 0
+    return tables, starts, valids, tokens
+
+
 def test_prefill_batch_logits_and_pools_match_jax(jax_params, torch_params):
     """One batched prefill bucket (two rows, one idle pad row) from
     zeroed pools: logits to 1e-4, written K/V to 1e-5."""
@@ -173,15 +259,12 @@ class _OtherGate(TE.LeaseGate):
     [
         {"temperature": 0.7},
         {"spec_k": 2},
-        {"kv_quant": "int8"},
-        {"weight_quant": "int8"},
         {"sharded": True},
         {"gate": _OtherGate()},
         {"metrics": object()},
     ],
     ids=[
-        "temperature", "spec_k", "kv_quant", "weight_quant", "sharded",
-        "gate", "metrics",
+        "temperature", "spec_k", "sharded", "gate", "metrics",
     ],
 )
 def test_unported_knobs_raise(torch_params, kw):

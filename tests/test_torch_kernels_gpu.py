@@ -27,6 +27,8 @@ import torch
 from tpu_dra_torch import kernels
 from tpu_dra_torch.workloads.ops import attention as TA
 from tpu_dra_torch.workloads.ops import decode_mlp as TDM
+from tpu_dra_torch.workloads.ops import int8mm as TI
+from tpu_dra_torch.workloads.quantize import quantize_kv, quantize_weight
 
 pytestmark = pytest.mark.gpu
 
@@ -54,7 +56,10 @@ def _assert_bf16_close(got, ref, rtol=2e-2):
     )
 
 
-def _paged(seed, b, page, kvh, n_rep, hd, lengths, dtype, device):
+def _paged(seed, b, page, kvh, n_rep, hd, lengths, dtype, device,
+           int8=False):
+    """(q, k_pages, v_pages, tables, lengths) plus, with ``int8``, the
+    pools quantized per (token, kv head) and their scale pools."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     max_pages = max(1, -(-max(lengths) // page))
     num_pages = 1 + b * max_pages
@@ -64,8 +69,16 @@ def _paged(seed, b, page, kvh, n_rep, hd, lengths, dtype, device):
     kp = torch.randn(num_pages, page, kvh, hd, generator=g)
     vp = torch.randn(num_pages, page, kvh, hd, generator=g)
     lens = torch.tensor(lengths, dtype=torch.int32)
-    return [t.to(device=device, dtype=dtype) if t.is_floating_point()
-            else t.to(device) for t in (q, kp, vp, tables, lens)]
+    args = [q.to(device=device, dtype=dtype)]
+    if int8:
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        args += [kq, vq]
+        extra = {"k_scale": ks.to(device), "v_scale": vs.to(device)}
+    else:
+        args += [kp.to(dtype), vp.to(dtype)]
+        extra = {}
+    args = [t.to(device) for t in args] + [tables.to(device), lens.to(device)]
+    return (args, extra) if int8 else args
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -141,12 +154,23 @@ def test_launch_counters_count_launches(cuda_device):
     TA.paged_decode_attention(*args)  # auto -> cuda for CUDA tensors
     assert TA._LAST_PAGED_IMPL == "cuda"
     TA.paged_decode_attention(*args, impl="torch")
+    args8, scales = _paged(1, 2, 4, 2, 2, 64, [3, 9], torch.float32,
+                           cuda_device, int8=True)
+    TA.paged_decode_attention(*args8, **scales)
     x, scale, tree = _mlp(2, 2, 64, 128, torch.float32, cuda_device)
     TDM.decode_mlp(x, scale, tree, 1e-5)
     TDM.decode_mlp(x, scale, tree, 1e-5)
     assert TDM._LAST_DECODE_MLP_IMPL == "cuda"
+    x, w_q, w_s = _int8mm(5, 3, 64, 96, torch.float32, cuda_device)
+    TI.int8_matmul(x, w_q, w_s)
+    assert TI._LAST_INT8MM_IMPL == "cuda"
+    TI.int8_matmul(x, w_q, w_s, impl="torch")
+    q, k, v, _ = _contig(6, 2, 64, 2, 2, 64, torch.float32, cuda_device)
+    TA.decode_attention(q, k, v, 10)
+    assert TA._LAST_DECODE_IMPL == "cuda"
     assert kernels.LAUNCHES == {
-        "paged_decode_attention": 1, "decode_mlp": 2,
+        "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
+        "decode_mlp": 2, "int8mm": 1, "decode_attention": 1,
     }
 
 
@@ -161,7 +185,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         )
     with pytest.raises(ValueError, match="int32"):
         TA.paged_decode_attention(q, kp, vp, tables.long(), lens, impl="cuda")
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8 cache with f32 scales"):
         TA.paged_decode_attention(
             q, kp, vp, tables, lens, k_scale=kp[..., 0], v_scale=kp[..., 0],
             impl="cuda",
@@ -217,3 +241,192 @@ def test_tiny_engine_on_the_card_matches_the_cpu_engine(cuda_device):
         for r, _, _ in trace
     ])
     assert agree >= 0.97, agree
+
+
+# --- int8 paged branch, int8 matmul, contiguous decode ------------------
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("page", [1, 16])
+def test_paged_decode_int8_kernel_fp32_matches_plain(cuda_device, hd, n_rep,
+                                                     page):
+    lengths = [0, 1, page, page + 1, 3 * page - 1, 77, 255, 512, 1000]
+    args, scales = _paged(hd + n_rep + page, len(lengths), page, 2, n_rep,
+                          hd, lengths, torch.float32, cuda_device, int8=True)
+    got = TA.paged_decode_attention(*args, **scales, impl="cuda")
+    want = TA.paged_decode_attention(*args, **scales, impl="torch")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.all(got[0] == 0)
+
+
+def test_paged_decode_int8_kernel_bf16_8b_shape(cuda_device):
+    lengths = [0, 1, 15, 16, 17, 255, 512, 1000]
+    args, scales = _paged(0, 8, 16, 8, 4, 128, lengths, torch.bfloat16,
+                          cuda_device, int8=True)
+    got = TA.paged_decode_attention(*args, **scales, impl="cuda").float()
+    ref = TA.paged_decode_attention(*args, **scales, impl="reference").float()
+    plain = TA.paged_decode_attention(*args, **scales, impl="torch").float()
+    _assert_bf16_close(got, ref)
+    _assert_bf16_close(plain, ref)
+    _assert_bf16_close(got, plain)
+    assert torch.all(got[0] == 0)
+
+
+def _int8mm(seed, m, k, n, dtype, device, zero_col=None):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(m, k, generator=g)
+    w = 0.02 * torch.randn(k, n, generator=g)
+    if zero_col is not None:
+        w[:, zero_col] = 0.0
+    q = quantize_weight(w)
+    return (x.to(device=device, dtype=dtype), q["kernel_q"].to(device),
+            q["scale"].to(device))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 13, 16, 17, 40, 130])
+@pytest.mark.parametrize("k,n", [(64, 96), (130, 300), (77, 33), (512, 256)])
+def test_int8mm_kernel_fp32_matches_plain(cuda_device, m, k, n):
+    x, w_q, w_s = _int8mm(m + k + n, m, k, n, torch.float32, cuda_device)
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    want = TI.int8_matmul(x, w_q, w_s, impl="torch")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("m", [1, 8, 1024])
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024)])
+def test_int8mm_kernel_bf16_8b_shapes(cuda_device, m, k, n):
+    x, w_q, w_s = _int8mm(m, m, k, n, torch.bfloat16, cuda_device,
+                          zero_col=n // 2)
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda").float()
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference").float()
+    plain = TI.int8_matmul(x, w_q, w_s, impl="torch").float()
+    _assert_bf16_close(got, ref)
+    _assert_bf16_close(plain, ref)
+    _assert_bf16_close(got, plain)
+    assert torch.all(got[:, n // 2] == 0), "an all-zero column gives zeros"
+    again = TI.int8_matmul(x, w_q, w_s, impl="cuda").float()
+    assert torch.equal(got, again), "reruns must give identical bits"
+
+
+def test_int8mm_leading_dims(cuda_device):
+    x, w_q, w_s = _int8mm(9, 12, 64, 80, torch.float32, cuda_device)
+    got = TI.int8_matmul(x.reshape(3, 4, 64), w_q, w_s, impl="cuda")
+    assert got.shape == (3, 4, 80)
+    want = TI.int8_matmul(x, w_q, w_s, impl="torch").reshape(3, 4, 80)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _contig(seed, b, max_seq, kvh, n_rep, hd, dtype, device, int8=False):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, kvh * n_rep, hd, generator=g)
+    k = torch.randn(b, max_seq, kvh, hd, generator=g)
+    v = torch.randn(b, max_seq, kvh, hd, generator=g)
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = {"k_scale": ks.to(device), "v_scale": vs.to(device)}
+    else:
+        k, v, scales = k.to(dtype), v.to(dtype), {}
+    return q.to(device=device, dtype=dtype), k.to(device), v.to(device), scales
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_decode_kernel_fp32_matches_plain(cuda_device, hd, n_rep, int8):
+    max_seq = 1024
+    q, k, v, scales = _contig(hd + n_rep, 3, max_seq, 2, n_rep, hd,
+                              torch.float32, cuda_device, int8=int8)
+    for length in (0, 1, 255, 256, 257, 1000, max_seq):
+        got = TA.decode_attention(q, k, v, length, **scales, impl="cuda")
+        want = TA.decode_attention(q, k, v, length, **scales, impl="torch")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        if length == 0:
+            assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernel_bf16_8b_shape(cuda_device, int8):
+    q, k, v, scales = _contig(1, 8, 1024, 8, 4, 128, torch.bfloat16,
+                              cuda_device, int8=int8)
+    for length in (1, 255, 256, 257, 1000):
+        got = TA.decode_attention(q, k, v, length, **scales, impl="cuda")
+        ref = TA.decode_attention(q, k, v, length, **scales,
+                                  impl="reference")
+        plain = TA.decode_attention(q, k, v, length, **scales, impl="torch")
+        _assert_bf16_close(got.float(), ref.float())
+        _assert_bf16_close(plain.float(), ref.float())
+        _assert_bf16_close(got.float(), plain.float())
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
+    q, k, v, _ = _contig(2, 2, 64, 2, 2, 64, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="extra_k"):
+        TA.decode_attention(q, k, v, 5, extra_k=k[:, 0], extra_v=v[:, 0],
+                            impl="cuda")
+    with pytest.raises(ValueError, match="outside the cache"):
+        TA.decode_attention(q, k, v, 65, impl="cuda")
+    with pytest.raises(ValueError, match="q's dtype"):
+        TA.decode_attention(q, k.half(), v.half(), 5, impl="cuda")
+    x, w_q, w_s = _int8mm(3, 4, 64, 96, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="int8 weights"):
+        TI.int8_matmul(x, w_q.float(), w_s, impl="cuda")
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        TI.int8_matmul(x.half(), w_q, w_s, impl="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        TI.int8_matmul(x.t().contiguous().t(), w_q, w_s, impl="cuda")
+
+
+def test_tiny_int8_paths_on_the_card_match_the_cpu(cuda_device):
+    """fp32 TINY_LLAMA with int8 weights and KV: the card's engine
+    (int8mm + the int8 paged branch) and greedy_generate (int8mm + the
+    contiguous decode kernel, all four quant combinations) give the CPU
+    paths' greedy tokens exactly."""
+    from tpu_dra_torch.workloads.engine import Engine, EngineConfig, Request
+    from tpu_dra_torch.workloads.generate import greedy_generate
+    from tpu_dra_torch.workloads.models.llama import TINY_LLAMA, init_params
+
+    cfg = dataclasses.replace(
+        TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32, dim=256,
+    )
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    rng = np.random.default_rng(6)
+    trace = [
+        (f"r{i}", rng.integers(1, 256, rng.integers(3, 30)).astype(np.int32),
+         int(rng.integers(4, 12)))
+        for i in range(5)
+    ]
+    ec = EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=12,
+                      scan_chunk=3, prefill_chunk=8, kv_quant="int8",
+                      weight_quant="int8")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        kernels.reset_launches()
+        eng = Engine(cfg, params, ec, device=dev)
+        out[dev] = eng.run([
+            Request(rid=r, prompt=p, max_new_tokens=n) for r, p, n in trace
+        ])
+        if dev == "cuda":
+            assert kernels.LAUNCHES["paged_decode_attention_int8"] == (
+                cfg.n_layers * eng.decode_steps
+            )
+            assert kernels.LAUNCHES["int8mm"] == (
+                (7 * cfg.n_layers + 1)
+                * (eng.decode_steps + eng.prefill_buckets)
+            )
+            assert kernels.LAUNCHES["decode_mlp"] == 0
+    for r, _, _ in trace:
+        assert np.array_equal(out["cpu"][r].tokens, out["cuda"][r].tokens), r
+    prompt = rng.integers(1, 256, (3, 20)).astype(np.int32)
+    for kvq in ("none", "int8"):
+        for wq in ("none", "int8"):
+            kernels.reset_launches()
+            got = greedy_generate(cfg, params, prompt, 10, kv_quant=kvq,
+                                  weight_quant=wq, device="cuda")
+            assert kernels.LAUNCHES["decode_attention"] == cfg.n_layers * 9
+            want = greedy_generate(cfg, params, prompt, 10, kv_quant=kvq,
+                                   weight_quant=wq, device="cpu")
+            assert torch.equal(got, want), (kvq, wq)

@@ -18,6 +18,10 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// int8 storage (weights, KV): exact in fp32, and in bf16 for |v| <= 127.
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -48,11 +52,13 @@ __device__ __forceinline__ Pack<T, N> load_pack(const T* __restrict__ p) {
   return *reinterpret_cast<const Pack<T, N>*>(p);
 }
 
+// All bits zero: 0 in every storage type (fp32, bf16, int8).
 template <typename T, int N>
 __device__ __forceinline__ Pack<T, N> zero_pack() {
   Pack<T, N> p;
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(&p);
 #pragma unroll
-  for (int i = 0; i < N; ++i) p.v[i] = from_f32<T>(0.0f);
+  for (int i = 0; i < static_cast<int>(sizeof(p)); ++i) bytes[i] = 0;
   return p;
 }
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,14 +28,22 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("paged_decode.cu", "decode_mlp.cu")
+SOURCES = ("paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
-LAUNCHES = {"paged_decode_attention": 0, "decode_mlp": 0}
+# The paged kernel's int8-pool branch counts apart from its bf16/fp32
+# branch, so a run shows which one the path took.
+LAUNCHES = {
+    "paged_decode_attention": 0,
+    "paged_decode_attention_int8": 0,
+    "decode_mlp": 0,
+    "int8mm": 0,
+    "decode_attention": 0,
+}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -83,7 +92,9 @@ def build() -> dict:
     for source in SOURCES:
         target = library_path(source)
         if target.exists():
-            report[source] = {"seconds": 0.0, "log": "", "cached": True}
+            log_path = target.with_suffix(".log")
+            log = log_path.read_text() if log_path.exists() else ""
+            report[source] = {"seconds": 0.0, "log": log, "cached": True}
             continue
         nvcc = nvcc or _nvcc()
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -108,6 +119,40 @@ def build() -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel instantiation of an ``nvcc -Xptxas -v`` log:
+    ``{name: {"registers", "smem_bytes", "spill_stores"}}``, names
+    demangled with c++filt where the toolkit's host has it."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "smem_bytes": 0,
+                         "spill_stores": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(m.group(1)) if m else 0
+    cxxfilt = shutil.which("c++filt")
+    if not (out and cxxfilt):
+        return out
+    names = list(out)
+    plain = subprocess.run(
+        [cxxfilt], input="\n".join(names), capture_output=True, text=True,
+    ).stdout.splitlines()
+    if len(plain) != len(names):
+        return out
+    return {p: out[n] for n, p in zip(names, plain)}
 
 
 def function(source: str, name: str, argtypes: list):

@@ -11,6 +11,12 @@ the unrolled tree (this is the port's copy of
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses; they go through float32, which holds
 every bf16 value exactly, so the copy is bit-exact.
+
+A tree that JAX's ``quantize_params`` made carries its int8 weight-only
+leaves ``{"kernel_q": int8 [in, out], "scale": f32 [1, out]}`` across
+as they are (int8 and f32, not cast to ``param_dtype``), so it equals
+the port's own ``quantize.quantize_params`` of the converted fp32 tree
+bit for bit.
 """
 
 from __future__ import annotations
@@ -54,15 +60,25 @@ def unroll_tree(tree: dict) -> dict:
     return out
 
 
+def _convert(node, dtype: torch.dtype, device):
+    if not isinstance(node, Mapping):
+        return _leaf(node, dtype, device)
+    if "kernel_q" in node:  # int8 weight-only leaf: keep its types
+        return {
+            "kernel_q": _leaf(node["kernel_q"], torch.int8, device),
+            "scale": _leaf(node["scale"], torch.float32, device),
+        }
+    return {k: _convert(v, dtype, device) for k, v in node.items()}
+
+
 def params_from_numpy(
     tree: dict, config: LlamaConfig, device=None
 ) -> LlamaParams:
     """Nested dicts of numpy arrays (either JAX layout) -> LlamaParams
     holding the unrolled tree in ``config.param_dtype`` on ``device``
-    (default: the CUDA device, see :func:`.device.resolve_device`)."""
+    (default: the CUDA device, see :func:`.device.resolve_device`);
+    int8 weight-only leaves keep int8 and f32."""
     device = resolve_device(device)
-    unrolled = unroll_tree(tree)
     return LlamaParams(
-        config,
-        _map(unrolled, lambda a: _leaf(a, config.param_dtype, device)),
+        config, _convert(unroll_tree(tree), config.param_dtype, device)
     )

@@ -18,13 +18,20 @@ until host bookkeeping changes (``_dev_state``). Each decode step runs
 the paged-decode attention and the fused decode MLP once per layer —
 the CUDA kernels on the card, their torch twins on the CPU.
 
+int8 serving, as in the JAX engine: ``weight_quant="int8"`` quantizes
+the unrolled tree once at construction (every projection, MLP matmul
+and the logits head then run the int8mm kernel, and the MLP takes the
+plain chain instead of the fused block); ``kv_quant="int8"`` keeps int8
+pools with f32 per-(token, kv head) scale pools, quantizing each new
+K/V row in flight before the scatter.
+
 Entry points run on the card: ``Engine(..., device=None)`` means
 ``"cuda"`` and raises RuntimeError without a CUDA device; tests pass
 ``device="cpu"``.
 
 Not in this slice, refused at construction or in ``add_request``
 rather than ignored: sampling (``temperature > 0``), speculative
-decoding (``spec_k``), int8 KV and int8 weights, mesh sharding, prefix
+decoding (``spec_k``), mesh sharding, prefix
 sharing (``Request.prefix_id``), lease gates other than the always-open
 one, and metrics export.
 """
@@ -46,6 +53,7 @@ from tpu_dra_torch.workloads.generate import (
     KV_QUANT_MODES,
     WEIGHT_QUANT_MODES,
     _finish_block,
+    _maybe_quantize_params,
     _mm,
     _project_qkv,
     _rms,
@@ -59,6 +67,7 @@ from tpu_dra_torch.workloads.ops.attention import (
     paged_decode_attention,
     paged_multiquery_attention,
 )
+from tpu_dra_torch.workloads.quantize import quantize_kv
 
 
 class LeaseGate:
@@ -177,8 +186,6 @@ def _check_supported(ec: EngineConfig, gate, metrics) -> None:
     unported = [
         (ec.temperature > 0.0, "sampling (temperature > 0)"),
         (ec.spec_k > 0, "speculative decoding (spec_k > 0)"),
-        (ec.kv_quant == "int8", "int8 KV (kv_quant='int8')"),
-        (ec.weight_quant == "int8", "int8 weights (weight_quant='int8')"),
         (ec.sharded, "mesh-sharded decode (sharded=True)"),
         (
             gate is not None and type(gate) is not LeaseGate,
@@ -215,7 +222,9 @@ class Engine:
         self.config = config
         self.ec = engine_config or EngineConfig()
         _check_supported(self.ec, gate, metrics)
-        self.params = unroll_tree(as_tree(params, self.device))
+        self.params = _maybe_quantize_params(
+            unroll_tree(as_tree(params, self.device)), self.ec.weight_quant
+        )
         self.gate = gate or LeaseGate()
         self.clock = clock
 
@@ -228,7 +237,8 @@ class Engine:
                     f"(1 + slots*max_pages_per_seq), got {P}"
                 )
         self.cache = paged_kv.init_paged_cache(
-            config, P, self.ec.page_size, device=self.device
+            config, P, self.ec.page_size, kv_quant=self.ec.kv_quant,
+            device=self.device,
         )
         self.allocator = paged_kv.PageAllocator(P)
         B, M = self.ec.max_slots, self.ec.max_pages_per_seq
@@ -252,10 +262,12 @@ class Engine:
         self.completed: Dict[str, Completion] = {}
         # Work counters (read by chip_smoke.py and the tests): decode
         # steps run, host seconds spent in decode chunks (each ends in
-        # its device->host copy), and prefill buckets of chunk length 1
-        # (their s=1 layers also run the fused decode MLP).
+        # its device->host copy), prefill buckets run, and those of
+        # chunk length 1 (their s=1 layers also run the fused decode
+        # MLP).
         self.decode_steps = 0
         self.decode_seconds = 0.0
+        self.prefill_buckets = 0
         self.prefill_single_token_buckets = 0
 
     # --- public API ------------------------------------------------------
@@ -462,6 +474,7 @@ class Engine:
             starts[i] = seq.prefill_cursor
             valids[i] = take
             trows[i] = self._tables[seq.slot]
+        self.prefill_buckets += 1
         if bucket == 1:
             self.prefill_single_token_buckets += 1
         logits = _prefill_batch(
@@ -581,9 +594,10 @@ def _embed(c: LlamaConfig, params: dict, tokens: torch.Tensor):
 def _decode_step(c, params, cache, tables, lengths, tokens, active):
     """One paged decode step for the whole slot batch. tables [B, M],
     lengths/tokens [B] int32, active [B] bool. Writes each active
-    slot's new K/V at position ``lengths`` in place (inactive slots
-    write to the scratch page and attend with length 0), then attends
-    and runs the fused MLP once per layer. Returns (lengths after the
+    slot's new K/V at position ``lengths`` in place, quantized first
+    for int8 pools (inactive slots write to the scratch page and attend
+    with length 0), then attends and runs the MLP block once per layer.
+    Returns (lengths after the
     write, next tokens — inactive slots pass theirs through, fp32
     logits [B, vocab])."""
     B = tokens.shape[0]
@@ -598,11 +612,10 @@ def _decode_step(c, params, cache, tables, lengths, tokens, active):
     for layer in range(c.n_layers):
         lp = params[f"layer_{layer}"]
         q, k, v = _project_qkv(c, lp, x, cos, sin, B, 1)
-        cache.k[layer][pids, offs] = k[:, 0]
-        cache.v[layer][pids, offs] = v[:, 0]
+        scales = _write_kv(cache, layer, pids, offs, k[:, 0], v[:, 0])
         out = paged_decode_attention(
             q[:, 0], cache.k[layer], cache.v[layer], tables, len_eff,
-            impl=c.paged_decode_impl,
+            *scales, impl=c.paged_decode_impl,
         )[:, None].to(c.dtype)
         x = _finish_block(c, lp, x, out, B, 1)
     x = _rms(x, params["final_norm"]["scale"], c.norm_eps)
@@ -658,10 +671,29 @@ def _prefill_batch(c, params, cache, tables, starts, tokens, valids):
     return _mm(x_last, params["lm_head"]).to(torch.float32)[:, 0]
 
 
+def _write_kv(cache, layer: int, pids, offs, k, v) -> tuple:
+    """Scatter new K/V rows into layer ``layer``'s pools at (pids, offs),
+    in place — for int8 pools quantized first, with their scales going
+    through the same scatter. Returns the layer's (k_scale, v_scale)
+    pools, or (None, None)."""
+    if not cache.quantized:
+        cache.k[layer][pids, offs] = k
+        cache.v[layer][pids, offs] = v
+        return None, None
+    kq, ksc = quantize_kv(k)
+    vq, vsc = quantize_kv(v)
+    cache.k[layer][pids, offs] = kq
+    cache.v[layer][pids, offs] = vq
+    cache.k_scale[layer][pids, offs] = ksc
+    cache.v_scale[layer][pids, offs] = vsc
+    return cache.k_scale[layer], cache.v_scale[layer]
+
+
 def _write_then_attend(c, params, cache, tables, pids, offs, pos_q, toks,
                        positions):
-    """Embed ``toks`` [B, S], write every position's K/V through the
-    caller's (pids, offs) scatter, attend all S positions causally via
+    """Embed ``toks`` [B, S], write every position's K/V (quantized in
+    flight for int8 pools) through the caller's (pids, offs) scatter,
+    attend all S positions causally via
     paged_multiquery_attention with per-row chunk starts ``pos_q``, and
     return the final-norm hidden states."""
     B, S = toks.shape
@@ -670,10 +702,9 @@ def _write_then_attend(c, params, cache, tables, pids, offs, pos_q, toks,
     for layer in range(c.n_layers):
         lp = params[f"layer_{layer}"]
         q, k, v = _project_qkv(c, lp, x, cos, sin, B, S)
-        cache.k[layer][pids, offs] = k
-        cache.v[layer][pids, offs] = v
+        scales = _write_kv(cache, layer, pids, offs, k, v)
         out = paged_multiquery_attention(
-            q, cache.k[layer], cache.v[layer], tables, pos_q,
+            q, cache.k[layer], cache.v[layer], tables, pos_q, *scales,
         ).to(c.dtype)
         x = _finish_block(c, lp, x, out, B, S)
     return _rms(x, params["final_norm"]["scale"], c.norm_eps)

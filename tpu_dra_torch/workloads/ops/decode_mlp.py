@@ -14,8 +14,12 @@ Counterpart of ``tpu_dra/workloads/ops/decode_mlp.py``:
   ``reference_decode_mlp``.
 
 ``impl="auto"`` launches the kernel for CUDA tensors and takes
-``"torch"`` for CPU tensors; a CUDA tensor never falls back.
-``_LAST_DECODE_MLP_IMPL`` records the impl of the latest call.
+``"torch"`` for CPU tensors; a CUDA tensor never falls back. An int8
+weight-only tree takes the plain chain under ``"auto"`` on every device,
+as the JAX op does: the fused kernel reads plain kernels, so on the card
+such a layer's MLP is three int8mm kernel launches plus elementwise ops
+(``impl="cuda"`` on an int8 tree raises). ``_LAST_DECODE_MLP_IMPL``
+records the impl of the latest call.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from tpu_dra_torch import kernels
+from tpu_dra_torch.workloads.ops import int8mm
+from tpu_dra_torch.workloads.quantize import dequantize_weight
 
 _LAST_DECODE_MLP_IMPL = None
 
@@ -59,13 +65,22 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _mm(x: torch.Tensor, w: dict) -> torch.Tensor:
-    """x @ kernel for a plain ``{"kernel"}`` leaf (int8 weight-only
-    leaves arrive with the int8 slice)."""
+    """x @ kernel for either weight form: plain ``{"kernel"}``, or int8
+    weight-only ``{"kernel_q", "scale"}`` through ops/int8mm.py (the
+    CUDA kernel on the card). The JAX ``generate._mm`` and
+    ``decode_mlp._matmul`` in one."""
     if "kernel_q" in w:
-        raise NotImplementedError(
-            "int8 weight-only matmuls are not ported yet"
+        return int8mm.int8_matmul(
+            x, w["kernel_q"], w["scale"], impl=int8mm.MM_IMPL
         )
     return x @ w["kernel"].to(x.dtype)
+
+
+def _dense(w: dict) -> torch.Tensor:
+    """fp32 kernel of either weight form (the oracle's view)."""
+    if "kernel_q" in w:
+        return dequantize_weight(w)
+    return w["kernel"].to(torch.float32)
 
 
 def _torch_decode_mlp(x, norm_scale, mlp, eps):
@@ -79,14 +94,14 @@ def _torch_decode_mlp(x, norm_scale, mlp, eps):
 
 
 def reference_decode_mlp(x, norm_scale, mlp, eps):
-    """Naive fp32 oracle (plain kernels only)."""
-    wg, wu, wd = _kernels(mlp)
+    """Naive fp32 oracle (int8 leaves dequantized to fp32)."""
+    wg, wu, wd = (_dense(mlp[n]) for n in ("w_gate", "w_up", "w_down"))
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     h = x32 * torch.rsqrt(var + eps) * norm_scale.to(torch.float32)
-    gate = h @ wg.to(torch.float32)
-    up = h @ wu.to(torch.float32)
-    out = (F.silu(gate) * up) @ wd.to(torch.float32)
+    gate = h @ wg
+    up = h @ wu
+    out = (F.silu(gate) * up) @ wd
     return (x32 + out).to(x.dtype)
 
 
@@ -161,8 +176,8 @@ def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
 def decode_mlp(x, norm_scale, mlp: dict, eps: float, impl: str = "auto"):
     """The decode step's post-attention block for a [b, d] token batch.
 
-    ``mlp`` is the layer's subtree ({"w_gate", "w_up", "w_down"} with
-    plain ``{"kernel"}`` leaves). impl: "auto" | "cuda" | "torch" |
+    ``mlp`` is the layer's subtree ({"w_gate", "w_up", "w_down"}, plain
+    or int8 weight-only leaves). impl: "auto" | "cuda" | "torch" |
     "reference". The CUDA kernel sizes its own tiles: the JAX op's
     ``block_f`` (its VMEM tile width) has no counterpart here.
     """
@@ -171,14 +186,15 @@ def decode_mlp(x, norm_scale, mlp: dict, eps: float, impl: str = "auto"):
             f"decode_mlp expects [b, d] tokens, got {tuple(x.shape)}"
         )
     if impl == "auto":
-        impl = "cuda" if x.is_cuda else "torch"
+        impl = "cuda" if x.is_cuda and _kernels(mlp) is not None else "torch"
     global _LAST_DECODE_MLP_IMPL
     _LAST_DECODE_MLP_IMPL = impl
     if impl == "cuda":
         ws = _kernels(mlp)
         if ws is None:
             raise ValueError(
-                "the CUDA decode MLP kernel needs plain 2D kernels"
+                "the CUDA decode MLP kernel needs plain 2D kernels "
+                "(int8 weight-only trees take impl='torch' or 'auto')"
             )
         return _cuda_decode_mlp(x, norm_scale, *ws, eps=eps)
     if impl == "torch":

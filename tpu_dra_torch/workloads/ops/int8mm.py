@@ -1,0 +1,166 @@
+"""Weight-only int8 matmul: ``x @ dequant(w_q, scale)``.
+
+Counterpart of ``tpu_dra/workloads/ops/int8mm.py``:
+
+- **cuda**: the hand-written Hopper kernel (``csrc/int8mm.cu``, the port
+  of the Pallas ``_kernel``) at every shape: a weight-streaming kernel
+  for M <= 16 (decode, M = slot count) and a tiled one for larger M
+  (tensor cores in bf16). bf16 or fp32 activations times the exactly
+  converted int8 weights, fp32 accumulation, the per-column scale once
+  on the fp32 sum, one rounding;
+- **torch**: the twin of ``_xla_int8_matmul`` — the product in x's
+  dtype, then times the scale cast to x's dtype;
+- **reference**: fp32 ``x @ dequantize_weight``.
+
+``impl="auto"`` launches the kernel for CUDA tensors and takes
+``"torch"`` for CPU tensors; a CUDA tensor never falls back. Unlike the
+JAX package, which keeps its Pallas kernel opt-in and runs it only on
+shapes that tile 128 x 1024 x 1024, no switch and no shape chooses the
+plain product on the card. ``_LAST_INT8MM_IMPL`` records the impl of the
+latest call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_dra_torch import kernels
+
+_LAST_INT8MM_IMPL = None
+
+# The impl ``generate._mm`` asks for on int8 weight-only leaves. "auto"
+# everywhere; chip_smoke.py sets it to compare one decode step across
+# impls.
+MM_IMPL = "auto"
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The weight-streaming kernel takes up to 16 rows; its K splits aim at
+# this many CTAs per SM, while keeping the fp32 partials' traffic
+# (written once, read once) under an eighth of the weight bytes.
+_GEMV_MAX_ROWS = 16
+_CTAS_PER_SM = 4
+_K_CHUNK = 256  # csrc/int8mm.cu kChunk
+_SM_COUNTS: dict = {}
+
+_INT8MM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    ctypes.c_void_p,
+]
+
+
+def reference_int8_matmul(x, w_q, scale):
+    """fp32 oracle: x @ (w_q * scale), rounded once to x's dtype."""
+    w = w_q.to(torch.float32) * scale.to(torch.float32).reshape(1, -1)
+    return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def _torch_int8_matmul(x, w_q, scale):
+    y = x @ w_q.to(x.dtype)
+    return y * scale.to(x.dtype)
+
+
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device()
+    )
+    sms = _SM_COUNTS.get(index)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _SM_COUNTS[index] = sms
+    return sms
+
+
+def _gemv_plan(m: int, k: int, n: int, w_ptr: int, device) -> tuple:
+    """(rows_tile, vec, splits) for the weight-streaming kernel: the
+    smallest row tile that covers m (8 above 4, tiled over m), the
+    widest per-lane column word that divides n and w's alignment within
+    64 accumulators a thread, and enough K splits to fill the card."""
+    rows_tile = next(t for t in (1, 2, 4, 8) if m <= t or t == 8)
+    vec = next(
+        v for v in (16, 8, 4, 1)
+        if v * rows_tile <= 64 and n % v == 0 and w_ptr % v == 0
+    )
+    col_tiles = -(-n // (32 * vec))
+    row_tiles = -(-m // rows_tile)
+    want = -(-(_CTAS_PER_SM * _sm_count(device)) // (col_tiles * row_tiles))
+    cap = max(1, k // (64 * m))
+    splits = max(1, min(want, cap, -(-k // _K_CHUNK)))
+    return rows_tile, vec, splits
+
+
+def _cuda_int8_matmul(x, w_q, scale):
+    """Launch csrc/int8mm.cu on x's stream: x [M, K] bf16 or fp32,
+    w_q [K, N] int8, scale [N] f32, all contiguous on one device;
+    raises on anything else."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    tensors = (x, w_q, scale)
+    if not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError("impl='cuda' needs every input on one CUDA device")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"impl='cuda' takes bf16 or fp32 activations, got {x.dtype}"
+        )
+    if w_q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise ValueError(
+            f"impl='cuda' takes int8 weights and f32 scales, got "
+            f"{w_q.dtype}/{scale.dtype}"
+        )
+    if k < 1:
+        raise ValueError("impl='cuda' needs K >= 1")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("impl='cuda' needs contiguous inputs")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    partial = None
+    rows_tile = vec = splits = 1
+    if 0 < m <= _GEMV_MAX_ROWS:
+        rows_tile, vec, splits = _gemv_plan(m, k, n, w_q.data_ptr(), x.device)
+        if splits > 1:
+            partial = torch.empty(
+                (splits, m, n), dtype=torch.float32, device=x.device
+            )
+    elif n % 16 == 0 and w_q.data_ptr() % 16 == 0:
+        vec = 16
+    x_vec = int(k % 8 == 0 and x.data_ptr() % 16 == 0)
+    fn = kernels.function("int8mm.cu", "tpu_int8_matmul", _INT8MM_ARGTYPES)
+    err = fn(
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        _DTYPE_CODES[x.dtype], m, k, n, rows_tile, vec, splits, x_vec,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    kernels.check(err, "int8mm")
+    kernels.LAUNCHES["int8mm"] += 1
+    return out
+
+
+def int8_matmul(x, w_q, scale, impl: str = "auto"):
+    """``x @ dequant(w_q, scale)`` over any leading dims of x.
+
+    x [..., K]; w_q int8 [K, N]; scale f32 [1, N] -> [..., N] in x's
+    dtype. impl: "auto" | "cuda" | "torch" | "reference".
+    """
+    lead = tuple(x.shape[:-1])
+    k = x.shape[-1]
+    if w_q.ndim != 2 or w_q.shape[0] != k or scale.numel() != w_q.shape[1]:
+        raise ValueError(
+            f"int8_matmul shapes: x {tuple(x.shape)}, w_q "
+            f"{tuple(w_q.shape)}, scale {tuple(scale.shape)}"
+        )
+    n = w_q.shape[1]
+    x2 = x.reshape(-1, k)
+    if impl == "auto":
+        impl = "cuda" if x.is_cuda else "torch"
+    global _LAST_INT8MM_IMPL
+    _LAST_INT8MM_IMPL = impl
+    if impl == "cuda":
+        out = _cuda_int8_matmul(x2, w_q, scale.reshape(-1))
+    elif impl == "torch":
+        out = _torch_int8_matmul(x2, w_q, scale)
+    elif impl == "reference":
+        out = reference_int8_matmul(x2, w_q, scale)
+    else:
+        raise ValueError(f"unknown int8 matmul impl: {impl!r}")
+    return out.reshape(*lead, n)
