@@ -19,21 +19,31 @@ exits non-zero without a result:
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
    (4096, 1024), (4096, 128256)} with an all-zero weight column; the
    contiguous decode, bf16 and int8 caches, b=8, max_seq 1024, lengths
-   {1, 255, 256, 257, 1000}. Tolerance: rtol 2e-2 plus, per row (one
-   head of one slot, one token of the MLP, one output row of the
-   matmul), an atol of two bf16 ulps of that row's largest |reference|
-   value. At fp32 each new kernel matches its plain version within
-   1e-5 of the output's largest magnitude.
+   {1, 255, 256, 257, 1000}; the three flash kernels (forward, dQ,
+   dK/dV) at b=2, h=32, kvh=8, hd=128 for s=2048 causal and non-causal,
+   ragged s=1000 causal and suffix queries sq=512 over skv=2048 (with a
+   non-zero lse cotangent folded into delta), each against its plain
+   version on the same inputs, bf16 and fp32, reruns bit-identical.
+   Tolerance: rtol 2e-2 plus, per row (one head of one slot or token,
+   one token of the MLP, one output row of the matmul), an atol of two
+   bf16 ulps of that row's largest |reference| value. At fp32 each new
+   kernel matches its plain version within 1e-5 of the output's largest
+   magnitude (the flash lse too); the flash gradients within 1e-4, as
+   they sum up to n_rep * s rows in another order.
 4. timing  — CUDA events around single launches after warm-up, L2
    flushed before each, median of 60, the host's enqueue time kept out
    of the interval (time_ms): kernel, plain version, and the least time
    the card could take (bytes over the memory rate vs operations over
    the bf16 peak, whichever is larger). Each kernel also has
-   ``ms_with_host``, timed with the wrapper's host time included.
+   ``ms_with_host``, timed with the wrapper's host time included. The
+   flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
+   its backward (the dQ + dK/dV pair) as the library yardsticks.
 5. tiny    — fp32 TINY_LLAMA on the card (kernels) and on the CPU
    (plain versions): the bf16-config engine agrees on >= 0.97 of the
    tokens; the w8+kv8 engine and greedy_generate in all four
-   (kv_quant, weight_quant) combinations give identical tokens.
+   (kv_quant, weight_quant) combinations give identical tokens; the
+   twin config of tests/test_torch_train.py (dim 256, 2 layers, hd 64,
+   fp32) trains 3 steps with the same losses within 1e-5 relative.
 6. engine  — Llama-3-8B widths, all 32 layers, vocab 128256, bf16,
    random weights from a seeded CUDA generator; 8 seeded requests
    (prompts 64-512, 32-64 new tokens) through the paged engine. Every
@@ -57,6 +67,17 @@ exits non-zero without a result:
    new tokens, once in bf16 and once with int8 weights and KV: 32
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16)
    or 225 int8 matmul (w8kv8) launches per step.
+9. train   — the Trainer at Llama-3-8B widths cut to 4 layers, bf16,
+   remat "nothing", TrainConfig() defaults, b=2, s=2048, 5 steps on one
+   seeded batch: the loss is finite and falls, and every step launches
+   exactly 2L flash forwards (the remat recompute is the second), L dQ
+   and L dK/dV; step ms, trained tok/s, MFU and peak memory. Then one
+   step's loss and gradients from the initial weights, kernels against the plain
+   versions (attention_impl="torch"): at fp32 with 2 layers the loss
+   within 1e-5 relative and every gradient leaf above cosine 0.99999;
+   in bf16 each leaf's gap (1 - cosine) to an fp32 reference at most
+   BF16_GAP_RATIO times the plain version's (gaps under 1e-5 count as
+   equal).
 
 The line before last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -98,27 +119,46 @@ BF16_GAP_RATIO = 1.5
 # Llama-3-8B: 7 int8 projections per layer (q, k, v, o, gate, up,
 # down) plus the lm_head.
 INT8MM_PER_LAYER = 7
+# Flash gradients at fp32: up to n_rep * s rows summed in another order.
+FP32_GRAD_REL = 1e-4
+# Train-step gradients: fp32 leaf cosine bar; bf16 gaps below this
+# count as equal (it is the fp32 bar's gap).
+TRAIN_FP32_COSINE = 0.99999
+TRAIN_GAP_FLOOR = 1e-5
+FLASH_CASES = (
+    # name, sq, skv, causal, lse cotangent
+    ("s2048_causal", 2048, 2048, True, False),
+    ("s2048_noncausal", 2048, 2048, False, False),
+    ("s1000_causal", 1000, 1000, True, False),
+    ("suffix_512_of_2048", 512, 2048, True, True),
+)
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bf16_row_atol(ref: torch.Tensor) -> torch.Tensor:
+def bf16_row_atol(ref: torch.Tensor, atol_floor: float = 0.0):
     """Per-row atol for a bf16 result against the fp32 reference: two
     bf16 ulps of each row's own largest |reference| value (a row is the
-    last axis: one head of one slot, one token of the MLP, one output
-    row of a matmul), so a row of small values is held to its own
-    scale. A row of zeros must come out exactly zero."""
+    last axis: one head of one slot or token, one token of the MLP, one
+    output row of a matmul), so a row of small values is held to its own
+    scale. A row of zeros must come out exactly zero, unless the caller
+    gives ``atol_floor``: the atol of a gradient row is never below it,
+    since a gradient element carries the absolute error of the sums that
+    produce it however small it is (dQ of the first causal rows is
+    dP - delta, two sums that cancel)."""
     top = ref.float().abs().amax(dim=-1, keepdim=True)
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
-    return torch.where(top > 0, 2 * ulp, torch.zeros_like(top))
+    atol = torch.where(top > 0, 2 * ulp, torch.zeros_like(top))
+    return torch.clamp(atol, min=atol_floor)
 
 
-def compare(name: str, got, ref, rtol: float = BF16_RTOL) -> dict:
+def compare(name: str, got, ref, rtol: float = BF16_RTOL,
+            atol_floor: float = 0.0) -> dict:
     """Every element within its row's atol plus rtol * |ref|."""
     got, ref = got.float(), ref.float()
-    atol = bf16_row_atol(ref)
+    atol = bf16_row_atol(ref, atol_floor)
     err = (got - ref).abs()
     limit = atol + rtol * ref.abs()
     over = torch.where(limit > 0, err / limit,
@@ -138,16 +178,16 @@ def compare(name: str, got, ref, rtol: float = BF16_RTOL) -> dict:
     return out
 
 
-def compare_fp32(name: str, got, ref) -> dict:
+def compare_fp32(name: str, got, ref, rel: float = FP32_REL) -> dict:
     """fp32 kernel vs its plain version: the same arithmetic in another
-    summation order, so every element within FP32_REL of the output's
-    largest magnitude (a matmul over K = 14336 accumulates rounding
-    error of that order relative to its outputs)."""
+    summation order, so every element within ``rel`` (FP32_REL) of the
+    output's largest magnitude (a matmul over K = 14336 accumulates
+    rounding error of that order relative to its outputs)."""
     err = float((got.float() - ref.float()).abs().max())
     top = max(float(ref.float().abs().max()), 1e-30)
     out = {"max_abs_err": err, "max_err_over_max_ref": err / top}
-    if err > FP32_REL * top:
-        raise AssertionError(f"{name} at fp32: {out} (bar {FP32_REL})")
+    if err > rel * top:
+        raise AssertionError(f"{name} at fp32: {out} (bar {rel})")
     return out
 
 
@@ -465,6 +505,324 @@ def serve_summary(eng, done, launches, wall) -> dict:
     }
 
 
+def flash_inputs(gen, sq, skv, dtype, b=2, h=32, kvh=8, hd=128):
+    """q, k, v, dO in the public layouts and a lse cotangent [b, h, sq]."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    return (rand(b, sq, h, hd), rand(b, skv, kvh, hd), rand(b, skv, kvh, hd),
+            rand(b, sq, h, hd),
+            torch.randn(b, h, sq, generator=gen, device="cuda"))
+
+
+def flash_delta(out, do, g_lse=None):
+    """delta = rowsum(dO . O) [b, h, sq] f32, minus the lse cotangent —
+    what the autograd.Function hands both backward kernels."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    return (delta if g_lse is None else delta - g_lse).contiguous()
+
+
+def flash_parity(A, gen) -> dict:
+    """Each flash kernel against its plain version on the same inputs:
+    the backward pair takes the plain forward's lse and delta."""
+    out = {}
+    for name, sq, skv, causal, with_glse in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, g_lse = flash_inputs(gen, sq, skv, dtype)
+            o_k, lse_k = A._cuda_flash_fwd(q, k, v, causal)
+            o_p, lse_p = A._torch_flash_fwd(q, k, v, causal)
+            delta = flash_delta(o_p, do, g_lse if with_glse else None)
+            bwd = (q, k, v, do, lse_p, delta, causal)
+            dq_k = A._cuda_flash_bwd_dq(*bwd)
+            dk_k, dv_k = A._cuda_flash_bwd_dkv(*bwd)
+            dq_p = A._torch_flash_bwd_dq(*bwd)
+            dk_p, dv_p = A._torch_flash_bwd_dkv(*bwd)
+            again = (A._cuda_flash_fwd(q, k, v, causal)[0],
+                     A._cuda_flash_bwd_dq(*bwd),
+                     *A._cuda_flash_bwd_dkv(*bwd))
+            torch.cuda.synchronize()
+            tag = f"flash_{name}_{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+            pairs = {"out": (o_k, o_p), "dq": (dq_k, dq_p), "dk": (dk_k, dk_p),
+                     "dv": (dv_k, dv_p)}
+            if dtype == torch.bfloat16:
+                # Gradient rows: atol never below the fp32 bar of the
+                # tensor's largest magnitude (see bf16_row_atol).
+                row = {f"{n}_vs_plain": compare(
+                    f"{tag} {n}", a, b_, atol_floor=FP32_REL * float(
+                        b_.float().abs().max()) if n != "out" else 0.0)
+                    for n, (a, b_) in pairs.items()}
+                row["lse_vs_plain"] = compare_fp32(f"{tag} lse", lse_k, lse_p)
+            else:
+                row = {f"{n}_vs_plain": compare_fp32(
+                    f"{tag} {n}", a, b_, FP32_REL if n == "out" else
+                    FP32_GRAD_REL) for n, (a, b_) in pairs.items()}
+                row["lse_vs_plain"] = compare_fp32(f"{tag} lse", lse_k, lse_p)
+            row["rerun_bit_identical"] = all(
+                bool(torch.equal(a, b_)) for a, b_ in zip(
+                    again, (o_k, dq_k, dk_k, dv_k)))
+            if not row["rerun_bit_identical"]:
+                raise AssertionError(f"{tag}: reruns must give identical bits")
+            out[tag] = row
+            del q, k, v, do, o_k, o_p, dq_k, dk_k, dv_k, dq_p, dk_p, dv_p, again
+    return out
+
+
+def visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes per (batch, head)."""
+    if not causal:
+        return sq * skv
+    off = skv - sq
+    return sum(min(skv, i + off + 1) for i in range(sq))
+
+
+def flash_timing(A, gen, rates, flush) -> dict:
+    """The three kernels at the train phase's attention shape (b=2,
+    s=2048, h=32, kvh=8, hd=128, causal, bf16): kernel, plain version,
+    bound, and SDPA as the library yardstick (its forward for the
+    forward, its backward for the dQ + dK/dV pair)."""
+    F = torch.nn.functional
+    b, s, h, kvh, hd = 2, 2048, 32, 8, 128
+    q, k, v, do, _ = flash_inputs(gen, s, s, torch.bfloat16, b, h, kvh, hd)
+    out, lse = A._cuda_flash_fwd(q, k, v, True)
+    delta = flash_delta(out, do)
+    bwd = (q, k, v, do, lse, delta, True)
+    pairs = b * h * visible_pairs(s, s, True)
+    n_q, n_kv = q.numel() * 2, k.numel() * 2  # bf16 bytes
+    rows_f32 = b * h * s * 4
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_times() -> tuple:
+        with torch.no_grad():
+            fwd = time_ms(sdpa, flush)
+        o_lib = sdpa()
+        bwd = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), flush)
+        return fwd, bwd
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    try:  # SDPA's flash backend, where this build takes GQA there
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib_fwd, lib_bwd = sdpa_times()
+        lib_backend = "flash"
+    except RuntimeError as e:
+        lib_backend = f"default (flash refused: {str(e)[:120]})"
+        try:
+            lib_fwd, lib_bwd = sdpa_times()
+        except RuntimeError as e2:
+            lib_fwd = lib_bwd = f"not measured: {e2}"[:200]
+    shape = "b=2, s=2048, h=32, kvh=8, hd=128, causal, bf16"
+    rows = {}
+    for name, call, plain, flops, nbytes, lib in (
+        ("flash_fwd", lambda: A._cuda_flash_fwd(q, k, v, True),
+         lambda: A._torch_flash_fwd(q, k, v, True), 4 * pairs * hd,
+         2 * n_q + 2 * n_kv + rows_f32, lib_fwd),
+        ("flash_bwd_dq", lambda: A._cuda_flash_bwd_dq(*bwd),
+         lambda: A._torch_flash_bwd_dq(*bwd), 6 * pairs * hd,
+         3 * n_q + 2 * n_kv + 2 * rows_f32, lib_bwd),
+        ("flash_bwd_dkv", lambda: A._cuda_flash_bwd_dkv(*bwd),
+         lambda: A._torch_flash_bwd_dkv(*bwd), 8 * pairs * hd,
+         2 * n_q + 4 * n_kv + 2 * rows_f32, lib_bwd),
+    ):
+        row = {
+            "shape": shape, "ms": time_ms(call, flush),
+            "ms_with_host": time_ms(call, flush, shield=False),
+            "plain_ms": time_ms(plain, flush),
+            **bound(nbytes, flops, rates),
+        }
+        if isinstance(lib, str):
+            row.update(library_ms=None, library_note=lib)
+        else:
+            row.update(library_ms=lib, library_backend=lib_backend)
+        if name != "flash_fwd":
+            row["library_covers"] = "SDPA backward: the dQ + dK/dV pair"
+        rows[name] = row
+    del q, k, v, do, out, lse, delta, qt, kt, vt
+    return rows
+
+
+def profile_train_step(step, state, tokens) -> tuple:
+    """One more train step under torch.profiler: device kernel time by
+    kernel, the flash kernels' share, the step's phases and the device
+    busy share of the host window. Only device-side events count (a CPU
+    op such as the autograd.Function around a ctypes launch is charged
+    its kernel's time too). The forward and optimizer are train.py's
+    ``train_step/*`` spans; the backward runs on autograd's own thread,
+    outside them, and is the remainder. Returns (state, report)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        float(loss)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels_, spans = [], {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("train_step/"):
+            spans[ev.key] = ev.device_time_total / 1e3
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_.append((ev.self_device_time_total, ev.count, ev.key))
+    if not kernels_:
+        return state, {"device_busy_share": "not measured",
+                       "reason": "profiler recorded no device time"}
+    kernels_.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels_) / 1e3
+    flash = {}
+    for us, n, key in kernels_:
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if f"{name}_kernel" in key:
+                flash[name] = {"device_ms": us / 1e3, "count": n}
+    flash_ms = sum(v["device_ms"] for v in flash.values())
+    return state, {
+        "window_ms": window_ms, "device_kernel_ms": device_ms,
+        "device_busy_share": device_ms / window_ms,
+        "kernel_launches": sum(k[1] for k in kernels_),
+        "flash": flash, "flash_device_ms": flash_ms,
+        "flash_share_of_device_time": flash_ms / device_ms,
+        "phase_device_ms": {
+            "forward": spans.get("train_step/forward"),
+            "optimizer": spans.get("train_step/optimizer"),
+            "backward_remainder": device_ms - sum(spans.values()),
+        },
+        "top_kernels": [{"name": key[:90], "device_ms": us / 1e3, "count": n}
+                        for us, n, key in kernels_[:12]],
+    }
+
+
+def grad_step(T, cfg, params, tokens) -> tuple:
+    """(loss, {name: grad}) of one forward and backward from ``params``
+    under ``cfg`` (the weights are not updated)."""
+    params.zero_grad(set_to_none=True)
+    loss = T.loss_fn(T.build_model(cfg), params, tokens)
+    loss.backward()
+    grads = {n: p.grad for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def leaf_cosines(a: dict, b: dict) -> dict:
+    """Cosine of each gradient leaf pair, in float64 (a 1e-5 gap over
+    525M elements is below what fp32 sums resolve)."""
+    def cos(x, y):
+        x, y = x.double().flatten(), y.double().flatten()
+        return float(x @ y / (x.norm() * y.norm()))
+
+    return {n: cos(a[n], b[n]) for n in a}
+
+
+def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
+                rates) -> dict:
+    """The Trainer at Llama-3-8B widths, 4 layers, then the compared
+    steps (see the module docstring)."""
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=4)
+    L, b, s, steps = cfg.n_layers, 2, 2048, 5
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = T.Trainer(cfg)
+    state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    step = trainer.make_train_step()
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    losses, step_ms, per_step = [], [], []
+    kernels.reset_launches()
+    for _ in range(steps):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        losses.append(float(loss))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: kernels.LAUNCHES[k] - before[k]
+                         for k in kernels.LAUNCHES})
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, profile = profile_train_step(step, state, tokens)
+    for i, d in enumerate(per_step):
+        other = {k: v for k, v in d.items() if k not in want and v}
+        if any(d[k] != v for k, v in want.items()) or other:
+            raise AssertionError(f"train step {i}: launches {d}, want {want}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses {losses}: finite and falling")
+    steady = statistics.median(step_ms[1:])
+    tokens_per_step = b * s
+    out = {
+        "model": "LLAMA3_8B widths cut to 4 layers, bf16, remat nothing, "
+                 "random weights", "batch": b, "seq": s,
+        "losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+        "trained_tok_s": tokens_per_step / (steady / 1e3),
+        "mfu": train_flops_per_token(cfg, s) * tokens_per_step
+        / (steady / 1e3) / rates[1],
+        "peak_memory_gb": peak_gb, "launches": launches,
+        "launches_per_step": per_step[-1], "profile": profile,
+    }
+
+    # One step from the initial weights (after 5 steps on one batch the
+    # loss is near 0): kernels vs plain versions vs an fp32 reference
+    # (the same weights upcast, reference attention).
+    del state, trainer, step
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         trainable=True)
+    loss_k, g_k = grad_step(T, cfg, params, tokens)
+    loss_p, g_p = grad_step(
+        T, dataclasses.replace(cfg, attention_impl="torch"), params, tokens)
+    ref_cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                  param_dtype=torch.float32,
+                                  attention_impl="reference")
+    params.float()
+    loss_r, g_r = grad_step(T, ref_cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    cos_kr, cos_pr = leaf_cosines(g_k, g_r), leaf_cosines(g_p, g_r)
+    cos_kp = leaf_cosines(g_k, g_p)
+    ratios = {n: (1 - cos_kr[n]) / max(1 - cos_pr[n], TRAIN_GAP_FLOOR)
+              for n in g_k}
+    bf16 = {
+        "loss_kernels": loss_k, "loss_torch": loss_p, "loss_fp32": loss_r,
+        "worst_leaf_cosine_kernels_vs_fp32": min(cos_kr.values()),
+        "worst_leaf_cosine_torch_vs_fp32": min(cos_pr.values()),
+        "worst_leaf_cosine_kernels_vs_torch": min(cos_kp.values()),
+        "worst_gap_ratio": max(ratios.values()),
+        "worst_gap_ratio_leaf": max(ratios, key=ratios.get),
+        "bar": BF16_GAP_RATIO,
+    }
+    del g_k, g_p, g_r
+    if not (np.isfinite([loss_k, loss_p, loss_r]).all()
+            and bf16["worst_gap_ratio"] <= BF16_GAP_RATIO):
+        raise AssertionError(f"bf16 train step, kernels vs plain: {bf16}")
+
+    c32 = dataclasses.replace(LLAMA3_8B, n_layers=2, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    params = init_params(c32, torch.Generator(device="cuda").manual_seed(0),
+                         trainable=True)
+    loss_k, g_k = grad_step(T, c32, params, tokens)
+    loss_p, g_p = grad_step(
+        T, dataclasses.replace(c32, attention_impl="torch"), params, tokens)
+    del params
+    cos = leaf_cosines(g_k, g_p)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    fp32 = {
+        "layers": 2, "loss_kernels": loss_k, "loss_torch": loss_p,
+        "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+        "worst_leaf_cosine": min(cos.values()),
+        "worst_leaf": min(cos, key=cos.get),
+        "bars": {"loss_rel": FP32_REL, "cosine": TRAIN_FP32_COSINE},
+    }
+    if not (fp32["loss_rel_diff"] <= FP32_REL
+            and fp32["worst_leaf_cosine"] >= TRAIN_FP32_COSINE):
+        raise AssertionError(f"fp32 train step, kernels vs plain: {fp32}")
+    out["step_check"] = {"bf16_4_layers": bf16, "fp32_2_layers": fp32}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -476,11 +834,13 @@ def main() -> int:
     from tpu_dra_torch.workloads import engine as E
     from tpu_dra_torch.workloads import generate as G
     from tpu_dra_torch.workloads import quantize as Q
+    from tpu_dra_torch.workloads import train as T
     from tpu_dra_torch.workloads.models.llama import (
         LLAMA3_8B,
         TINY_LLAMA,
         init_params,
         num_params,
+        train_flops_per_token,
     )
     from tpu_dra_torch.workloads.ops import attention as A
     from tpu_dra_torch.workloads.ops import decode_mlp as DM
@@ -607,6 +967,7 @@ def main() -> int:
         if not bool(torch.all(zero == 0)):
             raise AssertionError(f"{name}: length 0 must give exact zeros")
     del q, k_, v_, sc, fp32_args
+    parity.update(flash_parity(A, gen))
     emit("parity", **parity)
 
     # --- 4. kernel times -----------------------------------------------------
@@ -728,6 +1089,7 @@ def main() -> int:
                 row["library_ms"] = None
         timing[label] = row
         del q, k_, v_, sc
+    timing.update(flash_timing(A, gen, rates, flush))
     del flush
     emit("timing", iters=TIMING_ITERS, **timing)
 
@@ -770,7 +1132,25 @@ def main() -> int:
             ]
             tiny_out[f"generate_kv_{kvq}_w_{wq}_identical"] = bool(
                 np.array_equal(*outs))
+    twin = dataclasses.replace(tiny, ffn_dim=512)  # tests/test_torch_train.py
+    twin_tokens = np.random.default_rng(8).integers(
+        0, twin.vocab_size, (2, 64)).astype(np.int32)
+    twin_losses = {}
+    for dev in ("cuda", "cpu"):
+        tr = T.Trainer(twin, device=dev)
+        st = tr.init_state(torch.Generator().manual_seed(0))
+        step = tr.make_train_step()
+        twin_losses[dev] = []
+        for _ in range(3):
+            st, loss = step(st, twin_tokens)
+            twin_losses[dev].append(float(loss))
+    tiny_out["train_losses"] = twin_losses
+    tiny_out["train_loss_rel_diff"] = float(np.max(
+        np.abs(np.subtract(twin_losses["cuda"], twin_losses["cpu"]))
+        / np.abs(twin_losses["cpu"])))
     emit("tiny", requests=len(trace), **tiny_out)
+    if tiny_out["train_loss_rel_diff"] > FP32_REL:
+        raise AssertionError(f"tiny train card vs CPU: {twin_losses}")
     if tiny_out["engine_bf_config_token_agreement"] < 0.97:
         raise AssertionError(f"tiny engine card vs CPU: {tiny_out}")
     if tiny_out["engine_w8kv8_token_agreement"] != 1.0 or not all(
@@ -953,6 +1333,11 @@ def main() -> int:
          w8kv8_vs_bf16_token_agreement=float(
              (tokens["bf16"] == tokens["w8kv8"]).float().mean()))
 
+    # --- 9. training at Llama-3-8B widths, 4 layers ------------------------
+    train = train_phase(T, kernels, LLAMA3_8B, init_params,
+                        train_flops_per_token, rates)
+    emit("train", **train)
+
     # --- kernel list and result ----------------------------------------------
     rows = []
     for name, source, replaces, par, t, n_launch in (
@@ -977,6 +1362,14 @@ def main() -> int:
          parity["paged_decode_attention_int8"],
          timing["paged_decode_attention_int8"],
          w8_launches["paged_decode_attention_int8"]),
+    ) + tuple(
+        (name, "tpu_dra_torch/csrc/flash_attention.cu",
+         f"tpu_dra/workloads/ops/attention.py:{line}",
+         {"vs_plain": parity["flash_s2048_causal_bf16"][f"{out}_vs_plain"]},
+         timing[name], train["launches"][name])
+        for name, line, out in (("flash_fwd", 92, "out"),
+                                ("flash_bwd_dq", 178, "dq"),
+                                ("flash_bwd_dkv", 239, "dk"))
     ):
         rows.append({
             "name": name, "route": "cuda", "source": source,

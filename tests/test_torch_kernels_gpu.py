@@ -42,13 +42,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _assert_bf16_close(got, ref, rtol=2e-2):
+def _assert_bf16_close(got, ref, rtol=2e-2, atol_floor=0.0):
     """Every element within two bf16 ulps of its row's largest |ref|
-    plus rtol * |ref| — the bar chip_smoke.py holds the kernels to."""
+    plus rtol * |ref| — the bar chip_smoke.py holds the kernels to; a
+    gradient's atol is never below ``atol_floor`` (chip_smoke.py
+    bf16_row_atol says why)."""
     got, ref = got.float(), ref.float()
     top = ref.abs().amax(dim=-1, keepdim=True)
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
     atol = torch.where(top > 0, 2 * ulp, torch.zeros_like(top))
+    atol = torch.clamp(atol, min=atol_floor)
     bad = (got - ref).abs() > atol + rtol * ref.abs()
     assert not bool(bad.any()), (
         f"{int(bad.sum())} elements outside the per-row bf16 bar; max "
@@ -168,9 +171,13 @@ def test_launch_counters_count_launches(cuda_device):
     q, k, v, _ = _contig(6, 2, 64, 2, 2, 64, torch.float32, cuda_device)
     TA.decode_attention(q, k, v, 10)
     assert TA._LAST_DECODE_IMPL == "cuda"
+    q, k, v, _ = _flash(8, 1, 64, 64, 2, 1, 64, torch.float32, cuda_device)
+    TA.attention(q, k, v, causal=True)  # auto -> the forward kernel
+    TA.attention(q, k, v, causal=True, impl="torch")
     assert kernels.LAUNCHES == {
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
         "decode_mlp": 2, "int8mm": 1, "decode_attention": 1,
+        "flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     }
 
 
@@ -430,3 +437,114 @@ def test_tiny_int8_paths_on_the_card_match_the_cpu(cuda_device):
             want = greedy_generate(cfg, params, prompt, 10, kv_quant=kvq,
                                    weight_quant=wq, device="cpu")
             assert torch.equal(got, want), (kvq, wq)
+
+
+# --- flash attention (training path) -----------------------------------------
+
+
+def _flash(seed, b, sq, skv, h, kvh, hd, dtype, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, hd, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, skv, kvh, hd, generator=g) for _ in range(2))
+    return [t.to(device=device, dtype=dtype) for t in (q, k, v, do)]
+
+
+def _flash_all(q, k, v, do, causal, impl):
+    """(out, lse, dq, dk, dv) of one impl's three functions on the same
+    inputs; the backward pair takes the plain forward's lse and delta."""
+    fwd = TA._cuda_flash_fwd if impl == "cuda" else TA._torch_flash_fwd
+    dq_fn, dkv_fn = (
+        (TA._cuda_flash_bwd_dq, TA._cuda_flash_bwd_dkv) if impl == "cuda"
+        else (TA._torch_flash_bwd_dq, TA._torch_flash_bwd_dkv)
+    )
+    out, lse = fwd(q, k, v, causal)
+    o_p, lse_p = TA._torch_flash_fwd(q, k, v, causal)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = dq_fn(q, k, v, do, lse_p, delta, causal)
+    dk, dv = dkv_fn(q, k, v, do, lse_p, delta, causal)
+    return out, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd", [
+    (1, 64, 64, 2, 1, 16), (2, 100, 130, 4, 2, 64), (1, 77, 77, 8, 8, 48),
+    (2, 128, 128, 8, 2, 128), (1, 1, 65, 4, 1, 32),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_fp32_match_plain(cuda_device, b, sq, skv, h, kvh, hd,
+                                        causal):
+    ins = _flash(sq + hd, b, sq, skv, h, kvh, hd, torch.float32, cuda_device)
+    got = _flash_all(*ins, causal, "cuda")
+    want = _flash_all(*ins, causal, "torch")
+    for g, w, name in zip(got, want, ("out", "lse", "dq", "dk", "dv")):
+        bar = 1e-5 if name in ("out", "lse") else 1e-4
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= bar * top, name
+    again = _flash_all(*ins, causal, "cuda")
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("sq,skv,causal", [(1000, 1000, True),
+                                          (512, 2048, True),
+                                          (256, 256, False)])
+def test_flash_kernels_bf16_8b_heads(cuda_device, sq, skv, causal):
+    ins = _flash(7, 2, sq, skv, 32, 8, 128, torch.bfloat16, cuda_device)
+    got = _flash_all(*ins, causal, "cuda")
+    want = _flash_all(*ins, causal, "torch")
+    _assert_bf16_close(got[0], want[0])
+    for g, w in zip(got[2:], want[2:]):
+        _assert_bf16_close(g, w, atol_floor=1e-5 * float(w.abs().max()))
+    assert float((got[1] - want[1]).abs().max()) <= 1e-5 * float(
+        want[1].abs().max())
+
+
+def test_flash_autograd_function_on_the_card_matches_the_cpu(cuda_device):
+    """The autograd.Function end to end (out, lse and a g_lse cotangent):
+    kernels on the card against the plain versions on the CPU, fp32."""
+    ins = _flash(3, 2, 96, 96, 4, 2, 64, torch.float32, "cpu")
+    g_lse = torch.randn(2, 4, 96, generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        q, k, v = (t.detach().to(dev).requires_grad_() for t in ins[:3])
+        kernels.reset_launches()
+        out, lse = TA.flash_attention_with_lse(q, k, v, True)
+        assert type(out.grad_fn).__name__ == "_FlashAttentionWithLseBackward"
+        ((out * ins[3].to(dev)).sum() + (lse * g_lse.to(dev)).sum()).backward()
+        n = int(dev == "cuda")  # the CPU runs the plain versions
+        assert {k_: kernels.LAUNCHES[k_] for k_ in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == dict.fromkeys(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), n)
+        grads[dev] = [t.detach().cpu() for t in (out, lse, q.grad, k.grad,
+                                                 v.grad)]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_flash_refuses_on_the_card_without_falling_back(cuda_device):
+    q = torch.zeros(1, 8, 4, 256, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 256, device=cuda_device, dtype=torch.bfloat16)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        TA.attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        TA._cuda_flash_fwd(q[..., :128], k[..., :128], k[..., :128], True)
+    assert kernels.LAUNCHES["flash_fwd"] == 0
+
+
+def test_one_train_step_launches_each_flash_kernel_per_layer(cuda_device):
+    """One Trainer step (remat "nothing"): 2L forwards (the recompute is
+    the second), L dQ and L dK/dV, and no other kernel."""
+    from tpu_dra_torch.workloads import train as TT
+    from tpu_dra_torch.workloads.models.llama import TINY_LLAMA
+
+    cfg = dataclasses.replace(TINY_LLAMA, remat=True, dtype=torch.bfloat16)
+    trainer = TT.Trainer(cfg, device=cuda_device)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    tokens = np.random.default_rng(0).integers(0, 256, (2, 40)).astype(np.int32)
+    kernels.reset_launches()
+    state, loss = trainer.make_train_step()(state, tokens)
+    assert np.isfinite(float(loss))
+    L = cfg.n_layers
+    assert kernels.LAUNCHES == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+    }

@@ -28,7 +28,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu")
+SOURCES = (
+    "paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu",
+    "flash_attention.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -43,6 +46,9 @@ LAUNCHES = {
     "decode_mlp": 0,
     "int8mm": 0,
     "decode_attention": 0,
+    "flash_fwd": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
 }
 
 _LOCK = threading.Lock()

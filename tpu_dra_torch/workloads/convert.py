@@ -17,6 +17,11 @@ leaves ``{"kernel_q": int8 [in, out], "scale": f32 [1, out]}`` across
 as they are (int8 and f32, not cast to ``param_dtype``), so it equals
 the port's own ``quantize.quantize_params`` of the converted fp32 tree
 bit for bit.
+
+For training, ``params_from_numpy(..., trainable=True)`` gives a tree
+whose leaves carry gradients, ``opt_state_from_numpy`` turns optax's
+AdamW state into the port's (so a step resumed from a JAX checkpoint
+matches JAX's), and ``params_to_numpy`` goes back the other way.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from tpu_dra_torch.workloads.device import resolve_device
 from tpu_dra_torch.workloads.models.llama import LlamaConfig, LlamaParams
+from tpu_dra_torch.workloads.train import AdamState
 
 
 def _leaf(arr, dtype: torch.dtype, device) -> torch.Tensor:
@@ -72,13 +78,73 @@ def _convert(node, dtype: torch.dtype, device):
 
 
 def params_from_numpy(
-    tree: dict, config: LlamaConfig, device=None
+    tree: dict, config: LlamaConfig, device=None, trainable: bool = False
 ) -> LlamaParams:
     """Nested dicts of numpy arrays (either JAX layout) -> LlamaParams
     holding the unrolled tree in ``config.param_dtype`` on ``device``
     (default: the CUDA device, see :func:`.device.resolve_device`);
-    int8 weight-only leaves keep int8 and f32."""
+    int8 weight-only leaves keep int8 and f32. ``trainable`` makes the
+    floating leaves carry gradients."""
     device = resolve_device(device)
     return LlamaParams(
-        config, _convert(unroll_tree(tree), config.param_dtype, device)
+        config, _convert(unroll_tree(tree), config.param_dtype, device),
+        trainable,
+    )
+
+
+def params_to_numpy(params: "LlamaParams | dict") -> dict:
+    """The unrolled tree as nested dicts of numpy arrays: float leaves
+    as float32 (every bf16 value exactly), others in their own type."""
+    tree = params.tree() if isinstance(params, LlamaParams) else params
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    return _map(tree, leaf)
+
+
+def _flat_names(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat_names(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _find_adam(state):
+    """The ScaleByAdamState (anything with count, mu and nu) inside
+    optax's nested chain state."""
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_adam(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def opt_state_from_numpy(
+    state, config: LlamaConfig, device=None
+) -> AdamState:
+    """optax's state for ``make_optimizer`` — ``(EmptyState(),
+    (ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState()))``
+    with numpy leaves (``jax.tree_util.tree_map(np.asarray, state)``),
+    mu and nu in either JAX layout — -> the port's AdamState: count
+    int32, mu fp32, nu in ``config.param_dtype``, keyed by parameter
+    name."""
+    device = resolve_device(device)
+    adam = _find_adam(state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the state")
+    return AdamState(
+        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
+                           device=device),
+        mu={n: _leaf(a, torch.float32, device)
+            for n, a in _flat_names(unroll_tree(adam.mu)).items()},
+        nu={n: _leaf(a, config.param_dtype, device)
+            for n, a in _flat_names(unroll_tree(adam.nu)).items()},
     )

@@ -626,3 +626,386 @@ def decode_attention(
             q, k, v, length, k_scale, v_scale, extra_k, extra_v
         )
     raise ValueError(f"unknown decode attention impl: {impl!r}")
+
+
+# --- full-sequence flash attention: the training path ------------------------
+#
+# Counterpart of the flash part of the JAX module (:49-651). Public
+# layouts are JAX's: q [b, sq, h, hd], k/v [b, skv, kvh, hd], lse
+# [b, h, sq] natural-log. GQA stays logical: the plain versions contract
+# grouped q [b, sq, kvh, n_rep, hd] against k/v as they are, and the
+# kernels index each kv head's tiles for its n_rep query heads. The
+# JAX block sizes (attention_block_q/k) are TPU VMEM tiles: the port
+# takes them for parity and ignores them; the kernels size their own
+# 64-row tiles, and the plain forward walks keys in the kernels' tiles.
+
+# exp2 softmax domain, as in the JAX kernels: log2 e folds into the
+# score scale, and lse stays natural-log at the boundary.
+LOG2_E = 1.4426950408889634
+LN_2 = 0.6931471805599453
+FLASH_TILE = 64  # the kernels' query and key tile
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[b, s, kvh, hd] -> [b, s, kvh * n_rep, hd] (logical)."""
+    if n_rep == 1:
+        return x
+    b, s, kvh, hd = x.shape
+    return x[:, :, :, None, :].expand(b, s, kvh, n_rep, hd).reshape(
+        b, s, kvh * n_rep, hd
+    )
+
+
+def _causal_mask(sq: int, skv: int, device) -> torch.Tensor:
+    """[sq, skv] bool: query row i (the last sq positions of skv) sees
+    key j when j <= i + (skv - sq)."""
+    return (
+        torch.arange(skv, device=device)[None, :]
+        <= torch.arange(sq, device=device)[:, None] + (skv - sq)
+    )
+
+
+def _reference_logits(q, k, causal: bool) -> torch.Tensor:
+    """fp32 [b, h, sq, skv] scaled logits, masked entries NEG_INF."""
+    kr = _repeat_kv(k, q.shape[2] // k.shape[2])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * (
+        q.shape[-1] ** -0.5
+    )
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    return logits
+
+
+def reference_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """The fp32-softmax oracle (JAX ``reference_attention``): q [b, sq,
+    h, hd]; k/v [b, skv, kvh, hd] -> [b, sq, h, hd] in q's dtype. Plain
+    autograd ops, so it differentiates too."""
+    probs = torch.softmax(_reference_logits(q, k, causal), dim=-1)
+    vr = _repeat_kv(v, q.shape[2] // k.shape[2])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), vr.float())
+    return out.to(q.dtype)
+
+
+def reference_attention_with_lse(q, k, v, causal: bool):
+    """(out, lse [b, h, sq]): the oracle of the joint primitive."""
+    logits = _reference_logits(q, k, causal)
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    vr = _repeat_kv(v, q.shape[2] // k.shape[2])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), vr.float())
+    return out.to(q.dtype), lse
+
+
+def _validate_flash_shapes(q, k, v) -> None:
+    """The flash path's contract, the same on every device (the kernels'
+    own): h % kvh == 0, hd a multiple of 16 up to 128, 1 <= sq <= skv,
+    k and v alike, one floating dtype (bf16 or fp32). Raises ValueError.
+    Unlike JAX, no divisibility by block sizes: ragged edges are masked
+    in the kernels."""
+    b, sq, h, hd = q.shape
+    bk, skv, kvh, hdk = k.shape
+    if tuple(v.shape) != tuple(k.shape) or bk != b or hdk != hd:
+        raise ValueError(
+            f"flash attention shapes: q {tuple(q.shape)}, k {tuple(k.shape)},"
+            f" v {tuple(v.shape)}"
+        )
+    if h % kvh:
+        raise ValueError(
+            f"query heads ({h}) must be a multiple of kv heads ({kvh})"
+        )
+    if hd % 16 or not 16 <= hd <= 128:
+        raise ValueError(
+            f"flash attention takes a head dim that is a multiple of 16 up "
+            f"to 128; got {hd} (use impl='reference')"
+        )
+    if not 1 <= sq <= skv:
+        raise ValueError(f"flash attention needs 1 <= sq <= skv; got {sq}, {skv}")
+    if {q.dtype, k.dtype, v.dtype} - _DTYPE_CODES.keys() or len(
+        {q.dtype, k.dtype, v.dtype}
+    ) != 1:
+        raise ValueError(
+            f"flash attention takes bf16 or fp32 q/k/v of one dtype, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
+        )
+
+
+def _group(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """[b, s, h, hd] -> [b, s, kvh, n_rep, hd] (a view)."""
+    b, s, h, hd = x.shape
+    return x.reshape(b, s, kvh, h // kvh, hd)
+
+
+def _scores2(q, k, causal: bool) -> torch.Tensor:
+    """fp32 [b, kvh, n_rep, sq, skv] scores in the exp2 domain, s = dot *
+    (scale * log2 e), masked entries NEG_INF — the kernels' s."""
+    kvh = k.shape[2]
+    s = torch.einsum(
+        "bqgrd,bkgd->bgrqk", _group(q, kvh).float(), k.float()
+    ) * (q.shape[-1] ** -0.5 * LOG2_E)
+    if causal:
+        s = torch.where(
+            _causal_mask(q.shape[1], k.shape[1], q.device), s,
+            torch.full_like(s, NEG_INF),
+        )
+    return s
+
+
+def _torch_flash_fwd(q, k, v, causal: bool):
+    """Plain version of ``csrc/flash_attention.cu`` flash_fwd_kernel (JAX
+    ``_flash_kernel``): an online softmax over key tiles of FLASH_TILE in
+    the exp2 domain, fp32 (m, l, acc), p rounded to v's dtype for P.V.
+    Returns (out [b, sq, h, hd] in q's dtype, lse [b, h, sq] f32)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    n_rep = h // kvh
+    qg = _group(q, kvh).float()
+    mask = _causal_mask(sq, skv, q.device) if causal else None
+    sc = hd ** -0.5 * LOG2_E
+    dev = q.device
+    m = torch.full((b, kvh, n_rep, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kvh, n_rep, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, n_rep, sq, hd), dtype=torch.float32, device=dev)
+    for j0 in range(0, skv, FLASH_TILE):
+        sl = slice(j0, j0 + FLASH_TILE)
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k[:, sl].float()) * sc
+        if mask is not None:
+            s = torch.where(mask[:, sl], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp2(s - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(v.dtype).float(), v[:, sl].float()
+        )
+        m = m_new
+    denom = torch.clamp(l, min=1e-30)
+    out = (acc / denom[..., None]).to(q.dtype)  # [b, kvh, n_rep, sq, hd]
+    lse = (m + torch.log2(denom)) * LN_2
+    return (
+        out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd),
+        lse.reshape(b, h, sq),
+    )
+
+
+def _p_and_ds(q, k, v, do, lse, delta, causal: bool):
+    """The backward kernels' shared tile math over whole rows: p =
+    exp2(s - lse log2 e) and dS = p (dO.V^T - delta), both fp32
+    [b, kvh, n_rep, sq, skv]."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    n_rep = h // kvh
+    p = torch.exp2(
+        _scores2(q, k, causal)
+        - (lse.float() * LOG2_E).reshape(b, kvh, n_rep, sq)[..., None]
+    )
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", _group(do, kvh).float(), v.float())
+    ds = p * (dp - delta.float().reshape(b, kvh, n_rep, sq)[..., None])
+    return p, ds
+
+
+def _torch_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    """Plain version of flash_bwd_dq_kernel (JAX ``_flash_bwd_dq_kernel``):
+    P rebuilt from lse, dS rounded to q's dtype for dS.K, scale applied
+    to the fp32 sum. do is already in q's dtype; lse and delta are
+    [b, h, sq] f32. Returns dq [b, sq, h, hd]."""
+    b, sq, h, hd = q.shape
+    _, ds = _p_and_ds(q, k, v, do, lse, delta, causal)
+    dq = torch.einsum(
+        "bgrqk,bkgd->bqgrd", ds.to(q.dtype).float(), k.float()
+    ) * (hd ** -0.5)
+    return dq.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _torch_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    """Plain version of flash_bwd_dkv_kernel (JAX
+    ``_flash_bwd_dkv_kernel``): dV = sum over all n_rep heads' rows of
+    P^T.dO with P rounded to dO's dtype, dK = scale * dS^T.Q with dS
+    rounded to q's dtype, fp32 sums. Returns (dk, dv) [b, skv, kvh, hd]."""
+    kvh = k.shape[2]
+    p, ds = _p_and_ds(q, k, v, do, lse, delta, causal)
+    dv = torch.einsum(
+        "bgrqk,bqgrd->bkgd", p.to(do.dtype).float(), _group(do, kvh).float()
+    )
+    dk = torch.einsum(
+        "bgrqk,bqgrd->bkgd", ds.to(q.dtype).float(), _group(q, kvh).float()
+    ) * (q.shape[-1] ** -0.5)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+_FLASH_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p,
+]
+_FLASH_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+]
+_FLASH_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+]
+
+
+def _check_flash_cuda(tensors, dtype, rows) -> None:
+    """Every tensor on one CUDA device, contiguous and 16-byte aligned;
+    the model tensors in ``dtype`` and the row statistics (``rows``)
+    f32. Raises ValueError."""
+    dev = tensors[0].device
+    for t in list(tensors) + list(rows):
+        if not (t.is_cuda and t.device == dev):
+            raise ValueError("the flash kernels need every input on one CUDA device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the flash kernels need contiguous, 16-byte aligned inputs")
+    if any(t.dtype != dtype for t in tensors) or any(
+        t.dtype != torch.float32 for t in rows
+    ):
+        raise ValueError(
+            f"the flash kernels take q/k/v/dO of one dtype ({dtype}) and f32 "
+            f"lse/delta"
+        )
+
+
+def _flash_dims(q, k, causal: bool) -> tuple:
+    b, sq, h, hd = q.shape
+    return (_DTYPE_CODES[q.dtype], b, sq, k.shape[1], h, k.shape[2], hd,
+            int(bool(causal)))
+
+
+def _cuda_flash_fwd(q, k, v, causal: bool):
+    """Launch flash_fwd_kernel on q's stream: (out, lse [b, h, sq] f32)."""
+    _validate_flash_shapes(q, k, v)
+    _check_flash_cuda((q, k, v), q.dtype, ())
+    b, sq, h, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = kernels.function(
+        "flash_attention.cu", "tpu_flash_fwd", _FLASH_FWD_ARGTYPES
+    )
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *_flash_dims(q, k, causal), hd ** -0.5 * LOG2_E,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(err, "flash_fwd")
+    kernels.LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def _cuda_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    """Launch flash_bwd_dq_kernel on q's stream: dq like q."""
+    _validate_flash_shapes(q, k, v)
+    _check_flash_cuda((q, k, v, do), q.dtype, (lse, delta))
+    hd = q.shape[-1]
+    dq = torch.empty_like(q)
+    fn = kernels.function(
+        "flash_attention.cu", "tpu_flash_bwd_dq", _FLASH_DQ_ARGTYPES
+    )
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_flash_dims(q, k, causal), hd ** -0.5 * LOG2_E, hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(err, "flash_bwd_dq")
+    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _cuda_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    """Launch flash_bwd_dkv_kernel on q's stream: (dk, dv) like k, v."""
+    _validate_flash_shapes(q, k, v)
+    _check_flash_cuda((q, k, v, do), q.dtype, (lse, delta))
+    hd = q.shape[-1]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = kernels.function(
+        "flash_attention.cu", "tpu_flash_bwd_dkv", _FLASH_DKV_ARGTYPES
+    )
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_flash_dims(q, k, causal), hd ** -0.5 * LOG2_E, hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(err, "flash_bwd_dkv")
+    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _flash_impls(q, impl: str):
+    """The three functions of ``impl`` ("cuda" or "torch")."""
+    if impl == "cuda":
+        if not q.is_cuda:
+            raise ValueError("impl='cuda' needs CUDA tensors")
+        return _cuda_flash_fwd, _cuda_flash_bwd_dq, _cuda_flash_bwd_dkv
+    if impl == "torch":
+        return _torch_flash_fwd, _torch_flash_bwd_dq, _torch_flash_bwd_dkv
+    raise ValueError(f"unknown flash impl: {impl!r}")
+
+
+class _FlashAttentionWithLse(torch.autograd.Function):
+    """(out, lse) with a backward for both outputs: the JAX custom_vjp
+    ``flash_attention_with_lse`` (:567-602). The forward saves q, k, v,
+    out and lse; the backward forms delta = rowsum(dO . O) in fp32
+    outside the kernels, folds the lse cotangent in as delta - g_lse, and
+    runs the dQ and dK/dV functions of the same impl on dO cast to q's
+    dtype. Unlike JAX, suffix queries (sq < skv) take the same backward
+    (both kernels carry the causal offset)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, impl):
+        fwd, ctx.bwd_dq, ctx.bwd_dkv = _flash_impls(q, impl)
+        ctx.causal = causal
+        ctx.set_materialize_grads(False)
+        out, lse = fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        delta = (g_out.float() * out.float()).sum(dim=-1).transpose(1, 2)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        delta = delta.contiguous()
+        do = g_out.to(q.dtype).contiguous()
+        dq = ctx.bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = ctx.bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = True, block_q: int = 256,
+                             block_k: int = 256, impl: str = "auto"):
+    """(out [b, sq, h, hd], lse [b, h, sq]) with gradients for both.
+    impl: "auto" (the kernels for CUDA tensors, their plain versions for
+    CPU tensors) | "cuda" | "torch". block_q/block_k: the JAX TPU tiles,
+    taken for parity and ignored."""
+    del block_q, block_k
+    _validate_flash_shapes(q, k, v)
+    if impl == "auto":
+        impl = "cuda" if q.is_cuda else "torch"
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return _FlashAttentionWithLse.apply(q, k, v, bool(causal), impl)
+
+
+def _flash_attention(q, k, v, causal: bool = True, block_q: int = 256,
+                     block_k: int = 256, impl: str = "auto"):
+    """Out-only view of :func:`flash_attention_with_lse` (the unused lse
+    gets no cotangent)."""
+    return flash_attention_with_lse(q, k, v, causal, block_q, block_k, impl)[0]
+
+
+def attention(q, k, v, causal: bool = True, impl: str = "auto",
+              block_q: int = 256, block_k: int = 256) -> torch.Tensor:
+    """q [b, sq, h, hd]; k/v [b, skv, kvh, hd] -> [b, sq, h, hd].
+
+    impl: "auto" | "cuda" | "torch" | "reference". "auto" launches the
+    flash kernels for CUDA tensors and takes their plain versions for CPU
+    tensors, both through one autograd.Function; a shape outside
+    :func:`_validate_flash_shapes` raises on every device (no quiet
+    fallback). "reference" is the fp32-softmax oracle."""
+    if impl == "reference":
+        return reference_attention(q, k, v, causal)
+    if impl not in ("auto", "cuda", "torch"):
+        raise ValueError(f"unknown attention impl: {impl!r}")
+    return _flash_attention(q, k, v, causal, block_q, block_k, impl)
