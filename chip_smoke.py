@@ -10,7 +10,9 @@ exits non-zero without a result:
    and power limit as nvidia-smi reports them; TF32 off.
 2. build   — builds every kernel from tpu_dra_torch/csrc with nvcc
    (one process per source, in parallel) into build/torch_kernels/;
-   prints each instantiation's registers, shared memory and spills.
+   prints each instantiation's registers, shared memory and spills, and
+   for the wgmma forward (flash_fwd_sm90.cu) the dynamic shared memory a
+   CTA asks for.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
    d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
@@ -23,7 +25,9 @@ exits non-zero without a result:
    dK/dV) at b=2, h=32, kvh=8, hd=128 for s=2048 causal and non-causal,
    ragged s=1000 causal and suffix queries sq=512 over skv=2048 (with a
    non-zero lse cotangent folded into delta), each against its plain
-   version on the same inputs, bf16 and fp32, reruns bit-identical.
+   version on the same inputs, bf16 and fp32, reruns bit-identical;
+   each case names the forward's route (sm90: the wgmma kernel for bf16
+   at hd 64/128; wmma: flash_attention.cu's kernel, fp32 here).
    Tolerance: rtol 2e-2 plus, per row (one head of one slot or token,
    one token of the MLP, one output row of the matmul), an atol of two
    bf16 ulps of that row's largest |reference| value. At fp32 each new
@@ -37,7 +41,11 @@ exits non-zero without a result:
    the bf16 peak, whichever is larger). Each kernel also has
    ``ms_with_host``, timed with the wrapper's host time included. The
    flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
-   its backward (the dQ + dK/dV pair) as the library yardsticks.
+   its backward (the dQ + dK/dV pair) as the library yardsticks, each
+   with achieved TFLOP/s and share of the bound; the forward row also
+   times the WMMA forward it replaced, on the same inputs. The int8
+   contiguous-decode row times SDPA over the live K/V dequantized to
+   bf16 as its yardstick (no PyTorch call takes the int8 cache).
 5. tiny    — fp32 TINY_LLAMA on the card (kernels) and on the CPU
    (plain versions): the bf16-config engine agrees on >= 0.97 of the
    tokens; the w8+kv8 engine and greedy_generate in all four
@@ -70,14 +78,15 @@ exits non-zero without a result:
 9. train   — the Trainer at Llama-3-8B widths cut to 4 layers, bf16,
    remat "nothing", TrainConfig() defaults, b=2, s=2048, 5 steps on one
    seeded batch: the loss is finite and falls, and every step launches
-   exactly 2L flash forwards (the remat recompute is the second), L dQ
-   and L dK/dV; step ms, trained tok/s, MFU and peak memory. Then one
-   step's loss and gradients from the initial weights, kernels against the plain
-   versions (attention_impl="torch"): at fp32 with 2 layers the loss
-   within 1e-5 relative and every gradient leaf above cosine 0.99999;
-   in bf16 each leaf's gap (1 - cosine) to an fp32 reference at most
-   BF16_GAP_RATIO times the plain version's (gaps under 1e-5 count as
-   equal).
+   exactly 2L flash forwards (the remat recompute is the second), all
+   on the wgmma route, L dQ and L dK/dV; step ms, trained tok/s, MFU,
+   peak memory and the flash forward's device ms in a profiled step.
+   Then one step's loss and gradients from the initial weights, kernels
+   against the plain versions (attention_impl="torch"): at fp32 with 2
+   layers the loss within 1e-5 relative and every gradient leaf above
+   cosine 0.99999; in bf16 each leaf's gap (1 - cosine) to an fp32
+   reference at most BF16_GAP_RATIO times the plain version's (gaps
+   under 1e-5 count as equal).
 
 The line before last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -85,6 +94,7 @@ The line before last lists the kernels as JSON; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -505,6 +515,24 @@ def serve_summary(eng, done, launches, wall) -> dict:
     }
 
 
+def sm90_build(kernels, report) -> dict:
+    """The wgmma forward's instantiations: registers and spill bytes from
+    ptxas, and the dynamic shared memory a CTA asks for at launch."""
+    smem = kernels.function("flash_fwd_sm90.cu", "tpu_flash_fwd_sm90_smem",
+                            [ctypes.c_int])
+    out = {}
+    for fn, p in kernels.ptxas_report(
+            report["flash_fwd_sm90.cu"]["log"]).items():
+        hd = next((d for d in (64, 128)
+                   if f"<{d}>" in fn or f"ILi{d}E" in fn), None)
+        out[short_name(fn)] = {
+            "registers": p["registers"], "spill_store_bytes": p["spill_stores"],
+            "static_smem_bytes": p["smem_bytes"],
+            "dynamic_smem_bytes": smem(hd) if hd else None,
+        }
+    return out
+
+
 def flash_inputs(gen, sq, skv, dtype, b=2, h=32, kvh=8, hd=128):
     """q, k, v, dO in the public layouts and a lse cotangent [b, h, sq]."""
     def rand(*shape):
@@ -557,6 +585,7 @@ def flash_parity(A, gen) -> dict:
                     f"{tag} {n}", a, b_, FP32_REL if n == "out" else
                     FP32_GRAD_REL) for n, (a, b_) in pairs.items()}
                 row["lse_vs_plain"] = compare_fp32(f"{tag} lse", lse_k, lse_p)
+            row["fwd_route"] = A._flash_fwd_route(q)
             row["rerun_bit_identical"] = all(
                 bool(torch.equal(a, b_)) for a, b_ in zip(
                     again, (o_k, dq_k, dk_k, dv_k)))
@@ -575,11 +604,14 @@ def visible_pairs(sq: int, skv: int, causal: bool) -> int:
     return sum(min(skv, i + off + 1) for i in range(sq))
 
 
-def flash_timing(A, gen, rates, flush) -> dict:
+def flash_timing(A, kernels, gen, rates, flush) -> dict:
     """The three kernels at the train phase's attention shape (b=2,
     s=2048, h=32, kvh=8, hd=128, causal, bf16): kernel, plain version,
     bound, and SDPA as the library yardstick (its forward for the
-    forward, its backward for the dQ + dK/dV pair)."""
+    forward, its backward for the dQ + dK/dV pair), each with its
+    achieved TFLOP/s and the kernel's share of the bound. The forward
+    row also times the WMMA forward (flash_attention.cu) on the same
+    inputs."""
     F = torch.nn.functional
     b, s, h, kvh, hd = 2, 2048, 32, 8, 128
     q, k, v, do, _ = flash_inputs(gen, s, s, torch.bfloat16, b, h, kvh, hd)
@@ -602,6 +634,19 @@ def flash_timing(A, gen, rates, flush) -> dict:
         bwd = time_ms(lambda: torch.autograd.grad(
             o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), flush)
         return fwd, bwd
+
+    def wmma_fwd():
+        """flash_attention.cu's flash_fwd_kernel, which served bf16 at
+        hd 128 before flash_fwd_sm90.cu, on the same inputs: the earlier
+        kernel's time, measured beside the new one's."""
+        fn = kernels.function("flash_attention.cu", "tpu_flash_fwd",
+                              A._FLASH_FWD_ARGTYPES)
+        o, l_ = torch.empty_like(q), torch.empty(b, h, s, device="cuda")
+        kernels.check(fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            l_.data_ptr(), *A._flash_dims(q, k, True), hd ** -0.5 * A.LOG2_E,
+            torch.cuda.current_stream().cuda_stream), "wmma forward")
+        return o, l_
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
     try:  # SDPA's flash backend, where this build takes GQA there
@@ -633,12 +678,19 @@ def flash_timing(A, gen, rates, flush) -> dict:
             "plain_ms": time_ms(plain, flush),
             **bound(nbytes, flops, rates),
         }
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         if isinstance(lib, str):
             row.update(library_ms=None, library_note=lib)
         else:
             row.update(library_ms=lib, library_backend=lib_backend)
         if name != "flash_fwd":
             row["library_covers"] = "SDPA backward: the dQ + dK/dV pair"
+        else:
+            row["route"] = A._flash_fwd_route(q)
+            row["wmma_kernel_ms"] = time_ms(wmma_fwd, flush)
+            if row["library_ms"] is not None:
+                row["library_tflops"] = flops / lib / 1e9
         rows[name] = row
     del q, k, v, do, out, lse, delta, qt, kt, vt
     return rows
@@ -675,7 +727,8 @@ def profile_train_step(step, state, tokens) -> tuple:
     device_ms = sum(k[0] for k in kernels_) / 1e3
     flash = {}
     for us, n, key in kernels_:
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for name in ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq",
+                     "flash_bwd_dkv"):
             if f"{name}_kernel" in key:
                 flash[name] = {"device_ms": us / 1e3, "count": n}
     flash_ms = sum(v["device_ms"] for v in flash.values())
@@ -729,7 +782,9 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
     trainer = T.Trainer(cfg)
     state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
     step = trainer.make_train_step()
-    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    # Every forward on the wgmma route (bf16, hd 128).
+    want = {"flash_fwd": 2 * L, "flash_fwd_sm90": 2 * L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L}
     losses, step_ms, per_step = [], [], []
     kernels.reset_launches()
     for _ in range(steps):
@@ -761,6 +816,8 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
         / (steady / 1e3) / rates[1],
         "peak_memory_gb": peak_gb, "launches": launches,
         "launches_per_step": per_step[-1], "profile": profile,
+        "flash_fwd_device_ms_per_step": profile.get("flash", {}).get(
+            "flash_fwd_sm90", {}).get("device_ms", "not measured"),
     }
 
     # One step from the initial weights (after 5 steps on one batch the
@@ -870,7 +927,8 @@ def main() -> int:
                                        p["spill_stores"]]
                       for fn, p in kernels.ptxas_report(v["log"]).items()}
                 for src, v in report.items()},
-         ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"])
+         ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"],
+         flash_fwd_sm90=sm90_build(kernels, report))
 
     # --- 3. parity at 8B widths ------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -1087,9 +1145,19 @@ def main() -> int:
             if isinstance(row["library_ms"], str):
                 row["library_note"] = row.pop("library_ms")
                 row["library_ms"] = None
+        else:
+            # Yardstick only: no PyTorch call takes an int8 cache with
+            # scales; SDPA over the live keys dequantized to bf16 ahead.
+            kd, vd = ((c[:, :L].float() * sc[n][:, :L, :, None]).to(
+                torch.bfloat16).transpose(1, 2)
+                for c, n in ((k_, "k_scale"), (v_, "v_scale")))
+            row["sdpa_dequantized_ms"] = yardstick_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], kd, vd, enable_gqa=True), flush)
+            del kd, vd
         timing[label] = row
         del q, k_, v_, sc
-    timing.update(flash_timing(A, gen, rates, flush))
+    timing.update(flash_timing(A, kernels, gen, rates, flush))
     del flush
     emit("timing", iters=TIMING_ITERS, **timing)
 
@@ -1363,13 +1431,16 @@ def main() -> int:
          timing["paged_decode_attention_int8"],
          w8_launches["paged_decode_attention_int8"]),
     ) + tuple(
-        (name, "tpu_dra_torch/csrc/flash_attention.cu",
+        (name, f"tpu_dra_torch/csrc/{source}",
          f"tpu_dra/workloads/ops/attention.py:{line}",
          {"vs_plain": parity["flash_s2048_causal_bf16"][f"{out}_vs_plain"]},
-         timing[name], train["launches"][name])
-        for name, line, out in (("flash_fwd", 92, "out"),
-                                ("flash_bwd_dq", 178, "dq"),
-                                ("flash_bwd_dkv", 239, "dk"))
+         timing[name], train["launches"][counter])
+        for name, source, counter, line, out in (
+            ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
+            ("flash_bwd_dq", "flash_attention.cu", "flash_bwd_dq", 178,
+             "dq"),
+            ("flash_bwd_dkv", "flash_attention.cu", "flash_bwd_dkv", 239,
+             "dk"))
     ):
         rows.append({
             "name": name, "route": "cuda", "source": source,

@@ -142,3 +142,15 @@ def test_flash_shape_contract_raises_on_every_device():
         TA.attention(*qkv(8, 4, 2, 64), impl="pallas")
     out = TA.attention(*qkv(13, 4, 2, 16), causal=True)
     assert out.shape == (1, 13, 4, 16) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 128, "wmma"), (torch.float32, 64, "wmma"),
+    (torch.bfloat16, 48, "wmma"), (torch.bfloat16, 16, "wmma"),
+])
+def test_forward_kernel_route_follows_dtype_and_head_dim(dtype, hd, route):
+    """On the card the forward's kernel is chosen from dtype and head dim
+    alone: the wgmma kernel for bf16 at hd 64/128, the WMMA kernel
+    otherwise (fp32 keeps its bits on CUDA cores)."""
+    assert TA._flash_fwd_route(torch.zeros(1, 3, 2, hd, dtype=dtype)) == route

@@ -177,7 +177,8 @@ def test_launch_counters_count_launches(cuda_device):
     assert kernels.LAUNCHES == {
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
         "decode_mlp": 2, "int8mm": 1, "decode_attention": 1,
-        "flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0,
     }
 
 
@@ -495,6 +496,47 @@ def test_flash_kernels_bf16_8b_heads(cuda_device, sq, skv, causal):
         _assert_bf16_close(g, w, atol_floor=1e-5 * float(w.abs().max()))
     assert float((got[1] - want[1]).abs().max()) <= 1e-5 * float(
         want[1].abs().max())
+
+
+# The wgmma forward (flash_fwd_sm90.cu): ragged query tiles (1, 65, 127,
+# 129, 1000 rows against 128-row CTAs and 128-key tiles) and suffix
+# queries, both head dims, GQA from none to 8 query heads a kv head.
+SM90_LENGTHS = [(1, 1), (65, 65), (127, 127), (129, 129), (1000, 1000),
+                (512, 2048)]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,skv", SM90_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_fwd_sm90_bf16_matches_plain(cuda_device, hd, sq, skv, causal,
+                                           n_rep, b):
+    q, k, v, _ = _flash(sq + skv + hd + n_rep, b, sq, skv, 2 * n_rep, 2, hd,
+                        torch.bfloat16, cuda_device)
+    assert TA._flash_fwd_route(q) == "sm90"
+    kernels.reset_launches()
+    out, lse = TA._cuda_flash_fwd(q, k, v, causal)
+    again = TA._cuda_flash_fwd(q, k, v, causal)
+    assert kernels.LAUNCHES["flash_fwd_sm90"] == 2
+    o_p, lse_p = TA._torch_flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, o_p)
+    assert float((lse - lse_p).abs().max()) <= 1e-5 * float(
+        lse_p.abs().max())
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+def test_flash_fwd_route_follows_dtype_and_head_dim(cuda_device):
+    """bf16 at hd 128 launches the wgmma kernel; fp32 and hd 48 the WMMA
+    flash_fwd_kernel. "flash_fwd" counts both."""
+    for dtype, hd, sm90 in ((torch.bfloat16, 128, 1), (torch.float32, 128, 0),
+                            (torch.bfloat16, 48, 0)):
+        q, k, v, _ = _flash(hd, 1, 70, 70, 4, 2, hd, dtype, cuda_device)
+        kernels.reset_launches()
+        TA.attention(q, k, v, causal=True)
+        assert kernels.LAUNCHES["flash_fwd"] == 1
+        assert kernels.LAUNCHES["flash_fwd_sm90"] == sm90, (dtype, hd)
 
 
 def test_flash_autograd_function_on_the_card_matches_the_cpu(cuda_device):

@@ -25,6 +25,10 @@
 // inputs take a CUDA-core FMA path instead, so that fp32 keeps its bits
 // (TF32 would not).
 //
+// The forward for bf16 at hd 64 and 128 (the training shapes) lives in
+// flash_fwd_sm90.cu (wgmma products, a cp.async K/V ring, the softmax in
+// registers); flash_fwd_kernel here serves fp32 and the other head dims.
+//
 // Design. The Pallas kernels pin one KV head's whole K/V plane in VMEM
 // and walk it in blocks. Here a CTA of 4 warps owns one 64-row tile:
 //   - forward and dQ: one (query tile, head, batch). K/V stream through

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = (
     "paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu",
-    "flash_attention.cu",
+    "flash_attention.cu", "flash_fwd_sm90.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,7 +39,10 @@ NVCC_FLAGS = (
 )
 
 # The paged kernel's int8-pool branch counts apart from its bf16/fp32
-# branch, so a run shows which one the path took.
+# branch, so a run shows which one the path took. "flash_fwd" counts
+# every flash forward launch, whichever kernel served it;
+# "flash_fwd_sm90" counts those of the wgmma kernel (flash_fwd_sm90.cu),
+# so a run shows how many took that route.
 LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_int8": 0,
@@ -47,6 +50,7 @@ LAUNCHES = {
     "int8mm": 0,
     "decode_attention": 0,
     "flash_fwd": 0,
+    "flash_fwd_sm90": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
 }

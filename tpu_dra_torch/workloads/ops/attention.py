@@ -637,13 +637,16 @@ def decode_attention(
 # kernels index each kv head's tiles for its n_rep query heads. The
 # JAX block sizes (attention_block_q/k) are TPU VMEM tiles: the port
 # takes them for parity and ignores them; the kernels size their own
-# 64-row tiles, and the plain forward walks keys in the kernels' tiles.
+# tiles (64 rows and keys in flash_attention.cu, 128 in
+# flash_fwd_sm90.cu), and the plain forward walks keys in 64-key tiles:
+# the online softmax gives the same result for any key tiling, up to
+# fp32 summation order.
 
 # exp2 softmax domain, as in the JAX kernels: log2 e folds into the
 # score scale, and lse stays natural-log at the boundary.
 LOG2_E = 1.4426950408889634
 LN_2 = 0.6931471805599453
-FLASH_TILE = 64  # the kernels' query and key tile
+FLASH_TILE = 64  # the plain forward's key tile
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -752,7 +755,8 @@ def _scores2(q, k, causal: bool) -> torch.Tensor:
 
 
 def _torch_flash_fwd(q, k, v, causal: bool):
-    """Plain version of ``csrc/flash_attention.cu`` flash_fwd_kernel (JAX
+    """Plain version of the forward kernels, ``csrc/flash_fwd_sm90.cu``
+    and ``csrc/flash_attention.cu`` flash_fwd_kernel (JAX
     ``_flash_kernel``): an online softmax over key tiles of FLASH_TILE in
     the exp2 domain, fp32 (m, l, acc), p rounded to v's dtype for P.V.
     Returns (out [b, sq, h, hd] in q's dtype, lse [b, h, sq] f32)."""
@@ -869,22 +873,45 @@ def _flash_dims(q, k, causal: bool) -> tuple:
             int(bool(causal)))
 
 
+# The forward's two kernels: (source, C entry), both taking
+# _FLASH_FWD_ARGTYPES.
+_FLASH_FWD_KERNELS = {
+    "sm90": ("flash_fwd_sm90.cu", "tpu_flash_fwd_sm90"),
+    "wmma": ("flash_attention.cu", "tpu_flash_fwd"),
+}
+
+
+def _flash_fwd_route(q) -> str:
+    """The forward kernel that serves ``q``, chosen from its dtype and
+    head dim before the launch: "sm90" (``csrc/flash_fwd_sm90.cu``,
+    wgmma with a cp.async K/V ring) for bf16 at hd 64 or 128, else
+    "wmma" (``csrc/flash_attention.cu`` flash_fwd_kernel; fp32 keeps its
+    bits on CUDA cores there)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128):
+        return "sm90"
+    return "wmma"
+
+
 def _cuda_flash_fwd(q, k, v, causal: bool):
-    """Launch flash_fwd_kernel on q's stream: (out, lse [b, h, sq] f32)."""
+    """Launch the forward kernel of :func:`_flash_fwd_route` on q's
+    stream: (out, lse [b, h, sq] f32). A failed launch raises; the other
+    kernel is never tried."""
     _validate_flash_shapes(q, k, v)
     _check_flash_cuda((q, k, v), q.dtype, ())
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = kernels.function(
-        "flash_attention.cu", "tpu_flash_fwd", _FLASH_FWD_ARGTYPES
-    )
+    route = _flash_fwd_route(q)
+    source, entry = _FLASH_FWD_KERNELS[route]
+    fn = kernels.function(source, entry, _FLASH_FWD_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *_flash_dims(q, k, causal), hd ** -0.5 * LOG2_E,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check(err, "flash_fwd")
+    kernels.check(err, entry)
+    if route == "sm90":
+        kernels.LAUNCHES["flash_fwd_sm90"] += 1
     kernels.LAUNCHES["flash_fwd"] += 1
     return out, lse
 
