@@ -11,8 +11,8 @@ exits non-zero without a result:
 2. build   — builds every kernel from tpu_dra_torch/csrc with nvcc
    (one process per source, in parallel) into build/torch_kernels/;
    prints each instantiation's registers, shared memory and spills, and
-   for the wgmma forward (flash_fwd_sm90.cu) the dynamic shared memory a
-   CTA asks for.
+   for the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) the
+   dynamic shared memory a CTA asks for.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
    d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
@@ -26,8 +26,9 @@ exits non-zero without a result:
    ragged s=1000 causal and suffix queries sq=512 over skv=2048 (with a
    non-zero lse cotangent folded into delta), each against its plain
    version on the same inputs, bf16 and fp32, reruns bit-identical;
-   each case names the forward's route (sm90: the wgmma kernel for bf16
-   at hd 64/128; wmma: flash_attention.cu's kernel, fp32 here).
+   each case names the forward's and the dK/dV kernel's routes (sm90:
+   the wgmma kernels for bf16 at hd 64/128, which every bf16 case must
+   take; wmma: flash_attention.cu's kernels, fp32 here).
    Tolerance: rtol 2e-2 plus, per row (one head of one slot or token,
    one token of the MLP, one output row of the matmul), an atol of two
    bf16 ulps of that row's largest |reference| value. At fp32 each new
@@ -42,8 +43,10 @@ exits non-zero without a result:
    ``ms_with_host``, timed with the wrapper's host time included. The
    flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
    its backward (the dQ + dK/dV pair) as the library yardsticks, each
-   with achieved TFLOP/s and share of the bound; the forward row also
-   times the WMMA forward it replaced, on the same inputs. The int8
+   with achieved TFLOP/s and share of the bound; the forward and dK/dV
+   rows also time the WMMA kernels they replaced, on the same inputs,
+   and the dK/dV row the pair's time (dQ + dK/dV) beside SDPA's
+   backward. The int8
    contiguous-decode row times SDPA over the live K/V dequantized to
    bf16 as its yardstick (no PyTorch call takes the int8 cache).
 5. tiny    — fp32 TINY_LLAMA on the card (kernels) and on the CPU
@@ -78,9 +81,10 @@ exits non-zero without a result:
 9. train   — the Trainer at Llama-3-8B widths cut to 4 layers, bf16,
    remat "nothing", TrainConfig() defaults, b=2, s=2048, 5 steps on one
    seeded batch: the loss is finite and falls, and every step launches
-   exactly 2L flash forwards (the remat recompute is the second), all
-   on the wgmma route, L dQ and L dK/dV; step ms, trained tok/s, MFU,
-   peak memory and the flash forward's device ms in a profiled step.
+   exactly 2L flash forwards (the remat recompute is the second), L dQ
+   and L dK/dV, the forwards and dK/dV all on the wgmma route; step ms,
+   trained tok/s, MFU, peak memory and the flash forward's and dK/dV's
+   device ms in a profiled step.
    Then one step's loss and gradients from the initial weights, kernels
    against the plain versions (attention_impl="torch"): at fp32 with 2
    layers the loss within 1e-5 relative and every gradient leaf above
@@ -515,21 +519,31 @@ def serve_summary(eng, done, launches, wall) -> dict:
     }
 
 
+# The wgmma kernels' sources and the C entries that give the dynamic
+# shared memory a CTA of each head dim asks for.
+SM90_SOURCES = {
+    "flash_fwd_sm90.cu": "tpu_flash_fwd_sm90_smem",
+    "flash_bwd_sm90.cu": "tpu_flash_bwd_dkv_sm90_smem",
+}
+
+
 def sm90_build(kernels, report) -> dict:
-    """The wgmma forward's instantiations: registers and spill bytes from
-    ptxas, and the dynamic shared memory a CTA asks for at launch."""
-    smem = kernels.function("flash_fwd_sm90.cu", "tpu_flash_fwd_sm90_smem",
-                            [ctypes.c_int])
+    """The wgmma kernels' instantiations, by source: registers and spill
+    bytes from ptxas, and the dynamic shared memory a CTA asks for at
+    launch."""
     out = {}
-    for fn, p in kernels.ptxas_report(
-            report["flash_fwd_sm90.cu"]["log"]).items():
-        hd = next((d for d in (64, 128)
-                   if f"<{d}>" in fn or f"ILi{d}E" in fn), None)
-        out[short_name(fn)] = {
-            "registers": p["registers"], "spill_store_bytes": p["spill_stores"],
-            "static_smem_bytes": p["smem_bytes"],
-            "dynamic_smem_bytes": smem(hd) if hd else None,
-        }
+    for source, entry in SM90_SOURCES.items():
+        smem = kernels.function(source, entry, [ctypes.c_int])
+        out[source] = {}
+        for fn, p in kernels.ptxas_report(report[source]["log"]).items():
+            hd = next((d for d in (64, 128)
+                       if f"<{d}>" in fn or f"ILi{d}E" in fn), None)
+            out[source][short_name(fn)] = {
+                "registers": p["registers"],
+                "spill_store_bytes": p["spill_stores"],
+                "static_smem_bytes": p["smem_bytes"],
+                "dynamic_smem_bytes": smem(hd) if hd else None,
+            }
     return out
 
 
@@ -552,7 +566,8 @@ def flash_delta(out, do, g_lse=None):
 
 def flash_parity(A, gen) -> dict:
     """Each flash kernel against its plain version on the same inputs:
-    the backward pair takes the plain forward's lse and delta."""
+    the backward pair takes the plain forward's lse and delta. Every
+    bf16 case must take the wgmma forward and dK/dV kernels."""
     out = {}
     for name, sq, skv, causal, with_glse in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -586,6 +601,11 @@ def flash_parity(A, gen) -> dict:
                     FP32_GRAD_REL) for n, (a, b_) in pairs.items()}
                 row["lse_vs_plain"] = compare_fp32(f"{tag} lse", lse_k, lse_p)
             row["fwd_route"] = A._flash_fwd_route(q)
+            row["dkv_route"] = A._flash_bwd_dkv_route(q)
+            if dtype == torch.bfloat16 and {
+                    row["fwd_route"], row["dkv_route"]} != {"sm90"}:
+                raise AssertionError(f"{tag}: bf16 hd 128 must take the "
+                                     f"sm90 routes, not {row}")
             row["rerun_bit_identical"] = all(
                 bool(torch.equal(a, b_)) for a, b_ in zip(
                     again, (o_k, dq_k, dk_k, dv_k)))
@@ -610,8 +630,9 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
     bound, and SDPA as the library yardstick (its forward for the
     forward, its backward for the dQ + dK/dV pair), each with its
     achieved TFLOP/s and the kernel's share of the bound. The forward
-    row also times the WMMA forward (flash_attention.cu) on the same
-    inputs."""
+    and dK/dV rows also time the WMMA kernels (flash_attention.cu) on the
+    same inputs; the dK/dV row adds the pair's time (dQ + dK/dV) beside
+    SDPA's backward."""
     F = torch.nn.functional
     b, s, h, kvh, hd = 2, 2048, 32, 8, 128
     q, k, v, do, _ = flash_inputs(gen, s, s, torch.bfloat16, b, h, kvh, hd)
@@ -647,6 +668,19 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
             l_.data_ptr(), *A._flash_dims(q, k, True), hd ** -0.5 * A.LOG2_E,
             torch.cuda.current_stream().cuda_stream), "wmma forward")
         return o, l_
+
+    def wmma_dkv():
+        """flash_attention.cu's flash_bwd_dkv_kernel, which served bf16
+        at hd 128 before flash_bwd_sm90.cu, on the same inputs."""
+        fn = kernels.function("flash_attention.cu", "tpu_flash_bwd_dkv",
+                              A._FLASH_DKV_ARGTYPES)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        kernels.check(fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *A._flash_dims(q, k, True), hd ** -0.5 * A.LOG2_E, hd ** -0.5,
+            torch.cuda.current_stream().cuda_stream), "wmma dK/dV")
+        return dk, dv
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
     try:  # SDPA's flash backend, where this build takes GQA there
@@ -691,6 +725,12 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
             row["wmma_kernel_ms"] = time_ms(wmma_fwd, flush)
             if row["library_ms"] is not None:
                 row["library_tflops"] = flops / lib / 1e9
+        if name == "flash_bwd_dkv":
+            row["route"] = A._flash_bwd_dkv_route(q)
+            row["wmma_kernel_ms"] = time_ms(wmma_dkv, flush)
+            row["pair_ms"] = rows["flash_bwd_dq"]["ms"] + row["ms"]
+            if row["library_ms"] is not None:
+                row["pair_over_library"] = row["pair_ms"] / lib
         rows[name] = row
     del q, k, v, do, out, lse, delta, qt, kt, vt
     return rows
@@ -728,7 +768,7 @@ def profile_train_step(step, state, tokens) -> tuple:
     flash = {}
     for us, n, key in kernels_:
         for name in ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq",
-                     "flash_bwd_dkv"):
+                     "flash_bwd_dkv_sm90", "flash_bwd_dkv"):
             if f"{name}_kernel" in key:
                 flash[name] = {"device_ms": us / 1e3, "count": n}
     flash_ms = sum(v["device_ms"] for v in flash.values())
@@ -782,9 +822,9 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
     trainer = T.Trainer(cfg)
     state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
     step = trainer.make_train_step()
-    # Every forward on the wgmma route (bf16, hd 128).
+    # Every forward and dK/dV on the wgmma route (bf16, hd 128).
     want = {"flash_fwd": 2 * L, "flash_fwd_sm90": 2 * L, "flash_bwd_dq": L,
-            "flash_bwd_dkv": L}
+            "flash_bwd_dkv": L, "flash_bwd_dkv_sm90": L}
     losses, step_ms, per_step = [], [], []
     kernels.reset_launches()
     for _ in range(steps):
@@ -816,8 +856,10 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
         / (steady / 1e3) / rates[1],
         "peak_memory_gb": peak_gb, "launches": launches,
         "launches_per_step": per_step[-1], "profile": profile,
-        "flash_fwd_device_ms_per_step": profile.get("flash", {}).get(
-            "flash_fwd_sm90", {}).get("device_ms", "not measured"),
+        **{f"{name}_device_ms_per_step": profile.get("flash", {}).get(
+            kernel, {}).get("device_ms", "not measured")
+           for name, kernel in (("flash_fwd", "flash_fwd_sm90"),
+                                ("flash_bwd_dkv", "flash_bwd_dkv_sm90"))},
     }
 
     # One step from the initial weights (after 5 steps on one batch the
@@ -928,7 +970,7 @@ def main() -> int:
                       for fn, p in kernels.ptxas_report(v["log"]).items()}
                 for src, v in report.items()},
          ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"],
-         flash_fwd_sm90=sm90_build(kernels, report))
+         sm90=sm90_build(kernels, report))
 
     # --- 3. parity at 8B widths ------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -1439,8 +1481,8 @@ def main() -> int:
             ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
             ("flash_bwd_dq", "flash_attention.cu", "flash_bwd_dq", 178,
              "dq"),
-            ("flash_bwd_dkv", "flash_attention.cu", "flash_bwd_dkv", 239,
-             "dk"))
+            ("flash_bwd_dkv", "flash_bwd_sm90.cu", "flash_bwd_dkv_sm90",
+             239, "dk"))
     ):
         rows.append({
             "name": name, "route": "cuda", "source": source,

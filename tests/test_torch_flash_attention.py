@@ -154,3 +154,16 @@ def test_forward_kernel_route_follows_dtype_and_head_dim(dtype, hd, route):
     alone: the wgmma kernel for bf16 at hd 64/128, the WMMA kernel
     otherwise (fp32 keeps its bits on CUDA cores)."""
     assert TA._flash_fwd_route(torch.zeros(1, 3, 2, hd, dtype=dtype)) == route
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 128, "wmma"), (torch.float32, 64, "wmma"),
+    (torch.bfloat16, 48, "wmma"), (torch.bfloat16, 16, "wmma"),
+])
+def test_dkv_kernel_route_follows_dtype_and_head_dim(dtype, hd, route):
+    """The dK/dV kernel is chosen the same way: the wgmma kernel
+    (flash_bwd_sm90.cu) for bf16 at hd 64/128, the WMMA kernel
+    otherwise."""
+    q = torch.zeros(1, 3, 2, hd, dtype=dtype)
+    assert TA._flash_bwd_dkv_route(q) == route

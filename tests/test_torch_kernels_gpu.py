@@ -45,8 +45,8 @@ def cuda_device():
 def _assert_bf16_close(got, ref, rtol=2e-2, atol_floor=0.0):
     """Every element within two bf16 ulps of its row's largest |ref|
     plus rtol * |ref| — the bar chip_smoke.py holds the kernels to; a
-    gradient's atol is never below ``atol_floor`` (chip_smoke.py
-    bf16_row_atol says why)."""
+    gradient's atol is never below ``atol_floor``, a number or a tensor
+    like ``ref`` (chip_smoke.py bf16_row_atol says why)."""
     got, ref = got.float(), ref.float()
     top = ref.abs().amax(dim=-1, keepdim=True)
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
@@ -178,7 +178,7 @@ def test_launch_counters_count_launches(cuda_device):
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
         "decode_mlp": 2, "int8mm": 1, "decode_attention": 1,
         "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0,
+        "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
     }
 
 
@@ -525,6 +525,59 @@ def test_flash_fwd_sm90_bf16_matches_plain(cuda_device, hd, sq, skv, causal,
     assert float((lse - lse_p).abs().max()) <= 1e-5 * float(
         lse_p.abs().max())
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+def _dk_term_scale(q, k, v, do, lse, delta, causal):
+    """Per element of dK, the sum of the magnitudes of the fp32 terms it
+    is summed from: scale * sum over rows of p (|dP| + |delta|) |q|. dS =
+    p (dP - delta) cancels to rounding noise where a row sees one key
+    (with sq = skv = 1, dK is 0 but for that noise), so dK's atol is
+    never below 1e-5 of this."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    p, _ = TA._p_and_ds(q, k, v, do, lse, delta, causal)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", TA._group(do, kvh).float(),
+                      v.float())
+    terms = p * (dp.abs() + delta.float().abs().reshape(
+        b, kvh, h // kvh, sq)[..., None])
+    return torch.einsum("bgrqk,bqgrd->bkgd", terms,
+                        TA._group(q, kvh).float().abs()) * hd ** -0.5
+
+
+# The wgmma dK/dV backward (flash_bwd_sm90.cu): the same lengths against
+# 128-key CTAs and 64-row query tiles, with and without an lse
+# cotangent folded into delta.
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,skv", SM90_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("with_glse", [False, True], ids=["delta", "glse"])
+def test_flash_bwd_dkv_sm90_bf16_matches_plain(cuda_device, hd, sq, skv,
+                                               causal, n_rep, b, with_glse):
+    h = 2 * n_rep
+    q, k, v, do = _flash(sq + skv + hd + n_rep, b, sq, skv, h, 2, hd,
+                         torch.bfloat16, cuda_device)
+    assert TA._flash_bwd_dkv_route(q) == "sm90"
+    o_p, lse_p = TA._torch_flash_fwd(q, k, v, causal)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    if with_glse:
+        g = torch.Generator(device="cpu").manual_seed(sq + hd)
+        delta = delta - torch.randn(b, h, sq, generator=g).to(cuda_device)
+    bwd = (q, k, v, do, lse_p, delta.contiguous(), causal)
+    kernels.reset_launches()
+    dk, dv = TA._cuda_flash_bwd_dkv(*bwd)
+    again = TA._cuda_flash_bwd_dkv(*bwd)
+    assert kernels.LAUNCHES["flash_bwd_dkv_sm90"] == 2
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == 2
+    dk_p, dv_p = TA._torch_flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    _assert_bf16_close(dv, dv_p, atol_floor=1e-5 * float(
+        dv_p.float().abs().max()))
+    _assert_bf16_close(dk, dk_p, atol_floor=torch.clamp(
+        1e-5 * _dk_term_scale(*bwd), min=1e-5 * float(
+            dk_p.float().abs().max())))
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
 
 
 def test_flash_fwd_route_follows_dtype_and_head_dim(cuda_device):

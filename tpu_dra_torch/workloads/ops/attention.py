@@ -637,8 +637,9 @@ def decode_attention(
 # kernels index each kv head's tiles for its n_rep query heads. The
 # JAX block sizes (attention_block_q/k) are TPU VMEM tiles: the port
 # takes them for parity and ignores them; the kernels size their own
-# tiles (64 rows and keys in flash_attention.cu, 128 in
-# flash_fwd_sm90.cu), and the plain forward walks keys in 64-key tiles:
+# tiles (64 rows and keys in flash_attention.cu; 128 in
+# flash_fwd_sm90.cu; 128 keys against 64-row query tiles in
+# flash_bwd_sm90.cu), and the plain forward walks keys in 64-key tiles:
 # the online softmax gives the same result for any key tiling, up to
 # fp32 summation order.
 
@@ -822,7 +823,8 @@ def _torch_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
 
 
 def _torch_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
-    """Plain version of flash_bwd_dkv_kernel (JAX
+    """Plain version of the dK/dV kernels, ``csrc/flash_bwd_sm90.cu``
+    and ``csrc/flash_attention.cu`` flash_bwd_dkv_kernel (JAX
     ``_flash_bwd_dkv_kernel``): dV = sum over all n_rep heads' rows of
     P^T.dO with P rounded to dO's dtype, dK = scale * dS^T.Q with dS
     rounded to q's dtype, fp32 sums. Returns (dk, dv) [b, skv, kvh, hd]."""
@@ -892,6 +894,23 @@ def _flash_fwd_route(q) -> str:
     return "wmma"
 
 
+# The dK/dV backward's two kernels: (source, C entry), both taking
+# _FLASH_DKV_ARGTYPES.
+_FLASH_DKV_KERNELS = {
+    "sm90": ("flash_bwd_sm90.cu", "tpu_flash_bwd_dkv_sm90"),
+    "wmma": ("flash_attention.cu", "tpu_flash_bwd_dkv"),
+}
+
+
+def _flash_bwd_dkv_route(q) -> str:
+    """The dK/dV kernel that serves ``q``, chosen like
+    :func:`_flash_fwd_route`: "sm90" (``csrc/flash_bwd_sm90.cu``, wgmma
+    with keys as the M dimension and a cp.async Q/dO ring) for bf16 at
+    hd 64 or 128, else "wmma" (``csrc/flash_attention.cu``
+    flash_bwd_dkv_kernel; fp32 keeps its bits on CUDA cores there)."""
+    return _flash_fwd_route(q)
+
+
 def _cuda_flash_fwd(q, k, v, causal: bool):
     """Launch the forward kernel of :func:`_flash_fwd_route` on q's
     stream: (out, lse [b, h, sq] f32). A failed launch raises; the other
@@ -937,22 +956,26 @@ def _cuda_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
 
 
 def _cuda_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
-    """Launch flash_bwd_dkv_kernel on q's stream: (dk, dv) like k, v."""
+    """Launch the dK/dV kernel of :func:`_flash_bwd_dkv_route` on q's
+    stream: (dk, dv) like k, v. A failed launch raises; the other kernel
+    is never tried."""
     _validate_flash_shapes(q, k, v)
     _check_flash_cuda((q, k, v, do), q.dtype, (lse, delta))
     hd = q.shape[-1]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = kernels.function(
-        "flash_attention.cu", "tpu_flash_bwd_dkv", _FLASH_DKV_ARGTYPES
-    )
+    route = _flash_bwd_dkv_route(q)
+    source, entry = _FLASH_DKV_KERNELS[route]
+    fn = kernels.function(source, entry, _FLASH_DKV_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_flash_dims(q, k, causal), hd ** -0.5 * LOG2_E, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check(err, "flash_bwd_dkv")
+    kernels.check(err, entry)
+    if route == "sm90":
+        kernels.LAUNCHES["flash_bwd_dkv_sm90"] += 1
     kernels.LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 
