@@ -12,16 +12,23 @@ exits non-zero without a result:
    (one process per source, in parallel) into build/torch_kernels/;
    prints each instantiation's registers, shared memory and spills, and
    for the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) the
-   dynamic shared memory a CTA asks for.
+   dynamic shared memory a CTA asks for; every instantiation of the
+   decode bodies (decode_split_kernel, decode_combine_kernel in
+   paged_decode.cu and decode.cu) must spill 0 bytes.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
    d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
-   513 pages and lengths [0,1,15,16,17,255,512,1000], with bf16 pools
-   and with int8 pools; decode MLP with B in {1, 8}; the int8 matmul at
+   513 pages and lengths [0,1,15,16,17,255,512,1000], then lengths on
+   the split boundaries and at the capacity [63,64,65,127,128,129,1023,
+   1024], then one slot of 8192 keys, with bf16 pools and with int8
+   pools; decode MLP with B in {1, 8}; the int8 matmul at
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
    (4096, 1024), (4096, 128256)} with an all-zero weight column; the
    contiguous decode, bf16 and int8 caches, b=8, max_seq 1024, lengths
-   {1, 255, 256, 257, 1000}; the three flash kernels (forward, dQ,
+   {1, 63, 64, 65, 129, 255, 256, 257, 1000}, and b=1 with 8192 keys
+   (the decode kernels split the keys over CTAs: at fp32 each is held
+   to the plain split form with the kernel's split plan, and reruns
+   are bit-identical); the three flash kernels (forward, dQ,
    dK/dV) at b=2, h=32, kvh=8, hd=128 for s=2048 causal and non-causal,
    ragged s=1000 causal and suffix queries sq=512 over skv=2048 (with a
    non-zero lse cotangent folded into delta), each against its plain
@@ -48,7 +55,10 @@ exits non-zero without a result:
    and the dK/dV row the pair's time (dQ + dK/dV) beside SDPA's
    backward. The int8
    contiguous-decode row times SDPA over the live K/V dequantized to
-   bf16 as its yardstick (no PyTorch call takes the int8 cache).
+   bf16 as its yardstick (no PyTorch call takes the int8 cache). The
+   decode rows print their split plan (splits, CTAs), and two long
+   rows time one 8192-key sequence (decode_attention_long,
+   paged_decode_attention_long), each with its SDPA yardstick.
 5. tiny    — fp32 TINY_LLAMA on the card (kernels) and on the CPU
    (plain versions): the bf16-config engine agrees on >= 0.97 of the
    tokens; the w8+kv8 engine and greedy_generate in all four
@@ -60,7 +70,9 @@ exits non-zero without a result:
    (prompts 64-512, 32-64 new tokens) through the paged engine. Every
    request completes with its token count, the allocator ends
    leak-free, and both bf16 kernels launch once per layer per decode
-   step. Then, with all 8 slots decoding the same prompts, one decode
+   step; a profile of steady decode names the decode attention's split
+   and combine kernels' device ms per step. Then, with all 8 slots
+   decoding the same prompts, one decode
    step runs from one state with kernels, plain versions, fp32
    reference versions and each kernel alone (STEP_VARIANTS): with fp32
    weights every pair's logits agree above cosine 0.9999; in bf16 see
@@ -464,7 +476,17 @@ def profile_decode(E, eng, prompts, chunks: int = 2) -> dict:
         return {"device_busy_share": "not measured",
                 "reason": "profiler recorded no device time"}
     kernels_.sort(reverse=True)
+    attention = {
+        name: {
+            "device_ms_per_step": sum(
+                us for us, _, key in kernels_ if name in key) / 1e3 / steps,
+            "launches_per_step": sum(
+                n for _, n, key in kernels_ if name in key) / steps,
+        }
+        for name in DECODE_BODY_KERNELS
+    }
     return {
+        "decode_attention_kernels": attention,
         "decode_steps": steps,
         "window_ms": window_ms,
         "step_ms": window_ms / steps,
@@ -517,6 +539,224 @@ def serve_summary(eng, done, launches, wall) -> dict:
         "ttft_p50_s": ttft[len(ttft) // 2],
         "prefill_buckets": eng.prefill_buckets, "launches": launches,
     }
+
+
+# The decode attention body (csrc/decode_attention.cuh): the kernels of
+# its two launches, and the sources that instantiate it.
+DECODE_BODY_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+DECODE_BODY_SOURCES = ("paged_decode.cu", "decode.cu")
+
+
+def decode_body_build(kernels, report) -> dict:
+    """Registers and spill bytes of every instantiation of the decode
+    body; raises unless each one spills nothing."""
+    out = {}
+    for source in DECODE_BODY_SOURCES:
+        out[source] = {
+            short_name(fn): {"registers": p["registers"],
+                             "spill_store_bytes": p["spill_stores"]}
+            for fn, p in kernels.ptxas_report(report[source]["log"]).items()
+        }
+        names = " ".join(out[source])
+        if not all(k in names for k in DECODE_BODY_KERNELS):
+            raise AssertionError(f"{source}: no ptxas report for the decode "
+                                 f"body: {sorted(out[source])}")
+        spills = {k: v for k, v in out[source].items()
+                  if v["spill_store_bytes"]}
+        if spills:
+            raise AssertionError(f"{source}: instantiations spill: {spills}")
+    return out
+
+
+def plan_of(A, b: int, kvh: int, key_range: int, live: list) -> dict:
+    """The decode kernels' split plan for a call, with the CTAs it
+    launches and those whose range starts below their row's length."""
+    splits, chunk = A.split_plan(
+        b, kvh, key_range, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    return {"splits": splits, "chunk": chunk, "ctas": splits * kvh * b,
+            "live_ctas": kvh * sum(min(-(-n // chunk), splits)
+                                   for n in live),
+            "combine": splits > 1}
+
+
+def body_profile(call, flush, reps: int = 20) -> dict:
+    """Device µs of each decode-body kernel (split, combine) a call
+    takes, from torch.profiler over ``reps`` calls with the L2 flushed
+    before each, and its CUDA launches a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        for name in DECODE_BODY_KERNELS:
+            if name in ev.key and dev_us > 0:
+                out[f"{name}_us"] = dev_us / ev.count
+                out[f"{name}_launches_per_call"] = ev.count / reps
+    return out or {"profile": "not measured: no device time recorded"}
+
+
+def share(ms: float, nbytes: float, rates: tuple) -> dict:
+    """A bytes-bound kernel's achieved rate and share of its bound."""
+    return {"tb_per_s": nbytes / ms / 1e9,
+            "share_of_bound": nbytes / rates[0] * 1e3 / ms}
+
+
+def paged_timing(A, q, k_, v_, sc, tables, lens, lengths, rates,
+                 flush) -> dict:
+    """One paged-decode timing row. Yardstick only (not the same
+    inputs): SDPA over the same live K/V already gathered into
+    contiguous [B, kvh, L, hd] bf16 buffers (dequantized for int8
+    pools); every slot holds the same length L."""
+    b, h, hd = q.shape
+    kvh, page = k_.shape[2], k_.shape[1]
+    live = sum(lengths)
+    pages_read = sum(-(-n // page) for n in lengths)
+    kv_bytes = 1 if sc else 2
+    nbytes = (2 * q.numel() * 2 + live * kvh * hd * kv_bytes * 2
+              + (live * kvh * 4 * 2 if sc else 0)
+              + pages_read * 4 + b * 4)
+    args = (q, k_, v_, tables, lens)
+    call = functools.partial(A.paged_decode_attention, *args, **sc,
+                             impl="cuda")
+    ms = time_ms(call, flush)
+    host_ms = time_ms(call, flush, shield=False)
+    plain_ms = time_ms(lambda: A.paged_decode_attention(
+        *args, **sc, impl="torch"), flush)
+    n = lengths[0]
+    kd = k_.float() * sc["k_scale"][..., None] if sc else k_
+    vd = v_.float() * sc["v_scale"][..., None] if sc else v_
+    kc = A._gather_flat(kd.to(torch.bfloat16), tables)[:, :n].permute(
+        0, 2, 1, 3).contiguous()
+    vc = A._gather_flat(vd.to(torch.bfloat16), tables)[:, :n].permute(
+        0, 2, 1, 3).contiguous()
+    del kd, vd
+    sdpa_ms = yardstick_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, enable_gqa=True), flush)
+    return {
+        "shape": f"B={b} x {n} tokens, page {page}, {tables.shape[1]} "
+                 f"pages a slot, h={h} kvh={kvh} hd={hd}, bf16 q, "
+                 f"{'int8' if sc else 'bf16'} pools",
+        "split_plan": plan_of(A, b, kvh, tables.shape[1] * page, lengths),
+        "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
+        "library_ms": None, "sdpa_contiguous_ms": sdpa_ms,
+        **bound(nbytes, 4 * live * h * hd, rates),
+        **share(ms, nbytes, rates),
+        "kernels": body_profile(call, flush),
+    }
+
+
+def contiguous_timing(A, q, k_, v_, sc, L, rates, flush) -> dict:
+    """One contiguous-decode timing row at length L, with SDPA over the
+    live keys as its library call (bf16), or over them dequantized to
+    bf16 ahead as a yardstick (int8: no PyTorch call takes the cache)."""
+    b, h, hd = q.shape
+    kvh, max_seq = k_.shape[2], k_.shape[1]
+    int8 = bool(sc)
+    nbytes = (2 * q.numel() * 2 + b * L * kvh * hd * (1 if int8 else 2)
+              * 2 + (b * L * kvh * 4 * 2 if int8 else 0))
+    call = functools.partial(
+        A.decode_attention, q, k_, v_, L, **sc, impl="cuda")
+    ms = time_ms(call, flush)
+    host_ms = time_ms(call, flush, shield=False)
+    plain_ms = time_ms(lambda: A.decode_attention(q, k_, v_, L, **sc,
+                                                  impl="torch"), flush)
+    row = {
+        "shape": f"b={b}, length {L} of max_seq {max_seq}, h={h} kvh={kvh} "
+                 f"hd={hd}, bf16 q, {'int8' if int8 else 'bf16'} cache",
+        "split_plan": plan_of(A, b, kvh, L, [L] * b),
+        "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
+        "library_ms": None,
+        **bound(nbytes, 4 * b * L * h * hd, rates),
+        **share(ms, nbytes, rates),
+        "kernels": body_profile(call, flush),
+    }
+    if not int8:
+        # The same function in one PyTorch call: SDPA over the live
+        # keys, views of the cache (no copy).
+        row["library_ms"] = yardstick_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k_[:, :L].transpose(1, 2),
+                v_[:, :L].transpose(1, 2), enable_gqa=True), flush)
+        if isinstance(row["library_ms"], str):
+            row["library_note"] = row.pop("library_ms")
+            row["library_ms"] = None
+    else:
+        kd, vd = ((c[:, :L].float() * sc[n][:, :L, :, None]).to(
+            torch.bfloat16).transpose(1, 2)
+            for c, n in ((k_, "k_scale"), (v_, "v_scale")))
+        row["sdpa_dequantized_ms"] = yardstick_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kd, vd, enable_gqa=True), flush)
+    return row
+
+
+def paged_parity(A, name, q, k_, v_, sc, tables, lens) -> dict:
+    """The paged kernel against the plain walk and the fp32 reference in
+    bf16, against the plain split form with its own plan at fp32 (the
+    same cache under fp32 activations, an int8 cache as it is); reruns
+    bit-identical, dead slots exact zeros."""
+    args = (q, k_, v_, tables, lens)
+    got = A.paged_decode_attention(*args, **sc, impl="cuda")
+    again = A.paged_decode_attention(*args, **sc, impl="cuda")
+    plain = A.paged_decode_attention(*args, **sc, impl="torch")
+    ref = A.paged_decode_attention(*args, **sc, impl="reference")
+    f32 = (q.float(), k_ if sc else k_.float(), v_ if sc else v_.float(),
+           tables, lens)
+    lengths = lens.tolist()
+    plan = plan_of(A, q.shape[0], k_.shape[2], tables.shape[1] * k_.shape[1],
+                   lengths)
+    torch.cuda.synchronize()
+    out = {
+        "split_plan": plan,
+        "vs_plain": compare(f"{name} vs plain", got, plain),
+        "vs_reference": compare(f"{name} vs reference", got, ref),
+        "fp32_vs_split": compare_fp32(
+            name, A.paged_decode_attention(*f32, **sc, impl="cuda"),
+            A.paged_decode_attention(*f32, **sc, impl="torch",
+                                     split_keys=plan["chunk"])),
+        "rerun_bit_identical": bool(torch.equal(got, again)),
+        "dead_slot_exact_zero": all(
+            bool(torch.all(got[i] == 0)) for i, n in enumerate(lengths)
+            if n == 0),
+    }
+    if not (out["rerun_bit_identical"] and out["dead_slot_exact_zero"]):
+        raise AssertionError(f"{name}: reruns must give identical bits and "
+                             f"a length-0 slot exact zeros: {out}")
+    return out
+
+
+def contiguous_parity(A, name, q, k_, v_, sc, length) -> dict:
+    """The contiguous kernel as paged_parity holds the paged one."""
+    got = A.decode_attention(q, k_, v_, length, **sc, impl="cuda")
+    again = A.decode_attention(q, k_, v_, length, **sc, impl="cuda")
+    plain = A.decode_attention(q, k_, v_, length, **sc, impl="torch")
+    ref = A.decode_attention(q, k_, v_, length, **sc, impl="reference")
+    f32 = (q.float(), k_ if sc else k_.float(), v_ if sc else v_.float())
+    plan = plan_of(A, q.shape[0], k_.shape[2], length, [length] * q.shape[0])
+    torch.cuda.synchronize()
+    out = {
+        "split_plan": plan,
+        "vs_plain": compare(f"{name} vs plain", got, plain),
+        "vs_reference": compare(f"{name} vs reference", got, ref),
+        "fp32_vs_split": compare_fp32(
+            name, A.decode_attention(*f32, length, **sc, impl="cuda"),
+            A.decode_attention(*f32, length, **sc, impl="torch",
+                               split_keys=plan["chunk"])),
+        "rerun_bit_identical": bool(torch.equal(got, again)),
+    }
+    if not out["rerun_bit_identical"]:
+        raise AssertionError(f"{name}: reruns must give identical bits")
+    return out
 
 
 # The wgmma kernels' sources and the C entries that give the dynamic
@@ -970,37 +1210,28 @@ def main() -> int:
                       for fn, p in kernels.ptxas_report(v["log"]).items()}
                 for src, v in report.items()},
          ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"],
-         sm90=sm90_build(kernels, report))
+         sm90=sm90_build(kernels, report),
+         decode_body=decode_body_build(kernels, report))
 
     # --- 3. parity at 8B widths ------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
     parity = {}
-    lengths = [0, 1, 15, 16, 17, 255, 512, 1000]
-    q, kp, vp, tables, lens = paged_inputs(gen, lengths)
-    for name, (k_, v_, sc) in (
-        ("paged_decode_attention", (kp, vp, {})),
-        ("paged_decode_attention_int8", int8_pools(Q, kp, vp)),
+    for label, lengths in (
+        ("", [0, 1, 15, 16, 17, 255, 512, 1000]),
+        ("split_boundaries", [63, 64, 65, 127, 128, 129, 1023, 1024]),
+        ("long", [8192]),
     ):
-        args = (q, k_, v_, tables, lens)
-        got = A.paged_decode_attention(*args, **sc, impl="cuda")
-        plain = A.paged_decode_attention(*args, **sc, impl="torch")
-        ref = A.paged_decode_attention(*args, **sc, impl="reference")
-        torch.cuda.synchronize()
-        parity[name] = {
-            "vs_plain": compare(f"{name} vs plain", got, plain),
-            "vs_reference": compare(f"{name} vs reference", got, ref),
-            "dead_slot_exact_zero": bool(torch.all(got[0] == 0)),
-        }
-        if not parity[name]["dead_slot_exact_zero"]:
-            raise AssertionError("a length-0 slot must give exact zeros")
-        if sc:
-            q32 = q.float()
-            parity[name]["fp32_vs_plain"] = compare_fp32(
-                name, A.paged_decode_attention(q32, k_, v_, tables, lens,
-                                               **sc, impl="cuda"),
-                A.paged_decode_attention(q32, k_, v_, tables, lens, **sc,
-                                         impl="torch"))
-    del q, kp, vp, tables, lens, k_, v_, sc
+        q, kp, vp, tables, lens = paged_inputs(gen, lengths)
+        for name, (k_, v_, sc) in (
+            ("paged_decode_attention", (kp, vp, {})),
+            ("paged_decode_attention_int8", int8_pools(Q, kp, vp)),
+        ):
+            res = paged_parity(A, name, q, k_, v_, sc, tables, lens)
+            if label:
+                parity[name][label] = res
+            else:
+                parity[name] = res
+        del q, kp, vp, tables, lens, k_, v_, sc
     for b in (1, 8):
         x, scale, tree = mlp_inputs(gen, b)
         got = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
@@ -1040,83 +1271,39 @@ def main() -> int:
                 raise AssertionError(f"{name}: {parity[name]}")
             del x, w_q, w_s, got, plain, ref, again
     for int8 in (False, True):
-        q, k_, v_, sc = contiguous_inputs(Q, gen, int8=int8)
-        # The same cache under fp32 activations (an int8 cache as it is).
-        fp32_args = (q.float(), k_ if int8 else k_.float(),
-                     v_ if int8 else v_.float())
         name = "decode_attention_int8" if int8 else "decode_attention"
         parity[name] = {}
-        for length in (1, 255, 256, 257, 1000):
-            got = A.decode_attention(q, k_, v_, length, **sc, impl="cuda")
-            plain = A.decode_attention(q, k_, v_, length, **sc, impl="torch")
-            ref = A.decode_attention(q, k_, v_, length, **sc,
-                                     impl="reference")
-            parity[name][f"length_{length}"] = {
-                "vs_plain": compare(f"{name} L={length} vs plain", got,
-                                    plain),
-                "vs_reference": compare(f"{name} L={length} vs reference",
-                                        got, ref),
-                "fp32_vs_plain": compare_fp32(
-                    f"{name} L={length}",
-                    A.decode_attention(*fp32_args, length, **sc,
-                                       impl="cuda"),
-                    A.decode_attention(*fp32_args, length, **sc,
-                                       impl="torch")),
-            }
-        zero = A.decode_attention(q, k_, v_, 0, **sc, impl="cuda")
-        if not bool(torch.all(zero == 0)):
-            raise AssertionError(f"{name}: length 0 must give exact zeros")
-    del q, k_, v_, sc, fp32_args
+        for b, max_seq, lengths in (
+            (8, 1024, (1, 63, 64, 65, 129, 255, 256, 257, 1000)),
+            (1, 8192, (8191, 8192)),
+        ):
+            q, k_, v_, sc = contiguous_inputs(Q, gen, b=b, max_seq=max_seq,
+                                              int8=int8)
+            for length in lengths:
+                key = f"length_{length}" + ("_b1" if b == 1 else "")
+                parity[name][key] = contiguous_parity(
+                    A, f"{name} b={b} L={length}", q, k_, v_, sc, length)
+            zero = A.decode_attention(q, k_, v_, 0, **sc, impl="cuda")
+            if not bool(torch.all(zero == 0)):
+                raise AssertionError(f"{name}: length 0 must give exact "
+                                     f"zeros")
+            del q, k_, v_, sc
     parity.update(flash_parity(A, gen))
     emit("parity", **parity)
 
     # --- 4. kernel times -----------------------------------------------------
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     timing = {}
-    lengths = [512] * 8
-    q, kp, vp, tables, lens = paged_inputs(gen, lengths)
-    b, h, hd = q.shape
-    kvh, page = kp.shape[2], kp.shape[1]
-    live = sum(lengths)
-    pages_read = sum(-(-n // page) for n in lengths)
-    flops = 4 * live * h * hd
-    # Yardstick only (not the same inputs): SDPA over the same live K/V
-    # already gathered into contiguous [B, kvh, L, hd] bf16 buffers
-    # (dequantized for the int8 pools).
-    k8, v8, sc8 = int8_pools(Q, kp, vp)
-    for name, (k_, v_, sc, kv_bytes) in (
-        ("paged_decode_attention", (kp, vp, {}, 2)),
-        ("paged_decode_attention_int8", (k8, v8, sc8, 1)),
-    ):
-        nbytes = (2 * q.numel() * 2 + live * kvh * hd * kv_bytes * 2
-                  + (live * kvh * 4 * 2 if sc else 0)
-                  + pages_read * 4 + b * 4)
-        args = (q, k_, v_, tables, lens)
-        call = functools.partial(
-            A.paged_decode_attention, *args, **sc, impl="cuda")
-        ms = time_ms(call, flush)
-        host_ms = time_ms(call, flush, shield=False)
-        plain_ms = time_ms(lambda: A.paged_decode_attention(
-            *args, **sc, impl="torch"), flush)
-        kd = k_.float() * sc["k_scale"][..., None] if sc else k_
-        vd = v_.float() * sc["v_scale"][..., None] if sc else v_
-        kc = A._gather_flat(kd.to(torch.bfloat16), tables)[:, :512].permute(
-            0, 2, 1, 3).contiguous()
-        vc = A._gather_flat(vd.to(torch.bfloat16), tables)[:, :512].permute(
-            0, 2, 1, 3).contiguous()
-        del kd, vd
-        sdpa_ms = yardstick_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], kc, vc, enable_gqa=True), flush)
-        timing[name] = {
-            "shape": f"B=8 x 512 tokens, page 16, h=32 kvh=8 hd=128, bf16 "
-                     f"q, {'int8' if sc else 'bf16'} pools",
-            "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
-            "library_ms": None, "sdpa_contiguous_ms": sdpa_ms,
-            **bound(nbytes, flops, rates),
-        }
-        del kc, vc
-    del q, kp, vp, tables, lens, k8, v8, sc8
+    for label, lengths in (("", [512] * 8), ("_long", [8192])):
+        q, kp, vp, tables, lens = paged_inputs(gen, lengths)
+        pools = [("paged_decode_attention", kp, vp, {})]
+        if not label:
+            pools.append(("paged_decode_attention_int8",
+                          *int8_pools(Q, kp, vp)))
+        for name, k_, v_, sc in pools:
+            timing[name + label] = paged_timing(
+                A, q, k_, v_, sc, tables, lens, lengths, rates, flush)
+        del q, kp, vp, tables, lens, pools, k_, v_, sc
     x, scale, tree = mlp_inputs(gen, 8)
     d, ffn = x.shape[1], tree["w_gate"]["kernel"].shape[1]
     nbytes = 3 * d * ffn * 2 + d * 2 + 2 * x.numel() * 2
@@ -1156,48 +1343,15 @@ def main() -> int:
             **bound(nbytes, 2 * m * k * n, rates),
         }
         del x, w_q, w_s, w_bf
-    for label, int8 in (("decode_attention", False),
-                        ("decode_attention_int8", True)):
-        q, k_, v_, sc = contiguous_inputs(Q, gen, int8=int8)
-        L = 512
-        b, h, hd = q.shape
-        kvh = k_.shape[2]
-        nbytes = (2 * q.numel() * 2 + b * L * kvh * hd * (1 if int8 else 2)
-                  * 2 + (b * L * kvh * 4 * 2 if int8 else 0))
-        call = functools.partial(
-            A.decode_attention, q, k_, v_, L, **sc, impl="cuda")
-        ms = time_ms(call, flush)
-        host_ms = time_ms(call, flush, shield=False)
-        plain_ms = time_ms(lambda: A.decode_attention(q, k_, v_, L, **sc,
-                                                      impl="torch"), flush)
-        row = {
-            "shape": f"b=8, length {L} of max_seq 1024, h=32 kvh=8 hd=128, "
-                     f"bf16 q, {'int8' if int8 else 'bf16'} cache",
-            "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
-            "library_ms": None,
-            **bound(nbytes, 4 * b * L * h * hd, rates),
-        }
-        if not int8:
-            # The same function in one PyTorch call: SDPA over the live
-            # keys, views of the cache (no copy).
-            row["library_ms"] = yardstick_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q[:, :, None], k_[:, :L].transpose(1, 2),
-                    v_[:, :L].transpose(1, 2), enable_gqa=True), flush)
-            if isinstance(row["library_ms"], str):
-                row["library_note"] = row.pop("library_ms")
-                row["library_ms"] = None
-        else:
-            # Yardstick only: no PyTorch call takes an int8 cache with
-            # scales; SDPA over the live keys dequantized to bf16 ahead.
-            kd, vd = ((c[:, :L].float() * sc[n][:, :L, :, None]).to(
-                torch.bfloat16).transpose(1, 2)
-                for c, n in ((k_, "k_scale"), (v_, "v_scale")))
-            row["sdpa_dequantized_ms"] = yardstick_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q[:, :, None], kd, vd, enable_gqa=True), flush)
-            del kd, vd
-        timing[label] = row
+    for label, int8, b, max_seq, length in (
+        ("decode_attention", False, 8, 1024, 512),
+        ("decode_attention_int8", True, 8, 1024, 512),
+        ("decode_attention_long", False, 1, 8192, 8192),
+    ):
+        q, k_, v_, sc = contiguous_inputs(Q, gen, b=b, max_seq=max_seq,
+                                          int8=int8)
+        timing[label] = contiguous_timing(A, q, k_, v_, sc, length, rates,
+                                          flush)
         del q, k_, v_, sc
     timing.update(flash_timing(A, kernels, gen, rates, flush))
     del flush

@@ -84,6 +84,19 @@ def _paged(seed, b, page, kvh, n_rep, hd, lengths, dtype, device,
     return (args, extra) if int8 else args
 
 
+def _chunk(b, kvh, key_range):
+    """The keys a split of the decode kernels' plan holds."""
+    return TA.split_plan(b, kvh, key_range, TA._sm_count(0))[1]
+
+
+def _paged_split(args, scales=None):
+    """The paged plain split form with the kernel's plan."""
+    q, kp, _, tables = args[:4]
+    chunk = _chunk(q.shape[0], kp.shape[2], tables.shape[1] * kp.shape[1])
+    return TA.paged_decode_attention(*args, **(scales or {}), impl="torch",
+                                     split_keys=chunk)
+
+
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("page", [1, 4, 16, 48])
@@ -94,7 +107,9 @@ def test_paged_decode_kernel_fp32_matches_plain(cuda_device, hd, n_rep, page):
                   torch.float32, cuda_device)
     got = TA.paged_decode_attention(*args, impl="cuda")
     want = TA.paged_decode_attention(*args, impl="torch")
+    split = _paged_split(args)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, split, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert torch.all(got[0] == 0)
 
@@ -264,7 +279,9 @@ def test_paged_decode_int8_kernel_fp32_matches_plain(cuda_device, hd, n_rep,
                           hd, lengths, torch.float32, cuda_device, int8=True)
     got = TA.paged_decode_attention(*args, **scales, impl="cuda")
     want = TA.paged_decode_attention(*args, **scales, impl="torch")
+    split = _paged_split(args, scales)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, split, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert torch.all(got[0] == 0)
 
@@ -350,7 +367,10 @@ def test_decode_kernel_fp32_matches_plain(cuda_device, hd, n_rep, int8):
     for length in (0, 1, 255, 256, 257, 1000, max_seq):
         got = TA.decode_attention(q, k, v, length, **scales, impl="cuda")
         want = TA.decode_attention(q, k, v, length, **scales, impl="torch")
+        split = TA.decode_attention(q, k, v, length, **scales, impl="torch",
+                                    split_keys=_chunk(3, 2, length))
         torch.cuda.synchronize()
+        torch.testing.assert_close(got, split, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
         if length == 0:
             assert torch.all(got == 0)
@@ -368,6 +388,98 @@ def test_decode_kernel_bf16_8b_shape(cuda_device, int8):
         _assert_bf16_close(got.float(), ref.float())
         _assert_bf16_close(plain.float(), ref.float())
         _assert_bf16_close(got.float(), plain.float())
+
+
+# --- the split-key decode body (decode_attention.cuh) ----------------------
+
+LONG = 8192
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_decode_long_row_and_split_boundaries(cuda_device, int8):
+    """One slot of 8192 keys at the 8B heads (the most splits), and
+    lengths on either side of a split boundary: fp32 within 1e-5 of the
+    plain split form, bf16 within the per-row bar of the reference."""
+    chunk = _chunk(1, 8, LONG)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = _paged(7, 1, 16, 8, 4, 128, [LONG], dtype, cuda_device,
+                     int8=int8)
+        args, scales = out if int8 else (out, {})
+        for n in (1, chunk - 1, chunk, chunk + 1, 3 * chunk, LONG - 1, LONG):
+            args[4].fill_(n)
+            got = TA.paged_decode_attention(*args, **scales, impl="cuda")
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, _paged_split(args, scales),
+                                           atol=1e-5, rtol=1e-5)
+            else:
+                _assert_bf16_close(got, TA.paged_decode_attention(
+                    *args, **scales, impl="reference"))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_long_row_and_split_boundaries(cuda_device, int8):
+    """The contiguous kernel's counterpart: b=1, max_seq 8192."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, scales = _contig(8, 1, LONG, 8, 4, 128, dtype, cuda_device,
+                                  int8=int8)
+        chunk = _chunk(1, 8, LONG)
+        for n in (1, 63, 64, 65, chunk + 1, 3 * chunk, LONG - 1, LONG):
+            got = TA.decode_attention(q, k, v, n, **scales, impl="cuda")
+            if dtype == torch.float32:
+                want = TA.decode_attention(q, k, v, n, **scales, impl="torch",
+                                           split_keys=_chunk(1, 8, n))
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            else:
+                _assert_bf16_close(got, TA.decode_attention(
+                    q, k, v, n, **scales, impl="reference"))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_decode_kernels_rerun_bit_identical(cuda_device, int8, paged):
+    """No atomics: the combine merges the splits in a fixed order."""
+    if paged:
+        out = _paged(9, 8, 16, 8, 4, 128, [0, 1, 63, 64, 65, 512, 1000, 1024],
+                     torch.bfloat16, cuda_device, int8=int8)
+        args, scales = out if int8 else (out, {})
+        call = lambda: TA.paged_decode_attention(*args, **scales, impl="cuda")
+    else:
+        q, k, v, scales = _contig(9, 8, 1024, 8, 4, 128, torch.bfloat16,
+                                  cuda_device, int8=int8)
+        call = lambda: TA.decode_attention(q, k, v, 777, **scales,
+                                           impl="cuda")
+    first = call()
+    for _ in range(3):
+        assert torch.equal(call(), first), "reruns must give identical bits"
+
+
+def test_paged_decode_overflow_is_nan_with_many_splits(cuda_device):
+    q, kp, vp, tables, lens = _paged(10, 4, 16, 8, 4, 128, [1000] * 4,
+                                     torch.float32, cuda_device)
+    cap = tables.shape[1] * 16
+    assert TA.split_plan(4, 8, cap, TA._sm_count(0))[0] > 1
+    lens.copy_(torch.tensor([0, cap, cap + 1, 5], dtype=torch.int32))
+    got = TA.paged_decode_attention(q, kp, vp, tables, lens, impl="cuda")
+    assert torch.all(got[0] == 0)
+    assert torch.isfinite(got[1]).all() and torch.isfinite(got[3]).all()
+    assert torch.isnan(got[2]).all()
+
+
+def test_paged_decode_plan_reads_no_device_value(cuda_device):
+    """The engine's decode loop stays free of host syncs: the split plan
+    comes from host-known values only."""
+    out = _paged(11, 8, 16, 8, 4, 128, [5, 17, 100, 512, 1000, 3, 64, 0],
+                 torch.bfloat16, cuda_device, int8=True)
+    args, scales = out
+    TA.paged_decode_attention(*args, **scales, impl="cuda")  # build, load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = TA.paged_decode_attention(*args, **scales, impl="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _assert_bf16_close(got, TA.paged_decode_attention(*args, **scales,
+                                                      impl="reference"))
 
 
 def test_new_kernels_refuse_what_they_do_not_take(cuda_device):

@@ -6,6 +6,11 @@
   against JAX's xla walk, its reference and the Pallas kernel in
   interpret mode, at fp32, hd=64, page 4 — ragged lengths, a length-0
   slot (exact zeros), lengths of k*page and k*page+1 — atol 1e-5;
+- the split-and-merge form of the CUDA kernel (``split_keys``) against
+  the same three JAX paths, atol 1e-5: splits of a page, of a length
+  that is not a multiple of the page and of more than the capacity;
+  lengths 0, 1, a split boundary +-1 and the capacity; slots whose
+  later splits are all empty;
 - paged_multiquery_attention against JAX's xla walk, atol 1e-5;
 - the pool helpers (zero_pages, tail_is_zero, pages_are_zero).
 
@@ -160,6 +165,63 @@ def test_paged_decode_matches_jax(interpret_mode, case, quant):
         for i, n in enumerate(lengths):
             if n == 0:
                 assert np.all(got[i] == 0.0), "a dead slot must be exact 0"
+
+
+SPLIT_SLOTS = 6
+SPLIT_CAPACITY = 6 * PAGE  # 6 pages a slot
+
+
+@pytest.mark.parametrize("split_keys", [PAGE, 6, 32],
+                         ids=["page", "not_page_multiple", "over_capacity"])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_decode_split_form_matches_jax(interpret_mode, split_keys,
+                                             n_rep, quant):
+    """The kernel's split-and-merge, in plain PyTorch, held to the JAX
+    op: a dead slot (exact zeros), one key (every later split empty), a
+    split boundary -1/0/+1 and the full capacity."""
+    lengths = [0, 1] + [min(split_keys + d, SPLIT_CAPACITY)
+                        for d in (-1, 0, 1)] + [SPLIT_CAPACITY]
+    q, kp, vp, ks, vs, tables, lens = _paged_inputs(
+        split_keys + n_rep, b=SPLIT_SLOTS, num_pages=1 + SPLIT_SLOTS * 6,
+        page=PAGE, kvh=2, hd=64, lengths=lengths, n_rep=n_rep, quant=quant,
+    )
+    assert tables.shape[1] * PAGE == SPLIT_CAPACITY
+    jsc = dict(zip(("k_scale", "v_scale"), _jax(ks, vs)))
+    want = {
+        impl: np.asarray(JA.paged_decode_attention(
+            *_jax(q, kp, vp, tables, lens), **jsc, impl=impl))
+        for impl in ("xla", "reference", "pallas")
+    }
+    tsc = dict(zip(("k_scale", "v_scale"), _torch(ks, vs)))
+    got = TA.paged_decode_attention(
+        *_torch(q, kp, vp, tables, lens), **tsc, impl="torch",
+        split_keys=split_keys,
+    ).numpy()
+    for jimpl, ref in want.items():
+        np.testing.assert_allclose(
+            got, ref, atol=ATOL, rtol=0,
+            err_msg=f"split {split_keys} vs {jimpl}",
+        )
+    assert np.all(got[0] == 0.0), "a dead slot must be exact 0"
+
+
+def test_paged_decode_split_keys_only_on_the_plain_path():
+    q, kp, vp, _, _, tables, lens = _paged_inputs(
+        2, b=2, num_pages=9, page=PAGE, kvh=2, hd=64, lengths=[3, 6]
+    )
+    args = _torch(q, kp, vp, tables, lens)
+    for impl in ("cuda", "reference"):
+        with pytest.raises(ValueError, match="split_keys selects"):
+            TA.paged_decode_attention(*args, impl=impl, split_keys=4)
+    for bad in (0, -4, 2.5, True):
+        with pytest.raises(ValueError, match="positive int"):
+            TA.paged_decode_attention(*args, split_keys=bad)
+    with pytest.raises(ValueError, match="exceeds the block table"):
+        TA.paged_decode_attention(
+            *args[:4], torch.tensor([3, 17], dtype=torch.int32),
+            split_keys=4,
+        )
 
 
 def test_paged_decode_auto_is_torch_on_cpu_and_cuda_refuses_cpu():

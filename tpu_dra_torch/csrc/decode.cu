@@ -15,22 +15,26 @@
 //
 // Design: the Pallas grid is (b * kvh,), one program per (batch row,
 // kv head) with its n_rep query rows and a loop over key blocks up to
-// the length. Here one CTA owns the same pair and its 8 warps walk the
-// keys; the kernel body is shared with paged_decode.cu
-// (decode_attention.cuh) and differs only in how key p is addressed:
-// row b * max_seq + p instead of a block-table lookup.
+// the length. One CTA per pair leaves half the H100 idle at b=8 and all
+// but 8 SMs with one row, so here the keys [0, length) are split over
+// CTAs and merged by a combine kernel in a fixed order (flash-decoding;
+// the body is shared with paged_decode.cu in decode_attention.cuh and
+// differs only in how key p is addressed: row b * max_seq + p instead
+// of a block-table lookup). The split plan covers the host length.
 
 #include "decode_attention.cuh"
 
 // q [batch, kvh*n_rep, head_dim]; k/v [batch, max_seq, kvh, head_dim]
 // of q's type (kv_int8 = 0) or int8 (kv_int8 = 1, with k_scale/v_scale
-// [batch, max_seq, kvh] f32); 0 <= length <= max_seq; out like q.
-// Returns the cudaError_t of the launch.
+// [batch, max_seq, kvh] f32); 0 <= length <= max_seq; out like q;
+// partial: fp32 workspace [batch, kvh*n_rep, splits, head_dim + 2]
+// when splits > 1 (splits * chunk must cover length). Returns the
+// cudaError_t of the launches.
 extern "C" int tpu_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, void* out, int dtype, int kv_int8, int batch,
-    int kvh, int n_rep, int head_dim, int max_seq, int length, float scale,
-    void* stream) {
+    const void* v_scale, void* out, void* partial, int dtype, int kv_int8,
+    int batch, int kvh, int n_rep, int head_dim, int max_seq, int length,
+    int splits, int chunk, float scale, void* stream) {
   using namespace tpu_dra::attention;
   if (max_seq < 1 || length < 0 || length > max_seq)
     return cudaErrorInvalidValue;
@@ -38,7 +42,8 @@ extern "C" int tpu_decode_attention(
   const Args<ContiguousKeys> a{q, k, v,
                                static_cast<const float*>(k_scale),
                                static_cast<const float*>(v_scale), keys, out,
-                               batch, kvh, scale,
+                               static_cast<float*>(partial), batch, kvh,
+                               splits, chunk, scale,
                                static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, kv_int8, head_dim, n_rep, a);
+  return dispatch(dtype, kv_int8, head_dim, n_rep, length, a);
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu): cp.async copies into the
 // 128-byte-swizzled tiles that wgmma descriptors read, the descriptors,
-// and the wgmma products with their fences.
+// and the wgmma products with their fences. The decode body
+// (decode_attention.cuh) uses the cp.async copies alone.
 //
 // The tile layout: a tile of ROWS rows x HD bf16 columns is HD/64 column
 // blocks of ROWS rows x 128 bytes, each 128-byte-swizzled (16-byte chunk
@@ -47,6 +48,11 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // cp.async writes through the generic proxy, wgmma reads through the
 // async proxy.

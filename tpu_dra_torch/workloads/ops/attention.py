@@ -15,7 +15,10 @@ the probabilities).
   the twin of the JAX page walk ``_xla_paged_decode_attention``;
   ``"reference"`` the twin of its fp32 oracle. ``"auto"`` launches the
   kernel for CUDA tensors and takes ``"torch"`` for CPU tensors; a CUDA
-  tensor never falls back.
+  tensor never falls back. The kernel splits each slot's keys over CTAs
+  and merges the splits in a fixed order (:func:`split_plan`);
+  ``"torch"`` with ``split_keys`` computes the same split-and-merge in
+  plain PyTorch.
 - :func:`paged_multiquery_attention`: s queries per sequence (batched
   prefill). The JAX package has no Pallas kernel for it, so plain
   PyTorch is its port here; a kernel is later work.
@@ -29,6 +32,7 @@ the probabilities).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -85,13 +89,99 @@ def reference_paged_decode_attention(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
+# The split plan of csrc/decode_attention.cuh (flash-decoding): the keys
+# of each (row, kv head) are cut into `splits` chunks of `chunk`
+# positions, one CTA each, aiming at SPLIT_CTAS_PER_SM CTAs an SM.
+# A chunk is whole tiles of the kernel's ring (kTile keys); SPLIT_MAX is
+# its kMaxSplits (the combine holds one split's values a register).
+SPLIT_TILE = 32
+SPLIT_MIN_KEYS = 64
+SPLIT_MAX = 32
+SPLIT_CTAS_PER_SM = 8
+
+
+def split_plan(batch: int, kvh: int, key_range: int, sm_count: int) -> tuple:
+    """(splits, chunk) for the decode kernels: ``chunk`` positions a
+    split, ``splits * chunk >= key_range``. Host-known values only (the
+    paged kernel's key range is the table's capacity), so planning never
+    waits on the device. One split means the kernel writes the output
+    itself and no combine runs."""
+    key_range = max(int(key_range), 1)
+    want = -(-SPLIT_CTAS_PER_SM * sm_count // max(batch * kvh, 1))
+    want = min(max(want, 1), SPLIT_MAX)
+    chunk = -(-key_range // want)
+    chunk = max(SPLIT_MIN_KEYS, -(-chunk // SPLIT_TILE) * SPLIT_TILE)
+    return -(-key_range // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _split_workspace(q, splits: int):
+    """The kernels' fp32 partials [b, h, splits, hd + 2] (acc, m, l);
+    None for a one-split plan."""
+    if splits == 1:
+        return None
+    b, h, hd = q.shape
+    return torch.empty(
+        (b, h, splits, hd + 2), dtype=torch.float32, device=q.device
+    )
+
+
+def _torch_split_decode(qg, k, v, k_scale, v_scale, lens, chunk: int):
+    """The decode kernels' split-and-merge in plain PyTorch. qg [b, kvh,
+    n_rep, hd]; k/v [b, R, kvh, hd] (qg's dtype, or int8 with [b, R,
+    kvh] scales); keys at positions >= lens[i] are dead. Each split of
+    ``chunk`` positions gets its (m, l, acc), as a CTA of
+    decode_split_kernel does; splits with no live key are skipped, and
+    the rest merge in split order, as decode_combine_kernel does. A row
+    with no live key gives exact zeros. Returns fp32 [b, kvh, n_rep,
+    hd]."""
+    b, R, kvh, hd = k.shape
+    splits = max(-(-R // chunk), 1)
+    pad = splits * chunk - R
+    dev = qg.device
+
+    def cut(x):
+        x = torch.nn.functional.pad(x, (0,) * (2 * (x.dim() - 2)) + (0, pad))
+        return x.reshape((b, splits, chunk) + tuple(x.shape[2:]))
+
+    kf, vf = cut(k).to(qg.dtype).float(), cut(v).to(qg.dtype).float()
+    s = torch.einsum("bhrd,bnkhd->bhrnk", qg.float(), kf) * hd ** -0.5
+    if k_scale is not None:
+        s = s * cut(k_scale).permute(0, 3, 1, 2)[:, :, None]
+    pos = torch.arange(splits * chunk, device=dev).reshape(splits, chunk)
+    live = (pos[None] < lens.to(dev)[:, None, None])[:, None, None]
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)  # [b, kvh, n_rep, splits]
+    p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * cut(v_scale).permute(0, 3, 1, 2)[:, :, None]
+    acc = torch.einsum("bhrnk,bnkhd->bhrnd", p.to(qg.dtype).float(), vf)
+    has = live.any(dim=-1)
+    m = torch.where(has, m, torch.full_like(m, NEG_INF))
+    w = torch.where(
+        has, torch.exp(m - m.amax(dim=-1, keepdim=True)), torch.zeros_like(m)
+    )
+    l_tot = (l * w).sum(dim=-1)
+    acc_tot = (acc * w[..., None]).sum(dim=-2)
+    return acc_tot / torch.clamp(l_tot, min=1e-30)[..., None]
+
+
 def _torch_paged_decode_attention(
-    q, k_pages, v_pages, tables, lengths, k_scale, v_scale
+    q, k_pages, v_pages, tables, lengths, k_scale, v_scale, split_keys=None
 ):
     """Length-aware block-table walk: a loop over page-sized KV blocks
     up to the longest live sequence's last page, each gathered through
     the per-sequence table, carrying fp32 (m, l, acc). Shorter
-    sequences' dead columns (and dead slots entirely) are masked."""
+    sequences' dead columns (and dead slots entirely) are masked.
+
+    With ``split_keys``, the kernel's form instead: the table's capacity
+    cut into splits of that many positions, merged as the combine
+    kernel merges them (:func:`_torch_split_decode`)."""
     b, h, hd = q.shape
     page, kvh = k_pages.shape[1], k_pages.shape[2]
     n_rep = h // kvh
@@ -104,6 +194,15 @@ def _torch_paged_decode_attention(
             f"length {max_len} exceeds the block table "
             f"({tables.shape[1]} pages of {page})"
         )
+    if split_keys is not None:
+        gather = functools.partial(_gather_flat, tables=tables)
+        out = _torch_split_decode(
+            qg, gather(k_pages), gather(v_pages),
+            None if k_scale is None else gather(k_scale),
+            None if v_scale is None else gather(v_scale),
+            lengths, split_keys,
+        )
+        return out.reshape(b, h, hd).to(q.dtype)
     lens = lengths.to(q.device)[:, None, None, None]
     dev = q.device
     m = torch.full((b, kvh, n_rep), NEG_INF, dtype=torch.float32, device=dev)
@@ -143,9 +242,18 @@ def _torch_paged_decode_attention(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p,
 ]
+
+
+def _check_kv_layout(q, k, v) -> None:
+    """The decode kernels read q, K and V in 16-byte vectors and index
+    cache rows (all but the last two dims) with 32-bit ints."""
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("impl='cuda' needs 16-byte aligned q, k and v")
+    if k.numel() // (k.shape[-1] * k.shape[-2]) >= 2 ** 31:
+        raise ValueError("impl='cuda' takes caches of fewer than 2**31 rows")
 
 
 def _check_kv_dtypes(q, k, v, k_scale, v_scale) -> int:
@@ -178,8 +286,9 @@ def _cuda_paged_decode_attention(
     with pools of q's dtype, or int8 pools with f32 scale pools
     [P, page, kvh]; hd in {64, 128}, n_rep in {1, 2, 4, 8}, any page
     size; raises on anything else. Lengths are read on the device only
-    (no host sync): one past max_pages*page turns that slot's output
-    into NaN, and the kernel never reads past the table."""
+    (no host sync; the split plan covers the table's capacity): one past
+    max_pages*page turns that slot's output into NaN, and the kernel
+    never reads past the table."""
     b, h, hd = q.shape
     page, kvh = k_pages.shape[1], k_pages.shape[2]
     n_rep = h // kvh
@@ -206,7 +315,13 @@ def _cuda_paged_decode_attention(
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("impl='cuda' needs contiguous inputs")
+    _check_kv_layout(q, k_pages, v_pages)
+    max_pages = tables.shape[1]
+    splits, chunk = split_plan(
+        b, kvh, max_pages * page, _sm_count(q.device.index)
+    )
     out = torch.empty_like(q)
+    partial = _split_workspace(q, splits)
     fn = kernels.function(
         "paged_decode.cu", "tpu_paged_decode_attention", _PAGED_ARGTYPES
     )
@@ -215,8 +330,9 @@ def _cuda_paged_decode_attention(
         k_scale.data_ptr() if kv_int8 else None,
         v_scale.data_ptr() if kv_int8 else None,
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
         _DTYPE_CODES[q.dtype], kv_int8, b, kvh, n_rep, hd, page,
-        tables.shape[1], hd ** -0.5,
+        max_pages, splits, chunk, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(err, "paged_decode_attention")
@@ -227,7 +343,7 @@ def _cuda_paged_decode_attention(
 
 def paged_decode_attention(
     q, k_pages, v_pages, tables, lengths, k_scale=None, v_scale=None,
-    impl: str = "auto",
+    impl: str = "auto", split_keys=None,
 ):
     """Single-query GQA attention over a paged KV pool.
 
@@ -238,7 +354,10 @@ def paged_decode_attention(
     entry j of row i is the page holding positions [j*page, (j+1)*page)
     of slot i; lengths: [b] int32 — keys at positions >= lengths[i] are
     dead (a 0 length gives exact zeros). impl: "auto" | "cuda" |
-    "torch" | "reference". Returns [b, h, hd] in q's dtype.
+    "torch" | "reference". split_keys: with "torch", the kernel's
+    split-and-merge form over splits of that many positions (the CUDA
+    kernel plans its own splits, :func:`split_plan`). Returns [b, h, hd]
+    in q's dtype.
     """
     b, h, hd = q.shape
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != hd:
@@ -260,6 +379,7 @@ def paged_decode_attention(
         )
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "torch"
+    _check_split_keys(split_keys, impl)
     global _LAST_PAGED_IMPL
     _LAST_PAGED_IMPL = impl
     if impl == "cuda":
@@ -268,13 +388,30 @@ def paged_decode_attention(
         )
     if impl == "torch":
         return _torch_paged_decode_attention(
-            q, k_pages, v_pages, tables, lengths, k_scale, v_scale
+            q, k_pages, v_pages, tables, lengths, k_scale, v_scale,
+            split_keys,
         )
     if impl == "reference":
         return reference_paged_decode_attention(
             q, k_pages, v_pages, tables, lengths, k_scale, v_scale
         )
     raise ValueError(f"unknown paged decode attention impl: {impl!r}")
+
+
+def _check_split_keys(split_keys, impl: str) -> None:
+    if split_keys is None:
+        return
+    if impl != "torch":
+        raise ValueError(
+            f"split_keys selects the plain split form (impl='torch'), "
+            f"got impl={impl!r}"
+        )
+    if isinstance(split_keys, bool) or not isinstance(split_keys, int) or (
+        split_keys < 1
+    ):
+        raise ValueError(
+            f"split_keys must be a positive int, got {split_keys!r}"
+        )
 
 
 def reference_paged_multiquery_attention(
@@ -464,20 +601,35 @@ def reference_decode_attention(
 
 
 def _torch_decode_attention(
-    q, k, v, length: int, k_scale, v_scale, extra_k, extra_v, block_k: int
+    q, k, v, length: int, k_scale, v_scale, extra_k, extra_v, block_k: int,
+    split_keys=None,
 ):
     """Length-aware block loop carrying fp32 (m, l, acc): the twin of
     ``_xla_decode_attention``. Blocks past the last live key are never
     touched; the newest token's K/V, when given out of cache, enter as
-    one exact online update."""
+    one exact online update.
+
+    With ``split_keys``, the kernel's form instead: keys [0, length) cut
+    into splits of that many positions, merged as the combine kernel
+    merges them (:func:`_torch_split_decode`; no extra_k/extra_v)."""
     b, h, hd = q.shape
     kvh = k.shape[2]
     n_rep = h // kvh
     scale = hd ** -0.5
-    cache_len = length - (0 if extra_k is None else 1)
-    num_blocks = -(-cache_len // block_k)
     qg = q.reshape(b, kvh, n_rep, hd)
     dev = q.device
+    if split_keys is not None:
+        if extra_k is not None:
+            raise ValueError("split_keys takes no extra_k/extra_v")
+        cut = (lambda x: None if x is None else x[:, :length])
+        out = _torch_split_decode(
+            qg, cut(k), cut(v), cut(k_scale), cut(v_scale),
+            torch.full((b,), length, dtype=torch.int32, device=dev),
+            split_keys,
+        )
+        return out.reshape(b, h, hd).to(q.dtype)
+    cache_len = length - (0 if extra_k is None else 1)
+    num_blocks = -(-cache_len // block_k)
     m = torch.full((b, kvh, n_rep), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kvh, n_rep), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, n_rep, hd), dtype=torch.float32, device=dev)
@@ -519,7 +671,7 @@ def _torch_decode_attention(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p,
 ]
 
@@ -552,14 +704,18 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale):
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("impl='cuda' needs contiguous inputs")
+    _check_kv_layout(q, k, v)
+    splits, chunk = split_plan(b, kvh, length, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    partial = _split_workspace(q, splits)
     fn = kernels.function("decode.cu", "tpu_decode_attention", _DECODE_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if kv_int8 else None,
         v_scale.data_ptr() if kv_int8 else None,
-        out.data_ptr(), _DTYPE_CODES[q.dtype], kv_int8, b, kvh, n_rep, hd,
-        max_seq, length, hd ** -0.5,
+        out.data_ptr(), None if partial is None else partial.data_ptr(),
+        _DTYPE_CODES[q.dtype], kv_int8, b, kvh, n_rep, hd, max_seq, length,
+        splits, chunk, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(err, "decode_attention")
@@ -569,7 +725,7 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale):
 
 def decode_attention(
     q, k, v, length: int, k_scale=None, v_scale=None, extra_k=None,
-    extra_v=None, impl: str = "auto", block_k: int = 256,
+    extra_v=None, impl: str = "auto", block_k: int = 256, split_keys=None,
 ):
     """Single-query GQA attention over a contiguous KV cache.
 
@@ -581,8 +737,10 @@ def decode_attention(
     (position length - 1; torch/reference only, as the JAX kernel
     refuses them too). impl: "auto" | "cuda" | "torch" | "reference";
     block_k: the plain loop's block (largest divisor of max_seq at most
-    block_k; the kernel takes no block size). Returns [b, h, hd] in
-    q's dtype.
+    block_k; the kernel takes no block size); split_keys: with "torch",
+    the kernel's split-and-merge form over splits of that many positions
+    instead of the block loop (the CUDA kernel plans its own splits,
+    :func:`split_plan`). Returns [b, h, hd] in q's dtype.
     """
     b, h, hd = q.shape
     if k.shape[0] != b or v.shape != k.shape or k.shape[3] != hd:
@@ -606,6 +764,7 @@ def decode_attention(
         )
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "torch"
+    _check_split_keys(split_keys, impl)
     global _LAST_DECODE_IMPL
     _LAST_DECODE_IMPL = impl
     if impl == "cuda":
@@ -619,7 +778,7 @@ def decode_attention(
     if impl == "torch":
         return _torch_decode_attention(
             q, k, v, length, k_scale, v_scale, extra_k, extra_v,
-            _decode_block_k(k.shape[1], block_k),
+            _decode_block_k(k.shape[1], block_k), split_keys,
         )
     if impl == "reference":
         return reference_decode_attention(
