@@ -11,10 +11,11 @@ exits non-zero without a result:
 2. build   — builds every kernel from tpu_dra_torch/csrc with nvcc
    (one process per source, in parallel) into build/torch_kernels/;
    prints each instantiation's registers, shared memory and spills, and
-   for the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) the
-   dynamic shared memory a CTA asks for; every instantiation of the
-   decode bodies (decode_split_kernel, decode_combine_kernel in
-   paged_decode.cu and decode.cu) must spill 0 bytes.
+   for the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,
+   flash_bwd_sm90.cu) the dynamic shared memory a CTA asks for; every
+   instantiation of the wgmma kernels and of the decode bodies
+   (decode_split_kernel, decode_combine_kernel in paged_decode.cu and
+   decode.cu) must spill 0 bytes.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
    d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
@@ -33,9 +34,9 @@ exits non-zero without a result:
    ragged s=1000 causal and suffix queries sq=512 over skv=2048 (with a
    non-zero lse cotangent folded into delta), each against its plain
    version on the same inputs, bf16 and fp32, reruns bit-identical;
-   each case names the forward's and the dK/dV kernel's routes (sm90:
-   the wgmma kernels for bf16 at hd 64/128, which every bf16 case must
-   take; wmma: flash_attention.cu's kernels, fp32 here).
+   each case names the forward's, the dQ and the dK/dV kernel's routes
+   (sm90: the wgmma kernels for bf16 at hd 64/128, which every bf16 case
+   must take; wmma: flash_attention.cu's kernels, fp32 here).
    Tolerance: rtol 2e-2 plus, per row (one head of one slot or token,
    one token of the MLP, one output row of the matmul), an atol of two
    bf16 ulps of that row's largest |reference| value. At fp32 each new
@@ -50,10 +51,9 @@ exits non-zero without a result:
    ``ms_with_host``, timed with the wrapper's host time included. The
    flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
    its backward (the dQ + dK/dV pair) as the library yardsticks, each
-   with achieved TFLOP/s and share of the bound; the forward and dK/dV
-   rows also time the WMMA kernels they replaced, on the same inputs,
-   and the dK/dV row the pair's time (dQ + dK/dV) beside SDPA's
-   backward. The int8
+   with achieved TFLOP/s and share of the bound; each flash row also
+   times the WMMA kernel it replaced, on the same inputs, and the dK/dV
+   row the pair's time (dQ + dK/dV) beside SDPA's backward. The int8
    contiguous-decode row times SDPA over the live K/V dequantized to
    bf16 as its yardstick (no PyTorch call takes the int8 cache). The
    decode rows print their split plan (splits, CTAs), and two long
@@ -94,9 +94,9 @@ exits non-zero without a result:
    remat "nothing", TrainConfig() defaults, b=2, s=2048, 5 steps on one
    seeded batch: the loss is finite and falls, and every step launches
    exactly 2L flash forwards (the remat recompute is the second), L dQ
-   and L dK/dV, the forwards and dK/dV all on the wgmma route; step ms,
-   trained tok/s, MFU, peak memory and the flash forward's and dK/dV's
-   device ms in a profiled step.
+   and L dK/dV, all on the wgmma route; step ms, trained tok/s, MFU,
+   peak memory and the flash forward's, dQ's and dK/dV's device ms in a
+   profiled step.
    Then one step's loss and gradients from the initial weights, kernels
    against the plain versions (attention_impl="torch"): at fp32 with 2
    layers the loss within 1e-5 relative and every gradient leaf above
@@ -763,6 +763,7 @@ def contiguous_parity(A, name, q, k_, v_, sc, length) -> dict:
 # shared memory a CTA of each head dim asks for.
 SM90_SOURCES = {
     "flash_fwd_sm90.cu": "tpu_flash_fwd_sm90_smem",
+    "flash_bwd_dq_sm90.cu": "tpu_flash_bwd_dq_sm90_smem",
     "flash_bwd_sm90.cu": "tpu_flash_bwd_dkv_sm90_smem",
 }
 
@@ -770,7 +771,7 @@ SM90_SOURCES = {
 def sm90_build(kernels, report) -> dict:
     """The wgmma kernels' instantiations, by source: registers and spill
     bytes from ptxas, and the dynamic shared memory a CTA asks for at
-    launch."""
+    launch; raises unless each one spills nothing."""
     out = {}
     for source, entry in SM90_SOURCES.items():
         smem = kernels.function(source, entry, [ctypes.c_int])
@@ -784,6 +785,10 @@ def sm90_build(kernels, report) -> dict:
                 "static_smem_bytes": p["smem_bytes"],
                 "dynamic_smem_bytes": smem(hd) if hd else None,
             }
+        spills = {k: v for k, v in out[source].items()
+                  if v["spill_store_bytes"]}
+        if spills:
+            raise AssertionError(f"{source}: instantiations spill: {spills}")
     return out
 
 
@@ -807,7 +812,7 @@ def flash_delta(out, do, g_lse=None):
 def flash_parity(A, gen) -> dict:
     """Each flash kernel against its plain version on the same inputs:
     the backward pair takes the plain forward's lse and delta. Every
-    bf16 case must take the wgmma forward and dK/dV kernels."""
+    bf16 case must take the wgmma forward, dQ and dK/dV kernels."""
     out = {}
     for name, sq, skv, causal, with_glse in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -841,9 +846,11 @@ def flash_parity(A, gen) -> dict:
                     FP32_GRAD_REL) for n, (a, b_) in pairs.items()}
                 row["lse_vs_plain"] = compare_fp32(f"{tag} lse", lse_k, lse_p)
             row["fwd_route"] = A._flash_fwd_route(q)
+            row["dq_route"] = A._flash_bwd_dq_route(q)
             row["dkv_route"] = A._flash_bwd_dkv_route(q)
             if dtype == torch.bfloat16 and {
-                    row["fwd_route"], row["dkv_route"]} != {"sm90"}:
+                    row["fwd_route"], row["dq_route"],
+                    row["dkv_route"]} != {"sm90"}:
                 raise AssertionError(f"{tag}: bf16 hd 128 must take the "
                                      f"sm90 routes, not {row}")
             row["rerun_bit_identical"] = all(
@@ -869,10 +876,10 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
     s=2048, h=32, kvh=8, hd=128, causal, bf16): kernel, plain version,
     bound, and SDPA as the library yardstick (its forward for the
     forward, its backward for the dQ + dK/dV pair), each with its
-    achieved TFLOP/s and the kernel's share of the bound. The forward
-    and dK/dV rows also time the WMMA kernels (flash_attention.cu) on the
-    same inputs; the dK/dV row adds the pair's time (dQ + dK/dV) beside
-    SDPA's backward."""
+    achieved TFLOP/s and the kernel's share of the bound. Each row also
+    times the WMMA kernel (flash_attention.cu) that served bf16 before
+    the wgmma one, on the same inputs; the dK/dV row adds the pair's
+    time (dQ + dK/dV) beside SDPA's backward."""
     F = torch.nn.functional
     b, s, h, kvh, hd = 2, 2048, 32, 8, 128
     q, k, v, do, _ = flash_inputs(gen, s, s, torch.bfloat16, b, h, kvh, hd)
@@ -896,31 +903,29 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
             o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), flush)
         return fwd, bwd
 
-    def wmma_fwd():
-        """flash_attention.cu's flash_fwd_kernel, which served bf16 at
-        hd 128 before flash_fwd_sm90.cu, on the same inputs: the earlier
-        kernel's time, measured beside the new one's."""
-        fn = kernels.function("flash_attention.cu", "tpu_flash_fwd",
-                              A._FLASH_FWD_ARGTYPES)
-        o, l_ = torch.empty_like(q), torch.empty(b, h, s, device="cuda")
-        kernels.check(fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            l_.data_ptr(), *A._flash_dims(q, k, True), hd ** -0.5 * A.LOG2_E,
-            torch.cuda.current_stream().cuda_stream), "wmma forward")
-        return o, l_
+    # name: the WMMA kernel's (table, argtypes, inputs, outputs' likes,
+    # scales).
+    wmma_args = {
+        "flash_fwd": (A._FLASH_FWD_KERNELS, A._FLASH_FWD_ARGTYPES, (q, k, v),
+                      (q, lse), (hd ** -0.5 * A.LOG2_E,)),
+        "flash_bwd_dq": (A._FLASH_DQ_KERNELS, A._FLASH_DQ_ARGTYPES, bwd[:6],
+                         (q,), (hd ** -0.5 * A.LOG2_E, hd ** -0.5)),
+        "flash_bwd_dkv": (A._FLASH_DKV_KERNELS, A._FLASH_DKV_ARGTYPES,
+                          bwd[:6], (k, v), (hd ** -0.5 * A.LOG2_E, hd ** -0.5)),
+    }
 
-    def wmma_dkv():
-        """flash_attention.cu's flash_bwd_dkv_kernel, which served bf16
-        at hd 128 before flash_bwd_sm90.cu, on the same inputs."""
-        fn = kernels.function("flash_attention.cu", "tpu_flash_bwd_dkv",
-                              A._FLASH_DKV_ARGTYPES)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        kernels.check(fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *A._flash_dims(q, k, True), hd ** -0.5 * A.LOG2_E, hd ** -0.5,
-            torch.cuda.current_stream().cuda_stream), "wmma dK/dV")
-        return dk, dv
+    def wmma(name):
+        """flash_attention.cu's kernel for row ``name``, which served bf16
+        at hd 128 before the wgmma kernels, on the same inputs: the
+        earlier kernel's time, measured beside the new one's."""
+        table, argtypes, ins, like, scales = wmma_args[name]
+        source, entry = table["wmma"]
+        outs = [torch.empty_like(t) for t in like]
+        kernels.check(kernels.function(source, entry, argtypes)(
+            *(t.data_ptr() for t in (*ins, *outs)),
+            *A._flash_dims(q, k, True), *scales,
+            torch.cuda.current_stream().cuda_stream), entry)
+        return outs
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
     try:  # SDPA's flash backend, where this build takes GQA there
@@ -935,22 +940,23 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
             lib_fwd = lib_bwd = f"not measured: {e2}"[:200]
     shape = "b=2, s=2048, h=32, kvh=8, hd=128, causal, bf16"
     rows = {}
-    for name, call, plain, flops, nbytes, lib in (
+    for name, call, plain, route, flops, nbytes, lib in (
         ("flash_fwd", lambda: A._cuda_flash_fwd(q, k, v, True),
-         lambda: A._torch_flash_fwd(q, k, v, True), 4 * pairs * hd,
-         2 * n_q + 2 * n_kv + rows_f32, lib_fwd),
+         lambda: A._torch_flash_fwd(q, k, v, True), A._flash_fwd_route,
+         4 * pairs * hd, 2 * n_q + 2 * n_kv + rows_f32, lib_fwd),
         ("flash_bwd_dq", lambda: A._cuda_flash_bwd_dq(*bwd),
-         lambda: A._torch_flash_bwd_dq(*bwd), 6 * pairs * hd,
-         3 * n_q + 2 * n_kv + 2 * rows_f32, lib_bwd),
+         lambda: A._torch_flash_bwd_dq(*bwd), A._flash_bwd_dq_route,
+         6 * pairs * hd, 3 * n_q + 2 * n_kv + 2 * rows_f32, lib_bwd),
         ("flash_bwd_dkv", lambda: A._cuda_flash_bwd_dkv(*bwd),
-         lambda: A._torch_flash_bwd_dkv(*bwd), 8 * pairs * hd,
-         2 * n_q + 4 * n_kv + 2 * rows_f32, lib_bwd),
+         lambda: A._torch_flash_bwd_dkv(*bwd), A._flash_bwd_dkv_route,
+         8 * pairs * hd, 2 * n_q + 4 * n_kv + 2 * rows_f32, lib_bwd),
     ):
         row = {
             "shape": shape, "ms": time_ms(call, flush),
             "ms_with_host": time_ms(call, flush, shield=False),
             "plain_ms": time_ms(plain, flush),
-            **bound(nbytes, flops, rates),
+            **bound(nbytes, flops, rates), "route": route(q),
+            "wmma_kernel_ms": time_ms(functools.partial(wmma, name), flush),
         }
         row["tflops"] = flops / row["ms"] / 1e9
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -960,14 +966,9 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
             row.update(library_ms=lib, library_backend=lib_backend)
         if name != "flash_fwd":
             row["library_covers"] = "SDPA backward: the dQ + dK/dV pair"
-        else:
-            row["route"] = A._flash_fwd_route(q)
-            row["wmma_kernel_ms"] = time_ms(wmma_fwd, flush)
-            if row["library_ms"] is not None:
-                row["library_tflops"] = flops / lib / 1e9
+        elif row["library_ms"] is not None:
+            row["library_tflops"] = flops / lib / 1e9
         if name == "flash_bwd_dkv":
-            row["route"] = A._flash_bwd_dkv_route(q)
-            row["wmma_kernel_ms"] = time_ms(wmma_dkv, flush)
             row["pair_ms"] = rows["flash_bwd_dq"]["ms"] + row["ms"]
             if row["library_ms"] is not None:
                 row["pair_over_library"] = row["pair_ms"] / lib
@@ -1007,8 +1008,8 @@ def profile_train_step(step, state, tokens) -> tuple:
     device_ms = sum(k[0] for k in kernels_) / 1e3
     flash = {}
     for us, n, key in kernels_:
-        for name in ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq",
-                     "flash_bwd_dkv_sm90", "flash_bwd_dkv"):
+        for name in ("flash_fwd_sm90", "flash_fwd", "flash_bwd_dq_sm90",
+                     "flash_bwd_dq", "flash_bwd_dkv_sm90", "flash_bwd_dkv"):
             if f"{name}_kernel" in key:
                 flash[name] = {"device_ms": us / 1e3, "count": n}
     flash_ms = sum(v["device_ms"] for v in flash.values())
@@ -1062,9 +1063,10 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
     trainer = T.Trainer(cfg)
     state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
     step = trainer.make_train_step()
-    # Every forward and dK/dV on the wgmma route (bf16, hd 128).
+    # Every forward, dQ and dK/dV on the wgmma route (bf16, hd 128).
     want = {"flash_fwd": 2 * L, "flash_fwd_sm90": 2 * L, "flash_bwd_dq": L,
-            "flash_bwd_dkv": L, "flash_bwd_dkv_sm90": L}
+            "flash_bwd_dq_sm90": L, "flash_bwd_dkv": L,
+            "flash_bwd_dkv_sm90": L}
     losses, step_ms, per_step = [], [], []
     kernels.reset_launches()
     for _ in range(steps):
@@ -1099,6 +1101,7 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
         **{f"{name}_device_ms_per_step": profile.get("flash", {}).get(
             kernel, {}).get("device_ms", "not measured")
            for name, kernel in (("flash_fwd", "flash_fwd_sm90"),
+                                ("flash_bwd_dq", "flash_bwd_dq_sm90"),
                                 ("flash_bwd_dkv", "flash_bwd_dkv_sm90"))},
     }
 
@@ -1633,8 +1636,8 @@ def main() -> int:
          timing[name], train["launches"][counter])
         for name, source, counter, line, out in (
             ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
-            ("flash_bwd_dq", "flash_attention.cu", "flash_bwd_dq", 178,
-             "dq"),
+            ("flash_bwd_dq", "flash_bwd_dq_sm90.cu", "flash_bwd_dq_sm90",
+             178, "dq"),
             ("flash_bwd_dkv", "flash_bwd_sm90.cu", "flash_bwd_dkv_sm90",
              239, "dk"))
     ):

@@ -167,3 +167,16 @@ def test_dkv_kernel_route_follows_dtype_and_head_dim(dtype, hd, route):
     otherwise."""
     q = torch.zeros(1, 3, 2, hd, dtype=dtype)
     assert TA._flash_bwd_dkv_route(q) == route
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 128, "wmma"), (torch.float32, 64, "wmma"),
+    (torch.bfloat16, 48, "wmma"), (torch.bfloat16, 16, "wmma"),
+])
+def test_dq_kernel_route_follows_dtype_and_head_dim(dtype, hd, route):
+    """The dQ kernel is chosen the same way: the wgmma kernel
+    (flash_bwd_dq_sm90.cu) for bf16 at hd 64/128, the WMMA kernel
+    otherwise."""
+    q = torch.zeros(1, 3, 2, hd, dtype=dtype)
+    assert TA._flash_bwd_dq_route(q) == route

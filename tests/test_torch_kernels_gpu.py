@@ -193,7 +193,7 @@ def test_launch_counters_count_launches(cuda_device):
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
         "decode_mlp": 2, "int8mm": 1, "decode_attention": 1,
         "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
+        "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
     }
 
 
@@ -692,16 +692,74 @@ def test_flash_bwd_dkv_sm90_bf16_matches_plain(cuda_device, hd, sq, skv,
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
 
 
+def _dq_term_scale(q, k, v, do, lse, delta, causal):
+    """Per element of dQ, the sum of the magnitudes of the fp32 terms it
+    is summed from: scale * sum over keys of p (|dO|.|V| + |delta|) |k|,
+    dP = dO.V counted by its own terms' magnitudes (its rounding error
+    scales with those, while dP itself can cancel to near 0). dS = p (dP
+    - delta) cancels to rounding noise where a row sees one key (with
+    sq = skv = 1, dQ is 0 but for that noise), so dQ's atol is never
+    below 1e-5 of this."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    p, _ = TA._p_and_ds(q, k, v, do, lse, delta, causal)
+    dp_mag = torch.einsum("bqgrd,bkgd->bgrqk",
+                          TA._group(do, kvh).float().abs(), v.float().abs())
+    terms = p * (dp_mag + delta.float().abs().reshape(
+        b, kvh, h // kvh, sq)[..., None])
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", terms, k.float().abs())
+    return dq.reshape(b, sq, h, hd) * hd ** -0.5
+
+
+# The wgmma dQ backward (flash_bwd_dq_sm90.cu): the same lengths against
+# 128-row CTAs and 64-key tiles, with and without an lse cotangent
+# folded into delta.
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,skv", SM90_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("with_glse", [False, True], ids=["delta", "glse"])
+def test_flash_bwd_dq_sm90_bf16_matches_plain(cuda_device, hd, sq, skv,
+                                              causal, n_rep, b, with_glse):
+    h = 2 * n_rep
+    q, k, v, do = _flash(sq + skv + hd + n_rep, b, sq, skv, h, 2, hd,
+                         torch.bfloat16, cuda_device)
+    assert TA._flash_bwd_dq_route(q) == "sm90"
+    o_p, lse_p = TA._torch_flash_fwd(q, k, v, causal)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    if with_glse:
+        g = torch.Generator(device="cpu").manual_seed(sq + hd)
+        delta = delta - torch.randn(b, h, sq, generator=g).to(cuda_device)
+    bwd = (q, k, v, do, lse_p, delta.contiguous(), causal)
+    kernels.reset_launches()
+    dq = TA._cuda_flash_bwd_dq(*bwd)
+    again = TA._cuda_flash_bwd_dq(*bwd)
+    assert kernels.LAUNCHES["flash_bwd_dq_sm90"] == 2
+    assert kernels.LAUNCHES["flash_bwd_dq"] == 2
+    dq_p = TA._torch_flash_bwd_dq(*bwd)
+    torch.cuda.synchronize()
+    _assert_bf16_close(dq, dq_p, atol_floor=torch.clamp(
+        1e-5 * _dq_term_scale(*bwd), min=1e-5 * float(
+            dq_p.float().abs().max())))
+    assert torch.equal(dq, again)
+
+
 def test_flash_fwd_route_follows_dtype_and_head_dim(cuda_device):
-    """bf16 at hd 128 launches the wgmma kernel; fp32 and hd 48 the WMMA
-    flash_fwd_kernel. "flash_fwd" counts both."""
+    """bf16 at hd 128 launches the wgmma forward and dQ kernels; fp32 and
+    hd 48 the WMMA flash_fwd_kernel and flash_bwd_dq_kernel. "flash_fwd"
+    and "flash_bwd_dq" count both."""
     for dtype, hd, sm90 in ((torch.bfloat16, 128, 1), (torch.float32, 128, 0),
                             (torch.bfloat16, 48, 0)):
-        q, k, v, _ = _flash(hd, 1, 70, 70, 4, 2, hd, dtype, cuda_device)
+        q, k, v, do = _flash(hd, 1, 70, 70, 4, 2, hd, dtype, cuda_device)
+        q.requires_grad_()
         kernels.reset_launches()
-        TA.attention(q, k, v, causal=True)
+        out = TA.attention(q, k, v, causal=True)
         assert kernels.LAUNCHES["flash_fwd"] == 1
         assert kernels.LAUNCHES["flash_fwd_sm90"] == sm90, (dtype, hd)
+        out.backward(do)
+        assert kernels.LAUNCHES["flash_bwd_dq"] == 1
+        assert kernels.LAUNCHES["flash_bwd_dq_sm90"] == sm90, (dtype, hd)
 
 
 def test_flash_autograd_function_on_the_card_matches_the_cpu(cuda_device):

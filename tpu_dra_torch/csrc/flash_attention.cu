@@ -25,10 +25,11 @@
 // inputs take a CUDA-core FMA path instead, so that fp32 keeps its bits
 // (TF32 would not).
 //
-// The forward and dK/dV for bf16 at hd 64 and 128 (the training shapes)
-// live in flash_fwd_sm90.cu and flash_bwd_sm90.cu (wgmma products, a
-// cp.async ring, the elementwise passes in registers); flash_fwd_kernel
-// and flash_bwd_dkv_kernel here serve fp32 and the other head dims.
+// The forward, dQ and dK/dV for bf16 at hd 64 and 128 (the training
+// shapes) live in flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu and
+// flash_bwd_sm90.cu (wgmma products, a cp.async ring, the elementwise
+// passes in registers); the three kernels here serve fp32 and the other
+// head dims.
 //
 // Design. The Pallas kernels pin one KV head's whole K/V plane in VMEM
 // and walk it in blocks. Here a CTA of 4 warps owns one 64-row tile:

@@ -31,6 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = (
     "paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu",
     "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+    "flash_bwd_dq_sm90.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,8 +43,9 @@ NVCC_FLAGS = (
 # branch, so a run shows which one the path took. "flash_fwd" counts
 # every flash forward launch, whichever kernel served it;
 # "flash_fwd_sm90" counts those of the wgmma kernel (flash_fwd_sm90.cu),
-# so a run shows how many took that route; "flash_bwd_dkv" and
-# "flash_bwd_dkv_sm90" (flash_bwd_sm90.cu) likewise for dK/dV.
+# so a run shows how many took that route; "flash_bwd_dq" and
+# "flash_bwd_dq_sm90" (flash_bwd_dq_sm90.cu) likewise for dQ, and
+# "flash_bwd_dkv" and "flash_bwd_dkv_sm90" (flash_bwd_sm90.cu) for dK/dV.
 LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_int8": 0,
@@ -53,6 +55,7 @@ LAUNCHES = {
     "flash_fwd": 0,
     "flash_fwd_sm90": 0,
     "flash_bwd_dq": 0,
+    "flash_bwd_dq_sm90": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dkv_sm90": 0,
 }

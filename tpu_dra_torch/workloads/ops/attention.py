@@ -798,7 +798,8 @@ def decode_attention(
 # takes them for parity and ignores them; the kernels size their own
 # tiles (64 rows and keys in flash_attention.cu; 128 in
 # flash_fwd_sm90.cu; 128 keys against 64-row query tiles in
-# flash_bwd_sm90.cu), and the plain forward walks keys in 64-key tiles:
+# flash_bwd_sm90.cu; 128 rows against 64-key tiles in
+# flash_bwd_dq_sm90.cu), and the plain forward walks keys in 64-key tiles:
 # the online softmax gives the same result for any key tiling, up to
 # fp32 summation order.
 
@@ -969,10 +970,11 @@ def _p_and_ds(q, k, v, do, lse, delta, causal: bool):
 
 
 def _torch_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
-    """Plain version of flash_bwd_dq_kernel (JAX ``_flash_bwd_dq_kernel``):
-    P rebuilt from lse, dS rounded to q's dtype for dS.K, scale applied
-    to the fp32 sum. do is already in q's dtype; lse and delta are
-    [b, h, sq] f32. Returns dq [b, sq, h, hd]."""
+    """Plain version of the dQ kernels, ``csrc/flash_bwd_dq_sm90.cu``
+    and ``csrc/flash_attention.cu`` flash_bwd_dq_kernel (JAX
+    ``_flash_bwd_dq_kernel``): P rebuilt from lse, dS rounded to q's
+    dtype for dS.K, scale applied to the fp32 sum. do is already in q's
+    dtype; lse and delta are [b, h, sq] f32. Returns dq [b, sq, h, hd]."""
     b, sq, h, hd = q.shape
     _, ds = _p_and_ds(q, k, v, do, lse, delta, causal)
     dq = torch.einsum(
@@ -1053,6 +1055,23 @@ def _flash_fwd_route(q) -> str:
     return "wmma"
 
 
+# The dQ backward's two kernels: (source, C entry), both taking
+# _FLASH_DQ_ARGTYPES.
+_FLASH_DQ_KERNELS = {
+    "sm90": ("flash_bwd_dq_sm90.cu", "tpu_flash_bwd_dq_sm90"),
+    "wmma": ("flash_attention.cu", "tpu_flash_bwd_dq"),
+}
+
+
+def _flash_bwd_dq_route(q) -> str:
+    """The dQ kernel that serves ``q``, chosen like
+    :func:`_flash_fwd_route`: "sm90" (``csrc/flash_bwd_dq_sm90.cu``,
+    wgmma with queries as the M dimension and a cp.async K/V ring) for
+    bf16 at hd 64 or 128, else "wmma" (``csrc/flash_attention.cu``
+    flash_bwd_dq_kernel; fp32 keeps its bits on CUDA cores there)."""
+    return _flash_fwd_route(q)
+
+
 # The dK/dV backward's two kernels: (source, C entry), both taking
 # _FLASH_DKV_ARGTYPES.
 _FLASH_DKV_KERNELS = {
@@ -1095,21 +1114,25 @@ def _cuda_flash_fwd(q, k, v, causal: bool):
 
 
 def _cuda_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
-    """Launch flash_bwd_dq_kernel on q's stream: dq like q."""
+    """Launch the dQ kernel of :func:`_flash_bwd_dq_route` on q's
+    stream: dq like q. A failed launch raises; the other kernel is never
+    tried."""
     _validate_flash_shapes(q, k, v)
     _check_flash_cuda((q, k, v, do), q.dtype, (lse, delta))
     hd = q.shape[-1]
     dq = torch.empty_like(q)
-    fn = kernels.function(
-        "flash_attention.cu", "tpu_flash_bwd_dq", _FLASH_DQ_ARGTYPES
-    )
+    route = _flash_bwd_dq_route(q)
+    source, entry = _FLASH_DQ_KERNELS[route]
+    fn = kernels.function(source, entry, _FLASH_DQ_ARGTYPES)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *_flash_dims(q, k, causal), hd ** -0.5 * LOG2_E, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    kernels.check(err, "flash_bwd_dq")
+    kernels.check(err, entry)
+    if route == "sm90":
+        kernels.LAUNCHES["flash_bwd_dq_sm90"] += 1
     kernels.LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
