@@ -12,8 +12,9 @@ exits non-zero without a result:
    (one process per source, in parallel) into build/torch_kernels/;
    prints each instantiation's registers, shared memory and spills, and
    for the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,
-   flash_bwd_sm90.cu) the dynamic shared memory a CTA asks for; every
-   instantiation of the wgmma kernels and of the decode bodies
+   flash_bwd_sm90.cu, int8mm_sm90.cu) the dynamic shared memory a CTA
+   asks for; every instantiation of the wgmma kernels and of the decode
+   bodies
    (decode_split_kernel, decode_combine_kernel in paged_decode.cu and
    decode.cu) must spill 0 bytes.
 3. parity  — each kernel against its plain PyTorch version and the fp32
@@ -24,7 +25,14 @@ exits non-zero without a result:
    1024], then one slot of 8192 keys, with bf16 pools and with int8
    pools; decode MLP with B in {1, 8}; the int8 matmul at
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
-   (4096, 1024), (4096, 128256)} with an all-zero weight column; the
+   (4096, 1024), (4096, 128256)}, at M in {17, 129, 2048} for
+   4096 x 14336, wq/wo's 4096 x 4096 at M in {1024, 2048} and the
+   lm_head at M = 2048 (INT8MM_PARITY), with an all-zero weight column,
+   each row naming its route (gemv for M <= 16, which every such row
+   must take; sm90, the wgmma tile, which every bf16 row with M > 16
+   must take); each row with M > 16 also holds int8mm.cu's WMMA tile,
+   which serves the bf16 shapes the wgmma tile does not take, on the
+   same inputs (zero column, reruns bit-identical); the
    contiguous decode, bf16 and int8 caches, b=8, max_seq 1024, lengths
    {1, 63, 64, 65, 129, 255, 256, 257, 1000}, and b=1 with 8192 keys
    (the decode kernels split the keys over CTAs: at fp32 each is held
@@ -56,6 +64,14 @@ exits non-zero without a result:
    row the pair's time (dQ + dK/dV) beside SDPA's backward. The int8
    contiguous-decode row times SDPA over the live K/V dequantized to
    bf16 as its yardstick (no PyTorch call takes the int8 cache). The
+   int8 matmul's GEMV at every decode shape (M = 8), and its wgmma tile
+   at each prefill shape (INT8MM_PREFILL_TIMING:
+   every projection at the engine bucket's M = 1024, the lm_head at the
+   generate prefill's M = 2048), each row asserted to take the wgmma
+   tile, with the WMMA tile it replaced on the same inputs (its output
+   held against the plain version), a bf16 matmul on a dequantized copy
+   as the yardstick,
+   TFLOP/s and share of the bound. The
    decode rows print their split plan (splits, CTAs), and two long
    rows time one 8192-key sequence (decode_attention_long,
    paged_decode_attention_long), each with its SDPA yardstick.
@@ -82,14 +98,19 @@ exits non-zero without a result:
    kv_quant="int8": every request completes, the allocator ends
    leak-free with every pool (scales included) zero; per decode step
    225 int8 matmul launches (7 projections x 32 layers + the lm_head),
-   32 paged-decode launches on int8 pools and no fused-MLP launch; a
-   profile of its steady decode as for the bf16 engine. The one-state
+   every launch with M > 16 (the prefill projections) on the wgmma tile
+   and every other on the GEMV, 32 paged-decode launches on int8 pools
+   and no fused-MLP launch; a profile of its steady decode as for the
+   bf16 engine, and of one prefill bucket (8 rows x a 128-token chunk,
+   M = 1024) by kernel with the int8 matmul's share. The one-state
    decode-step check with W8_STEP_VARIANTS, at bf16, fp32 activations
    and bf16 cut to 2 layers.
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
    new tokens, once in bf16 and once with int8 weights and KV: 32
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16)
-   or 225 int8 matmul (w8kv8) launches per step.
+   or 225 int8 matmul (w8kv8) launches per step; the w8kv8 prefill's
+   225 (M = 2048, the lm_head over every position) all on the wgmma
+   tile, the decode steps' all on the GEMV.
 9. train   — the Trainer at Llama-3-8B widths cut to 4 layers, bf16,
    remat "nothing", TrainConfig() defaults, b=2, s=2048, 5 steps on one
    seeded batch: the loss is finite and falls, and every step launches
@@ -330,6 +351,176 @@ def int8mm_inputs(Q, gen, m, k, n, dtype=torch.bfloat16, zero_col=None):
     q = Q.quantize_weight(w)
     del w
     return x, q["kernel_q"], q["scale"]
+
+
+# The int8 matmul's parity rows (M, K, N): decode (M <= 16, the GEMV)
+# and prefill (the wgmma tile in bf16) at every projection's shape, the
+# tile's edges at M = 17 and 129, wq/wo (4096 x 4096, the 256-row tile
+# at both prefill M) and the generate prefill's M = 2048 with the
+# lm_head over every position.
+INT8MM_PARITY = tuple(
+    (m, k, n)
+    for k, n in ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 128256))
+    for m in (1, 8, 1024)
+) + ((17, 4096, 14336), (129, 4096, 14336), (2048, 4096, 14336),
+     (1024, 4096, 4096), (2048, 4096, 4096), (2048, 4096, 128256))
+# The prefill timing rows: each projection at the engine bucket's M and
+# the lm_head at the generate prefill's (label, M, K, N).
+INT8MM_PREFILL_TIMING = (
+    ("int8mm_prefill", 1024, 4096, 14336),  # gate, up
+    ("int8mm_prefill_wq", 1024, 4096, 4096),  # wq, wo
+    ("int8mm_prefill_wk", 1024, 4096, 1024),  # wk, wv
+    ("int8mm_prefill_down", 1024, 14336, 4096),
+    ("int8mm_prefill_lm_head", 2048, 4096, 128256),
+)
+# Kernel names of the int8 matmul, both sources.
+INT8MM_KERNELS = ("int8_matmul_sm90_kernel", "gemv_kernel", "finish_kernel",
+                  "mma_bf16_kernel", "sgemm_kernel")
+
+
+def int8mm_wmma(kernels, I8, x, w_q, w_s):
+    """int8mm.cu's WMMA tile on x, w_q, w_s, launched directly (not
+    counted in LAUNCHES): it served every bf16 M > 16 product before
+    int8mm_sm90.cu and still serves the bf16 shapes that tile does not
+    take, so parity holds it at the prefill shapes and timing sets its
+    time beside the new tile's."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    kernels.check(kernels.function(
+        "int8mm.cu", "tpu_int8_matmul", I8._INT8MM_ARGTYPES)(
+        x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(), None,
+        1, m, k, n, 1, 16, 1, 1, torch.cuda.current_stream().cuda_stream),
+        "int8mm wmma")
+    return out
+
+
+class RouteLog:
+    """Records (M, route) of every int8 matmul launch while active, by
+    wrapping ``int8mm._int8mm_route``, which the wrapper calls once
+    before each launch."""
+
+    def __init__(self, I8):
+        self.I8, self.calls = I8, []
+
+    def __enter__(self):
+        self.orig = self.I8._int8mm_route
+
+        def traced(x, w_q):
+            route = self.orig(x, w_q)
+            self.calls.append((x.shape[0], route))
+            return route
+
+        self.I8._int8mm_route = traced
+        return self
+
+    def __exit__(self, *exc):
+        self.I8._int8mm_route = self.orig
+
+    def check(self, name: str) -> dict:
+        """Every launch with M > 16 took the wgmma tile and every other
+        the GEMV; returns launches by route and the M values seen."""
+        wrong = [(m, r) for m, r in self.calls
+                 if r != ("sm90" if m > 16 else "gemv")]
+        if wrong:
+            raise AssertionError(f"{name}: int8 matmul routes {wrong[:8]}")
+        routes = {}
+        for m, r in self.calls:
+            routes[r] = routes.get(r, 0) + 1
+        return {"launches_by_route": routes,
+                "prefill_m": sorted({m for m, _ in self.calls if m > 16})}
+
+
+def int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush) -> dict:
+    """The wgmma tile at each prefill shape (INT8MM_PREFILL_TIMING):
+    kernel, the WMMA tile it replaced on the same inputs, the plain
+    version, a bf16 matmul on a copy dequantized ahead (the yardstick: no
+    PyTorch call takes int8 weights with per-column scales), bound,
+    achieved TFLOP/s and share of the bound."""
+    rows = {}
+    for label, m, k, n in INT8MM_PREFILL_TIMING:
+        x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n)
+        nbytes = k * n + n * 4 + m * k * 2 + m * n * 2
+        flops = 2 * m * k * n
+        route = I8._int8mm_route(x, w_q)
+        if route != "sm90":
+            raise AssertionError(f"{label}: route {route}, want sm90")
+        call = functools.partial(I8.int8_matmul, x, w_q, w_s, impl="cuda")
+        w_bf = (w_q.float() * w_s).to(torch.bfloat16)
+        wmma_vs_plain = compare(
+            f"{label} wmma vs plain", int8mm_wmma(kernels, I8, x, w_q, w_s),
+            I8.int8_matmul(x, w_q, w_s, impl="torch"))
+        row = {
+            "shape": f"M={m}, K={k}, N={n}, bf16 x, int8 W",
+            "route": route,
+            "tile_rows": I8._sm90_rows(m, n, x.device),
+            "ms": time_ms(call, flush),
+            "ms_with_host": time_ms(call, flush, shield=False),
+            "wmma_kernel_ms": time_ms(functools.partial(
+                int8mm_wmma, kernels, I8, x, w_q, w_s), flush),
+            "plain_ms": time_ms(
+                lambda: I8.int8_matmul(x, w_q, w_s, impl="torch"), flush),
+            "library_ms": None,
+            "dequantized_bf16_matmul_ms": yardstick_ms(lambda: x @ w_bf,
+                                                       flush),
+            **bound(nbytes, flops, rates),
+        }
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["wmma_over_kernel"] = row["wmma_kernel_ms"] / row["ms"]
+        row["plain_over_kernel"] = row["plain_ms"] / row["ms"]
+        row["wmma_vs_plain"] = wmma_vs_plain
+        rows[label] = row
+        del x, w_q, w_s, w_bf
+    return rows
+
+
+def profile_prefill(E, I8, eng, prompts) -> dict:
+    """One prefill bucket of ``eng`` under torch.profiler: the prompts
+    are admitted and one ``_prefill_tick`` runs alone (no decode chunk).
+    Device ms by kernel, the int8 matmul's share, the device busy share
+    of the host window, and the bucket's M; the engine then finishes the
+    requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i, p in enumerate(prompts):
+        eng.add_request(E.Request(rid=f"pre{i}", prompt=p, max_new_tokens=4))
+    now = eng.clock()
+    eng._admit(now)
+    torch.cuda.synchronize()
+    with RouteLog(I8) as log, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._prefill_tick(now)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    eng.run()
+    kernels_ = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_.append((ev.self_device_time_total, ev.count, ev.key))
+    if not kernels_:
+        return {"device_busy_share": "not measured",
+                "reason": "profiler recorded no device time"}
+    kernels_.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels_) / 1e3
+    int8mm = [(us, n, key) for us, n, key in kernels_
+              if any(name in key for name in INT8MM_KERNELS)]
+    int8mm_ms = sum(k[0] for k in int8mm) / 1e3
+    return {
+        "bucket_m": sorted({m for m, _ in log.calls}),
+        "routes": log.check("prefill bucket")["launches_by_route"],
+        "window_ms": window_ms, "device_kernel_ms": device_ms,
+        "device_busy_share": device_ms / window_ms,
+        "kernel_launches": sum(k[1] for k in kernels_),
+        "int8mm_device_ms": int8mm_ms,
+        "int8mm_share_of_device_time": int8mm_ms / device_ms,
+        "int8mm_kernels": [
+            {"name": short_name(key)[:60], "device_ms": us / 1e3, "count": n}
+            for us, n, key in int8mm],
+        "top_kernels": [{"name": key[:90], "device_ms": us / 1e3, "count": n}
+                        for us, n, key in kernels_[:12]],
+    }
 
 
 def contiguous_inputs(Q, gen, b=8, max_seq=1024, kvh=8, n_rep=4, hd=128,
@@ -759,32 +950,37 @@ def contiguous_parity(A, name, q, k_, v_, sc, length) -> dict:
     return out
 
 
-# The wgmma kernels' sources and the C entries that give the dynamic
-# shared memory a CTA of each head dim asks for.
+# The wgmma kernels' sources, the C entries that give the dynamic shared
+# memory a CTA asks for, and the template argument each entry takes (the
+# flash kernels' head dim, the int8 matmul's CTA tile rows).
 SM90_SOURCES = {
-    "flash_fwd_sm90.cu": "tpu_flash_fwd_sm90_smem",
-    "flash_bwd_dq_sm90.cu": "tpu_flash_bwd_dq_sm90_smem",
-    "flash_bwd_sm90.cu": "tpu_flash_bwd_dkv_sm90_smem",
+    "flash_fwd_sm90.cu": ("tpu_flash_fwd_sm90_smem", (64, 128)),
+    "flash_bwd_dq_sm90.cu": ("tpu_flash_bwd_dq_sm90_smem", (64, 128)),
+    "flash_bwd_sm90.cu": ("tpu_flash_bwd_dkv_sm90_smem", (64, 128)),
+    "int8mm_sm90.cu": ("tpu_int8_matmul_sm90_smem", (128, 256)),
 }
 
 
 def sm90_build(kernels, report) -> dict:
     """The wgmma kernels' instantiations, by source: registers and spill
     bytes from ptxas, and the dynamic shared memory a CTA asks for at
-    launch; raises unless each one spills nothing."""
+    launch; raises unless ptxas reported each source and each
+    instantiation spills nothing."""
     out = {}
-    for source, entry in SM90_SOURCES.items():
+    for source, (entry, args) in SM90_SOURCES.items():
         smem = kernels.function(source, entry, [ctypes.c_int])
         out[source] = {}
         for fn, p in kernels.ptxas_report(report[source]["log"]).items():
-            hd = next((d for d in (64, 128)
-                       if f"<{d}>" in fn or f"ILi{d}E" in fn), None)
+            arg = next((d for d in args
+                        if f"<{d}>" in fn or f"ILi{d}E" in fn), None)
             out[source][short_name(fn)] = {
                 "registers": p["registers"],
                 "spill_store_bytes": p["spill_stores"],
                 "static_smem_bytes": p["smem_bytes"],
-                "dynamic_smem_bytes": smem(hd) if hd else None,
+                "dynamic_smem_bytes": smem(arg) if arg else None,
             }
+        if not out[source]:
+            raise AssertionError(f"{source}: no ptxas report")
         spills = {k: v for k, v in out[source].items()
                   if v["spill_store_bytes"]}
         if spills:
@@ -1250,29 +1446,48 @@ def main() -> int:
         if not parity[f"decode_mlp_b{b}"]["rerun_bit_identical"]:
             raise AssertionError("decode_mlp reruns must give identical bits")
     del x, scale, tree
-    for k, n in ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 128256)):
-        for m in (1, 8, 1024):
-            x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n, zero_col=n // 3)
-            got = I8.int8_matmul(x, w_q, w_s, impl="cuda")
-            plain = I8.int8_matmul(x, w_q, w_s, impl="torch")
-            ref = I8.int8_matmul(x, w_q, w_s, impl="reference")
-            again = I8.int8_matmul(x, w_q, w_s, impl="cuda")
+    for m, k, n in INT8MM_PARITY:
+        x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n, zero_col=n // 3)
+        got = I8.int8_matmul(x, w_q, w_s, impl="cuda")
+        plain = I8.int8_matmul(x, w_q, w_s, impl="torch")
+        ref = I8.int8_matmul(x, w_q, w_s, impl="reference")
+        again = I8.int8_matmul(x, w_q, w_s, impl="cuda")
+        torch.cuda.synchronize()
+        name = f"int8mm_m{m}_k{k}_n{n}"
+        parity[name] = {
+            "route": I8._int8mm_route(x, w_q),
+            "vs_plain": compare(f"{name} vs plain", got, plain),
+            "vs_reference": compare(f"{name} vs reference", got, ref),
+            "zero_column_exact_zero": bool(torch.all(got[:, n // 3] == 0)),
+            "rerun_bit_identical": bool(torch.equal(got, again)),
+        }
+        if parity[name]["route"] == "sm90":
+            parity[name]["tile_rows"] = I8._sm90_rows(m, n, x.device)
+            # int8mm.cu's WMMA tile on the same inputs.
+            wmma = int8mm_wmma(kernels, I8, x, w_q, w_s)
+            wmma_again = int8mm_wmma(kernels, I8, x, w_q, w_s)
             torch.cuda.synchronize()
-            name = f"int8mm_m{m}_k{k}_n{n}"
-            parity[name] = {
-                "vs_plain": compare(f"{name} vs plain", got, plain),
-                "vs_reference": compare(f"{name} vs reference", got, ref),
-                "zero_column_exact_zero": bool(torch.all(got[:, n // 3] == 0)),
-                "rerun_bit_identical": bool(torch.equal(got, again)),
+            parity[name]["wmma"] = {
+                "vs_plain": compare(f"{name} wmma vs plain", wmma, plain),
+                "vs_reference": compare(f"{name} wmma vs reference", wmma,
+                                        ref),
+                "zero_column_exact_zero": bool(torch.all(
+                    wmma[:, n // 3] == 0)),
+                "rerun_bit_identical": bool(torch.equal(wmma, wmma_again)),
             }
-            if n in (14336, 4096):
-                parity[name]["fp32_vs_plain"] = compare_fp32(
-                    name, I8.int8_matmul(x.float(), w_q, w_s, impl="cuda"),
-                    I8.int8_matmul(x.float(), w_q, w_s, impl="torch"))
-            if not (parity[name]["zero_column_exact_zero"]
-                    and parity[name]["rerun_bit_identical"]):
-                raise AssertionError(f"{name}: {parity[name]}")
-            del x, w_q, w_s, got, plain, ref, again
+            if not (parity[name]["wmma"]["zero_column_exact_zero"]
+                    and parity[name]["wmma"]["rerun_bit_identical"]):
+                raise AssertionError(f"{name} wmma: {parity[name]['wmma']}")
+            del wmma, wmma_again
+        if n in (14336, 4096) and m in (1, 8, 1024):
+            parity[name]["fp32_vs_plain"] = compare_fp32(
+                name, I8.int8_matmul(x.float(), w_q, w_s, impl="cuda"),
+                I8.int8_matmul(x.float(), w_q, w_s, impl="torch"))
+        if not (parity[name]["zero_column_exact_zero"]
+                and parity[name]["rerun_bit_identical"]
+                and parity[name]["route"] == ("sm90" if m > 16 else "gemv")):
+            raise AssertionError(f"{name}: {parity[name]}")
+        del x, w_q, w_s, got, plain, ref, again
     for int8 in (False, True):
         name = "decode_attention_int8" if int8 else "decode_attention"
         parity[name] = {}
@@ -1324,9 +1539,13 @@ def main() -> int:
         **bound(nbytes, flops, rates),
     }
     del x, scale, tree
+    # The GEMV at every decode shape (M = 8 slots): gate and up, the
+    # lm_head, wq and wo, wk and wv, down.
     for label, m, k, n in (("int8mm", 8, 4096, 14336),
                            ("int8mm_lm_head", 8, 4096, 128256),
-                           ("int8mm_prefill", 1024, 4096, 14336)):
+                           ("int8mm_decode_wq", 8, 4096, 4096),
+                           ("int8mm_decode_wk", 8, 4096, 1024),
+                           ("int8mm_decode_down", 8, 14336, 4096)):
         x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n)
         nbytes = k * n + n * 4 + m * k * 2 + m * n * 2
         call = functools.partial(I8.int8_matmul, x, w_q, w_s, impl="cuda")
@@ -1346,6 +1565,7 @@ def main() -> int:
             **bound(nbytes, 2 * m * k * n, rates),
         }
         del x, w_q, w_s, w_bf
+    timing.update(int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush))
     for label, int8, b, max_seq, length in (
         ("decode_attention", False, 8, 1024, 512),
         ("decode_attention_int8", True, 8, 1024, 512),
@@ -1452,7 +1672,8 @@ def main() -> int:
     want_mlp = L * (steps + eng.prefill_single_token_buckets)
     if not (launches["paged_decode_attention"] == want_attn > 0
             and launches["decode_mlp"] == want_mlp > 0
-            and launches["int8mm"] == 0
+            and launches["int8mm"] == launches["int8mm_sm90"]
+            == launches["int8mm_gemv"] == 0
             and launches["paged_decode_attention_int8"] == 0):
         raise AssertionError(
             f"launches {launches} != {L} per layer per decode step "
@@ -1498,19 +1719,31 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     w8 = dataclasses.replace(ec, weight_quant="int8", kv_quant="int8")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    eng, done, launches, wall = serve(E, kernels, cfg, params, w8, reqs)
+    with RouteLog(I8) as w8_routes:
+        eng, done, launches, wall = serve(E, kernels, cfg, params, w8, reqs)
     del params  # the engine holds the quantized tree only
     torch.cuda.empty_cache()
     steps = eng.decode_steps
     mm_per_pass = INT8MM_PER_LAYER * L + 1
+    # Every launch with M > 16 (the prefill projections) on the wgmma
+    # tile, every other (decode steps, the prefill lm_head over one row
+    # a slot) on the GEMV.
+    routes = w8_routes.check("engine w8kv8")
     if not (launches["int8mm"] == mm_per_pass * (steps + eng.prefill_buckets)
+            and launches["int8mm_sm90"] == routes["launches_by_route"].get(
+                "sm90", 0) > 0
+            and launches["int8mm_gemv"] == routes["launches_by_route"].get(
+                "gemv", 0)
+            and launches["int8mm_sm90"] + launches["int8mm_gemv"]
+            == launches["int8mm"]
             and launches["paged_decode_attention_int8"] == L * steps > 0
             and launches["paged_decode_attention"] == 0
             and launches["decode_mlp"] == 0):
         raise AssertionError(
             f"w8kv8 launches {launches}: want {mm_per_pass} int8mm per "
             f"forward pass ({steps} decode steps, {eng.prefill_buckets} "
-            f"prefill buckets), {L} int8 paged per step, no fused MLP"
+            f"prefill buckets), the M > 16 ones on int8mm_sm90 {routes}, "
+            f"{L} int8 paged per step, no fused MLP"
         )
     pools_zero = all(
         bool((layer[1:] == 0).all())
@@ -1520,6 +1753,7 @@ def main() -> int:
         raise AssertionError("w8kv8: freed pages (values, scales) not zero")
     w8_launches = launches
     w8_summary = serve_summary(eng, done, launches, wall)
+    w8_summary["int8mm_routes"] = routes
     w8_summary["launches_per_decode_step"] = {
         "int8mm": (launches["int8mm"] - mm_per_pass * eng.prefill_buckets)
         / steps,
@@ -1529,6 +1763,10 @@ def main() -> int:
     }
     emit("profile_w8kv8", **profile_decode(E, eng, [
         np.resize(r.prompt, 128) for r in reqs
+    ]))
+    # TTFT's first breakdown: one bucket of 8 rows x a 128-token chunk.
+    emit("profile_prefill_w8kv8", **profile_prefill(E, I8, eng, [
+        np.resize(r.prompt, 256) for r in reqs
     ]))
     w8_cmp = {"bf16": step_logits(E, I8, cfg, eng, step_prompts,
                                   W8_STEP_VARIANTS)}
@@ -1564,17 +1802,23 @@ def main() -> int:
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = G.greedy_generate(cfg, params, prompt, new, kv_quant=quant,
-                                weight_quant=quant)
+        with RouteLog(I8) as gen_routes:
+            out = G.greedy_generate(cfg, params, prompt, new, kv_quant=quant,
+                                    weight_quant=quant)
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         gen_launches[label] = launches
         steps = new - 1
         want = {"decode_attention": L * steps}
+        # The prefill (b x s = 2048 rows, the lm_head over every
+        # position) on the wgmma tile, every decode step on the GEMV.
         if quant == "none":
-            want.update(decode_mlp=L * steps, int8mm=0)
+            want.update(decode_mlp=L * steps, int8mm=0, int8mm_sm90=0,
+                        int8mm_gemv=0)
         else:
-            want.update(decode_mlp=0, int8mm=mm_per_pass * new)
+            want.update(decode_mlp=0, int8mm=mm_per_pass * new,
+                        int8mm_sm90=mm_per_pass,
+                        int8mm_gemv=mm_per_pass * steps)
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"generate {label}: launches {launches}, "
                                  f"want {want}")
@@ -1586,6 +1830,7 @@ def main() -> int:
         gen_out[label] = {
             "wall_seconds": wall, "tok_s": b * new / wall,
             "launches": launches,
+            "int8mm_routes": gen_routes.check(f"generate {label}"),
             "launches_per_decode_step": {
                 "decode_attention": launches["decode_attention"] / steps,
                 "decode_mlp": launches["decode_mlp"] / steps,
@@ -1615,10 +1860,16 @@ def main() -> int:
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
          timing["decode_mlp"], engine_launches["decode_mlp"]),
-        ("int8mm", "tpu_dra_torch/csrc/int8mm.cu",
+        # The int8 matmul's two routes on the path: the GEMV for M <= 16
+        # (decode) and the wgmma tile for M > 16 (prefill).
+        ("int8mm_gemv", "tpu_dra_torch/csrc/int8mm.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m8_k4096_n14336"], timing["int8mm"],
-         w8_launches["int8mm"]),
+         w8_launches["int8mm_gemv"]),
+        ("int8mm_sm90", "tpu_dra_torch/csrc/int8mm_sm90.cu",
+         "tpu_dra/workloads/ops/int8mm.py:47",
+         parity["int8mm_m1024_k4096_n14336"], timing["int8mm_prefill"],
+         w8_launches["int8mm_sm90"]),
         ("decode_attention", "tpu_dra_torch/csrc/decode.cu",
          "tpu_dra/workloads/ops/attention.py:803",
          parity["decode_attention"]["length_1000"],
@@ -1650,6 +1901,13 @@ def main() -> int:
             "library_ms": t["library_ms"], "ms_with_host": t["ms_with_host"],
             "parity": par,
         })
+        if name.startswith("int8mm"):
+            rows[-1]["serves"] = {
+                "int8mm_gemv": "gemv: M <= 16 (decode steps, the engine "
+                               "prefill's lm_head)",
+                "int8mm_sm90": "sm90: bf16 M > 16 (prefill projections, the "
+                               "generate lm_head)",
+            }[name]
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": rows}))

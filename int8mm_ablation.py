@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Where the int8 matmul's wgmma tile (tpu_dra_torch/csrc/int8mm_sm90.cu)
+spends its time, and what it moves end to end, on one NVIDIA GPU.
+
+    python3 int8mm_ablation.py
+
+Phases, one JSON line each after the card's nvidia-smi line:
+
+1. variants — the source built as it is and with parts of its step
+   taken out (their results are wrong; only their times count): no
+   int8 -> bf16 conversion; no conversion and no raw W copy; the
+   products alone (no copies and no conversion in the loop). Each is
+   timed as chip_smoke.py times a kernel (time_ms: L2 flushed, host
+   enqueue kept out, median of 60) at the engine bucket's gate/up
+   (M=1024, K=4096, N=14336) and down (M=1024, K=14336, N=4096) shapes
+   on the 256-row tile, in two rounds. This phase is a one-off tied to
+   the revision of int8mm_sm90.cu it was written against: it deletes
+   three lines of the source by their exact text (CONVERT, RAW_COPY,
+   ``issue(t);``) and raises, building nothing, once any of them has
+   changed. Its readings stand in PERF.md; a later edit of the kernel
+   retires the phase rather than re-targets it.
+2. generate — greedy_generate at Llama-3-8B widths (32 layers, random
+   weights, b=8, prompt 256, 32 new tokens) with int8 weights and KV:
+   its int8 matmuls with M > 16 on the wgmma tile ("sm90") or forced
+   onto int8mm.cu's WMMA tile ("wmma", the route before it), in turns
+   sm90, wmma, wmma, sm90 after one untimed call of each; wall seconds
+   and tok/s of each.
+3. prefill — one w8kv8 engine prefill bucket (8 rows x a 128-token
+   chunk, M = 1024) at the same widths, host ms to a synchronized end,
+   the routes in turns as above.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CONVERT = ("      convert_w<ROWS>(base, (t + 1) % kRawStages, "
+           "(t + 1) % kWBufs);\n")
+RAW_COPY = "    cp_async16(raw + raw_offset(c), g, ok);\n"
+# name: (old, new) line replacements of int8mm_sm90.cu.
+VARIANTS = {
+    "as_is": [],
+    "no_conversion": [(CONVERT, "")],
+    "no_conversion_no_raw_w": [(CONVERT, ""), (RAW_COPY, "    (void)g;\n")],
+    "products_only": [(CONVERT, ""), ("    issue(t);\n", "")],
+}
+
+
+def build_variants(kernels) -> dict:
+    """Each variant's C entry, built into build/int8mm_ablation/."""
+    out_dir = os.path.join(REPO, "build", "int8mm_ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    src = open(os.path.join(kernels.CSRC, "int8mm_sm90.cu")).read()
+    procs = {}
+    for name, reps in VARIANTS.items():
+        text = src
+        for old, new in reps:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {old!r} not in source")
+            text = text.replace(old, new)
+        path = os.path.join(out_dir, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+             "-o", os.path.join(out_dir, f"{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+        fn = lib.tpu_int8_matmul_sm90
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def variants_phase(C, kernels, Q, rates) -> dict:
+    fns = build_variants(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, m, k, n in (("gate_up", 1024, 4096, 14336),
+                           ("down", 1024, 14336, 4096)):
+        x, w_q, w_s = C.int8mm_inputs(Q, gen, m, k, n)
+        y = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+
+        def call(fn):
+            kernels.check(fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                             y.data_ptr(), m, k, n, 256,
+                             torch.cuda.current_stream().cuda_stream),
+                          "variant")
+
+        row = {name: [] for name in fns}
+        for _ in range(2):
+            for name, fn in fns.items():
+                row[name].append(C.time_ms(lambda: call(fn), flush))
+        out[label] = {
+            "shape": f"M={m}, K={k}, N={n}, 256-row tile",
+            "ms": row,
+            **C.bound(k * n + n * 4 + m * k * 2 + m * n * 2, 2 * m * k * n,
+                      rates),
+        }
+        del x, w_q, w_s, y
+    return out
+
+
+class ForceWmma:
+    """While active, the int8 matmuls that would take the wgmma tile
+    take int8mm.cu's WMMA tile instead."""
+
+    def __init__(self, I8, on: bool):
+        self.I8, self.on = I8, on
+
+    def __enter__(self):
+        self.orig = self.I8._int8mm_route
+        if self.on:
+            self.I8._int8mm_route = lambda x, w: (
+                "wmma" if self.orig(x, w) == "sm90" else self.orig(x, w))
+
+    def __exit__(self, *exc):
+        self.I8._int8mm_route = self.orig
+
+
+# One untimed run of each route, then the timed ones in turns.
+WARMUP = ("sm90", "wmma")
+ORDER = ("sm90", "wmma", "wmma", "sm90")
+
+
+def generate_phase(G, I8, kernels, cfg, params) -> dict:
+    b, s, new = 8, 256, 32
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (b, s)).astype(np.int32))
+    runs = []
+    for i, route in enumerate(WARMUP + ORDER):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ForceWmma(I8, route == "wmma"):
+            G.greedy_generate(cfg, params, prompt, new, kv_quant="int8",
+                              weight_quant="int8")
+        wall = time.perf_counter() - t0
+        if i < len(WARMUP):
+            continue
+        runs.append({"route": route, "wall_seconds": wall,
+                     "tok_s": b * new / wall,
+                     "int8mm_sm90_launches": kernels.LAUNCHES["int8mm_sm90"]})
+    return {"batch": b, "prompt": s, "new_tokens": new, "runs": runs}
+
+
+def prefill_phase(E, I8, cfg, params) -> dict:
+    ec = E.EngineConfig(page_size=16, max_slots=8, max_pages_per_seq=64,
+                        scan_chunk=8, prefill_chunk=128, weight_quant="int8",
+                        kv_quant="int8")
+    eng = E.Engine(cfg, params, ec)
+    rng = np.random.default_rng(0)
+    runs = []
+    for i, route in enumerate(WARMUP + ORDER):
+        for j in range(8):
+            eng.add_request(E.Request(
+                rid=f"a{i}_{j}", max_new_tokens=2,
+                prompt=rng.integers(1, cfg.vocab_size, 256).astype(np.int32)))
+        now = eng.clock()
+        eng._admit(now)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ForceWmma(I8, route == "wmma"):
+            eng._prefill_tick(now)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        eng.run()
+        if i >= len(WARMUP):
+            runs.append({"route": route, "bucket_ms": ms})
+    return {"bucket": "8 rows x 128 tokens (M = 1024)", "runs": runs}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("int8mm_ablation: no CUDA device", file=sys.stderr)
+        return 1
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke as C
+    from tpu_dra_torch import kernels
+    from tpu_dra_torch.workloads import engine as E
+    from tpu_dra_torch.workloads import generate as G
+    from tpu_dra_torch.workloads import quantize as Q
+    from tpu_dra_torch.workloads.models.llama import LLAMA3_8B, init_params
+    from tpu_dra_torch.workloads.ops import int8mm as I8
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rates = C.peaks(torch.cuda.get_device_name(0))
+    kernels.build()
+    C.emit("variants", **variants_phase(C, kernels, Q, rates))
+    cfg = LLAMA3_8B
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    C.emit("generate", **generate_phase(G, I8, kernels, cfg, params))
+    C.emit("prefill", **prefill_phase(E, I8, cfg, params))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -191,7 +191,8 @@ def test_launch_counters_count_launches(cuda_device):
     TA.attention(q, k, v, causal=True, impl="torch")
     assert kernels.LAUNCHES == {
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
-        "decode_mlp": 2, "int8mm": 1, "decode_attention": 1,
+        "decode_mlp": 2, "int8mm": 1, "int8mm_sm90": 0, "int8mm_gemv": 1,
+        "decode_attention": 1,
         "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
         "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
     }
@@ -323,9 +324,15 @@ def test_int8mm_kernel_fp32_matches_plain(cuda_device, m, k, n):
 @pytest.mark.parametrize("m", [1, 8, 1024])
 @pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024)])
 def test_int8mm_kernel_bf16_8b_shapes(cuda_device, m, k, n):
+    """The wrapper at Llama-3-8B shapes: the GEMV at M <= 16, the wgmma
+    tile at M = 1024."""
     x, w_q, w_s = _int8mm(m, m, k, n, torch.bfloat16, cuda_device,
                           zero_col=n // 2)
+    route = "gemv" if m <= 16 else "sm90"
+    assert TI._int8mm_route(x, w_q) == route
+    kernels.reset_launches()
     got = TI.int8_matmul(x, w_q, w_s, impl="cuda").float()
+    assert kernels.LAUNCHES[f"int8mm_{route}"] == kernels.LAUNCHES["int8mm"]
     ref = TI.int8_matmul(x, w_q, w_s, impl="reference").float()
     plain = TI.int8_matmul(x, w_q, w_s, impl="torch").float()
     _assert_bf16_close(got, ref)
@@ -334,6 +341,115 @@ def test_int8mm_kernel_bf16_8b_shapes(cuda_device, m, k, n):
     assert torch.all(got[:, n // 2] == 0), "an all-zero column gives zeros"
     again = TI.int8_matmul(x, w_q, w_s, impl="cuda").float()
     assert torch.equal(got, again), "reruns must give identical bits"
+
+
+def _wmma_int8mm(x, w_q, w_s):
+    """int8mm.cu's WMMA tile, launched directly as the wrapper launches
+    it for the bf16 shapes the wgmma tile does not take."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    fn = kernels.function("int8mm.cu", "tpu_int8_matmul",
+                          TI._INT8MM_ARGTYPES)
+    kernels.check(fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                     out.data_ptr(), None, 1, m, k, n, 1, 16, 1, 1,
+                     torch.cuda.current_stream().cuda_stream), "int8mm wmma")
+    return out
+
+
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024),
+                                 (4096, 4096)])
+def test_int8mm_wmma_tile_bf16_8b_shapes(cuda_device, k, n):
+    """The WMMA tile at the Llama-3-8B prefill shapes (M = 1024), within
+    the per-row bar of the plain version and the fp32 reference."""
+    m = 1024
+    x, w_q, w_s = _int8mm(m + k, m, k, n, torch.bfloat16, cuda_device,
+                          zero_col=n // 2)
+    got = _wmma_int8mm(x, w_q, w_s).float()
+    again = _wmma_int8mm(x, w_q, w_s).float()
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference").float()
+    plain = TI.int8_matmul(x, w_q, w_s, impl="torch").float()
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    _assert_bf16_close(got, plain)
+    assert torch.all(got[:, n // 2] == 0), "an all-zero column gives zeros"
+    assert torch.equal(got, again), "reruns must give identical bits"
+
+
+SM90_INT8MM_M = [17, 64, 127, 128, 129, 1024, 2048]
+SM90_INT8MM_KN = [(64, 128), (136, 144), (4096, 1024), (4096, 4096),
+                  (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("m", SM90_INT8MM_M)
+@pytest.mark.parametrize("k,n", SM90_INT8MM_KN)
+def test_int8mm_sm90_bf16_matches_plain(cuda_device, m, k, n):
+    """bf16 with M > 16 takes the wgmma tile (int8mm_sm90.cu), within
+    the per-row bar of the plain version and the fp32 reference; the
+    ragged edges of M (17, 127, 129), K (136) and N (144) included."""
+    x, w_q, w_s = _int8mm(7 * m + k + n, m, k, n, torch.bfloat16,
+                          cuda_device, zero_col=n // 3)
+    assert TI._int8mm_route(x, w_q) == "sm90"
+    kernels.reset_launches()
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    assert kernels.LAUNCHES["int8mm_sm90"] == kernels.LAUNCHES["int8mm"] == 1
+    assert kernels.LAUNCHES["int8mm_gemv"] == 0
+    again = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference")
+    plain = TI.int8_matmul(x, w_q, w_s, impl="torch")
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    _assert_bf16_close(got, plain)
+    assert torch.all(got[:, n // 3] == 0), "an all-zero column gives zeros"
+    assert torch.equal(got, again), "reruns must give identical bits"
+
+
+@pytest.mark.parametrize("rows", [128, 256])
+@pytest.mark.parametrize("m,k,n", [(17, 64, 128), (300, 200, 400),
+                                   (1024, 4096, 1024)])
+def test_int8mm_sm90_both_tiles_match_the_reference(cuda_device, rows, m, k,
+                                                     n):
+    """Each CTA tile the wrapper can pick (_sm90_rows), launched
+    directly, within the bar of the fp32 reference."""
+    x, w_q, w_s = _int8mm(m + k, m, k, n, torch.bfloat16, cuda_device,
+                          zero_col=n // 3)
+    out = torch.empty(m, n, dtype=torch.bfloat16, device=cuda_device)
+    fn = kernels.function("int8mm_sm90.cu", "tpu_int8_matmul_sm90",
+                          TI._INT8MM_SM90_ARGTYPES)
+    kernels.check(fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                     out.data_ptr(), m, k, n, rows,
+                     torch.cuda.current_stream().cuda_stream), "int8mm_sm90")
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference")
+    torch.cuda.synchronize()
+    _assert_bf16_close(out, ref)
+    assert torch.all(out[:, n // 3] == 0)
+
+
+@pytest.mark.parametrize("case", ["k130", "n300", "x_offset"])
+def test_int8mm_unaligned_bf16_takes_wmma(cuda_device, case):
+    """bf16 shapes the wgmma tile does not take (K % 8, N % 16, x not
+    16-byte aligned) run on int8mm.cu's WMMA tile and still match."""
+    m = 200
+    k = 130 if case == "k130" else 256
+    n = 300 if case == "n300" else 256
+    x, w_q, w_s = _int8mm(k + n, m, k, n, torch.bfloat16, cuda_device,
+                          zero_col=n // 3)
+    if case == "x_offset":
+        buf = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda_device)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(m, k)
+    assert TI._int8mm_route(x, w_q) == "wmma"
+    kernels.reset_launches()
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    assert kernels.LAUNCHES["int8mm"] == 1
+    assert kernels.LAUNCHES["int8mm_sm90"] == 0
+    assert kernels.LAUNCHES["int8mm_gemv"] == 0
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference")
+    plain = TI.int8_matmul(x, w_q, w_s, impl="torch")
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    _assert_bf16_close(got, plain)
+    assert torch.all(got[:, n // 3] == 0)
 
 
 def test_int8mm_leading_dims(cuda_device):

@@ -17,7 +17,11 @@
 //
 // Design. The Pallas kernel tiles (M/128, N/1024, K/1024) and carries an
 // fp32 accumulator in VMEM along K; it runs only on shapes that tile.
-// Here three kernels cover every shape, chosen by the entry point:
+// The wrapper (ops/int8mm.py `_int8mm_route`) sends bf16 with M > 16,
+// K % 8 == 0, N % 16 == 0 and 16-byte aligned x and w_q to the wgmma
+// tile of int8mm_sm90.cu (every prefill projection and the generate
+// lm_head); this file's three kernels cover every other shape, chosen
+// by the entry point:
 //   1. gemv (M <= 16): weight streaming. One CTA per (slab of 32*VEC
 //      columns, split of K, tile of RT rows). A lane loads VEC adjacent
 //      int8 columns of one weight row as one aligned word (16 bytes when
@@ -32,9 +36,10 @@
 //      f32 conversion takes a byte permute and one add (i8x4_to_f32)
 //      instead of the quarter-rate integer-to-float instruction.
 //      This is the recipe of decode_mlp.cu, which reads bf16 weights.
-//   2. mma (M > 16, bf16): tensor cores through WMMA bf16 m16n16k16
-//      with fp32 accumulators. A CTA computes a 64 x 128 output tile in
-//      8 warps (32 x 32 each); per 32-deep step it stages x as bf16 and
+//   2. mma (M > 16, bf16, the shapes int8mm_sm90.cu does not take):
+//      tensor cores through WMMA bf16 m16n16k16 with fp32 accumulators.
+//      A CTA computes a 64 x 128 output tile in 8 warps (32 x 32
+//      each); per 32-deep step it stages x as bf16 and
 //      W converted int8 -> bf16 (exact for |w| <= 127) in shared memory.
 //      The accumulators go through shared memory for the scale and the
 //      cast.

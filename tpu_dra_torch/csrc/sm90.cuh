@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): cp.async copies into the
-// 128-byte-swizzled tiles that wgmma descriptors read, the descriptors,
-// and the wgmma products with their fences. The decode body
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_sm90.cu,
+// int8mm_sm90.cu): cp.async copies into the 128-byte-swizzled tiles
+// that wgmma descriptors read, the descriptors, and the wgmma products
+// with their fences. The decode body
 // (decode_attention.cuh) uses the cp.async copies alone.
 //
 // The tile layout: a tile of ROWS rows x HD bf16 columns is HD/64 column
@@ -103,6 +104,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Keeps the compiler from moving reads or writes of wgmma operands
 // across the asynchronous product.
 template <int N>
@@ -121,9 +128,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// d[0:64] (+)= A . B^T over 16 of K: A is 64 rows x 16 of a K-major
-// shared tile (descriptor a), B is 128 rows (n) x 16 of a K-major tile
-// (descriptor b). scale_d = 0 overwrites d.
+// d[0:64] (+)= A . B over 16 of K: A is 64 rows x 16 of a K-major
+// shared tile (descriptor a); B is 16 (k) x 128 (n), by default K-major
+// (128 rows of n, descriptor b: d = A . B^T of that tile), with
+// TRANS_B = 1 MN-major (16 rows of k x 128 columns, transpose-B set).
+// scale_d = 0 overwrites d.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a,
                                                     uint64_t b, int scale_d) {
   asm volatile(
@@ -137,7 +147,7 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -152,7 +162,7 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // d[0:32] (+)= A . B^T over 16 of K: A is 64 rows x 16 of a K-major

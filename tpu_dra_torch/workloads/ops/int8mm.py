@@ -2,12 +2,23 @@
 
 Counterpart of ``tpu_dra/workloads/ops/int8mm.py``:
 
-- **cuda**: the hand-written Hopper kernel (``csrc/int8mm.cu``, the port
-  of the Pallas ``_kernel``) at every shape: a weight-streaming kernel
-  for M <= 16 (decode, M = slot count) and a tiled one for larger M
-  (tensor cores in bf16). bf16 or fp32 activations times the exactly
-  converted int8 weights, fp32 accumulation, the per-column scale once
-  on the fp32 sum, one rounding;
+- **cuda**: a hand-written Hopper kernel, the port of the Pallas
+  ``_kernel``, at every shape. ``_int8mm_route`` picks it before the
+  launch, from the shapes, dtype and alignment alone:
+
+  - ``"gemv"``, M <= 16 (decode, M = slot count): the weight-streaming
+    kernel of ``csrc/int8mm.cu``;
+  - ``"sm90"``, bf16 with M > 16, K % 8 == 0, N % 16 == 0 and x, w_q
+    16-byte aligned (every prefill projection and the generate
+    lm_head): the wgmma tile of ``csrc/int8mm_sm90.cu``;
+  - ``"wmma"``, any other bf16 shape with M > 16: the WMMA tile of
+    ``csrc/int8mm.cu``;
+  - ``"sgemm"``, fp32 with M > 16: the CUDA-core tile of
+    ``csrc/int8mm.cu``.
+
+  bf16 or fp32 activations times the exactly converted int8 weights,
+  fp32 accumulation, the per-column scale once on the fp32 sum, one
+  rounding;
 - **torch**: the twin of ``_xla_int8_matmul`` — the product in x's
   dtype, then times the scale cast to x's dtype;
 - **reference**: fp32 ``x @ dequantize_weight``.
@@ -46,6 +57,9 @@ _K_CHUNK = 256  # csrc/int8mm.cu kChunk
 _SM_COUNTS: dict = {}
 
 _INT8MM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    ctypes.c_void_p,
+]
+_INT8MM_SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p,
 ]
 
@@ -90,8 +104,34 @@ def _gemv_plan(m: int, k: int, n: int, w_ptr: int, device) -> tuple:
     return rows_tile, vec, splits
 
 
+def _int8mm_route(x, w_q) -> str:
+    """The kernel that serves x [M, K] times w_q [K, N] on the card:
+    "gemv" (M <= 16), "sgemm" (fp32), "sm90" (bf16 whose 16-byte copies
+    the wgmma tile takes: K % 8 == 0, N % 16 == 0, x and w_q 16-byte
+    aligned) or "wmma" (any other bf16 shape)."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    if m <= _GEMV_MAX_ROWS:
+        return "gemv"
+    if x.dtype == torch.float32:
+        return "sgemm"
+    if (k % 8 == 0 and n % 16 == 0 and x.data_ptr() % 16 == 0
+            and w_q.data_ptr() % 16 == 0):
+        return "sm90"
+    return "wmma"
+
+
+def _sm90_rows(m: int, n: int, device) -> int:
+    """The wgmma kernel's CTA tile rows: 256 (four warpgroups share each
+    converted W tile) once that grid fills half the card, else 128 (twice
+    the CTAs on a small grid)."""
+    tiles = -(-m // 256) * -(-n // 128)
+    return 256 if m > 128 and 2 * tiles >= _sm_count(device) else 128
+
+
 def _cuda_int8_matmul(x, w_q, scale):
-    """Launch csrc/int8mm.cu on x's stream: x [M, K] bf16 or fp32,
+    """Launch the route's kernel (csrc/int8mm_sm90.cu for "sm90",
+    csrc/int8mm.cu for the rest) on x's stream: x [M, K] bf16 or fp32,
     w_q [K, N] int8, scale [N] f32, all contiguous on one device;
     raises on anything else."""
     m, k = x.shape
@@ -113,9 +153,21 @@ def _cuda_int8_matmul(x, w_q, scale):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("impl='cuda' needs contiguous inputs")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    route = _int8mm_route(x, w_q)
+    if route == "sm90":
+        fn = kernels.function(
+            "int8mm_sm90.cu", "tpu_int8_matmul_sm90", _INT8MM_SM90_ARGTYPES
+        )
+        err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), m, k, n, _sm90_rows(m, n, x.device), stream)
+        kernels.check(err, "int8mm_sm90")
+        kernels.LAUNCHES["int8mm_sm90"] += 1
+        kernels.LAUNCHES["int8mm"] += 1
+        return out
     partial = None
     rows_tile = vec = splits = 1
-    if 0 < m <= _GEMV_MAX_ROWS:
+    if route == "gemv" and m > 0:
         rows_tile, vec, splits = _gemv_plan(m, k, n, w_q.data_ptr(), x.device)
         if splits > 1:
             partial = torch.empty(
@@ -129,10 +181,12 @@ def _cuda_int8_matmul(x, w_q, scale):
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(),
         _DTYPE_CODES[x.dtype], m, k, n, rows_tile, vec, splits, x_vec,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        stream,
     )
     kernels.check(err, "int8mm")
     kernels.LAUNCHES["int8mm"] += 1
+    if route == "gemv":
+        kernels.LAUNCHES["int8mm_gemv"] += 1
     return out
 
 
