@@ -13,10 +13,10 @@ exits non-zero without a result:
    prints each instantiation's registers, shared memory and spills, and
    for the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,
    flash_bwd_sm90.cu, int8mm_sm90.cu) the dynamic shared memory a CTA
-   asks for; every instantiation of the wgmma kernels and of the decode
-   bodies
-   (decode_split_kernel, decode_combine_kernel in paged_decode.cu and
-   decode.cu) must spill 0 bytes.
+   asks for; every instantiation of the wgmma kernels, of the decode
+   bodies (decode_split_kernel, decode_combine_kernel in paged_decode.cu
+   and decode.cu) and of the tensor-core int8 GEMV
+   (int8mm_gemv_sm90.cu, both planes) must spill 0 bytes.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
    d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
@@ -26,11 +26,15 @@ exits non-zero without a result:
    pools; decode MLP with B in {1, 8}; the int8 matmul at
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
    (4096, 1024), (4096, 128256)}, at M in {17, 129, 2048} for
-   4096 x 14336, wq/wo's 4096 x 4096 at M in {1024, 2048} and the
-   lm_head at M = 2048 (INT8MM_PARITY), with an all-zero weight column,
-   each row naming its route (gemv for M <= 16, which every such row
-   must take; sm90, the wgmma tile, which every bf16 row with M > 16
-   must take); each row with M > 16 also holds int8mm.cu's WMMA tile,
+   4096 x 14336, wq/wo's 4096 x 4096 at M in {1024, 2048}, the
+   lm_head at M = 2048 and M in {2, 13, 16} for 4096 x 14336
+   (INT8MM_PARITY), with an all-zero weight column, each row naming its
+   route (gemv_sm90, the tensor-core GEMV, which every row with M <= 16
+   must take, with its plan; sm90, the wgmma tile, which every bf16 row
+   with M > 16 must take); each row with M <= 16 also holds int8mm.cu's
+   weight-streaming GEMV, which still serves fp32 and the shapes the new
+   one does not take, on the same inputs (zero column, reruns
+   bit-identical); each row with M > 16 also holds int8mm.cu's WMMA tile,
    which serves the bf16 shapes the wgmma tile does not take, on the
    same inputs (zero column, reruns bit-identical); the
    contiguous decode, bf16 and int8 caches, b=8, max_seq 1024, lengths
@@ -64,7 +68,9 @@ exits non-zero without a result:
    row the pair's time (dQ + dK/dV) beside SDPA's backward. The int8
    contiguous-decode row times SDPA over the live K/V dequantized to
    bf16 as its yardstick (no PyTorch call takes the int8 cache). The
-   int8 matmul's GEMV at every decode shape (M = 8), and its wgmma tile
+   int8 matmul's tensor-core GEMV at every decode shape (M = 8), each
+   row asserted to take it, with its plan, share of the bound and
+   int8mm.cu's GEMV on the same inputs (old_gemv_ms), and its wgmma tile
    at each prefill shape (INT8MM_PREFILL_TIMING:
    every projection at the engine bucket's M = 1024, the lm_head at the
    generate prefill's M = 2048), each row asserted to take the wgmma
@@ -99,10 +105,13 @@ exits non-zero without a result:
    leak-free with every pool (scales included) zero; per decode step
    225 int8 matmul launches (7 projections x 32 layers + the lm_head),
    every launch with M > 16 (the prefill projections) on the wgmma tile
-   and every other on the GEMV, 32 paged-decode launches on int8 pools
-   and no fused-MLP launch; a profile of its steady decode as for the
-   bf16 engine, and of one prefill bucket (8 rows x a 128-token chunk,
-   M = 1024) by kernel with the int8 matmul's share. The one-state
+   and every other on the tensor-core GEMV (int8mm.cu's GEMV never), 32
+   paged-decode launches on int8 pools and no fused-MLP launch; a
+   profile of its steady decode as for the bf16 engine, with the int8
+   matmul's device ms and launches a step (225, all the tensor-core
+   GEMV's: one launch a call), and of one prefill bucket (8 rows x a
+   128-token chunk, M = 1024) by kernel with the int8 matmul's share.
+   The one-state
    decode-step check with W8_STEP_VARIANTS, at bf16, fp32 activations
    and bf16 cut to 2 layers.
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
@@ -110,7 +119,7 @@ exits non-zero without a result:
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16)
    or 225 int8 matmul (w8kv8) launches per step; the w8kv8 prefill's
    225 (M = 2048, the lm_head over every position) all on the wgmma
-   tile, the decode steps' all on the GEMV.
+   tile, the decode steps' all on the tensor-core GEMV.
 9. train   — the Trainer at Llama-3-8B widths cut to 4 layers, bf16,
    remat "nothing", TrainConfig() defaults, b=2, s=2048, 5 steps on one
    seeded batch: the loss is finite and falls, and every step launches
@@ -357,13 +366,15 @@ def int8mm_inputs(Q, gen, m, k, n, dtype=torch.bfloat16, zero_col=None):
 # and prefill (the wgmma tile in bf16) at every projection's shape, the
 # tile's edges at M = 17 and 129, wq/wo (4096 x 4096, the 256-row tile
 # at both prefill M) and the generate prefill's M = 2048 with the
-# lm_head over every position.
+# lm_head over every position; the GEMV at M = 2, 13 and 16 too (one
+# plane of 8 rows of x, two planes, the most rows).
 INT8MM_PARITY = tuple(
     (m, k, n)
     for k, n in ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 128256))
     for m in (1, 8, 1024)
 ) + ((17, 4096, 14336), (129, 4096, 14336), (2048, 4096, 14336),
-     (1024, 4096, 4096), (2048, 4096, 4096), (2048, 4096, 128256))
+     (1024, 4096, 4096), (2048, 4096, 4096), (2048, 4096, 128256),
+     (2, 4096, 14336), (13, 4096, 14336), (16, 4096, 14336))
 # The prefill timing rows: each projection at the engine bucket's M and
 # the lm_head at the generate prefill's (label, M, K, N).
 INT8MM_PREFILL_TIMING = (
@@ -374,8 +385,9 @@ INT8MM_PREFILL_TIMING = (
     ("int8mm_prefill_lm_head", 2048, 4096, 128256),
 )
 # Kernel names of the int8 matmul, both sources.
-INT8MM_KERNELS = ("int8_matmul_sm90_kernel", "gemv_kernel", "finish_kernel",
-                  "mma_bf16_kernel", "sgemm_kernel")
+INT8MM_KERNELS = ("int8_matmul_sm90_kernel", "int8_gemv_sm90_kernel",
+                  "gemv_kernel", "finish_kernel", "mma_bf16_kernel",
+                  "sgemm_kernel")
 
 
 def int8mm_wmma(kernels, I8, x, w_q, w_s):
@@ -392,6 +404,30 @@ def int8mm_wmma(kernels, I8, x, w_q, w_s):
         x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(), None,
         1, m, k, n, 1, 16, 1, 1, torch.cuda.current_stream().cuda_stream),
         "int8mm wmma")
+    return out
+
+
+def int8mm_gemv(kernels, I8, x, w_q, w_s):
+    """int8mm.cu's weight-streaming GEMV on x, w_q, w_s (M <= 16),
+    launched directly with the wrapper's plan (not counted in LAUNCHES):
+    it served every decode product before int8mm_gemv_sm90.cu and still
+    serves fp32 and the shapes that kernel does not take, so parity holds
+    it at the decode shapes and timing sets its time beside the new
+    kernel's."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    rows_tile, vec, splits = I8._gemv_plan(m, k, n, w_q.data_ptr(),
+                                           x.device)
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    partial = (torch.empty(splits, m, n, dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    kernels.check(kernels.function(
+        "int8mm.cu", "tpu_int8_matmul", I8._INT8MM_ARGTYPES)(
+        x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        I8._DTYPE_CODES[x.dtype], m, k, n, rows_tile, vec, splits,
+        int(k % 8 == 0 and x.data_ptr() % 16 == 0),
+        torch.cuda.current_stream().cuda_stream), "int8mm gemv")
     return out
 
 
@@ -419,9 +455,10 @@ class RouteLog:
 
     def check(self, name: str) -> dict:
         """Every launch with M > 16 took the wgmma tile and every other
-        the GEMV; returns launches by route and the M values seen."""
+        the tensor-core GEMV (all bf16 here); returns launches by route
+        and the M values seen."""
         wrong = [(m, r) for m, r in self.calls
-                 if r != ("sm90" if m > 16 else "gemv")]
+                 if r != ("sm90" if m > 16 else "gemv_sm90")]
         if wrong:
             raise AssertionError(f"{name}: int8 matmul routes {wrong[:8]}")
         routes = {}
@@ -676,8 +713,16 @@ def profile_decode(E, eng, prompts, chunks: int = 2) -> dict:
         }
         for name in DECODE_BODY_KERNELS
     }
+    int8mm = [(us, n, key) for us, n, key in kernels_
+              if any(name in key for name in INT8MM_KERNELS)]
     return {
         "decode_attention_kernels": attention,
+        "int8mm_kernels": {
+            short_name(key)[:60]: {"device_ms_per_step": us / 1e3 / steps,
+                                   "launches_per_step": n / steps}
+            for us, n, key in int8mm},
+        "int8mm_device_ms_per_step": sum(k[0] for k in int8mm) / 1e3 / steps,
+        "int8mm_launches_per_step": sum(k[1] for k in int8mm) / steps,
         "decode_steps": steps,
         "window_ms": window_ms,
         "step_ms": window_ms / steps,
@@ -959,6 +1004,33 @@ SM90_SOURCES = {
     "flash_bwd_sm90.cu": ("tpu_flash_bwd_dkv_sm90_smem", (64, 128)),
     "int8mm_sm90.cu": ("tpu_int8_matmul_sm90_smem", (128, 256)),
 }
+
+
+# The decode GEMV's source and its instantiations (1 or 2 planes of 8
+# rows of x).
+GEMV_SM90_SOURCE = "int8mm_gemv_sm90.cu"
+GEMV_SM90_KERNEL = "int8_gemv_sm90_kernel"
+
+
+def gemv_sm90_build(kernels, report) -> dict:
+    """Registers and spill bytes of each instantiation of the decode
+    GEMV (both planes); raises unless ptxas reported both and neither
+    spills."""
+    out = {
+        short_name(fn): {"registers": p["registers"],
+                         "spill_store_bytes": p["spill_stores"],
+                         "static_smem_bytes": p["smem_bytes"]}
+        for fn, p in kernels.ptxas_report(
+            report[GEMV_SM90_SOURCE]["log"]).items()
+    }
+    if sum(GEMV_SM90_KERNEL in k for k in out) != 2:
+        raise AssertionError(f"{GEMV_SM90_SOURCE}: no ptxas report for "
+                             f"both planes: {sorted(out)}")
+    spills = {k: v for k, v in out.items() if v["spill_store_bytes"]}
+    if spills:
+        raise AssertionError(f"{GEMV_SM90_SOURCE}: instantiations spill: "
+                             f"{spills}")
+    return out
 
 
 def sm90_build(kernels, report) -> dict:
@@ -1410,7 +1482,8 @@ def main() -> int:
                 for src, v in report.items()},
          ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"],
          sm90=sm90_build(kernels, report),
-         decode_body=decode_body_build(kernels, report))
+         decode_body=decode_body_build(kernels, report),
+         gemv_sm90=gemv_sm90_build(kernels, report))
 
     # --- 3. parity at 8B widths ------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -1461,6 +1534,27 @@ def main() -> int:
             "zero_column_exact_zero": bool(torch.all(got[:, n // 3] == 0)),
             "rerun_bit_identical": bool(torch.equal(got, again)),
         }
+        if parity[name]["route"] == "gemv_sm90":
+            parity[name]["plan"] = I8.gemv_sm90_plan(
+                m, k, n, torch.cuda.get_device_properties(0)
+                .multi_processor_count)._asdict()
+            # int8mm.cu's GEMV on the same inputs.
+            old = int8mm_gemv(kernels, I8, x, w_q, w_s)
+            old_again = int8mm_gemv(kernels, I8, x, w_q, w_s)
+            torch.cuda.synchronize()
+            parity[name]["old_gemv"] = {
+                "vs_plain": compare(f"{name} old gemv vs plain", old, plain),
+                "vs_reference": compare(f"{name} old gemv vs reference",
+                                        old, ref),
+                "zero_column_exact_zero": bool(torch.all(
+                    old[:, n // 3] == 0)),
+                "rerun_bit_identical": bool(torch.equal(old, old_again)),
+            }
+            if not (parity[name]["old_gemv"]["zero_column_exact_zero"]
+                    and parity[name]["old_gemv"]["rerun_bit_identical"]):
+                raise AssertionError(
+                    f"{name} old gemv: {parity[name]['old_gemv']}")
+            del old, old_again
         if parity[name]["route"] == "sm90":
             parity[name]["tile_rows"] = I8._sm90_rows(m, n, x.device)
             # int8mm.cu's WMMA tile on the same inputs.
@@ -1485,7 +1579,8 @@ def main() -> int:
                 I8.int8_matmul(x.float(), w_q, w_s, impl="torch"))
         if not (parity[name]["zero_column_exact_zero"]
                 and parity[name]["rerun_bit_identical"]
-                and parity[name]["route"] == ("sm90" if m > 16 else "gemv")):
+                and parity[name]["route"]
+                == ("sm90" if m > 16 else "gemv_sm90")):
             raise AssertionError(f"{name}: {parity[name]}")
         del x, w_q, w_s, got, plain, ref, again
     for int8 in (False, True):
@@ -1539,18 +1634,25 @@ def main() -> int:
         **bound(nbytes, flops, rates),
     }
     del x, scale, tree
-    # The GEMV at every decode shape (M = 8 slots): gate and up, the
-    # lm_head, wq and wo, wk and wv, down.
+    # The tensor-core GEMV at every decode shape (M = 8 slots): gate and
+    # up, the lm_head, wq and wo, wk and wv, down; int8mm.cu's GEMV, the
+    # kernel it replaced on this route, on the same inputs.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, m, k, n in (("int8mm", 8, 4096, 14336),
                            ("int8mm_lm_head", 8, 4096, 128256),
                            ("int8mm_decode_wq", 8, 4096, 4096),
                            ("int8mm_decode_wk", 8, 4096, 1024),
                            ("int8mm_decode_down", 8, 14336, 4096)):
         x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n)
+        route = I8._int8mm_route(x, w_q)
+        if route != "gemv_sm90":
+            raise AssertionError(f"{label}: route {route}, want gemv_sm90")
         nbytes = k * n + n * 4 + m * k * 2 + m * n * 2
         call = functools.partial(I8.int8_matmul, x, w_q, w_s, impl="cuda")
         ms = time_ms(call, flush)
         host_ms = time_ms(call, flush, shield=False)
+        old_ms = time_ms(functools.partial(int8mm_gemv, kernels, I8, x, w_q,
+                                           w_s), flush)
         plain_ms = time_ms(
             lambda: I8.int8_matmul(x, w_q, w_s, impl="torch"), flush)
         # Yardstick only: no PyTorch call takes int8 weights with
@@ -1559,11 +1661,18 @@ def main() -> int:
         dense_ms = yardstick_ms(lambda: x @ w_bf, flush)
         timing[label] = {
             "shape": f"M={m}, K={k}, N={n}, bf16 x, int8 W",
-            "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
-            "library_ms": None,
+            "route": route,
+            "plan": I8.gemv_sm90_plan(m, k, n, sms)._asdict(),
+            "ms": ms, "ms_with_host": host_ms, "old_gemv_ms": old_ms,
+            "plain_ms": plain_ms, "library_ms": None,
             "dequantized_bf16_matmul_ms": dense_ms,
             **bound(nbytes, 2 * m * k * n, rates),
         }
+        row = timing[label]
+        row["share_of_bound"] = row["bound_ms"] / ms
+        row["old_over_kernel"] = old_ms / ms
+        if isinstance(dense_ms, float):
+            row["dequantized_over_kernel"] = dense_ms / ms
         del x, w_q, w_s, w_bf
     timing.update(int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush))
     for label, int8, b, max_seq, length in (
@@ -1673,7 +1782,7 @@ def main() -> int:
     if not (launches["paged_decode_attention"] == want_attn > 0
             and launches["decode_mlp"] == want_mlp > 0
             and launches["int8mm"] == launches["int8mm_sm90"]
-            == launches["int8mm_gemv"] == 0
+            == launches["int8mm_gemv_sm90"] == launches["int8mm_gemv"] == 0
             and launches["paged_decode_attention_int8"] == 0):
         raise AssertionError(
             f"launches {launches} != {L} per layer per decode step "
@@ -1727,14 +1836,15 @@ def main() -> int:
     mm_per_pass = INT8MM_PER_LAYER * L + 1
     # Every launch with M > 16 (the prefill projections) on the wgmma
     # tile, every other (decode steps, the prefill lm_head over one row
-    # a slot) on the GEMV.
+    # a slot) on the tensor-core GEMV; int8mm.cu's GEMV never.
     routes = w8_routes.check("engine w8kv8")
     if not (launches["int8mm"] == mm_per_pass * (steps + eng.prefill_buckets)
             and launches["int8mm_sm90"] == routes["launches_by_route"].get(
                 "sm90", 0) > 0
-            and launches["int8mm_gemv"] == routes["launches_by_route"].get(
-                "gemv", 0)
-            and launches["int8mm_sm90"] + launches["int8mm_gemv"]
+            and launches["int8mm_gemv_sm90"]
+            == routes["launches_by_route"].get("gemv_sm90", 0) > 0
+            and launches["int8mm_gemv"] == 0
+            and launches["int8mm_sm90"] + launches["int8mm_gemv_sm90"]
             == launches["int8mm"]
             and launches["paged_decode_attention_int8"] == L * steps > 0
             and launches["paged_decode_attention"] == 0
@@ -1742,7 +1852,8 @@ def main() -> int:
         raise AssertionError(
             f"w8kv8 launches {launches}: want {mm_per_pass} int8mm per "
             f"forward pass ({steps} decode steps, {eng.prefill_buckets} "
-            f"prefill buckets), the M > 16 ones on int8mm_sm90 {routes}, "
+            f"prefill buckets), the M > 16 ones on int8mm_sm90 and the "
+            f"rest on int8mm_gemv_sm90 {routes}, "
             f"{L} int8 paged per step, no fused MLP"
         )
     pools_zero = all(
@@ -1761,9 +1872,23 @@ def main() -> int:
             launches["paged_decode_attention_int8"] / steps,
         "decode_mlp": launches["decode_mlp"] / steps,
     }
-    emit("profile_w8kv8", **profile_decode(E, eng, [
+    w8_profile = profile_decode(E, eng, [
         np.resize(r.prompt, 128) for r in reqs
-    ]))
+    ])
+    emit("profile_w8kv8", **w8_profile)
+    # One launch a GEMV call: the steady decode steps run the
+    # tensor-core GEMV only, 225 a step, and no second kernel.
+    if "int8mm_kernels" in w8_profile:
+        gemv = [k for k in w8_profile["int8mm_kernels"]
+                if GEMV_SM90_KERNEL in k]
+        per_step = sum(w8_profile["int8mm_kernels"][k]["launches_per_step"]
+                       for k in gemv)
+        if (per_step != mm_per_pass
+                or w8_profile["int8mm_launches_per_step"] != mm_per_pass):
+            raise AssertionError(
+                f"profile_w8kv8: int8mm kernels a step "
+                f"{w8_profile['int8mm_kernels']}, want {mm_per_pass} "
+                f"{GEMV_SM90_KERNEL} launches and nothing else")
     # TTFT's first breakdown: one bucket of 8 rows x a 128-token chunk.
     emit("profile_prefill_w8kv8", **profile_prefill(E, I8, eng, [
         np.resize(r.prompt, 256) for r in reqs
@@ -1811,14 +1936,15 @@ def main() -> int:
         steps = new - 1
         want = {"decode_attention": L * steps}
         # The prefill (b x s = 2048 rows, the lm_head over every
-        # position) on the wgmma tile, every decode step on the GEMV.
+        # position) on the wgmma tile, every decode step on the
+        # tensor-core GEMV.
         if quant == "none":
             want.update(decode_mlp=L * steps, int8mm=0, int8mm_sm90=0,
-                        int8mm_gemv=0)
+                        int8mm_gemv_sm90=0, int8mm_gemv=0)
         else:
             want.update(decode_mlp=0, int8mm=mm_per_pass * new,
                         int8mm_sm90=mm_per_pass,
-                        int8mm_gemv=mm_per_pass * steps)
+                        int8mm_gemv_sm90=mm_per_pass * steps, int8mm_gemv=0)
         if any(launches[k] != v for k, v in want.items()):
             raise AssertionError(f"generate {label}: launches {launches}, "
                                  f"want {want}")
@@ -1860,12 +1986,12 @@ def main() -> int:
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
          timing["decode_mlp"], engine_launches["decode_mlp"]),
-        # The int8 matmul's two routes on the path: the GEMV for M <= 16
-        # (decode) and the wgmma tile for M > 16 (prefill).
-        ("int8mm_gemv", "tpu_dra_torch/csrc/int8mm.cu",
+        # The int8 matmul's two routes on the path: the tensor-core GEMV
+        # for M <= 16 (decode) and the wgmma tile for M > 16 (prefill).
+        ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m8_k4096_n14336"], timing["int8mm"],
-         w8_launches["int8mm_gemv"]),
+         w8_launches["int8mm_gemv_sm90"]),
         ("int8mm_sm90", "tpu_dra_torch/csrc/int8mm_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m1024_k4096_n14336"], timing["int8mm_prefill"],
@@ -1901,10 +2027,12 @@ def main() -> int:
             "library_ms": t["library_ms"], "ms_with_host": t["ms_with_host"],
             "parity": par,
         })
+        if name == "int8mm_gemv_sm90":
+            rows[-1]["replaced_kernel_ms"] = t["old_gemv_ms"]
         if name.startswith("int8mm"):
             rows[-1]["serves"] = {
-                "int8mm_gemv": "gemv: M <= 16 (decode steps, the engine "
-                               "prefill's lm_head)",
+                "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 16 (decode steps, "
+                                    "the engine prefill's lm_head)",
                 "int8mm_sm90": "sm90: bf16 M > 16 (prefill projections, the "
                                "generate lm_head)",
             }[name]

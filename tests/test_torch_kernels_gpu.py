@@ -19,6 +19,7 @@ error of those sums. A row of zeros must come out exactly zero.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -191,7 +192,8 @@ def test_launch_counters_count_launches(cuda_device):
     TA.attention(q, k, v, causal=True, impl="torch")
     assert kernels.LAUNCHES == {
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
-        "decode_mlp": 2, "int8mm": 1, "int8mm_sm90": 0, "int8mm_gemv": 1,
+        "decode_mlp": 2, "int8mm": 1, "int8mm_sm90": 0,
+        "int8mm_gemv_sm90": 0, "int8mm_gemv": 1,
         "decode_attention": 1,
         "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
         "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
@@ -324,11 +326,11 @@ def test_int8mm_kernel_fp32_matches_plain(cuda_device, m, k, n):
 @pytest.mark.parametrize("m", [1, 8, 1024])
 @pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024)])
 def test_int8mm_kernel_bf16_8b_shapes(cuda_device, m, k, n):
-    """The wrapper at Llama-3-8B shapes: the GEMV at M <= 16, the wgmma
-    tile at M = 1024."""
+    """The wrapper at Llama-3-8B shapes: the tensor-core GEMV at
+    M <= 16, the wgmma tile at M = 1024."""
     x, w_q, w_s = _int8mm(m, m, k, n, torch.bfloat16, cuda_device,
                           zero_col=n // 2)
-    route = "gemv" if m <= 16 else "sm90"
+    route = "gemv_sm90" if m <= 16 else "sm90"
     assert TI._int8mm_route(x, w_q) == route
     kernels.reset_launches()
     got = TI.int8_matmul(x, w_q, w_s, impl="cuda").float()
@@ -373,6 +375,73 @@ def test_int8mm_wmma_tile_bf16_8b_shapes(cuda_device, k, n):
     _assert_bf16_close(got, ref)
     _assert_bf16_close(got, plain)
     assert torch.all(got[:, n // 2] == 0), "an all-zero column gives zeros"
+    assert torch.equal(got, again), "reruns must give identical bits"
+
+
+def _gemv_int8mm(x, w_q, w_s):
+    """int8mm.cu's weight-streaming GEMV, launched directly with the
+    wrapper's plan: it served every decode product before
+    int8mm_gemv_sm90.cu and still serves fp32 and the shapes that kernel
+    does not take."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    rows_tile, vec, splits = TI._gemv_plan(m, k, n, w_q.data_ptr(),
+                                           x.device)
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    partial = (torch.empty(splits, m, n, dtype=torch.float32,
+                           device=x.device) if splits > 1 else None)
+    fn = kernels.function("int8mm.cu", "tpu_int8_matmul",
+                          TI._INT8MM_ARGTYPES)
+    kernels.check(fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                     out.data_ptr(),
+                     None if partial is None else partial.data_ptr(),
+                     TI._DTYPE_CODES[x.dtype], m, k, n, rows_tile, vec,
+                     splits, int(k % 8 == 0 and x.data_ptr() % 16 == 0),
+                     torch.cuda.current_stream().cuda_stream), "int8mm gemv")
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _decode_weights(k, n):
+    """One int8 weight [k, n] quantized on the card from normal(0.02),
+    with an all-zero column at n // 3 (kept while a shape's cases run)."""
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    w = torch.empty(k, n, device="cuda").normal_(0.0, 0.02, generator=g)
+    w[:, n // 3] = 0.0
+    q = quantize_weight(w)
+    return q["kernel_q"], q["scale"]
+
+
+DECODE_KN = [(4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
+             (4096, 128256)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 13, 16])
+@pytest.mark.parametrize("k,n", DECODE_KN)
+def test_int8mm_gemv_sm90_decode_shapes(cuda_device, m, k, n):
+    """bf16 with M <= 16 at every Llama-3-8B decode projection takes the
+    tensor-core GEMV (int8mm_gemv_sm90.cu) in one launch: within the
+    per-row bar of the plain version and the fp32 reference, all-zero
+    columns exact, reruns bit-identical. int8mm.cu's GEMV, launched
+    directly on the same inputs, holds the same bar."""
+    w_q, w_s = _decode_weights(k, n)
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    assert TI._int8mm_route(x, w_q) == "gemv_sm90"
+    kernels.reset_launches()
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    assert kernels.LAUNCHES["int8mm_gemv_sm90"] == 1
+    assert kernels.LAUNCHES["int8mm"] == 1
+    assert kernels.LAUNCHES["int8mm_gemv"] == 0
+    again = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    old = _gemv_int8mm(x, w_q, w_s)
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference")
+    plain = TI.int8_matmul(x, w_q, w_s, impl="torch")
+    torch.cuda.synchronize()
+    for out in (got, old):
+        _assert_bf16_close(out, ref)
+        _assert_bf16_close(out, plain)
+        assert torch.all(out[:, n // 3] == 0), "an all-zero column gives 0"
     assert torch.equal(got, again), "reruns must give identical bits"
 
 

@@ -20,9 +20,12 @@
 // The wrapper (ops/int8mm.py `_int8mm_route`) sends bf16 with M > 16,
 // K % 8 == 0, N % 16 == 0 and 16-byte aligned x and w_q to the wgmma
 // tile of int8mm_sm90.cu (every prefill projection and the generate
-// lm_head); this file's three kernels cover every other shape, chosen
-// by the entry point:
-//   1. gemv (M <= 16): weight streaming. One CTA per (slab of 32*VEC
+// lm_head), and bf16 with M <= 16, K % 4 == 0, N % 16 == 0, x 8-byte
+// and w_q 16-byte aligned to the tensor-core GEMV of
+// int8mm_gemv_sm90.cu (every decode projection); this file's three
+// kernels cover every other shape, chosen by the entry point:
+//   1. gemv (M <= 16: fp32, and bf16 shapes int8mm_gemv_sm90.cu does
+//      not take): weight streaming. One CTA per (slab of 32*VEC
 //      columns, split of K, tile of RT rows). A lane loads VEC adjacent
 //      int8 columns of one weight row as one aligned word (16 bytes when
 //      N and the pointer allow), so a warp reads 32*VEC contiguous
@@ -63,18 +66,6 @@ constexpr int kThreads = kWarps * 32;
 
 constexpr int kChunk = 256;  // contraction rows of x staged per round
 constexpr int kRowsPerWarp = kChunk / kWarps;
-
-// Four int8 values packed in a word -> f32, exactly: flipping the sign
-// bit maps v to u = v + 128 in [0, 255]; placed under the exponent of
-// 2^23 the word is the float 2^23 + u, and subtracting 2^23 + 128
-// leaves v.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
-           8388736.0f;
-}
 
 // VEC adjacent int8 weights at p (VEC-byte aligned) -> f32.
 template <int VEC>

@@ -144,24 +144,6 @@ __device__ __forceinline__ void load_w(uint32_t base, int s, const int8_t* w,
   }
 }
 
-// Four int8 in a word -> four bf16 in two words, exactly: a byte
-// permute puts v + 128 under the exponent of 2^23, giving the float
-// 2^23 + v + 128, and subtracting 2^23 + 128 leaves v; v has at most 8
-// significant bits, so the float's upper half is v in bf16, and one
-// more permute packs two upper halves.
-__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
-                                               uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  uint32_t f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __float_as_uint(
-        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
-        8388736.0f);
-  lo = __byte_perm(f[0], f[1], 0x7632);
-  hi = __byte_perm(f[2], f[3], 0x7632);
-}
-
 // This thread's chunks of raw stage s -> bf16 W tile b (bf16 column n
 // of row k is 16-byte chunk (n % 64) / 8 of row k in block n / 64,
 // swizzled).

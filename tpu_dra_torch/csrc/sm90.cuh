@@ -2,8 +2,8 @@
 // (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_sm90.cu,
 // int8mm_sm90.cu): cp.async copies into the 128-byte-swizzled tiles
 // that wgmma descriptors read, the descriptors, and the wgmma products
-// with their fences. The decode body
-// (decode_attention.cuh) uses the cp.async copies alone.
+// with their fences. The decode body (decode_attention.cuh) and the
+// int8 GEMV (int8mm_gemv_sm90.cu) use the cp.async copies alone.
 //
 // The tile layout: a tile of ROWS rows x HD bf16 columns is HD/64 column
 // blocks of ROWS rows x 128 bytes, each 128-byte-swizzled (16-byte chunk
@@ -35,6 +35,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   // src-size 0 writes 16 zero bytes and reads nothing.
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 8 bytes (L1-cached: the int8 GEMV's x fragments); src-size 0 writes
+// zeros.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 // One float; src-size 0 writes a zero.

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 SOURCES = (
     "paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu",
     "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-    "flash_bwd_dq_sm90.cu", "int8mm_sm90.cu",
+    "flash_bwd_dq_sm90.cu", "int8mm_sm90.cu", "int8mm_gemv_sm90.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,14 +47,17 @@ NVCC_FLAGS = (
 # "flash_bwd_dq_sm90" (flash_bwd_dq_sm90.cu) likewise for dQ, and
 # "flash_bwd_dkv" and "flash_bwd_dkv_sm90" (flash_bwd_sm90.cu) for dK/dV;
 # "int8mm" counts every int8 matmul launch, "int8mm_sm90" those of the
-# wgmma tile (int8mm_sm90.cu) and "int8mm_gemv" those of int8mm.cu's
-# weight-streaming GEMV (M <= 16).
+# wgmma tile (int8mm_sm90.cu), "int8mm_gemv_sm90" those of the
+# tensor-core decode GEMV (int8mm_gemv_sm90.cu, bf16 M <= 16) and
+# "int8mm_gemv" those of int8mm.cu's weight-streaming GEMV (fp32 and
+# the shapes int8mm_gemv_sm90.cu does not take, M <= 16).
 LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_int8": 0,
     "decode_mlp": 0,
     "int8mm": 0,
     "int8mm_sm90": 0,
+    "int8mm_gemv_sm90": 0,
     "int8mm_gemv": 0,
     "decode_attention": 0,
     "flash_fwd": 0,

@@ -6,8 +6,12 @@ Counterpart of ``tpu_dra/workloads/ops/int8mm.py``:
   ``_kernel``, at every shape. ``_int8mm_route`` picks it before the
   launch, from the shapes, dtype and alignment alone:
 
-  - ``"gemv"``, M <= 16 (decode, M = slot count): the weight-streaming
-    kernel of ``csrc/int8mm.cu``;
+  - ``"gemv_sm90"``, bf16 with M <= 16 (decode, M = slot count),
+    K % 4 == 0, N % 16 == 0, x 8-byte and w_q 16-byte aligned (every
+    decode projection and lm_head): the tensor-core GEMV of
+    ``csrc/int8mm_gemv_sm90.cu``, planned by :func:`gemv_sm90_plan`;
+  - ``"gemv"``, any other M <= 16 (fp32, odd shapes): the
+    weight-streaming kernel of ``csrc/int8mm.cu``;
   - ``"sm90"``, bf16 with M > 16, K % 8 == 0, N % 16 == 0 and x, w_q
     16-byte aligned (every prefill projection and the generate
     lm_head): the wgmma tile of ``csrc/int8mm_sm90.cu``;
@@ -34,6 +38,8 @@ latest call.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -62,7 +68,16 @@ _INT8MM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
 _INT8MM_SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
     ctypes.c_void_p,
 ]
+_INT8_GEMV_SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p,
+]
 
+# The tensor-core decode GEMV (csrc/int8mm_gemv_sm90.cu): CTAs of 8
+# warps, a warp a slab of 128 columns stepping K 16 rows at a time,
+# clusters of at most 8 CTAs (the portable size).
+_GEMV_SM90_WARPS = 8
+_GEMV_SM90_COLS = 128
+_GEMV_SM90_MAX_CLUSTER = 8
 
 def reference_int8_matmul(x, w_q, scale):
     """fp32 oracle: x @ (w_q * scale), rounded once to x's dtype."""
@@ -104,14 +119,76 @@ def _gemv_plan(m: int, k: int, n: int, w_ptr: int, device) -> tuple:
     return rows_tile, vec, splits
 
 
+class GemvPlan(NamedTuple):
+    """How the tensor-core GEMV covers x [M, K] times w_q [K, N]: grid
+    (cluster, col_ctas), a cluster's CTAs along K; a CTA's warps_n x
+    warps_k warps, each on one 128-column slab and, in every stage of
+    the CTA's ring, one k16 step."""
+
+    planes: int  # 8-row planes of x: 1 for M <= 8, else 2
+    warps_n: int  # 128-column slabs a CTA
+    warps_k: int  # warps a slab: k16 steps a stage
+    cluster: int  # CTAs a cluster, splitting K
+    col_ctas: int  # clusters
+    cta_steps: int  # k16 steps a CTA (rank r: [r * cta_steps, +cta_steps))
+    stages: int  # stages a CTA walks
+
+    @property
+    def ctas(self) -> int:
+        return self.cluster * self.col_ctas
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_sm90_plan(m: int, k: int, n: int, sm_count: int) -> GemvPlan:
+    """The tensor-core GEMV's plan, from the shapes and the SM count
+    alone (no device value is read).
+
+    One wave of at most one CTA an SM: on the H100 a CTA streams W at a
+    rate its SM sets, so a second CTA on an SM or a second wave only
+    lengthens the call. The most CTAs under that cap win; then no
+    cluster (its reduction costs cluster barriers and reads across
+    SMs), then the widest column blocks (longer runs of each W row a
+    stage). A grid of clusters fits only three quarters of the SMs: a
+    cluster's CTAs must share a GPC, and fuller grids doubled CTAs up
+    on SMs or left clusters waiting (int8mm_ablation.py, phase gemv).
+    Column blocks beyond one wave take the widest CTAs (8 slabs) and no
+    cluster."""
+    planes = 1 if m <= 8 else 2
+    slabs = -(-n // _GEMV_SM90_COLS)
+    steps = -(-k // 16)
+    best = None
+    for warps_n in (1, 2, 4, 8):
+        col_ctas = -(-slabs // warps_n)
+        for cluster in range(1, min(_GEMV_SM90_MAX_CLUSTER, steps) + 1):
+            cap = sm_count if cluster == 1 else 3 * sm_count // 4
+            if col_ctas * cluster > cap:
+                break
+            key = (col_ctas * cluster, cluster == 1, warps_n)
+            if best is None or key > best[0]:
+                best = (key, warps_n, cluster)
+    warps_n, cluster = (8, 1) if best is None else best[1:]
+    cta_steps = -(-steps // cluster)
+    cluster = -(-steps // cta_steps)  # no rank without steps
+    warps_k = _GEMV_SM90_WARPS // warps_n
+    return GemvPlan(
+        planes=planes, warps_n=warps_n, warps_k=warps_k, cluster=cluster,
+        col_ctas=-(-slabs // warps_n), cta_steps=cta_steps,
+        stages=-(-cta_steps // warps_k),
+    )
+
+
 def _int8mm_route(x, w_q) -> str:
     """The kernel that serves x [M, K] times w_q [K, N] on the card:
-    "gemv" (M <= 16), "sgemm" (fp32), "sm90" (bf16 whose 16-byte copies
+    "gemv_sm90" (bf16, M <= 16, K % 4 == 0, N % 16 == 0, x 8-byte and
+    w_q 16-byte aligned), "gemv" (any other M <= 16), "sgemm" (fp32), "sm90" (bf16 whose 16-byte copies
     the wgmma tile takes: K % 8 == 0, N % 16 == 0, x and w_q 16-byte
     aligned) or "wmma" (any other bf16 shape)."""
     m, k = x.shape
     n = w_q.shape[1]
     if m <= _GEMV_MAX_ROWS:
+        if (x.dtype == torch.bfloat16 and k % 4 == 0 and n % 16 == 0
+                and x.data_ptr() % 8 == 0 and w_q.data_ptr() % 16 == 0):
+            return "gemv_sm90"
         return "gemv"
     if x.dtype == torch.float32:
         return "sgemm"
@@ -131,7 +208,8 @@ def _sm90_rows(m: int, n: int, device) -> int:
 
 def _cuda_int8_matmul(x, w_q, scale):
     """Launch the route's kernel (csrc/int8mm_sm90.cu for "sm90",
-    csrc/int8mm.cu for the rest) on x's stream: x [M, K] bf16 or fp32,
+    csrc/int8mm_gemv_sm90.cu for "gemv_sm90", csrc/int8mm.cu for the
+    rest) on x's stream: x [M, K] bf16 or fp32,
     w_q [K, N] int8, scale [N] f32, all contiguous on one device;
     raises on anything else."""
     m, k = x.shape
@@ -163,6 +241,17 @@ def _cuda_int8_matmul(x, w_q, scale):
                  out.data_ptr(), m, k, n, _sm90_rows(m, n, x.device), stream)
         kernels.check(err, "int8mm_sm90")
         kernels.LAUNCHES["int8mm_sm90"] += 1
+        kernels.LAUNCHES["int8mm"] += 1
+        return out
+    if route == "gemv_sm90":
+        plan = gemv_sm90_plan(m, k, n, _sm_count(x.device))
+        fn = kernels.function("int8mm_gemv_sm90.cu", "tpu_int8_gemv_sm90",
+                              _INT8_GEMV_SM90_ARGTYPES)
+        err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), m, k, n, plan.warps_n, plan.cluster,
+                 plan.cta_steps, stream)
+        kernels.check(err, "int8mm_gemv_sm90")
+        kernels.LAUNCHES["int8mm_gemv_sm90"] += 1
         kernels.LAUNCHES["int8mm"] += 1
         return out
     partial = None
