@@ -15,15 +15,21 @@ exits non-zero without a result:
    flash_bwd_sm90.cu, int8mm_sm90.cu) the dynamic shared memory a CTA
    asks for; every instantiation of the wgmma kernels, of the decode
    bodies (decode_split_kernel, decode_combine_kernel in paged_decode.cu
-   and decode.cu) and of the tensor-core int8 GEMV
-   (int8mm_gemv_sm90.cu, both planes) must spill 0 bytes.
+   and decode.cu), of the tensor-core int8 GEMV
+   (int8mm_gemv_sm90.cu, both planes) and of the tensor-core decode MLP
+   (decode_mlp_sm90.cu: gate/up and down, both planes) must spill 0
+   bytes.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
    d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
    513 pages and lengths [0,1,15,16,17,255,512,1000], then lengths on
    the split boundaries and at the capacity [63,64,65,127,128,129,1023,
    1024], then one slot of 8192 keys, with bf16 pools and with int8
-   pools; decode MLP with B in {1, 8}; the int8 matmul at
+   pools; decode MLP with B in {1, 8, 13, 16}, each on the tensor-core
+   route (sm90, decode_mlp_sm90.cu, with its plan; reruns
+   bit-identical), and decode_mlp.cu (the simt route: fp32 and B > 16)
+   launched directly at fp32 B = 8 and bf16 B = 32, against the plain
+   version on the same inputs; the int8 matmul at
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
    (4096, 1024), (4096, 128256)}, at M in {17, 129, 2048} for
    4096 x 14336, wq/wo's 4096 x 4096 at M in {1024, 2048}, the
@@ -61,7 +67,11 @@ exits non-zero without a result:
    the card could take (bytes over the memory rate vs operations over
    the bf16 peak, whichever is larger). Each kernel also has
    ``ms_with_host``, timed with the wrapper's host time included. The
-   flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
+   decode MLP at B = 8 on the tensor-core kernel, with decode_mlp.cu (the
+   kernel it replaced on this route) on the same inputs, each pass's
+   device time from torch.profiler, and as the library yardstick a chain
+   of PyTorch library calls for the same block (rms_norm, three cuBLAS
+   GEMMs, silu, mul, add: a chain, not one call). The flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
    its backward (the dQ + dK/dV pair) as the library yardsticks, each
    with achieved TFLOP/s and share of the bound; each flash row also
    times the WMMA kernel it replaced, on the same inputs, and the dK/dV
@@ -92,8 +102,12 @@ exits non-zero without a result:
    (prompts 64-512, 32-64 new tokens) through the paged engine. Every
    request completes with its token count, the allocator ends
    leak-free, and both bf16 kernels launch once per layer per decode
-   step; a profile of steady decode names the decode attention's split
-   and combine kernels' device ms per step. Then, with all 8 slots
+   step, every decode MLP on the tensor-core route; a profile of steady
+   decode names the decode attention's split and combine kernels' and
+   the decode MLP's kernels' device ms per step (the MLP: the two passes
+   of decode_mlp_sm90.cu, one launch each per layer per step, and none
+   of decode_mlp.cu's) and the MLP's share of the step's device time.
+   Then, with all 8 slots
    decoding the same prompts, one decode
    step runs from one state with kernels, plain versions, fp32
    reference versions and each kernel alone (STEP_VARIANTS): with fp32
@@ -116,8 +130,9 @@ exits non-zero without a result:
    and bf16 cut to 2 layers.
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
    new tokens, once in bf16 and once with int8 weights and KV: 32
-   contiguous-decode launches per decode step, and 32 fused-MLP (bf16)
-   or 225 int8 matmul (w8kv8) launches per step; the w8kv8 prefill's
+   contiguous-decode launches per decode step, and 32 fused-MLP (bf16,
+   all on the tensor-core route) or 225 int8 matmul (w8kv8) launches per
+   step; the w8kv8 prefill's
    225 (M = 2048, the lm_head over every position) all on the wgmma
    tile, the decode steps' all on the tensor-core GEMV.
 9. train   — the Trainer at Llama-3-8B widths cut to 4 layers, bf16,
@@ -348,6 +363,19 @@ def mlp_inputs(gen, b, d=4096, ffn=14336):
         "w_down": {"kernel": w(ffn, d)},
     }
     return x, scale, tree
+
+
+def mlp_weights(tree) -> tuple:
+    return tuple(tree[n]["kernel"] for n in ("w_gate", "w_up", "w_down"))
+
+
+def mlp_library_chain(x, scale, tree, eps=1e-5):
+    """The decode MLP block as a chain of PyTorch library calls (the
+    timing yardstick; the port never runs it): rms_norm, three cuBLAS
+    GEMMs, silu, mul and the residual add."""
+    wg, wu, wd = mlp_weights(tree)
+    h = torch.nn.functional.rms_norm(x, (x.shape[-1],), scale, eps)
+    return x + (torch.nn.functional.silu(h @ wg) * (h @ wu)) @ wd
 
 
 def int8mm_inputs(Q, gen, m, k, n, dtype=torch.bfloat16, zero_col=None):
@@ -715,6 +743,9 @@ def profile_decode(E, eng, prompts, chunks: int = 2) -> dict:
     }
     int8mm = [(us, n, key) for us, n, key in kernels_
               if any(name in key for name in INT8MM_KERNELS)]
+    mlp = [(us, n, key) for us, n, key in kernels_
+           if any(name in key for name in MLP_KERNELS)]
+    mlp_ms = sum(k[0] for k in mlp) / 1e3 / steps
     return {
         "decode_attention_kernels": attention,
         "int8mm_kernels": {
@@ -723,6 +754,14 @@ def profile_decode(E, eng, prompts, chunks: int = 2) -> dict:
             for us, n, key in int8mm},
         "int8mm_device_ms_per_step": sum(k[0] for k in int8mm) / 1e3 / steps,
         "int8mm_launches_per_step": sum(k[1] for k in int8mm) / steps,
+        "mlp_kernels": {
+            short_name(key)[:60]: {"device_ms_per_step": us / 1e3 / steps,
+                                   "launches_per_step": n / steps}
+            for us, n, key in mlp},
+        "mlp_device_ms_per_step": mlp_ms,
+        "mlp_launches_per_step": sum(k[1] for k in mlp) / steps,
+        "device_ms_per_step": device_ms / steps,
+        "mlp_share_of_device_time": mlp_ms / (device_ms / steps),
         "decode_steps": steps,
         "window_ms": window_ms,
         "step_ms": window_ms / steps,
@@ -1031,6 +1070,66 @@ def gemv_sm90_build(kernels, report) -> dict:
         raise AssertionError(f"{GEMV_SM90_SOURCE}: instantiations spill: "
                              f"{spills}")
     return out
+
+
+# The tensor-core decode MLP's source and kernel: instantiations for
+# (1 or 2 planes of 8 rows) x (gate/up, down).
+MLP_SM90_SOURCE = "decode_mlp_sm90.cu"
+MLP_SM90_KERNEL = "mlp_sm90_kernel"
+# The decode MLP's kernels by name: the tensor-core kernel's two passes
+# and decode_mlp.cu's three kernels.
+MLP_KERNELS = (MLP_SM90_KERNEL, "gate_up_kernel", "down_kernel",
+               "residual_kernel")
+
+
+def mlp_sm90_build(kernels, report) -> dict:
+    """Registers, static shared memory and spill bytes of each
+    instantiation of the tensor-core decode MLP; raises unless ptxas
+    reported all four and none spills."""
+    out = {
+        short_name(fn): {"registers": p["registers"],
+                         "spill_store_bytes": p["spill_stores"],
+                         "static_smem_bytes": p["smem_bytes"]}
+        for fn, p in kernels.ptxas_report(
+            report[MLP_SM90_SOURCE]["log"]).items()
+    }
+    if sum(MLP_SM90_KERNEL in k for k in out) != 4:
+        raise AssertionError(f"{MLP_SM90_SOURCE}: no ptxas report for "
+                             f"every instantiation: {sorted(out)}")
+    spills = {k: v for k, v in out.items() if v["spill_store_bytes"]}
+    if spills:
+        raise AssertionError(f"{MLP_SM90_SOURCE}: instantiations spill: "
+                             f"{spills}")
+    return out
+
+
+def mlp_plan_dict(plan) -> dict:
+    return {"planes": plan.planes, "gate_up": plan.gate_up._asdict(),
+            "down": plan.down._asdict()}
+
+
+def mlp_pass_profile(call, flush, reps: int = 20) -> dict:
+    """Device µs a call of the tensor-core decode MLP spends in each
+    pass (gate/up, down), from torch.profiler over ``reps`` calls with
+    the L2 flushed before each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if MLP_SM90_KERNEL in ev.key and dev_us > 0:
+            name = "gate_up" if "true>" in ev.key else "down"
+            out[f"{name}_us"] = dev_us / ev.count
+            out[f"{name}_launches_per_call"] = ev.count / reps
+    return out or {"profile": "not measured: no device time recorded"}
 
 
 def sm90_build(kernels, report) -> dict:
@@ -1483,7 +1582,8 @@ def main() -> int:
          ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"],
          sm90=sm90_build(kernels, report),
          decode_body=decode_body_build(kernels, report),
-         gemv_sm90=gemv_sm90_build(kernels, report))
+         gemv_sm90=gemv_sm90_build(kernels, report),
+         mlp_sm90=mlp_sm90_build(kernels, report))
 
     # --- 3. parity at 8B widths ------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -1504,21 +1604,56 @@ def main() -> int:
             else:
                 parity[name] = res
         del q, kp, vp, tables, lens, k_, v_, sc
-    for b in (1, 8):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (1, 8, 13, 16):
         x, scale, tree = mlp_inputs(gen, b)
+        route = DM._decode_mlp_route(x, mlp_weights(tree))
+        if route != "sm90":
+            raise AssertionError(f"decode_mlp b={b}: route {route}, want "
+                                 f"sm90")
         got = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
         plain = DM.decode_mlp(x, scale, tree, 1e-5, impl="torch")
         ref = DM.decode_mlp(x, scale, tree, 1e-5, impl="reference")
         again = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
         torch.cuda.synchronize()
         parity[f"decode_mlp_b{b}"] = {
+            "route": route,
+            "plan": mlp_plan_dict(DM.mlp_sm90_plan(b, 4096, 14336, sms)),
             "vs_plain": compare(f"mlp b={b} vs plain", got, plain),
             "vs_reference": compare(f"mlp b={b} vs reference", got, ref),
             "rerun_bit_identical": bool(torch.equal(got, again)),
         }
         if not parity[f"decode_mlp_b{b}"]["rerun_bit_identical"]:
             raise AssertionError("decode_mlp reruns must give identical bits")
-    del x, scale, tree
+    # decode_mlp.cu, which serves the simt route (fp32, B > 16), launched
+    # directly (not counted): fp32 at B = 8, bf16 at B = 32.
+    for label, b, dtype in (("fp32_b8", 8, torch.float32),
+                            ("bf16_b32", 32, torch.bfloat16)):
+        x, scale, tree = mlp_inputs(gen, b)
+        x, scale = x.to(dtype), scale.to(dtype)
+        tree = {k: {"kernel": v["kernel"].to(dtype)} for k, v in tree.items()}
+        ws = mlp_weights(tree)
+        route = DM._decode_mlp_route(x, ws)
+        old = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
+        old_again = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
+        plain = DM.decode_mlp(x, scale, tree, 1e-5, impl="torch")
+        ref = DM.decode_mlp(x, scale, tree, 1e-5, impl="reference")
+        torch.cuda.synchronize()
+        name = f"decode_mlp_simt_{label}"
+        parity[name] = {"route": route,
+                        "rerun_bit_identical": bool(torch.equal(
+                            old, old_again))}
+        if dtype == torch.float32:
+            parity[name]["vs_plain"] = compare_fp32(name, old, plain)
+        else:
+            parity[name]["vs_plain"] = compare(f"{name} vs plain", old,
+                                               plain)
+            parity[name]["vs_reference"] = compare(f"{name} vs reference",
+                                                   old, ref)
+        if route != "simt" or not parity[name]["rerun_bit_identical"]:
+            raise AssertionError(f"{name}: {parity[name]}")
+        del old, old_again, plain, ref
+    del x, scale, tree, ws
     for m, k, n in INT8MM_PARITY:
         x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n, zero_col=n // 3)
         got = I8.int8_matmul(x, w_q, w_s, impl="cuda")
@@ -1618,26 +1753,45 @@ def main() -> int:
                 A, q, k_, v_, sc, tables, lens, lengths, rates, flush)
         del q, kp, vp, tables, lens, pools, k_, v_, sc
     x, scale, tree = mlp_inputs(gen, 8)
+    ws = mlp_weights(tree)
     d, ffn = x.shape[1], tree["w_gate"]["kernel"].shape[1]
+    route = DM._decode_mlp_route(x, ws)
+    if route != "sm90":
+        raise AssertionError(f"decode_mlp timing: route {route}, want sm90")
     nbytes = 3 * d * ffn * 2 + d * 2 + 2 * x.numel() * 2
     flops = 2 * x.shape[0] * d * ffn * 3
     call = functools.partial(DM.decode_mlp, x, scale, tree, 1e-5,
                              impl="cuda")
     ms = time_ms(call, flush)
     host_ms = time_ms(call, flush, shield=False)
+    old_ms = time_ms(lambda: DM._simt_decode_mlp(x, scale, *ws, 1e-5),
+                     flush)
     plain_ms = time_ms(
         lambda: DM.decode_mlp(x, scale, tree, 1e-5, impl="torch"), flush)
+    library_ms = yardstick_ms(lambda: mlp_library_chain(x, scale, tree),
+                              flush)
     timing["decode_mlp"] = {
         "shape": "B=8, d=4096, ffn=14336, bf16",
-        "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
-        "library_ms": None,
+        "route": route,
+        "plan": mlp_plan_dict(DM.mlp_sm90_plan(8, d, ffn, sms)),
+        "ms": ms, "ms_with_host": host_ms, "replaced_kernel_ms": old_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms if isinstance(library_ms, float) else None,
+        "library_note": "a chain of library calls (rms_norm, three cuBLAS "
+                        "GEMMs, silu, mul, add), not one call"
+                        + ("" if isinstance(library_ms, float)
+                           else f"; {library_ms}"),
+        "passes": mlp_pass_profile(call, flush),
         **bound(nbytes, flops, rates),
     }
-    del x, scale, tree
+    row = timing["decode_mlp"]
+    row["share_of_bound"] = row["bound_ms"] / ms
+    row["replaced_over_kernel"] = old_ms / ms
+    row["plain_over_kernel"] = plain_ms / ms
+    del x, scale, tree, ws
     # The tensor-core GEMV at every decode shape (M = 8 slots): gate and
     # up, the lm_head, wq and wo, wk and wv, down; int8mm.cu's GEMV, the
     # kernel it replaced on this route, on the same inputs.
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, m, k, n in (("int8mm", 8, 4096, 14336),
                            ("int8mm_lm_head", 8, 4096, 128256),
                            ("int8mm_decode_wq", 8, 4096, 4096),
@@ -1780,7 +1934,8 @@ def main() -> int:
     want_attn = L * steps
     want_mlp = L * (steps + eng.prefill_single_token_buckets)
     if not (launches["paged_decode_attention"] == want_attn > 0
-            and launches["decode_mlp"] == want_mlp > 0
+            and launches["decode_mlp"] == launches["decode_mlp_sm90"]
+            == want_mlp > 0
             and launches["int8mm"] == launches["int8mm_sm90"]
             == launches["int8mm_gemv_sm90"] == launches["int8mm_gemv"] == 0
             and launches["paged_decode_attention_int8"] == 0):
@@ -1795,6 +1950,16 @@ def main() -> int:
         np.resize(r.prompt, 128) for r in reqs
     ])
     emit("profile", **profile)
+    # The MLP of every steady decode step: the tensor-core kernel's two
+    # passes, one launch each a layer, and none of decode_mlp.cu's.
+    if "mlp_kernels" in profile:
+        per_step = {k: v["launches_per_step"]
+                    for k, v in profile["mlp_kernels"].items()}
+        sm90 = sum(v for k, v in per_step.items() if MLP_SM90_KERNEL in k)
+        if sm90 != 2 * L or profile["mlp_launches_per_step"] != 2 * L:
+            raise AssertionError(
+                f"profile: decode MLP kernels a step {per_step}, want "
+                f"{2 * L} {MLP_SM90_KERNEL} launches and nothing else")
 
     step_prompts = [r.prompt for r in reqs]
     steps_cmp = {"bf16": step_logits(E, I8, cfg, eng, step_prompts,
@@ -1848,7 +2013,7 @@ def main() -> int:
             == launches["int8mm"]
             and launches["paged_decode_attention_int8"] == L * steps > 0
             and launches["paged_decode_attention"] == 0
-            and launches["decode_mlp"] == 0):
+            and launches["decode_mlp"] == launches["decode_mlp_sm90"] == 0):
         raise AssertionError(
             f"w8kv8 launches {launches}: want {mm_per_pass} int8mm per "
             f"forward pass ({steps} decode steps, {eng.prefill_buckets} "
@@ -1939,10 +2104,12 @@ def main() -> int:
         # position) on the wgmma tile, every decode step on the
         # tensor-core GEMV.
         if quant == "none":
-            want.update(decode_mlp=L * steps, int8mm=0, int8mm_sm90=0,
-                        int8mm_gemv_sm90=0, int8mm_gemv=0)
+            want.update(decode_mlp=L * steps, decode_mlp_sm90=L * steps,
+                        int8mm=0, int8mm_sm90=0, int8mm_gemv_sm90=0,
+                        int8mm_gemv=0)
         else:
-            want.update(decode_mlp=0, int8mm=mm_per_pass * new,
+            want.update(decode_mlp=0, decode_mlp_sm90=0,
+                        int8mm=mm_per_pass * new,
                         int8mm_sm90=mm_per_pass,
                         int8mm_gemv_sm90=mm_per_pass * steps, int8mm_gemv=0)
         if any(launches[k] != v for k, v in want.items()):
@@ -1960,6 +2127,7 @@ def main() -> int:
             "launches_per_decode_step": {
                 "decode_attention": launches["decode_attention"] / steps,
                 "decode_mlp": launches["decode_mlp"] / steps,
+                "decode_mlp_sm90": launches["decode_mlp_sm90"] / steps,
                 "int8mm": (launches["int8mm"] - (mm_per_pass if quant
                                                  == "int8" else 0)) / steps,
             },
@@ -1983,9 +2151,9 @@ def main() -> int:
          "tpu_dra/workloads/ops/attention.py:1128",
          parity["paged_decode_attention"], timing["paged_decode_attention"],
          engine_launches["paged_decode_attention"]),
-        ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp.cu",
+        ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
-         timing["decode_mlp"], engine_launches["decode_mlp"]),
+         timing["decode_mlp"], engine_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
         # for M <= 16 (decode) and the wgmma tile for M > 16 (prefill).
         ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
@@ -2029,6 +2197,10 @@ def main() -> int:
         })
         if name == "int8mm_gemv_sm90":
             rows[-1]["replaced_kernel_ms"] = t["old_gemv_ms"]
+        if name == "decode_mlp":
+            rows[-1].update(counter="decode_mlp_sm90",
+                            replaced_kernel_ms=t["replaced_kernel_ms"],
+                            library_note=t["library_note"])
         if name.startswith("int8mm"):
             rows[-1]["serves"] = {
                 "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 16 (decode steps, "

@@ -1,7 +1,9 @@
 """The port stands alone: no module under tpu_dra_torch/, and not
-chip_smoke.py, imports jax, flax or anything of the JAX package
-(tpu_dra). The card's machine has no JAX, and the JAX package is the
-reference the port is held to, never a dependency of it."""
+chip_smoke.py or the ablation scripts that run beside it on the card
+(int8mm_ablation.py, decode_mlp_ablation.py), imports jax, flax or
+anything of the JAX package (tpu_dra). The card's machine has no JAX,
+and the JAX package is the reference the port is held to, never a
+dependency of it."""
 
 import ast
 from pathlib import Path
@@ -14,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_dra")
 
 def _port_files():
     files = sorted((REPO / "tpu_dra_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "int8mm_ablation.py",
+              REPO / "decode_mlp_ablation.py"]
     return files
 
 

@@ -154,9 +154,17 @@ def test_decode_mlp_kernel_fp32_matches_plain(cuda_device, b, d, ffn):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("b", [1, 8])
+def _mlp_weights(tree):
+    return tuple(tree[n]["kernel"] for n in ("w_gate", "w_up", "w_down"))
+
+
+@pytest.mark.parametrize("b", [1, 8, 13, 16])
 def test_decode_mlp_kernel_bf16_8b_shape(cuda_device, b):
+    """bf16 at 8B widths takes the tensor-core kernel
+    (decode_mlp_sm90.cu) at every decode row count."""
     x, scale, tree = _mlp(b, b, 4096, 14336, torch.bfloat16, cuda_device)
+    assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "sm90"
+    kernels.reset_launches()
     got = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda").float()
     ref = TDM.decode_mlp(x, scale, tree, 1e-5, impl="reference").float()
     plain = TDM.decode_mlp(x, scale, tree, 1e-5, impl="torch").float()
@@ -165,6 +173,46 @@ def test_decode_mlp_kernel_bf16_8b_shape(cuda_device, b):
     _assert_bf16_close(got, plain)
     again = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda").float()
     assert torch.equal(got, again), "reruns must give identical bits"
+    assert kernels.LAUNCHES["decode_mlp_sm90"] == 2
+    assert kernels.LAUNCHES["decode_mlp"] == 2
+
+
+@pytest.mark.parametrize("b,d,ffn,dtype", [
+    (8, 256, 512, torch.float32), (16, 4096, 1024, torch.float32),
+    (17, 256, 512, torch.bfloat16), (32, 4096, 1024, torch.bfloat16),
+])
+def test_decode_mlp_simt_route_serves_fp32_and_wide_batches(
+        cuda_device, b, d, ffn, dtype):
+    """fp32 and B = 17 / 32 take decode_mlp.cu (CUDA cores): the
+    tensor-core kernel launches never."""
+    x, scale, tree = _mlp(b + d, b, d, ffn, dtype, cuda_device)
+    assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "simt"
+    kernels.reset_launches()
+    got = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
+    ref = TDM.decode_mlp(x, scale, tree, 1e-5, impl="reference")
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        _assert_bf16_close(got, ref)
+    assert kernels.LAUNCHES["decode_mlp"] == 1
+    assert kernels.LAUNCHES["decode_mlp_sm90"] == 0
+
+
+@pytest.mark.parametrize("b,d,ffn", [(3, 64, 128), (13, 256, 512),
+                                     (8, 136, 200), (16, 4096, 1024)])
+def test_decode_mlp_sm90_small_and_ragged_shapes(cuda_device, b, d, ffn):
+    """The tensor-core kernel at TINY widths and at shapes whose K and N
+    do not fill a stage or a CTA's columns, against the fp32 reference
+    and the plain chain."""
+    x, scale, tree = _mlp(b * d, b, d, ffn, torch.bfloat16, cuda_device)
+    assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "sm90"
+    got = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda").float()
+    ref = TDM.decode_mlp(x, scale, tree, 1e-5, impl="reference").float()
+    plain = TDM.decode_mlp(x, scale, tree, 1e-5, impl="torch").float()
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    _assert_bf16_close(got, plain)
 
 
 def test_launch_counters_count_launches(cuda_device):
@@ -192,7 +240,8 @@ def test_launch_counters_count_launches(cuda_device):
     TA.attention(q, k, v, causal=True, impl="torch")
     assert kernels.LAUNCHES == {
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
-        "decode_mlp": 2, "int8mm": 1, "int8mm_sm90": 0,
+        "decode_mlp": 2, "decode_mlp_sm90": 0, "int8mm": 1,
+        "int8mm_sm90": 0,
         "int8mm_gemv_sm90": 0, "int8mm_gemv": 1,
         "decode_attention": 1,
         "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
@@ -227,6 +276,38 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
     with pytest.raises(ValueError, match="dtype"):
         TDM.decode_mlp(x[:4].half(), scale, tree, 1e-5, impl="cuda")
+    # The tensor-core route: bf16 operands of another shape or dtype are
+    # refused before any launch, and its C entry refuses a plan it does
+    # not take (a cluster of 9) or an unaligned pointer.
+    x, scale, tree = _mlp(5, 8, 256, 512, torch.bfloat16, cuda_device)
+    assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "sm90"
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="shapes"):
+        TDM.decode_mlp(x[:, :128].contiguous(), scale, tree, 1e-5,
+                       impl="cuda")
+    bad = dict(tree, w_up={"kernel": tree["w_up"]["kernel"].float()})
+    with pytest.raises(ValueError, match="dtype"):
+        TDM.decode_mlp(x, scale, bad, 1e-5, impl="cuda")
+    fn = kernels.function("decode_mlp_sm90.cu", "tpu_decode_mlp_sm90",
+                          TDM._MLP_SM90_ARGTYPES)
+    act = torch.empty(8, 512, dtype=torch.bfloat16, device=cuda_device)
+    out = torch.empty_like(x)
+    wg, wu, wd = _mlp_weights(tree)
+    plan = TDM.mlp_sm90_plan(8, 256, 512, 132)
+    gu, dn = plan.gate_up, plan.down
+    args = [x.data_ptr(), scale.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), act.data_ptr(), out.data_ptr(), 8, 256, 512,
+            gu.width, gu.cluster, gu.cta_steps, gu.slots, dn.width,
+            dn.cluster, dn.cta_steps, dn.slots, 1e-5,
+            torch.cuda.current_stream().cuda_stream]
+    assert fn(*args) == 0
+    for i, v in ((11, 9), (10, 96), (13, 9), (0, x.data_ptr() + 2)):
+        wrong = list(args)
+        wrong[i] = v
+        with pytest.raises(RuntimeError, match="cudaError"):
+            kernels.check(fn(*wrong), "decode_mlp_sm90")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_mlp_sm90"] == 0
 
 
 def test_tiny_engine_on_the_card_matches_the_cpu_engine(cuda_device):
@@ -262,6 +343,7 @@ def test_tiny_engine_on_the_card_matches_the_cpu_engine(cuda_device):
             assert kernels.LAUNCHES["decode_mlp"] == cfg.n_layers * (
                 eng.decode_steps + eng.prefill_single_token_buckets
             )
+            assert kernels.LAUNCHES["decode_mlp_sm90"] == 0  # fp32
     agree = np.mean([
         np.mean(out["cpu"][r].tokens == out["cuda"][r].tokens)
         for r, _, _ in trace

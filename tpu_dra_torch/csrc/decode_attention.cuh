@@ -358,21 +358,6 @@ struct CoreBody {
   }
 };
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr,
-                                            uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
-                                                  uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 // d += A . B over 16 of K for rows 0-7 of the m16 tile: A's rows 8-15
 // are zero (a1 = a3 = 0) and their outputs are dropped, so they take no
 // accumulator registers.

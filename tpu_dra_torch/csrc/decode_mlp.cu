@@ -1,5 +1,9 @@
-// Fused decode MLP block for Hopper (sm_90a):
+// Fused decode MLP block for Hopper (sm_90a), on CUDA cores:
 //   out = x + down(silu(gate(rms(x))) * up(rms(x)))   for x [B, d], B <= 64.
+//
+// The route ops/decode_mlp.py `_decode_mlp_route` calls "simt": fp32,
+// 17 <= B <= 64, and the bf16 shapes decode_mlp_sm90.cu (the tensor-core
+// kernel, which serves bf16 decode at B <= 16) does not take.
 //
 // Replaces: tpu_dra/workloads/ops/decode_mlp.py `_decode_mlp_kernel`
 // (wrapper `_pallas_decode_mlp`, pallas_call at :176). Numerics follow

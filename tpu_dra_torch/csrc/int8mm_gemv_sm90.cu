@@ -82,45 +82,6 @@ __host__ __device__ constexpr int stage_bytes(int planes, int warps_k) {
   return kWBytes + warps_k * planes * kPlaneBytes;
 }
 
-// d (16 columns x 8 rows) += A (W^T: 16 columns x 16 k) . B (x^T).
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// mbarrier helpers: a ring slot's "full" barrier completes once every
-// thread's copies into it have landed (cp.async.mbarrier.arrive), its
-// "empty" barrier once every thread has read it.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
-          "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // Grid (cluster, column CTAs): blockIdx.x is the CTA's rank in its
 // cluster, which takes k16 steps [rank * cta_steps, + cta_steps). The
 // CTA owns warps_n slabs (a block of 128 warps_n columns) and walks its

@@ -2,8 +2,10 @@
 // (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_sm90.cu,
 // int8mm_sm90.cu): cp.async copies into the 128-byte-swizzled tiles
 // that wgmma descriptors read, the descriptors, and the wgmma products
-// with their fences. The decode body (decode_attention.cuh) and the
-// int8 GEMV (int8mm_gemv_sm90.cu) use the cp.async copies alone.
+// with their fences. The mma.sync kernels (the decode body in
+// decode_attention.cuh, the int8 GEMV in int8mm_gemv_sm90.cu and the
+// decode MLP in decode_mlp_sm90.cu) share the cp.async copies, the
+// ring's mbarriers, ldmatrix and the m16n8k16 product below.
 //
 // The tile layout: a tile of ROWS rows x HD bf16 columns is HD/64 column
 // blocks of ROWS rows x 128 bytes, each 128-byte-swizzled (16-byte chunk
@@ -134,6 +136,69 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// mbarrier helpers: a ring slot's "full" barrier completes once every
+// thread's copies into it have landed (cp.async.mbarrier.arrive), its
+// "empty" barrier once every thread has read it.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Four 8 x 8 b16 matrices: lanes 8i .. 8i + 7 give the 16-byte rows of
+// matrix i. Plain, lane l gets row l / 4, elements 2 (l % 4) and +1 of
+// each; transposed (.trans), elements 2 (l % 4) and +1 of column l / 4,
+// i.e. two consecutive rows of one column.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr,
+                                            uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
+                                                  uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8, fp32) += A (16 x 16 bf16, row-major) . B (16 x 8 bf16,
+// column-major). For lane (g = lane / 4, t = lane % 4): a0 = A[g][2t,
+// 2t+1], a1 = A[g+8][2t, 2t+1], a2 = A[g][2t+8, 2t+9], a3 = A[g+8][2t+8,
+// 2t+9]; b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]; d0, d1 = D[g][2t,
+// 2t+1], d2, d3 = D[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d[0:64] (+)= A . B over 16 of K: A is 64 rows x 16 of a K-major

@@ -32,6 +32,7 @@ SOURCES = (
     "paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu",
     "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
     "flash_bwd_dq_sm90.cu", "int8mm_sm90.cu", "int8mm_gemv_sm90.cu",
+    "decode_mlp_sm90.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,7 +41,11 @@ NVCC_FLAGS = (
 )
 
 # The paged kernel's int8-pool branch counts apart from its bf16/fp32
-# branch, so a run shows which one the path took. "flash_fwd" counts
+# branch, so a run shows which one the path took. "decode_mlp" counts
+# every fused decode MLP call, whichever kernel served it;
+# "decode_mlp_sm90" counts those of the tensor-core kernel
+# (decode_mlp_sm90.cu, bf16 B <= 16), so a run shows how many took that
+# route. "flash_fwd" counts
 # every flash forward launch, whichever kernel served it;
 # "flash_fwd_sm90" counts those of the wgmma kernel (flash_fwd_sm90.cu),
 # so a run shows how many took that route; "flash_bwd_dq" and
@@ -55,6 +60,7 @@ LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_int8": 0,
     "decode_mlp": 0,
+    "decode_mlp_sm90": 0,
     "int8mm": 0,
     "int8mm_sm90": 0,
     "int8mm_gemv_sm90": 0,
