@@ -91,6 +91,16 @@ exits non-zero without a result:
    decode rows print their split plan (splits, CTAs), and two long
    rows time one 8192-key sequence (decode_attention_long,
    paged_decode_attention_long), each with its SDPA yardstick.
+4b. sampling — the fused pick (csrc/sample.cu) at [8, 128256] fp32,
+   seeded logits and a copy rounded through bf16 (ties at the top),
+   for (temperature, top_k) in PICK_CASES and both key layouts (the
+   engine's per-row (seed, serial, position) keys, sample_generate's
+   one folded key for the block): the kernel, its plain version on the
+   card and the plain version on the CPU draw identical tokens over
+   identical candidates; the plain jax.random twins give the same
+   Threefry bits and uniforms on the card as on the CPU and Gumbel
+   values within 2 ulps of max(|g|, 1); topk_exact agrees; the pick's
+   time beside its bound, the plain pick and argmax.
 5. tiny    — fp32 TINY_LLAMA on the card (kernels) and on the CPU
    (plain versions): the bf16-config engine agrees on >= 0.97 of the
    tokens; the w8+kv8 engine and greedy_generate in all four
@@ -128,6 +138,23 @@ exits non-zero without a result:
    The one-state
    decode-step check with W8_STEP_VARIANTS, at bf16, fp32 activations
    and bf16 cut to 2 layers.
+7b. engine_sampled — the engine phase's config and requests with
+   temperature 0.8, top_k 40, sample_seed 11: fused is token-identical
+   to fused=False, contiguous=True; paged-decode and tensor-core MLP
+   launches as greedy's, sample_pick one a decode step plus one a
+   finishing prefill row; a decode step at most 16 launches above the
+   greedy step's (profile); decode tok/s and TTFT beside greedy's. The
+   tiny fp32 sampled engine is token-identical on the card and the CPU.
+7c. engine_spec — spec_k 4: the tiny fp32 spec engine (greedy, sampled,
+   and both under w8kv8, n-gram drafts on lookup-friendly prompts) is
+   token-identical to its fused=False, contiguous=True oracle on the
+   card (else the first differing position and its top-2 logit gap),
+   its pool whole and zero; at 8B widths (bf16, 32 layers) with the
+   n-gram draft and a replay of the greedy run's tokens: proposed,
+   accepted, decode tok/s against the non-spec engine and token
+   agreement with it (no identity gate: the verify pass runs the plain
+   attention and MLP chain, the per-token step the kernels); w8kv8 with
+   the n-gram draft, every verify-pass matmul (M = 40) on the wgmma tile.
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
    new tokens, once in bf16 and once with int8 weights and KV: 32
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16,
@@ -171,11 +198,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks (NVIDIA data sheets), keyed by a substring of the
-# name nvidia-smi reports: (memory bytes/s, dense bf16 flop/s).
+# name nvidia-smi reports: (memory bytes/s, dense bf16 flop/s, fp32
+# flop/s outside the tensor cores).
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12),
-    "H100 NVL": (3.9e12, 835e12),
-    "H100": (3.35e12, 989e12),  # SXM: "NVIDIA H100 80GB HBM3"
+    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12),
+    "H100": (3.35e12, 989e12, 67e12),  # SXM: "NVIDIA H100 80GB HBM3"
 }
 TIMING_ITERS = 60
 # ~1 ms of device sleep at the H100's clocks: longer than any timed call
@@ -1532,6 +1560,236 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
     return out
 
 
+# --- sampling, the sampled engine and speculative decoding -----------------
+
+# (temperature, top_k) cases of the sampling phase; k = 40 is the sampled
+# engine's.
+PICK_CASES = ((0.8, 40), (1.3, 8), (1.0, 0))
+# Integer and float operations per drawn candidate in the fused pick:
+# Threefry-2x32's 20 rounds of add, rotate and xor (two shifts and an
+# or) plus six key injections, the bit work of the uniform, two logf
+# (~10 operations each) and the add; counted at the CUDA-core fp32 rate.
+PICK_OPS_PER_DRAW = 20 * 5 + 6 * 2 + 6 + 2 * 10 + 2
+
+
+def ulps_over_scale(got, ref) -> float:
+    """Largest |got - ref| in ulps of max(|ref|, 1): where Gumbel noise
+    meets a score of magnitude ~1, the unit its error counts in."""
+    ref64 = ref.double()
+    scale = torch.from_numpy(np.spacing(
+        np.maximum(ref.abs().cpu().numpy(), 1.0).astype(np.float32)))
+    return float(((got.double() - ref64).abs().cpu() / scale).max())
+
+
+def pick_keys(layout: str, rows: int, device) -> dict:
+    """The sample_pick key arguments of one layout: the engine's rows
+    layout (seed 11, serials and positions like a decode step's), or
+    sample_generate's block layout (one key folded with the step)."""
+    if layout == "block":
+        return {"key": torch.tensor([0, 42], dtype=torch.int64,
+                                    device=device), "fold": 7}
+    return {"seed": torch.tensor(11, dtype=torch.int32, device=device),
+            "serials": torch.arange(1, rows + 1, dtype=torch.int32,
+                                    device=device),
+            "positions": torch.arange(rows, dtype=torch.int32,
+                                      device=device) * 37 + 300}
+
+
+def to_cpu(kw: dict) -> dict:
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in kw.items()}
+
+
+def sampling_phase(S, SP, G, kernels, rates) -> dict:
+    """The fused pick (csrc/sample.cu) against its plain version at the
+    engine's shape, [8, 128256] fp32, with seeded logits and a copy
+    rounded through bf16 (equal values at the top of each row), for each
+    (temperature, top_k) of PICK_CASES in both key layouts: the kernel
+    and the plain version on the card draw the same tokens over the same
+    candidates, and so does the plain version on the CPU. The plain
+    Threefry bits and uniforms on the card equal the CPU's, their Gumbel
+    values within 2 ulps of max(|g|, 1) (the logs may round apart);
+    topk_exact on the card equals the CPU's. Then the pick's device time
+    at the engine's case (rows layout, 0.8, 40) beside its bound, the
+    plain pick and the greedy argmax it stands in for."""
+    dev = torch.device("cuda")
+    rows, vocab = 8, 128256
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    fp32 = torch.randn(rows, vocab, generator=gen) * 4
+    inputs = {"fp32": fp32.to(dev),
+              "bf16_ties": fp32.to(torch.bfloat16).float().to(dev)}
+    out = {"shape": [rows, vocab], "cases": {}}
+    for name, x in inputs.items():
+        top40 = G.topk_exact(x.cpu(), 40)[0]
+        ties = int((top40[:, 1:] == top40[:, :-1]).sum())
+        for t, k in PICK_CASES:
+            for layout in ("rows", "block"):
+                kw = pick_keys(layout, rows, dev)
+                kernels.reset_launches()
+                got = SP.sample_pick(x, t, k, impl="cuda", candidates=True,
+                                     **kw)
+                launches = kernels.LAUNCHES["sample_pick"]
+                plain = SP.sample_pick(x, t, k, impl="torch",
+                                       candidates=True, **kw)
+                cpu = SP.sample_pick(x.cpu(), t, k, impl="torch",
+                                     candidates=True, **to_cpu(kw))
+                torch.cuda.synchronize()
+                case = {
+                    "launches": launches,
+                    "tokens_vs_plain_identical": bool(torch.equal(
+                        got[0], plain[0])),
+                    "tokens_card_vs_cpu_identical": bool(torch.equal(
+                        got[0].cpu(), cpu[0])),
+                    "plain_card_vs_cpu_identical": bool(torch.equal(
+                        plain[0].cpu(), cpu[0])),
+                    "tokens": got[0].tolist(),
+                }
+                if k:
+                    case.update(
+                        candidates_vs_plain_identical=bool(
+                            torch.equal(got[1], plain[1])
+                            and torch.equal(got[2], plain[2])),
+                        candidates_vs_cpu_identical=bool(
+                            torch.equal(got[1].cpu(), cpu[1])
+                            and torch.equal(got[2].cpu(), cpu[2])),
+                        max_abs_err=float((got[1] - plain[1]).abs().max()),
+                    )
+                else:
+                    case["max_abs_err"] = 0.0
+                bad = [key for key, v in case.items()
+                       if isinstance(v, bool) and not v]
+                if bad or launches != 1:
+                    raise AssertionError(
+                        f"sample_pick {name} T={t} k={k} {layout}: {bad} "
+                        f"{case}")
+                out["cases"][f"{name}_t{t}_k{k}_{layout}"] = case
+        out[f"{name}_equal_neighbours_in_top40"] = ties
+    # The plain jax.random twins on the card and on the CPU.
+    key = S.fold_in(S.fold_in(S.prng_key(5), 3), 17)
+    bits = S.random_bits(key.to(dev), (rows, vocab))
+    bits_cpu = S.random_bits(key, (rows, vocab))
+    g_card = S.gumbel_from_bits(bits)
+    g_cpu = S.gumbel_from_bits(bits_cpu)
+    out["threefry_bits_identical"] = bool(torch.equal(bits.cpu(), bits_cpu))
+    out["uniforms_identical"] = bool(torch.equal(
+        S.uniform_from_bits(bits).cpu(), S.uniform_from_bits(bits_cpu)))
+    out["gumbel_max_ulps_of_scale"] = ulps_over_scale(g_card.cpu(), g_cpu)
+    out["gumbel_bit_identical_share"] = float(
+        (g_card.cpu() == g_cpu).float().mean())
+    topk = {}
+    for name, x in inputs.items():
+        v, i = G.topk_exact(x, 40)
+        vc, ic = G.topk_exact(x.cpu(), 40)
+        topk[name] = bool(torch.equal(v.cpu(), vc)
+                          and torch.equal(i.cpu(), ic))
+    out["topk_exact_card_vs_cpu_identical"] = topk
+    if not (out["threefry_bits_identical"] and out["uniforms_identical"]
+            and out["gumbel_max_ulps_of_scale"] <= 2.0
+            and all(topk.values())):
+        raise AssertionError(f"sampling twins card vs CPU: {out}")
+    # Time at the engine's case.
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    x = inputs["fp32"]
+    kw = pick_keys("rows", rows, dev)
+    timing = {}
+    for t, k in PICK_CASES:
+        call = functools.partial(SP.sample_pick, x, t, k, impl="cuda", **kw)
+        draws = rows * (k or vocab)
+        nbytes = x.numel() * 4 + rows * 4
+        ops = draws * PICK_OPS_PER_DRAW + x.numel()
+        t_bytes = nbytes / rates[0] * 1e3
+        t_ops = ops / rates[2] * 1e3
+        ms = time_ms(call, flush)
+        timing[f"t{t}_k{k}"] = {
+            "ms": ms, "ms_with_host": time_ms(call, flush, shield=False),
+            "plain_ms": time_ms(functools.partial(
+                SP.sample_pick, x, t, k, impl="torch", **kw), flush),
+            "argmax_ms": time_ms(lambda: torch.argmax(x, dim=-1), flush),
+            "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops,
+        }
+        timing[f"t{t}_k{k}"]["share_of_bound"] = (
+            timing[f"t{t}_k{k}"]["bound_ms"] / ms)
+    out["timing"] = timing
+    out["library_note"] = ("no PyTorch call draws jax.random's bits; "
+                           "argmax_ms is the greedy pick the sampled one "
+                           "replaces on the path")
+    del flush
+    return out
+
+
+def first_difference(a: dict, b: dict):
+    """(rid, position) of the first token where two runs differ, or
+    None."""
+    for rid in sorted(a):
+        ta, tb = a[rid].tokens, b[rid].tokens
+        n = min(len(ta), len(tb))
+        diff = np.flatnonzero(ta[:n] != tb[:n])
+        if diff.size or len(ta) != len(tb):
+            return rid, int(diff[0]) if diff.size else n
+    return None
+
+
+def top2_gap(G, cfg, params, prompt, tokens) -> float:
+    """The gap between the two largest logits after ``prompt`` plus
+    ``tokens`` (one contiguous forward on the card)."""
+    ctx = torch.as_tensor(np.concatenate([prompt, tokens])[None],
+                          device="cuda")
+    tree = G.unroll_params(G.as_tree(params, torch.device("cuda")))
+    cache = G.init_cache(cfg, 1, ctx.shape[1])
+    logits = G.forward_chunk(cfg, tree, cache, ctx)[0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def identical_or_explain(G, cfg, params, trace, got, want, what) -> None:
+    """Raise unless ``got`` and ``want`` hold the same tokens, naming the
+    first differing position and the top-2 logit gap there."""
+    where = first_difference(got, want)
+    if where is None:
+        return
+    rid, pos = where
+    prompt = next(p for r, p, _ in trace if r == rid)
+    gap = top2_gap(G, cfg, params, prompt, want[rid].tokens[:pos])
+    raise AssertionError(
+        f"{what}: {rid} differs first at generated position {pos} "
+        f"(top-2 logit gap there {gap:.3e}): {got[rid].tokens.tolist()} vs "
+        f"{want[rid].tokens.tolist()}")
+
+
+def pool_whole_and_zero(eng, what: str) -> None:
+    alloc = eng.allocator
+    if alloc.free_pages != alloc.num_pages - 1 or alloc.reserved_pages:
+        raise AssertionError(f"{what}: allocator leaked")
+    if not all(bool((layer[1:] == 0).all())
+               for _, pool in eng.cache._pools() for layer in pool):
+        raise AssertionError(f"{what}: freed pages not zero")
+
+
+class ReplayDraft:
+    """Proposes each request's completion from an earlier run: a draft
+    source whose guesses are mostly right, so the verify pass accepts
+    most of them."""
+
+    def __init__(self, reqs, done):
+        self.runs = [(np.asarray(r.prompt, np.int32), done[r.rid].tokens)
+                     for r in reqs]
+
+    def propose(self, history, k):
+        for prompt, tokens in self.runs:
+            if (len(history) >= len(prompt)
+                    and np.array_equal(history[:len(prompt)], prompt)):
+                at = len(history) - len(prompt)
+                return np.asarray(tokens[at:at + k], np.int32)
+        return np.zeros(0, np.int32)
+
+
+def token_agreement(a: dict, b: dict) -> float:
+    return float(np.mean([np.mean(a[r].tokens == b[r].tokens) for r in a]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -1543,6 +1801,8 @@ def main() -> int:
     from tpu_dra_torch.workloads import engine as E
     from tpu_dra_torch.workloads import generate as G
     from tpu_dra_torch.workloads import quantize as Q
+    from tpu_dra_torch.workloads import sampling as S
+    from tpu_dra_torch.workloads import specdraft as SD
     from tpu_dra_torch.workloads import train as T
     from tpu_dra_torch.workloads.models.llama import (
         LLAMA3_8B,
@@ -1554,6 +1814,7 @@ def main() -> int:
     from tpu_dra_torch.workloads.ops import attention as A
     from tpu_dra_torch.workloads.ops import decode_mlp as DM
     from tpu_dra_torch.workloads.ops import int8mm as I8
+    from tpu_dra_torch.workloads.ops import sample as SP
 
     t_start = time.perf_counter()
     # --- 1. device ---------------------------------------------------------
@@ -1843,6 +2104,10 @@ def main() -> int:
     del flush
     emit("timing", iters=TIMING_ITERS, **timing)
 
+    # --- 4b. the fused pick against its plain version -------------------------
+    sampling = sampling_phase(S, SP, G, kernels, rates)
+    emit("sampling", **sampling)
+
     # --- 5. small model: the card vs the CPU -----------------------------------
     tiny = dataclasses.replace(
         TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32, dim=256,
@@ -1929,6 +2194,7 @@ def main() -> int:
         for i in range(8)
     ]
     eng, done, launches, wall = serve(E, kernels, cfg, params, ec, reqs)
+    greedy_done = dict(done)  # the profile below adds its own requests
     del params
     steps = eng.decode_steps
     want_attn = L * steps
@@ -2081,6 +2347,172 @@ def main() -> int:
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit("decode_step_w8kv8", **w8_cmp, gates=step_gates(w8_cmp))
 
+    # --- 7b. the sampled engine ------------------------------------------------
+    sampled = {"temperature": 0.8, "top_k": 40, "sample_seed": 11}
+    sec = dataclasses.replace(ec, **sampled)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng, s_done, launches, wall = serve(E, kernels, cfg, params, sec, reqs)
+    s_done = dict(s_done)  # the profile below adds its own requests
+    steps = eng.decode_steps
+    want = {"paged_decode_attention": L * steps,
+            "decode_mlp": L * (steps + eng.prefill_single_token_buckets),
+            "decode_mlp_sm90": L * (steps + eng.prefill_single_token_buckets),
+            "sample_pick": steps + len(reqs), "int8mm": 0}
+    if steps <= 0 or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"engine_sampled: launches {launches}, want "
+                             f"{want}")
+    sampled_launches = launches
+    s_summary = serve_summary(eng, s_done, launches, wall)
+    s_profile = profile_decode(E, eng, [np.resize(r.prompt, 128)
+                                        for r in reqs])
+    del eng
+    torch.cuda.empty_cache()
+    _, s_oracle, _, _ = serve(
+        E, kernels, cfg, params,
+        dataclasses.replace(sec, fused=False, contiguous=True), reqs)
+    del params
+    torch.cuda.empty_cache()
+    if first_difference(s_done, s_oracle) is not None:
+        raise AssertionError(
+            f"engine_sampled: fused vs unfused contiguous differ at "
+            f"{first_difference(s_done, s_oracle)}")
+    extra = None
+    if "kernel_launches_per_step" in s_profile and (
+            "kernel_launches_per_step" in profile):
+        extra = (s_profile["kernel_launches_per_step"]
+                 - profile["kernel_launches_per_step"])
+        if extra > 16:
+            raise AssertionError(
+                f"engine_sampled: {extra} more launches a decode step than "
+                f"greedy (bar 16)")
+    tsec = E.EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=12,
+                          scan_chunk=3, prefill_chunk=8, **sampled)
+    tiny_sampled = {
+        dev: E.Engine(tiny, tparams, tsec, device=dev).run([
+            E.Request(rid=r, prompt=p, max_new_tokens=n)
+            for r, p, n in trace])
+        for dev in ("cuda", "cpu")
+    }
+    identical_or_explain(G, tiny, tparams, trace, tiny_sampled["cuda"],
+                         tiny_sampled["cpu"], "tiny sampled card vs CPU")
+    emit("engine_sampled",
+         model="LLAMA3_8B widths, 32 layers, bf16, random weights",
+         sampling=sampled, **s_summary,
+         fused_vs_unfused_contiguous_identical=True,
+         tiny_fp32_card_vs_cpu_identical=True,
+         greedy={"decode_tok_s": summary["decode_tok_s"],
+                 "ttft_p50_s": summary["ttft_p50_s"],
+                 "kernel_launches_per_step":
+                     profile.get("kernel_launches_per_step"),
+                 "device_ms_per_step": profile.get("device_ms_per_step")},
+         launches_per_decode_step=s_profile.get("kernel_launches_per_step"),
+         extra_launches_per_step_vs_greedy=extra,
+         profile={k: s_profile.get(k) for k in (
+             "device_ms_per_step", "step_ms", "device_busy_share",
+             "kernel_launches_per_step", "decode_steps", "top_kernels")},
+         sample_pick_launches=launches["sample_pick"])
+
+    # --- 7c. speculative decoding ----------------------------------------------
+    spec_out = {}
+    rng_spec = np.random.default_rng(3)
+    lookup = []
+    for i in range(4):
+        motif = rng_spec.integers(1, tiny.vocab_size, 5).astype(np.int32)
+        lookup.append((f"lk{i}", np.tile(motif, 4)[:18], 16))
+    spec_ec = dict(page_size=4, max_slots=3, max_pages_per_seq=16,
+                   scan_chunk=3, prefill_chunk=8)
+    for label, kw in (("greedy", {}), ("sampled", sampled),
+                      ("w8kv8_greedy", {"kv_quant": "int8",
+                                        "weight_quant": "int8"}),
+                      ("w8kv8_sampled", {"kv_quant": "int8",
+                                         "weight_quant": "int8",
+                                         **sampled})):
+        runs = {}
+        for name, extra_kw in (("spec", {"spec_k": 4}),
+                               ("oracle", {"fused": False,
+                                           "contiguous": True})):
+            e = E.Engine(tiny, tparams,
+                         E.EngineConfig(**spec_ec, **kw, **extra_kw),
+                         device="cuda")
+            runs[name] = (e, e.run([
+                E.Request(rid=r, prompt=p, max_new_tokens=n)
+                for r, p, n in lookup]))
+        e = runs["spec"][0]
+        identical_or_explain(G, tiny, tparams, lookup, runs["spec"][1],
+                             runs["oracle"][1], f"tiny spec {label}")
+        pool_whole_and_zero(e, f"tiny spec {label}")
+        spec_out[f"tiny_{label}"] = {
+            "identical_to_oracle": True, "proposed": e.spec_proposed,
+            "accepted": e.spec_accepted, "verify_passes": e.verify_passes}
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    spec8 = dataclasses.replace(ec, spec_k=4)
+    for label, draft in (("ngram", SD.NgramDraft(spec8.spec_lookup_order)),
+                         ("replay", ReplayDraft(reqs, greedy_done))):
+        e = E.Engine(cfg, params, spec8, draft_source=draft)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        d = e.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pool_whole_and_zero(e, f"8B spec {label}")
+        tokens = sum(len(c.tokens) - 1 for c in d.values())
+        spec_out[label] = {
+            "proposed": e.spec_proposed, "accepted": e.spec_accepted,
+            "acceptance": e.spec_accepted / max(e.spec_proposed, 1),
+            "verify_passes": e.verify_passes,
+            "decode_tok_s": tokens / e.decode_seconds,
+            "non_spec_decode_tok_s": summary["decode_tok_s"],
+            "wall_seconds": wall,
+            "token_agreement_with_non_spec": token_agreement(d,
+                                                             greedy_done),
+            "launches": dict(kernels.LAUNCHES),
+        }
+        if not all(len(d[r.rid].tokens) == r.max_new_tokens for r in reqs):
+            raise AssertionError(f"8B spec {label}: token counts")
+        del e
+        torch.cuda.empty_cache()
+    # int8 weights and KV: the verify pass's matmuls (M = 8 slots x 5
+    # positions = 40) take the wgmma tile.
+    w8spec = dataclasses.replace(w8, spec_k=4)
+    e = E.Engine(cfg, params, w8spec)
+    del params
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    with RouteLog(I8) as spec_routes:
+        d = e.run(reqs)
+    torch.cuda.synchronize()
+    pool_whole_and_zero(e, "8B spec w8kv8")
+    launches = dict(kernels.LAUNCHES)
+    routes = spec_routes.check("8B spec w8kv8")
+    # Prefill buckets have power-of-two row and chunk counts, so M = 40
+    # is the verify pass alone: every matmul of every pass on the tile.
+    verify_m = w8spec.max_slots * (w8spec.spec_k + 1)
+    verify_sm90 = sum(1 for m, r in spec_routes.calls
+                      if m == verify_m and r == "sm90")
+    if not (e.verify_passes > 0
+            and verify_sm90 == mm_per_pass * e.verify_passes
+            and launches["int8mm_sm90"] >= verify_sm90
+            and launches["int8mm_gemv"] == 0
+            and launches["paged_decode_attention_int8"] == 0
+            and launches["decode_mlp"] == 0):
+        raise AssertionError(
+            f"8B spec w8kv8: launches {launches}, {verify_sm90} int8mm_sm90 "
+            f"launches at M = {verify_m}, want {mm_per_pass} a verify pass "
+            f"({e.verify_passes} passes)")
+    spec_out["w8kv8_ngram"] = {
+        "proposed": e.spec_proposed, "accepted": e.spec_accepted,
+        "verify_passes": e.verify_passes, "launches": launches,
+        "int8mm_routes": routes,
+        "verify_int8mm_sm90_launches": verify_sm90,
+        "decode_tok_s": sum(len(c.tokens) - 1 for c in d.values())
+        / e.decode_seconds,
+        "non_spec_decode_tok_s": w8_summary["decode_tok_s"],
+    }
+    del e
+    torch.cuda.empty_cache()
+    emit("engine_spec", model="LLAMA3_8B widths, 32 layers, spec_k 4, "
+                              "random weights", **spec_out)
+
     # --- 8. greedy_generate at Llama-3-8B widths -----------------------------
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     b, s, new = 8, 256, 32
@@ -2208,6 +2640,23 @@ def main() -> int:
                 "int8mm_sm90": "sm90: bf16 M > 16 (prefill projections, the "
                                "generate lm_head)",
             }[name]
+    pick = sampling["timing"]["t0.8_k40"]
+    pick_cases = sampling["cases"]
+    rows.append({
+        "name": "sample_pick", "route": "cuda",
+        "source": "tpu_dra_torch/csrc/sample.cu",
+        "replaces": "tpu_dra/workloads/generate.py:559",
+        "launches": sampled_launches["sample_pick"],
+        "max_abs_err": max(c["max_abs_err"] for c in pick_cases.values()),
+        "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+        "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
+        "library_ms": None, "ms_with_host": pick["ms_with_host"],
+        "argmax_ms": pick["argmax_ms"],
+        "parity": {"cases": len(pick_cases), "tokens_identical": all(
+            c["tokens_vs_plain_identical"] for c in pick_cases.values())},
+        "note": "no Pallas kernel: the JAX sampler is an XLA fusion; "
+                "replaces names the function it computes",
+    })
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -2,12 +2,14 @@
 
 The same seeded trace, on TINY_LLAMA at fp32 with the same weights (the
 flax tree converted in-process), goes through the JAX ``Engine`` and the
-port's ``Engine(device="cpu")``: greedy tokens must be identical for
-every request, with fp32 pools and under ``kv_quant="int8"``,
-``weight_quant="int8"`` and both. Within the port: fused == unfused,
-paged == contiguous, the allocator ends leak-free with every freed page
-zero (scale pools included), and every knob not ported yet raises
-instead of being ignored.
+port's ``Engine(device="cpu")``: greedy and sampled tokens must be
+identical for every request, with fp32 pools and under
+``kv_quant="int8"``, ``weight_quant="int8"`` and both. Within the port:
+fused == unfused, paged == contiguous, sampled tokens do not depend on
+the chunking or the admission order (the (seed, serial, position) key
+schedule), the allocator ends leak-free with every freed page zero
+(scale pools included), and every knob not ported yet raises instead of
+being ignored. Speculative decoding: tests/test_torch_spec.py.
 """
 
 import dataclasses
@@ -257,14 +259,12 @@ class _OtherGate(TE.LeaseGate):
 @pytest.mark.parametrize(
     "kw",
     [
-        {"temperature": 0.7},
-        {"spec_k": 2},
         {"sharded": True},
         {"gate": _OtherGate()},
         {"metrics": object()},
     ],
     ids=[
-        "temperature", "spec_k", "sharded", "gate", "metrics",
+        "sharded", "gate", "metrics",
     ],
 )
 def test_unported_knobs_raise(torch_params, kw):
@@ -367,3 +367,107 @@ def test_device_state_reused_between_chunks(torch_params):
     assert chunks >= 10
     assert uploads["n"] - after_first == 2 * 4
     assert len(eng.completed["s"].tokens) == 40
+
+
+# --- sampling ------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=8, sample_seed=5)
+
+
+def _jax_run(jax_params, trace=None, **kw):
+    return JE.Engine(JCFG, jax_params, JE.EngineConfig(**{**EC, **kw})).run([
+        JE.Request(rid=r, prompt=p, max_new_tokens=n)
+        for r, p, n in (trace or _trace())
+    ])
+
+
+@pytest.mark.parametrize("kw", [{}] + QUANT_CASES, ids=["f32"] + QUANT_IDS)
+def test_sampled_tokens_identical_to_jax_engine(jax_params, torch_params,
+                                                kw):
+    want = _jax_run(jax_params, **SAMPLED, **kw)
+    eng, done = _torch_run(torch_params, **SAMPLED, **kw)
+    for rid, _prompt, n in _trace():
+        assert len(done[rid].tokens) == n
+        assert np.array_equal(done[rid].tokens, want[rid].tokens), rid
+    assert eng.ec.sampling() == (0.8, 8)
+
+
+def test_sampled_fused_matches_unfused_contiguous_oracle(torch_params):
+    eng, fused = _torch_run(torch_params, **SAMPLED)
+    _, oracle = _torch_run(torch_params, fused=False, contiguous=True,
+                           **SAMPLED)
+    for rid in fused:
+        assert np.array_equal(fused[rid].tokens, oracle[rid].tokens), rid
+    assert eng.allocator.free_pages == eng.allocator.num_pages - 1
+    assert TP.pages_are_zero(eng.cache, range(1, eng.allocator.num_pages))
+
+
+def test_sampled_engine_samples_and_the_seed_matters(torch_params):
+    _, greedy = _torch_run(torch_params)
+    _, s5 = _torch_run(torch_params, **SAMPLED)
+    _, s6 = _torch_run(torch_params, **{**SAMPLED, "sample_seed": 6})
+    _, s5b = _torch_run(torch_params, **SAMPLED)
+    assert any(not np.array_equal(greedy[r].tokens, s5[r].tokens)
+               for r in greedy), "sampling degenerated to greedy"
+    assert any(not np.array_equal(s5[r].tokens, s6[r].tokens)
+               for r in s5), "different seeds gave identical tokens"
+    for rid in s5:
+        assert np.array_equal(s5[rid].tokens, s5b[rid].tokens), rid
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"scan_chunk": 1}, {"scan_chunk": 8}, {"prefill_chunk": 2},
+     {"prefill_chunk": 16, "prefill_batch": 1}],
+    ids=["scan1", "scan8", "prefill2", "prefill16_serial"],
+)
+def test_sampled_tokens_do_not_depend_on_chunking(torch_params, kw):
+    """The key is a function of (seed, serial, position): chunk lengths
+    and prefill buckets change the schedule, never the draw."""
+    _, base = _torch_run(torch_params, **SAMPLED)
+    _, other = _torch_run(torch_params, **SAMPLED, **kw)
+    for rid in base:
+        assert np.array_equal(base[rid].tokens, other[rid].tokens), rid
+
+
+def test_pinned_sample_serial_survives_admission_order(torch_params):
+    trace = _trace()
+    serial = {rid: 40 + i for i, (rid, _, _) in enumerate(trace)}
+
+    def run(order):
+        eng = TE.Engine(TCFG, torch_params,
+                        TE.EngineConfig(**{**EC, **SAMPLED}), device="cpu")
+        return eng.run([
+            TE.Request(rid=r, prompt=p, max_new_tokens=n,
+                       sample_serial=serial[r], sample_seed=5)
+            for r, p, n in order
+        ])
+
+    forward, backward = run(trace), run(trace[::-1])
+    for rid in forward:
+        assert np.array_equal(forward[rid].tokens, backward[rid].tokens), rid
+    # Unpinned, the admission serial keys the draw: the order shows.
+    _, unpinned = _torch_run(torch_params, trace=trace[::-1], **SAMPLED)
+    _, in_order = _torch_run(torch_params, trace=trace, **SAMPLED)
+    assert any(not np.array_equal(unpinned[r].tokens, in_order[r].tokens)
+               for r in in_order)
+
+
+def test_pinned_sample_seed_must_match_the_engine(torch_params):
+    eng = TE.Engine(TCFG, torch_params, TE.EngineConfig(**{**EC, **SAMPLED}),
+                    device="cpu")
+    with pytest.raises(ValueError, match="sample_seed"):
+        eng.add_request(TE.Request(
+            rid="x", prompt=np.ones(3, np.int32), max_new_tokens=2,
+            sample_seed=6,
+        ))
+
+
+@pytest.mark.parametrize("kw", [{"temperature": 0.7, "top_k": 3},
+                                {"spec_k": 2}],
+                         ids=["temperature", "spec_k"])
+def test_sampling_and_spec_knobs_construct_and_serve(torch_params, kw):
+    """The knobs this engine used to refuse now serve a request."""
+    eng, done = _torch_run(torch_params, trace=_trace(n=2), **kw)
+    assert len(done) == 2
+    assert eng.allocator.free_pages == eng.allocator.num_pages - 1

@@ -14,6 +14,11 @@ the four (kv_quant, weight_quant) combinations:
 Within the port: the paged ``Engine`` and ``greedy_generate`` agree on
 >= 0.99 of a lone request's tokens (the twin of
 tests/test_engine.py::test_engine_matches_fixed_batch_greedy_generate).
+
+Sampling: ``sample_generate`` draws the same tokens as JAX's for the
+kwargs of tests/test_workloads.py::test_fused_sampler_parity (int8 KV
+included), equals the port's ``sample_generate_unfused``, and its
+degenerate modes (top_k=1, temperature 0, temperature 1e-4) are greedy.
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ from tpu_dra.workloads import generate as JG  # noqa: E402
 from tpu_dra.workloads.models import llama as JL  # noqa: E402
 from tpu_dra_torch.workloads import engine as TE  # noqa: E402
 from tpu_dra_torch.workloads import generate as TG  # noqa: E402
+from tpu_dra_torch.workloads import sampling as TS  # noqa: E402
 from tpu_dra_torch.workloads.convert import params_from_numpy  # noqa: E402
 from tpu_dra_torch.workloads.models import llama as TL  # noqa: E402
 from tpu_dra_torch.workloads.ops import attention as TA  # noqa: E402
@@ -193,3 +199,72 @@ def test_stacked_layout_int8_divergence_and_port_follows_unrolled(kv_quant):
         assert layouts_gap > 1e-4, layouts_gap
     else:
         assert layouts_gap <= 1e-5, layouts_gap
+
+
+SAMPLE_KWARGS = [
+    {"temperature": 0.8, "top_k": 8},
+    {"temperature": 1.3, "top_k": 3},
+    {"temperature": 1.0, "top_k": 0},
+    {"temperature": 0.8, "top_k": 8, "kv_quant": "int8"},
+]
+SAMPLE_IDS = ["t0.8_k8", "t1.3_k3", "t1.0_full", "t0.8_k8_kv8"]
+
+
+def _sample_prompt():
+    """tests/test_workloads.py's prompt: two rows of 0..5."""
+    return np.tile(np.arange(6, dtype=np.int32)[None], (2, 1))
+
+
+@pytest.mark.parametrize("kw", SAMPLE_KWARGS, ids=SAMPLE_IDS)
+def test_sample_generate_tokens_identical_to_jax(jax_params, torch_params,
+                                                 kw):
+    rng = jax.random.PRNGKey(42)
+    prompt = _sample_prompt()
+    want = np.asarray(JG.sample_generate(
+        JCFG, jax_params, jnp.asarray(prompt), max_new_tokens=6, rng=rng,
+        **kw))
+    got = TG.sample_generate(
+        TCFG, torch_params, prompt, 6,
+        rng=np.asarray(jax.random.key_data(rng)), device="cpu", **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kw", SAMPLE_KWARGS, ids=SAMPLE_IDS)
+def test_sample_generate_fused_matches_unfused(torch_params, kw):
+    key = TS.prng_key(42)
+    prompt = _prompt(b=3, s=7, seed=9)
+    fused = TG.sample_generate(TCFG, torch_params, prompt, 10, rng=key,
+                               device="cpu", **kw)
+    unfused = TG.sample_generate_unfused(TCFG, torch_params, prompt, 10,
+                                         rng=key, device="cpu", **kw)
+    assert torch.equal(fused, unfused)
+    assert torch.equal(fused[:, :7], torch.from_numpy(prompt))
+
+
+def test_sample_generate_modes(torch_params):
+    """top_k=1 and temperature 0 are greedy_generate; a temperature of
+    1e-4 collapses onto the argmax; a warm draw stays in the vocab and
+    leaves the prompt alone; the seed matters."""
+    prompt = _sample_prompt()
+    key = TS.prng_key(42)
+    greedy = TG.greedy_generate(TCFG, torch_params, prompt, 6, device="cpu")
+    for kw in ({"top_k": 1}, {"temperature": 0.0}, {"temperature": 1e-4}):
+        for fn in (TG.sample_generate, TG.sample_generate_unfused):
+            out = fn(TCFG, torch_params, prompt, 6, rng=key, device="cpu",
+                     **kw)
+            assert torch.equal(out, greedy), (fn.__name__, kw)
+    hot = TG.sample_generate(TCFG, torch_params, prompt, 6, rng=key,
+                             temperature=1.0, top_k=8, device="cpu")
+    other = TG.sample_generate(TCFG, torch_params, prompt, 6,
+                               rng=TS.prng_key(43), temperature=1.0,
+                               top_k=8, device="cpu")
+    assert hot.shape == (2, 12) and torch.equal(hot[:, :6], greedy[:, :6])
+    assert int(hot.min()) >= 0 and int(hot.max()) < TCFG.vocab_size
+    assert not torch.equal(hot, other)
+    with pytest.raises(ValueError, match="top_k"):
+        TG.sample_generate(TCFG, torch_params, prompt, 2, rng=key,
+                           top_k=TCFG.vocab_size + 1, device="cpu")
+    with pytest.raises(ValueError, match="2 words"):
+        TG.sample_generate(TCFG, torch_params, prompt, 2, rng=[1, 2, 3],
+                           device="cpu")

@@ -29,6 +29,7 @@ from tpu_dra_torch import kernels
 from tpu_dra_torch.workloads.ops import attention as TA
 from tpu_dra_torch.workloads.ops import decode_mlp as TDM
 from tpu_dra_torch.workloads.ops import int8mm as TI
+from tpu_dra_torch.workloads.ops import sample as TSP
 from tpu_dra_torch.workloads.quantize import quantize_kv, quantize_weight
 
 pytestmark = pytest.mark.gpu
@@ -238,6 +239,11 @@ def test_launch_counters_count_launches(cuda_device):
     q, k, v, _ = _flash(8, 1, 64, 64, 2, 1, 64, torch.float32, cuda_device)
     TA.attention(q, k, v, causal=True)  # auto -> the forward kernel
     TA.attention(q, k, v, causal=True, impl="torch")
+    logits = torch.randn(3, 100, device=cuda_device)
+    key = torch.tensor([0, 1], dtype=torch.int64, device=cuda_device)
+    TSP.sample_pick(logits, 0.9, 5, key=key)  # auto -> the pick kernel
+    assert TSP._LAST_SAMPLE_IMPL == "cuda"
+    TSP.sample_pick(logits, 0.9, 5, key=key, impl="torch")
     assert kernels.LAUNCHES == {
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
         "decode_mlp": 2, "decode_mlp_sm90": 0, "int8mm": 1,
@@ -246,6 +252,7 @@ def test_launch_counters_count_launches(cuda_device):
         "decode_attention": 1,
         "flash_fwd": 1, "flash_fwd_sm90": 0, "flash_bwd_dq": 0,
         "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
+        "sample_pick": 1,
     }
 
 
@@ -1080,3 +1087,82 @@ def test_one_train_step_launches_each_flash_kernel_per_layer(cuda_device):
         **{k: 0 for k in kernels.LAUNCHES},
         "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
     }
+
+
+# --- the fused pick (csrc/sample.cu) ----------------------------------------
+
+
+def _pick_logits(seed, rows, vocab, ties, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(rows, vocab, generator=g) * 3
+    if ties:  # bf16-rounded: equal values at the top of every row
+        x = x.to(torch.bfloat16).float()
+    return x.to(device)
+
+
+def _rows_keys(rows, device, per=1):
+    serials = torch.arange(rows // per, dtype=torch.int32) * 7 + 3
+    positions = torch.arange(rows, dtype=torch.int32) * 13 + 100
+    seed = torch.tensor(11, dtype=torch.int32)
+    return dict(seed=seed.to(device), serials=serials.to(device),
+                positions=positions.to(device), rows_per_serial=per)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "bf16_ties"])
+@pytest.mark.parametrize("temperature,top_k",
+                         [(0.8, 40), (1.3, 8), (1.0, 0), (0.7, 1), (1.0, 512),
+                          (1.1, 1024)])
+@pytest.mark.parametrize("layout", ["rows", "block", "rows_per_5"])
+def test_sample_pick_matches_plain(cuda_device, layout, temperature, top_k,
+                                   ties):
+    """The kernel and its plain version on the same card inputs draw the
+    same tokens from the same candidates; so does the plain version on
+    the CPU (its logs may round apart by an ulp: tokens are the gate),
+    checked on the unrounded logits to keep the CPU's share short."""
+    rows, vocab = 40, 128256
+    x = _pick_logits(top_k + int(ties), rows, vocab, ties, cuda_device)
+    if layout == "block":
+        kw = dict(key=torch.tensor([5, 77], dtype=torch.int64,
+                                   device=cuda_device), fold=3)
+    else:
+        kw = _rows_keys(rows, cuda_device, 5 if layout == "rows_per_5" else 1)
+    kernels.reset_launches()
+    got = TSP.sample_pick(x, temperature, top_k, impl="cuda",
+                          candidates=True, **kw)
+    assert kernels.LAUNCHES["sample_pick"] == 1
+    plain = TSP.sample_pick(x, temperature, top_k, impl="torch",
+                            candidates=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], plain[0])
+    if top_k:
+        assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+    if not ties:
+        cpu_kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                  for k, v in kw.items()}
+        cpu = TSP.sample_pick(x.cpu(), temperature, top_k, **cpu_kw)
+        assert torch.equal(got[0].cpu(), cpu)
+
+
+def test_sample_pick_all_equal_rows_take_the_lowest_ids(cuda_device):
+    x = torch.zeros(4, 5000, device=cuda_device)
+    ids, vals, idx = TSP.sample_pick(
+        x, 1.0, 64, key=torch.tensor([1, 2], dtype=torch.int64,
+                                     device=cuda_device),
+        impl="cuda", candidates=True)
+    want = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    assert all(torch.equal(idx[r], want) for r in range(4))
+    plain = TSP.sample_pick(
+        x, 1.0, 64, key=torch.tensor([1, 2], dtype=torch.int64,
+                                     device=cuda_device), impl="torch")
+    assert torch.equal(ids, plain)
+
+
+def test_sample_pick_refuses_on_the_card_without_falling_back(cuda_device):
+    x = torch.zeros(2, 3000, device=cuda_device)
+    key = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="top_k"):
+        TSP.sample_pick(x, 1.0, TSP.MAX_TOP_K + 1, key=key)
+    with pytest.raises(ValueError, match="float32"):
+        TSP.sample_pick(x.to(torch.bfloat16), 1.0, 8, key=key)
+    with pytest.raises(ValueError, match="int64"):
+        TSP.sample_pick(x, 1.0, 8, key=key.int())

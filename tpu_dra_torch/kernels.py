@@ -32,7 +32,7 @@ SOURCES = (
     "paged_decode.cu", "decode_mlp.cu", "int8mm.cu", "decode.cu",
     "flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
     "flash_bwd_dq_sm90.cu", "int8mm_sm90.cu", "int8mm_gemv_sm90.cu",
-    "decode_mlp_sm90.cu",
+    "decode_mlp_sm90.cu", "sample.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,7 +55,8 @@ NVCC_FLAGS = (
 # wgmma tile (int8mm_sm90.cu), "int8mm_gemv_sm90" those of the
 # tensor-core decode GEMV (int8mm_gemv_sm90.cu, bf16 M <= 16) and
 # "int8mm_gemv" those of int8mm.cu's weight-streaming GEMV (fp32 and
-# the shapes int8mm_gemv_sm90.cu does not take, M <= 16).
+# the shapes int8mm_gemv_sm90.cu does not take, M <= 16);
+# "sample_pick" counts the fused temperature / top-k pick (sample.cu).
 LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_int8": 0,
@@ -72,6 +73,7 @@ LAUNCHES = {
     "flash_bwd_dq_sm90": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dkv_sm90": 0,
+    "sample_pick": 0,
 }
 
 _LOCK = threading.Lock()

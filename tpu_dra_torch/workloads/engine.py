@@ -1,14 +1,15 @@
 """Serving engine: continuous batching over a paged KV cache.
 
-Counterpart of ``tpu_dra/workloads/engine.py`` for greedy serving: the
-sequence-state store (:class:`_Sequence`), FIFO admission gated on a
-free slot and a worst-case page reservation, batched chunked prefill
-(chunks of every prefilling sequence in one padded bucket per
-iteration), and decode in chunks of ``scan_chunk`` steps with
-admission and eviction only between chunks. The exact-parity oracles
-are the same knobs: ``contiguous=True`` (fixed consecutive page
-ranges) and ``fused=False`` (one host round trip per token) must give
-the same tokens as the paged, fused engine.
+Counterpart of ``tpu_dra/workloads/engine.py``: the sequence-state
+store (:class:`_Sequence`), FIFO admission gated on a free slot and a
+worst-case page reservation, batched chunked prefill (chunks of every
+prefilling sequence in one padded bucket per iteration), and decode in
+chunks of ``scan_chunk`` steps with admission and eviction only between
+chunks — or, with ``spec_k > 0``, one speculative verify pass per
+iteration. The exact-parity oracles are the same knobs:
+``contiguous=True`` (fixed consecutive page ranges) and ``fused=False``
+(one host round trip per token) must give the same tokens as the paged,
+fused engine, greedy or sampled, speculative or not.
 
 The JAX engine jits a ``lax.scan`` over the chunk; here the chunk is a
 Python loop over ``steps`` eager decode steps that returns ``[steps,
@@ -17,6 +18,23 @@ of (tables, lengths, last tokens, active) are fed back between chunks
 until host bookkeeping changes (``_dev_state``). Each decode step runs
 the paged-decode attention and the fused decode MLP once per layer —
 the CUDA kernels on the card, their torch twins on the CPU.
+
+Sampling (``temperature > 0``, ``top_k``, ``sample_seed``), as in the
+JAX engine: the token at position p of a sequence draws with the key
+``fold_in(fold_in(PRNGKey(sample_seed), sample_serial), p)`` — the
+first token from the prefill logits (:meth:`Engine._pick_first`), the
+rest inside the decode step (:func:`_pick_tokens`) or the verify pass
+(:func:`_pick_tokens_batched`), each one launch of the fused pick
+(ops/sample.py) over the slot batch with the keys made on the device.
+A draw is a pure function of (seed, serial, position, logits), so the
+fused, unfused, chunked and speculative paths draw the same tokens, and
+they are JAX's.
+
+Speculative decoding (``spec_k``): a :class:`~.specdraft.DraftSource`
+(default :class:`~.specdraft.NgramDraft`) proposes up to ``spec_k``
+tokens a sequence; the verify pass writes their K/V, evaluates all
+``spec_k + 1`` positions at once (:func:`_verify_chunk`) and accepts on
+the device; rejected positions rewind host-side (:meth:`Engine._rewind`).
 
 int8 serving, as in the JAX engine: ``weight_quant="int8"`` quantizes
 the unrolled tree once at construction (every projection, MLP matmul
@@ -30,10 +48,9 @@ Entry points run on the card: ``Engine(..., device=None)`` means
 ``device="cpu"``.
 
 Not in this slice, refused at construction or in ``add_request``
-rather than ignored: sampling (``temperature > 0``), speculative
-decoding (``spec_k``), mesh sharding, prefix
-sharing (``Request.prefix_id``), lease gates other than the always-open
-one, and metrics export.
+rather than ignored: mesh sharding, prefix sharing
+(``Request.prefix_id``), lease gates other than the always-open one, and
+metrics export.
 """
 
 from __future__ import annotations
@@ -67,7 +84,9 @@ from tpu_dra_torch.workloads.ops.attention import (
     paged_decode_attention,
     paged_multiquery_attention,
 )
+from tpu_dra_torch.workloads.ops.sample import sample_pick
 from tpu_dra_torch.workloads.quantize import quantize_kv
+from tpu_dra_torch.workloads.specdraft import NgramDraft
 
 
 class LeaseGate:
@@ -173,6 +192,12 @@ class EngineConfig:
     def resolved_num_pages(self) -> int:
         return self.num_pages or 1 + self.max_slots * self.max_pages_per_seq
 
+    def sampling(self) -> "tuple | None":
+        """(temperature, top_k) when sampling is on, None for greedy."""
+        if self.temperature <= 0.0:
+            return None
+        return (self.temperature, self.top_k)
+
 
 def _check_supported(ec: EngineConfig, gate, metrics) -> None:
     if ec.scan_chunk < 1 or ec.prefill_chunk < 1:
@@ -183,9 +208,17 @@ def _check_supported(ec: EngineConfig, gate, metrics) -> None:
         raise ValueError(f"unknown kv_quant {ec.kv_quant!r}")
     if ec.weight_quant not in WEIGHT_QUANT_MODES:
         raise ValueError(f"unknown weight_quant {ec.weight_quant!r}")
+    if ec.spec_k > 0 and not ec.fused:
+        raise ValueError(
+            "spec_k requires fused=True — the unfused per-token path IS "
+            "the exactness oracle speculation is verified against"
+        )
+    if ec.spec_k > 0 and ec.sharded:
+        raise ValueError(
+            "spec_k with sharded=True is not supported (the verify pass "
+            "has no sharding rules); run speculation on one device"
+        )
     unported = [
-        (ec.temperature > 0.0, "sampling (temperature > 0)"),
-        (ec.spec_k > 0, "speculative decoding (spec_k > 0)"),
         (ec.sharded, "mesh-sharded decode (sharded=True)"),
         (
             gate is not None and type(gate) is not LeaseGate,
@@ -201,11 +234,13 @@ def _check_supported(ec: EngineConfig, gate, metrics) -> None:
 
 
 class Engine:
-    """Continuous-batching greedy serving engine over a paged KV cache.
+    """Continuous-batching serving engine over a paged KV cache.
 
     ``params`` is a :class:`~.models.llama.LlamaParams` or a nested dict
     of tensors in either layout (stacked trees are unrolled once).
     ``device`` defaults to the CUDA device (see :func:`resolve_device`).
+    ``draft_source`` proposes speculative drafts when ``spec_k > 0``
+    (default: ``NgramDraft(spec_lookup_order)``).
     """
 
     def __init__(
@@ -217,11 +252,15 @@ class Engine:
         metrics=None,
         clock=time.monotonic,
         device=None,
+        draft_source=None,
     ):
         self.device = resolve_device(device)
         self.config = config
         self.ec = engine_config or EngineConfig()
         _check_supported(self.ec, gate, metrics)
+        self._draft = draft_source
+        if self._draft is None and self.ec.spec_k > 0:
+            self._draft = NgramDraft(self.ec.spec_lookup_order)
         self.params = _maybe_quantize_params(
             unroll_tree(as_tree(params, self.device)), self.ec.weight_quant
         )
@@ -246,11 +285,15 @@ class Engine:
         self._lengths = np.zeros((B,), np.int32)
         self._last_tokens = np.zeros((B,), np.int32)
         self._active = np.zeros((B,), bool)
+        self._seeds = np.zeros((B,), np.int32)  # per-slot sampling serial
         self._slots: List[Optional[_Sequence]] = [None] * B
-        # Device copies of (tables, lengths, last, active): a chunk's
-        # lengths/last outputs feed the next chunk directly; any
-        # host-side mutation (page alloc, admission, eviction, prefill)
-        # invalidates them.
+        # The engine-wide sample seed, a device scalar beside the state.
+        self._seed_d = torch.tensor(
+            self.ec.sample_seed, dtype=torch.int32, device=self.device)
+        # Device copies of (tables, lengths, last, active, seeds, seed):
+        # a chunk's lengths/last outputs feed the next chunk directly;
+        # any host-side mutation (page alloc, admission, eviction,
+        # prefill) invalidates them.
         self._dev_state = None
 
         self._queue: collections.deque = collections.deque()
@@ -269,6 +312,10 @@ class Engine:
         self.decode_seconds = 0.0
         self.prefill_buckets = 0
         self.prefill_single_token_buckets = 0
+        # Speculation: drafts proposed and accepted, verify passes run.
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.verify_passes = 0
 
     # --- public API ------------------------------------------------------
 
@@ -377,6 +424,7 @@ class Engine:
             seq.slot = slot
             seq.reserved_left = 0 if self.ec.contiguous else need
             self._slots[slot] = seq
+            self._seeds[slot] = seq.sample_serial
             self._dev_state = None
             self._prefilling.append(seq)
             self._progress += 1
@@ -428,6 +476,7 @@ class Engine:
         self._lengths[slot] = 0
         self._last_tokens[slot] = 0
         self._active[slot] = False
+        self._seeds[slot] = 0
         self._dev_state = None
 
     # --- prefill ----------------------------------------------------------
@@ -481,53 +530,79 @@ class Engine:
             self.config, self.params, self.cache, self._upload(trows),
             self._upload(starts), self._upload(tokens), self._upload(valids),
         )
-        logits_h = None
         finished: List[_Sequence] = []
         for i, (seq, take) in enumerate(zip(rows, takes)):
-            slot = seq.slot
             seq.prefill_cursor += take
             if seq.prefill_cursor == len(seq.context):
-                finished.append(seq)
+                finished.append((i, seq))
                 seq.prefill_done = True
-                if logits_h is None:
-                    logits_h = logits.cpu().numpy()
-                first = self._pick_first(logits_h[i])
-                self._record_tokens(seq, [first])
-                if seq.slot is not None:  # not finished by that token
-                    self._lengths[slot] = len(seq.context)
-                    self._last_tokens[slot] = first
-                    self._active[slot] = True
-        for seq in finished:
+        # Every finishing row's first token, then one host copy of them.
+        firsts = [self._pick_first(seq, logits[i]) for i, seq in finished]
+        if finished:
+            firsts = torch.stack(firsts).cpu().tolist()
+        for (_, seq), first in zip(finished, firsts):
+            slot = seq.slot
+            self._record_tokens(seq, [first])
+            if seq.slot is not None:  # not finished by that token
+                self._lengths[slot] = len(seq.context)
+                self._last_tokens[slot] = first
+                self._active[slot] = True
+        for _, seq in finished:
             self._prefilling.remove(seq)
         self._progress += 1
         self._dev_state = None
 
-    def _pick_first(self, logits: np.ndarray) -> int:
-        """First generated token from the prefill logits (greedy)."""
-        return int(np.argmax(logits))
+    def _pick_first(self, seq: _Sequence, logits: torch.Tensor):
+        """First generated token (a device scalar) from the row's prefill
+        logits [vocab]: argmax, or under sampling the key schedule of the
+        decode step at position len(context), so a re-prefill after a
+        drain draws what the decode step would have."""
+        sampling = self.ec.sampling()
+        if sampling is None:
+            return torch.argmax(logits).to(torch.int32)
+        meta = self._upload(
+            np.array([seq.sample_serial, len(seq.context)], np.int32))
+        return sample_pick(
+            logits[None], *sampling, seed=self._seed_d, serials=meta[:1],
+            positions=meta[1:],
+        )[0]
 
     # --- decode ------------------------------------------------------------
 
-    def _decode_tick(self, now: float) -> None:
-        if not self._active.any():
-            return
-        steps = self.ec.scan_chunk
-        for slot, seq in enumerate(self._slots):
-            if seq is not None and self._active[slot]:
-                self._ensure_pages(seq, int(self._lengths[slot]) + steps)
+    def _device_state(self) -> tuple:
+        """(tables, lengths, last, active, seeds, seed) on the device,
+        uploaded again only after host bookkeeping changed; greedy
+        engines upload no seeds (None)."""
         if self._dev_state is None:
+            sampled = self.ec.sampling() is not None
             self._dev_state = (
                 self._upload(self._tables),
                 self._upload(self._lengths),
                 self._upload(self._last_tokens),
                 self._upload(self._active),
+                self._upload(self._seeds) if sampled else None,
+                self._seed_d,
             )
-        tables_d, lengths_d, last_d, active_d = self._dev_state
+        return self._dev_state
+
+    def _decode_tick(self, now: float) -> None:
+        if not self._active.any():
+            return
+        if self.ec.spec_k > 0:
+            return self._spec_tick(now)
+        steps = self.ec.scan_chunk
+        for slot, seq in enumerate(self._slots):
+            if seq is not None and self._active[slot]:
+                self._ensure_pages(seq, int(self._lengths[slot]) + steps)
+        tables_d, lengths_d, last_d, active_d, seeds_d, seed_d = (
+            self._device_state())
+        pick = dict(sampling=self.ec.sampling(), seeds=seeds_d,
+                    sample_seed=seed_d)
         t0 = time.perf_counter()
         if self.ec.fused:
             lengths, last, out_d = _decode_chunk(
                 self.config, self.params, self.cache, tables_d, lengths_d,
-                last_d, active_d, steps=steps,
+                last_d, active_d, steps=steps, **pick,
             )
             out = out_d.cpu().numpy()  # the chunk's one device->host copy
         else:
@@ -537,13 +612,13 @@ class Engine:
             for _ in range(steps):
                 lengths, last, _ = _decode_step(
                     self.config, self.params, self.cache, tables_d,
-                    lengths, last, active_d,
+                    lengths, last, active_d, **pick,
                 )
                 outs.append(last.cpu().numpy())
             out = np.stack(outs)
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += steps
-        self._dev_state = (tables_d, lengths, last, active_d)
+        self._dev_state = (tables_d, lengths, last, active_d, seeds_d, seed_d)
         # Host mirror without another copy: every active slot advanced
         # one position per step, and the last step's tokens are every
         # slot's last token (inactive slots pass theirs through).
@@ -555,6 +630,112 @@ class Engine:
         ]
         for slot, seq in active_slots:
             self._record_tokens(seq, out[:, slot].tolist())
+
+    # --- speculative decode ----------------------------------------------
+
+    def _spec_tick(self, now: float) -> None:
+        """One speculative iteration: the draft source proposes up to
+        spec_k tokens per active sequence (host-side, from its own
+        history), and ONE verify pass writes their K/V, evaluates all
+        spec_k + 1 positions with the per-token pick schedule and accepts
+        on the device. Rejected positions rewind host-side."""
+        K = self.ec.spec_k
+        B = self.ec.max_slots
+        drafts = np.zeros((B, K), np.int32)
+        counts = np.zeros((B,), np.int32)
+        for slot, seq in enumerate(self._slots):
+            if seq is None or not self._active[slot]:
+                continue
+            cap = min(K, seq.remaining - 1)
+            if cap > 0 and self._draft is not None:
+                history = np.concatenate([
+                    np.asarray(seq.req.prompt, np.int32),
+                    np.asarray(seq.out, np.int32),
+                ])
+                d = np.asarray(
+                    self._draft.propose(history, cap), np.int32
+                ).ravel()[:cap]
+                # A proposer's out-of-vocab id would index the embedding
+                # out of bounds: cut at the first one (later drafts
+                # depend on it anyway).
+                bad = np.flatnonzero((d < 0) | (d >= self.config.vocab_size))
+                if bad.size:
+                    d = d[: int(bad[0])]
+                drafts[slot, : len(d)] = d
+                counts[slot] = len(d)
+            self._ensure_pages(
+                seq, int(self._lengths[slot]) + int(counts[slot]) + 1)
+        tables_d, lengths_d, last_d, active_d, seeds_d, seed_d = (
+            self._device_state())
+        t0 = time.perf_counter()
+        new_len, new_last, n_acc, picked = _verify_chunk(
+            self.config, self.params, self.cache, tables_d, lengths_d,
+            last_d, self._upload(drafts), self._upload(counts), active_d,
+            sampling=self.ec.sampling(), seeds=seeds_d, sample_seed=seed_d,
+        )
+        # n_acc and the picks in one device->host copy.
+        host = torch.cat([n_acc[:, None].to(picked.dtype), picked], 1)
+        host = host.cpu().numpy()
+        self.decode_seconds += time.perf_counter() - t0
+        self.verify_passes += 1
+        # Verified lengths/last tokens ARE next iteration's inputs.
+        self._dev_state = (
+            tables_d, new_len, new_last, active_d, seeds_d, seed_d)
+        n_acc_h, picked_h = host[:, 0], host[:, 1:]
+        active_slots = [
+            (slot, seq) for slot, seq in enumerate(self._slots)
+            if seq is not None and self._active[slot]
+        ]
+        for slot, seq in active_slots:
+            na = int(n_acc_h[slot])
+            npp = int(counts[slot])
+            self.spec_proposed += npp
+            self.spec_accepted += na
+            written = int(self._lengths[slot]) + npp + 1
+            valid = int(self._lengths[slot]) + na + 1
+            # Host mirror of the device state, before a finish resets it.
+            self._lengths[slot] = valid
+            self._last_tokens[slot] = picked_h[slot, na]
+            self._record_tokens(seq, picked_h[slot, : na + 1].tolist())
+            if seq.slot is not None and written > valid:
+                self._rewind(seq, valid, written)
+
+    def _rewind(self, seq: _Sequence, valid_len: int,
+                written_len: int) -> None:
+        """Host-side speculative rewind: the verify pass wrote K/V at
+        positions [valid_len, written_len) that acceptance rejected.
+        Pages wholly past the accepted extent leave the block table and
+        free (batch-zeroed before reuse) and go back into the
+        sequence's reservation; the kept boundary page's rejected tail
+        is zeroed in place."""
+        page = self.ec.page_size
+        keep = -(-valid_len // page)
+        dropped = seq.pages[keep:]
+        if dropped:
+            seq.pages = seq.pages[:keep]
+            if self.ec.contiguous:
+                self._pending_zero.extend(dropped)
+            else:
+                for pg in dropped:
+                    if self.allocator.decref(pg):
+                        self._pending_zero.append(pg)
+                # Every dropped page was private and was just freed, so
+                # the headroom exists; a failure here means a page was
+                # not freed, and a later allocation would steal another
+                # sequence's reserved headroom.
+                if not self.allocator.reserve(len(dropped)):
+                    raise RuntimeError(
+                        f"rewind of {seq.req.rid} could not restore "
+                        f"{len(dropped)} reserved pages — a dropped page "
+                        f"was not freed (shared page in the rejected "
+                        f"extent?)"
+                    )
+                seq.reserved_left += len(dropped)
+            self._tables[seq.slot, keep:] = paged_kv.SCRATCH_PAGE
+            self._dev_state = None
+        off = valid_len % page
+        if off and written_len > valid_len:
+            paged_kv.zero_page_tail(self.cache, seq.pages[keep - 1], off)
 
     def _record_tokens(self, seq: _Sequence, toks) -> None:
         # Clock read after the chunk's host copy, so latencies include
@@ -591,15 +772,17 @@ def _embed(c: LlamaConfig, params: dict, tokens: torch.Tensor):
     return params["embed"]["embedding"].to(c.dtype)[tokens.long()]
 
 
-def _decode_step(c, params, cache, tables, lengths, tokens, active):
+def _decode_step(c, params, cache, tables, lengths, tokens, active, *,
+                 sampling=None, seeds=None, sample_seed=None):
     """One paged decode step for the whole slot batch. tables [B, M],
     lengths/tokens [B] int32, active [B] bool. Writes each active
     slot's new K/V at position ``lengths`` in place, quantized first
     for int8 pools (inactive slots write to the scratch page and attend
     with length 0), then attends and runs the MLP block once per layer.
-    Returns (lengths after the
-    write, next tokens — inactive slots pass theirs through, fp32
-    logits [B, vocab])."""
+    ``sampling`` is (temperature, top_k) or None for greedy; sampled
+    tokens draw with the keys of (sample_seed, seeds [B], position).
+    Returns (lengths after the write, next tokens — inactive slots pass
+    theirs through, fp32 logits [B, vocab])."""
     B = tokens.shape[0]
     page = cache.page_size
     x = _embed(c, params, tokens)[:, None, :]  # [B, 1, d]
@@ -620,26 +803,51 @@ def _decode_step(c, params, cache, tables, lengths, tokens, active):
         x = _finish_block(c, lp, x, out, B, 1)
     x = _rms(x, params["final_norm"]["scale"], c.norm_eps)
     logits = _mm(x, params["lm_head"]).to(torch.float32)[:, 0]
-    nxt = torch.where(active, _pick_tokens(logits, tokens.dtype), tokens)
-    return len_eff, nxt, logits
+    nxt = _pick_tokens(
+        sampling, logits, seeds, len_eff, tokens.dtype, sample_seed)
+    return len_eff, torch.where(active, nxt, tokens), logits
 
 
-def _pick_tokens(logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Greedy next tokens for the slot batch (ties to the lowest id,
-    as jnp.argmax)."""
-    return torch.argmax(logits, dim=-1).to(dtype)
+def _pick_tokens(sampling, logits, seeds, positions, dtype, sample_seed):
+    """Next tokens for the slot batch: argmax (ties to the lowest id, as
+    jnp.argmax), or under ``sampling`` = (temperature, top_k) one launch
+    of the fused pick with row b's key fold(fold(PRNGKey(sample_seed),
+    seeds[b]), positions[b]) — the token that will sit AT
+    ``positions[b]``, the key the prefill pick uses for the first."""
+    if sampling is None:
+        return torch.argmax(logits, dim=-1).to(dtype)
+    return sample_pick(
+        logits, *sampling, seed=sample_seed, serials=seeds,
+        positions=positions,
+    ).to(dtype)
+
+
+def _pick_tokens_batched(sampling, logits, seeds, positions, dtype,
+                         sample_seed):
+    """:func:`_pick_tokens` over [B, S] positions (logits [B, S, vocab])
+    in one launch over B*S rows: position s of sequence b draws with
+    the single-step key of (seeds[b], positions[b, s])."""
+    B, S, V = logits.shape
+    if sampling is None:
+        return torch.argmax(logits, dim=-1).to(dtype)
+    return sample_pick(
+        logits.reshape(B * S, V), *sampling, seed=sample_seed,
+        serials=seeds, positions=positions.reshape(B * S),
+        rows_per_serial=S,
+    ).reshape(B, S).to(dtype)
 
 
 def _decode_chunk(c, params, cache, tables, lengths, tokens, active, *,
-                  steps: int):
+                  steps: int, **pick):
     """``steps`` decode steps back to back on the device (the JAX
     engine's ``lax.scan`` chunk). Returns (lengths, last tokens, tokens
     [steps, B]) as device tensors; the caller copies the tokens to the
-    host once."""
+    host once. ``pick`` holds :func:`_decode_step`'s sampling
+    arguments."""
     outs = []
     for _ in range(steps):
         lengths, tokens, _ = _decode_step(
-            c, params, cache, tables, lengths, tokens, active
+            c, params, cache, tables, lengths, tokens, active, **pick
         )
         outs.append(tokens)
     return lengths, tokens, torch.stack(outs)
@@ -708,3 +916,53 @@ def _write_then_attend(c, params, cache, tables, pids, offs, pos_q, toks,
         ).to(c.dtype)
         x = _finish_block(c, lp, x, out, B, S)
     return _rms(x, params["final_norm"]["scale"], c.norm_eps)
+
+
+def _verify_chunk(c, params, cache, tables, lengths, tokens, drafts,
+                  draft_count, active, *, sampling=None, seeds=None,
+                  sample_seed=None):
+    """The speculative verify pass: K+1 positions per sequence against
+    the paged cache in one pass.
+
+    tokens [B]: each sequence's real last token (not yet written);
+    drafts [B, K] (pad past draft_count [B]). Writes K/V for
+    [token, d_0, ..., d_{K-1}] at positions [L, L+K] (masked rows and
+    pads go to the scratch page), attends every position causally
+    through the block tables, and picks every position's next token
+    with the per-token key schedule. Acceptance stays on the device:
+    n_acc is the longest prefix where pick[i] == draft[i], and the
+    emitted run is pick[0..n_acc]. pick[i] depends only on K/V at
+    positions <= L + i, which hold real tokens whenever i <= n_acc, so
+    the run is what the per-token path emits, whatever was proposed.
+    Returns (new lengths, new last tokens, n_acc, picks [B, K+1]) as
+    device tensors."""
+    B, K = drafts.shape
+    S = K + 1
+    page = cache.page_size
+    dev = tokens.device
+    toks = torch.cat([tokens[:, None], drafts], dim=1)  # [B, S]
+    ar = torch.arange(S, dtype=lengths.dtype, device=dev)
+    positions = lengths[:, None] + ar[None]  # [B, S]
+    write_ok = active[:, None] & (ar[None] < (draft_count + 1)[:, None])
+    safe_rows = torch.clamp(positions // page, max=tables.shape[1] - 1)
+    pids = torch.where(
+        write_ok, torch.gather(tables, 1, safe_rows.long()),
+        paged_kv.SCRATCH_PAGE,
+    ).long()
+    offs = torch.where(write_ok, positions % page, 0).long()
+    pos_q = torch.where(active, lengths, 0)
+    x = _write_then_attend(
+        c, params, cache, tables, pids, offs, pos_q, toks, positions
+    )
+    logits = _mm(x, params["lm_head"]).to(torch.float32)  # [B, S, V]
+    picked = _pick_tokens_batched(
+        sampling, logits, seeds, positions + 1, tokens.dtype, sample_seed
+    )
+    match = (picked[:, :K] == drafts) & (ar[None, :K] < draft_count[:, None])
+    n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    n_acc = n_acc.to(lengths.dtype)
+    new_len = torch.where(active, lengths + 1 + n_acc, lengths)
+    new_last = torch.where(
+        active, torch.gather(picked, 1, n_acc.long()[:, None])[:, 0], tokens
+    )
+    return new_len, new_last, n_acc, picked

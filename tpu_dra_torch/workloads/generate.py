@@ -27,8 +27,11 @@ decode kernel's length are known on the host, so the decode loop needs
 no device->host sync; the generated tokens stay on the device and are
 copied to the host once, at the end.
 
-Sampling (``sample_generate``, ``topk_exact``, ``sample_token``) is
-not ported yet.
+Sampling: ``sample_token`` is the temperature / top-k draw with
+``jax.random``'s bits (the fused pick of ops/sample.py, ``csrc/sample.cu``
+on the card), ``topk_exact`` its ``lax.top_k``-ordered candidates, and
+``sample_generate`` / ``sample_generate_unfused`` the sampled twins of
+``greedy_generate`` with JAX's ``fold_in(rng, step)`` key schedule.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from tpu_dra_torch.workloads.convert import unroll_tree
@@ -53,7 +57,13 @@ from tpu_dra_torch.workloads.ops.decode_mlp import (
     _torch_decode_mlp,
     decode_mlp,
 )
+# topk_exact lives beside the kernel it feeds; JAX keeps it here.
+from tpu_dra_torch.workloads.ops.sample import (  # noqa: F401
+    sample_pick,
+    topk_exact,
+)
 from tpu_dra_torch.workloads.quantize import quantize_kv, quantize_params
+from tpu_dra_torch.workloads.sampling import MASK32, fold_in
 
 KV_QUANT_MODES = ("none", "int8")
 WEIGHT_QUANT_MODES = ("none", "int8")
@@ -354,5 +364,121 @@ def greedy_generate(
     return _generate(
         config, params, prompt, max_new_tokens, max_seq,
         pick=lambda logits, _i: torch.argmax(logits, dim=-1),
+        kv_quant=kv_quant, weight_quant=weight_quant, device=device,
+    )
+
+
+# --- sampling -----------------------------------------------------------------
+
+
+def _key_tensor(rng, device) -> torch.Tensor:
+    """A key's two words as an int64 [2] tensor on ``device``: a torch
+    key as it is, or any array of two integers (jax.random.key_data's
+    uint32 pair, a list)."""
+    if isinstance(rng, torch.Tensor):
+        key = rng.to(device=device, dtype=torch.int64)
+    else:
+        key = torch.as_tensor(
+            np.asarray(rng, dtype=np.int64) & MASK32, device=device)
+    if tuple(key.shape) != (2,):
+        raise ValueError(f"rng is a key of 2 words, got {tuple(key.shape)}")
+    return key
+
+
+def sample_token(
+    logits: torch.Tensor,
+    rng: torch.Tensor,
+    temperature: float,
+    top_k: int,
+    fold: "int | None" = None,
+) -> torch.Tensor:
+    """Temperature / top-k draw: [b, vocab] logits -> [b] int32 ids, the
+    bits of JAX's ``sample_token(logits, rng, temperature, top_k)`` —
+    with ``fold``, of ``sample_token(logits, fold_in(rng, fold), ...)``,
+    the fold made inside the kernel. ``top_k > 0`` draws over the k
+    candidates (``topk_exact`` order) and maps back through their ids;
+    ``top_k == 0`` over the whole vocab. One launch of the fused pick
+    (ops/sample.py) on the card; its plain version on the CPU."""
+    return sample_pick(
+        logits, temperature, top_k, key=_key_tensor(rng, logits.device),
+        fold=fold,
+    )
+
+
+def _check_sampling(config: LlamaConfig, temperature: float,
+                    top_k: int) -> bool:
+    """True when the draw is greedy (temperature <= 0 or top_k == 1)."""
+    if not 0 <= top_k <= config.vocab_size:
+        raise ValueError(
+            f"top_k={top_k} out of range for vocab {config.vocab_size}"
+        )
+    return temperature <= 0.0 or top_k == 1
+
+
+def sample_generate(
+    config: LlamaConfig,
+    params,
+    prompt: torch.Tensor,
+    max_new_tokens: int,
+    rng,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    max_seq: int = 0,
+    kv_quant: str = "none",
+    weight_quant: str = "none",
+    device=None,
+) -> torch.Tensor:
+    """Temperature / top-k sampling over the same cache machinery: step
+    i draws with ``fold_in(rng, i)`` over the [b, vocab] block (one key
+    for the batch), the fold and the draw in one launch, and the tokens
+    stay on the device until the end. ``rng`` is a key of two words
+    (:func:`.sampling.prng_key`, or JAX's key data). ``top_k=0`` samples
+    the whole distribution; ``top_k=1`` or ``temperature <= 0`` are
+    greedy_generate."""
+    if _check_sampling(config, temperature, top_k):
+        return greedy_generate(
+            config, params, prompt, max_new_tokens, max_seq,
+            kv_quant=kv_quant, weight_quant=weight_quant, device=device,
+        )
+    key = _key_tensor(rng, resolve_device(device))
+    return _generate(
+        config, params, prompt, max_new_tokens, max_seq,
+        pick=lambda logits, i: sample_token(
+            logits, key, temperature, top_k, fold=i),
+        kv_quant=kv_quant, weight_quant=weight_quant, device=device,
+    )
+
+
+def sample_generate_unfused(
+    config: LlamaConfig,
+    params,
+    prompt: torch.Tensor,
+    max_new_tokens: int,
+    rng,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    max_seq: int = 0,
+    kv_quant: str = "none",
+    weight_quant: str = "none",
+    device=None,
+) -> torch.Tensor:
+    """The parity oracle of :func:`sample_generate`: every token goes to
+    the host and back before the next step, and each step's key is
+    folded by :func:`.sampling.fold_in` (plain torch) before the draw,
+    so the same ``rng`` must give identical tokens."""
+    if _check_sampling(config, temperature, top_k):
+        return greedy_generate(
+            config, params, prompt, max_new_tokens, max_seq,
+            kv_quant=kv_quant, weight_quant=weight_quant, device=device,
+        )
+    dev = resolve_device(device)
+    key = _key_tensor(rng, dev)
+
+    def pick(logits, i):
+        tok = sample_token(logits, fold_in(key, i), temperature, top_k)
+        return torch.as_tensor(tok.cpu().numpy(), device=dev)
+
+    return _generate(
+        config, params, prompt, max_new_tokens, max_seq, pick=pick,
         kv_quant=kv_quant, weight_quant=weight_quant, device=device,
     )

@@ -14,7 +14,7 @@ def build_model(config):
     per call. Mixtral is not ported yet."""
     if type(config).__name__ == "MixtralConfig":
         raise NotImplementedError(
-            "Mixtral is not ported yet: ROADMAP Queue A item 12"
+            "Mixtral is not ported yet: ROADMAP Queue A item 10 (Mixtral)"
         )
     if isinstance(config, LlamaConfig):
         return Llama(config)

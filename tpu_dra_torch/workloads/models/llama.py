@@ -290,7 +290,8 @@ class LlamaAttention(nn.Module):
         if c.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={c.attention_impl!r} (sequence parallelism) "
-                f"is not ported yet: ROADMAP Queue A item 13"
+                f"is not ported yet: ROADMAP Queue A item 11 (parallel "
+                f"training)"
             )
         b, s, _ = x.shape
         q = _mm(x, p["wq"]).reshape(b, s, c.n_heads, c.head_dim)

@@ -18,8 +18,10 @@ INVARIANT (per page), as in the reference: an allocated page's slots at
 positions beyond the owning sequence's length are zero, and free pages
 are entirely zero (:func:`zero_pages` re-establishes it on free; the
 scratch page is exempt). :func:`tail_is_zero` / :func:`pages_are_zero`
-check it. Extents, page copies and copy-on-write forks come with later
-slices.
+check it. :func:`zero_page_tail` (with :func:`copy_page_prefix`, the
+masked copy it is made of) re-establishes it on the kept boundary page
+after a speculative rewind. Extents and copy-on-write forks come with
+later slices.
 """
 
 from __future__ import annotations
@@ -227,6 +229,35 @@ def zero_pages(cache: PagedKVCache, page_ids) -> PagedKVCache:
         for layer in pool:
             layer[idx] = 0
     return cache
+
+
+def copy_page_prefix(cache: PagedKVCache, src: int, dst: int,
+                     upto: int) -> PagedKVCache:
+    """Copy positions ``[0, upto)`` of page ``src`` into ``dst`` and zero
+    the rest of ``dst``, in every pool (values AND scales, every layer),
+    in place — the frozen-prefix fork: ``dst``'s tail honours the
+    zero-tail invariant whatever ``src`` holds past ``upto``. Returns
+    ``cache`` itself."""
+    page = cache.page_size
+    if not 0 <= upto <= page:
+        raise ValueError(f"upto={upto} outside a page of {page}")
+    for _, pool in cache._pools():
+        for layer in pool:
+            if src != dst:
+                layer[dst, :upto] = layer[src, :upto]
+            layer[dst, upto:] = 0
+    return cache
+
+
+def zero_page_tail(cache: PagedKVCache, page_id: int,
+                   start: int) -> PagedKVCache:
+    """Zero positions ``[start, page_size)`` of one page in every pool,
+    in place — the speculative-rewind half of the zero-tail invariant:
+    rejected draft K/V written past the accepted length is wiped from
+    the kept boundary page (pages wholly past it are freed and
+    batch-zeroed by :func:`zero_pages`). The frozen-prefix fork with
+    src == dst, as in the reference."""
+    return copy_page_prefix(cache, page_id, page_id, start)
 
 
 def tail_is_zero(cache: PagedKVCache, pages, length: int) -> bool:

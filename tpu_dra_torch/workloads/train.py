@@ -5,7 +5,8 @@ parameters, the port's own AdamW with fp32 first moments, the
 materialised-logits or fused cross-entropy loss, and a ``Trainer`` with
 ``init_state`` / ``make_train_step`` / ``make_forward``. A mesh with any
 axis above 1 (FSDP, TP, SP, ring or Ulysses attention) is ROADMAP Queue
-A item 13; ``--distributed`` bootstrap is item 10.
+A item 11 (parallel training); ``--distributed`` bootstrap is item 9
+(bootstrap and collective smokes).
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 adamw(lr, b1, b2, eps=1e-8, weight_decay, mu_dtype=float32))`` (optax
@@ -171,7 +172,7 @@ def loss_fn(model, params, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy over [b, s] int tokens: the fp32 logits
     path, or with ``config.fused_ce`` the chunked head (ops/loss.py).
     The MoE branch (aux loss) waits for Mixtral, ROADMAP Queue A item
-    12."""
+    10 (Mixtral)."""
     c = model.config
     if c.fused_ce:
         hidden = model(tokens, return_hidden=True, params=params)
@@ -199,8 +200,9 @@ class Trainer:
     ):
         if mesh_config is not None and mesh_config.size > 1:
             raise NotImplementedError(
-                f"{mesh_config}: sharded training is not ported yet "
-                f"(ROADMAP Queue A item 13); the port trains on one device"
+                f"{mesh_config}: sharded training is not ported yet: "
+                f"ROADMAP Queue A item 11 (parallel training); the port "
+                f"trains on one device"
             )
         self.model_config = model_config
         self.model = build_model(model_config)
@@ -295,7 +297,8 @@ def main(argv=None) -> int:
     p.add_argument("--seq", type=positive_int, default=512)
     p.add_argument(
         "--distributed", action="store_true",
-        help="multi-host bootstrap (not ported: ROADMAP Queue A item 10)",
+        help="multi-host bootstrap (not ported: ROADMAP Queue A item 9, "
+             "bootstrap and collective smokes)",
     )
     p.add_argument(
         "--device", default=None,
@@ -308,7 +311,7 @@ def main(argv=None) -> int:
     if args.distributed:
         raise NotImplementedError(
             "--distributed bootstrap is not ported yet: ROADMAP Queue A "
-            "item 10"
+            "item 9 (bootstrap and collective smokes)"
         )
     model_config = getattr(models_mod, MODEL_PRESETS[args.model])
     trainer = Trainer(model_config, device=args.device)
