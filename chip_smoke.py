@@ -25,7 +25,9 @@ exits non-zero without a result:
    513 pages and lengths [0,1,15,16,17,255,512,1000], then lengths on
    the split boundaries and at the capacity [63,64,65,127,128,129,1023,
    1024], then one slot of 8192 keys, with bf16 pools and with int8
-   pools; decode MLP with B in {1, 8, 13, 16}, each on the tensor-core
+   pools, and a block table whose 8 slots alias the same 12 leading
+   pages (a shared prefix) against one where each slot reads private
+   copies of them (paged_kv.copy_page): bit-identical; decode MLP with B in {1, 8, 13, 16}, each on the tensor-core
    route (sm90, decode_mlp_sm90.cu, with its plan; reruns
    bit-identical), and decode_mlp.cu (the simt route: fp32 and B > 16)
    launched directly at fp32 B = 8 and bf16 B = 32, against the plain
@@ -106,7 +108,12 @@ exits non-zero without a result:
    tokens; the w8+kv8 engine and greedy_generate in all four
    (kv_quant, weight_quant) combinations give identical tokens; the
    twin config of tests/test_torch_train.py (dim 256, 2 layers, hd 64,
-   fp32) trains 3 steps with the same losses within 1e-5 relative.
+   fp32) trains 3 steps with the same losses within 1e-5 relative; a
+   prefix-sharing trace (5 requests, a 14-token prefix of 4-token
+   pages) run shared and private on the card, shared on the CPU, and
+   through an EventGate drain (drain_drill) on the card: shared vs
+   private, drained vs undrained and card vs CPU each agree on >= 0.97
+   of the tokens (first difference and top-2 gap reported).
 6. engine  — Llama-3-8B widths, all 32 layers, vocab 128256, bf16,
    random weights from a seeded CUDA generator; 8 seeded requests
    (prompts 64-512, 32-64 new tokens) through the paged engine. Every
@@ -155,6 +162,21 @@ exits non-zero without a result:
    agreement with it (no identity gate: the verify pass runs the plain
    attention and MLP chain, the per-token step the kernels); w8kv8 with
    the n-gram draft, every verify-pass matmul (M = 40) on the wgmma tile.
+7d. engine_prefix — the engine phase's config, 8 requests sharing a
+   seeded 200-token prompt (12 full pages and a frozen boundary page)
+   with 16-64-token suffixes and 32 new tokens, run shared
+   (prefix_id "sys") and private, each with a MetricsRecorder: pools
+   whole and zero, the kernels launched as in the engine phase; shared:
+   7 attaches, 7 forks, prefix_saved_hw 7 x 12 + 6 (the 7 followers
+   attach the frozen page in one tick before they fork it), the
+   shared-pages gauge's peak 7 x 12, peak pages at least 7 x 12 - 1
+   under the private run's, and the recorder's attach, fork, token and
+   completion counters equal to the engine's; then the shared trace
+   again under an EventGate revoked two steps after the followers
+   attach (drain_drill): one drain, every request once with its tokens
+   and its pre-drain tokens first, sharing resumed. Reported: token
+   agreement (first difference, top-2 gap), prefill buckets and
+   tokens, TTFT p50, and a fork's launches and ms.
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
    new tokens, once in bf16 and once with int8 weights and KV: 32
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16,
@@ -206,6 +228,9 @@ PEAKS = {
     "H100": (3.35e12, 989e12, 67e12),  # SXM: "NVIDIA H100 80GB HBM3"
 }
 TIMING_ITERS = 60
+# The engine_prefix phase's shared system prompt: 12 full pages of 16
+# and 8 tokens of a frozen boundary page.
+PREFIX_LEN = 200
 # ~1 ms of device sleep at the H100's clocks: longer than any timed call
 # takes on the host to enqueue its launches (time_ms).
 HOST_SHIELD_CYCLES = 2_000_000
@@ -803,12 +828,13 @@ def profile_decode(E, eng, prompts, chunks: int = 2) -> dict:
     }
 
 
-def serve(E, kernels, cfg, params, ec, reqs) -> tuple:
-    """Run ``reqs`` through a fresh engine with the launch counts set
-    to 0 just before; returns (engine, completions, launches, wall s).
-    Every request must complete with its token count and ids in range,
-    and the allocator must end leak-free."""
-    eng = E.Engine(cfg, params, ec)
+def serve(E, kernels, cfg, params, ec, reqs, **engine_kw) -> tuple:
+    """Run ``reqs`` through a fresh engine (``engine_kw`` go to its
+    constructor) with the launch counts set to 0 just before; returns
+    (engine, completions, launches, wall s). Every request must complete
+    with its token count and ids in range, and the allocator must end
+    leak-free."""
+    eng = E.Engine(cfg, params, ec, **engine_kw)
     kernels.reset_launches()
     t0 = time.perf_counter()
     done = eng.run(reqs)
@@ -1790,6 +1816,200 @@ def token_agreement(a: dict, b: dict) -> float:
     return float(np.mean([np.mean(a[r].tokens == b[r].tokens) for r in a]))
 
 
+def pair_report(G, cfg, params, trace, got, want) -> dict:
+    """Token agreement of two runs of ``trace``, and where they first
+    differ with the top-2 logit gap of ``want``'s context there."""
+    where = first_difference(got, want)
+    out = {"token_agreement": token_agreement(got, want),
+           "first_difference": where, "top2_gap": None}
+    if where is not None:
+        rid, pos = where
+        prompt = next(p for r, p, _ in trace if r == rid)
+        out["top2_gap"] = top2_gap(G, cfg, params, prompt,
+                                   want[rid].tokens[:pos])
+    return out
+
+
+class MetricsRecorder:
+    """The engine's ``metrics`` duck type (inc, set_gauge, observe):
+    counters summed, each gauge's largest value, every observation
+    kept."""
+
+    def __init__(self):
+        self.counters, self.gauge_max, self.observed = {}, {}, {}
+
+    def inc(self, name: str, value: float = 1.0) -> None:
+        self.counters[name] = self.counters.get(name, 0.0) + value
+
+    def set_gauge(self, name: str, value: float) -> None:
+        self.gauge_max[name] = max(self.gauge_max.get(name, value), value)
+
+    def observe(self, name: str, value: float) -> None:
+        self.observed.setdefault(name, []).append(value)
+
+
+def prefix_trace(vocab: int, n: int, prefix: int, suffix: tuple, new: int,
+                 seed: int) -> list:
+    """(rid, prompt, new) for ``n`` requests that share one seeded
+    ``prefix``-token system prompt, each with its own suffix of
+    suffix[0]..suffix[1] tokens."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab, prefix).astype(np.int32)
+    return [
+        (f"p{i}", np.concatenate([system, rng.integers(
+            1, vocab, int(rng.integers(suffix[0], suffix[1] + 1)))
+            .astype(np.int32)]), new)
+        for i in range(n)
+    ]
+
+
+def prefix_requests(E, trace, prefix_len: int) -> list:
+    """The trace's requests: sharing prefix "sys" of ``prefix_len``
+    tokens, or private when it is 0."""
+    return [E.Request(rid=r, prompt=p, max_new_tokens=n,
+                      prefix_id="sys" if prefix_len else None,
+                      prefix_len=prefix_len)
+            for r, p, n in trace]
+
+
+def peak_pages(eng) -> int:
+    alloc = eng.allocator
+    return alloc.num_pages - 1 - alloc.min_free
+
+
+def drain_drill(E, eng, gate, reqs, followers: int, after: int) -> tuple:
+    """Submit ``reqs`` (one leader, then sharers of its prefix) to an
+    engine behind the EventGate ``gate``; once ``followers`` sharers
+    have attached and ``after`` more steps ran, revoke, take one step,
+    restore and run to the end. Raises unless the drain emptied every
+    slot, flushed the registry and left the pool whole and zero, every
+    request completes once with its token count, the tokens emitted
+    before the drain begin each completion, and sharing resumes
+    (prefix_attached grows). Returns (completions, report)."""
+    for r in reqs:
+        eng.add_request(r)
+    while eng.prefix_attached < followers:
+        if not eng.busy:
+            raise AssertionError("drain drill: the sharers never attached")
+        eng.step()
+    for _ in range(after):
+        eng.step()
+    if not any(s is not None for s in eng._slots):
+        raise AssertionError("drain drill: nothing in flight at the revoke")
+    pre = {s.req.rid: list(s.out) for s in eng._live()}
+    attached = eng.prefix_attached
+    gate.revoke()
+    eng.step()
+    if any(s is not None for s in eng._slots) or eng._prefix_registry:
+        raise AssertionError("drain drill: slots or prefix pins survived")
+    eng._flush_zero()  # the zeroing the next allocation would do first
+    pool_whole_and_zero(eng, "drain drill, at the drain")
+    gate.restore()
+    done = eng.run()
+    for r in reqs:
+        got = done[r.rid].tokens
+        if len(got) != r.max_new_tokens:
+            raise AssertionError(f"drain drill: {r.rid} has {len(got)} "
+                                 f"tokens, want {r.max_new_tokens}")
+        if list(got[:len(pre.get(r.rid, []))]) != pre.get(r.rid, []):
+            raise AssertionError(f"drain drill: {r.rid} changed its "
+                                 f"pre-drain tokens")
+    if eng.prefix_attached <= attached:
+        raise AssertionError("drain drill: sharing did not resume")
+    pool_whole_and_zero(eng, "drain drill, after the resume")
+    return done, {"drained_in_flight": len(pre),
+                  "tokens_before_drain": sum(map(len, pre.values())),
+                  "prefix_attached_before": attached,
+                  "prefix_attached_after": eng.prefix_attached}
+
+
+def copy_page_cost(P, cache) -> dict:
+    """One copy-on-write fork (paged_kv.copy_page) on the engine's
+    pools: its launches (the CUDA runtime's launch and copy calls) and
+    device events from torch.profiler over 5 forks, and its time (CUDA
+    events, mean of 20 back-to-back forks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 5
+    P.copy_page(cache, 1, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            P.copy_page(cache, 1, 2)
+        torch.cuda.synchronize()
+    calls = device = 0
+    for ev in prof.key_averages():
+        if ev.key.startswith(("cudaLaunchKernel", "cudaMemcpyAsync")):
+            calls += ev.count
+        elif (getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0)) > 0
+              and not ev.key.startswith(("cuda", "aten"))):
+            device += ev.count
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        P.copy_page(cache, 1, 2)
+    end.record()
+    torch.cuda.synchronize()
+    return {"launches_per_copy": calls / reps if calls else "not measured",
+            "device_events_per_copy": device / reps,
+            "ms_per_copy": start.elapsed_time(end) / 20,
+            "pool_tensors": len(cache._pools()) * cache.n_layers}
+
+
+def aliased_table_parity(A, P, Q, gen, int8: bool) -> dict:
+    """The paged kernel over a block table in which all 8 slots alias
+    the same 12 leading pages (a shared 192-token prefix), then over a
+    table in which each slot has private copies of them (copy_page):
+    the kernel reads the same bytes in the same order, so the outputs
+    must be bit-identical; held against the plain version too."""
+    b, page, shared, tail, width = 8, 16, 12, 5, 64
+    num_pages = 1 + shared + b * (shared + tail)
+    bf = torch.bfloat16
+    kp = torch.randn(num_pages, page, 8, 128, generator=gen,
+                     device="cuda").to(bf)
+    vp = torch.randn(num_pages, page, 8, 128, generator=gen,
+                     device="cuda").to(bf)
+    if int8:
+        kq, vq, sc = int8_pools(Q, kp, vp)
+        cache = P.PagedKVCache(k=[kq], v=[vq], k_scale=[sc["k_scale"]],
+                               v_scale=[sc["v_scale"]])
+    else:
+        sc = {}
+        cache = P.PagedKVCache(k=[kp], v=[vp])
+    q = torch.randn(b, 32, 128, generator=gen, device="cuda").to(bf)
+    aliased = torch.zeros(b, width, dtype=torch.int32)
+    private = aliased.clone()
+    nxt = 1 + shared
+    for s in range(b):
+        aliased[s, :shared] = torch.arange(1, 1 + shared)
+        for j in range(shared):
+            P.copy_page(cache, 1 + j, nxt)
+            private[s, j] = nxt
+            nxt += 1
+        aliased[s, shared:shared + tail] = private[s, shared:shared + tail] = (
+            torch.arange(nxt, nxt + tail))
+        nxt += tail
+    lengths = [200 + 8 * s for s in range(b)]  # 200..256: 13-16 pages
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    aliased, private = aliased.cuda(), private.cuda()
+    args = (q, cache.k[0], cache.v[0])
+    one = A.paged_decode_attention(*args, aliased, lens, **sc, impl="cuda")
+    two = A.paged_decode_attention(*args, private, lens, **sc, impl="cuda")
+    plain = A.paged_decode_attention(*args, aliased, lens, **sc,
+                                     impl="torch")
+    torch.cuda.synchronize()
+    name = "aliased table" + (" int8" if int8 else "")
+    out = {"slots": b, "shared_pages": shared, "lengths": lengths,
+           "bit_identical": bool(torch.equal(one, two)),
+           "vs_plain": compare(f"{name} vs plain", one, plain)}
+    if not out["bit_identical"]:
+        raise AssertionError(f"{name}: aliased and private tables differ "
+                             f"by {float((one - two).abs().max())}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -1800,6 +2020,7 @@ def main() -> int:
     from tpu_dra_torch import kernels
     from tpu_dra_torch.workloads import engine as E
     from tpu_dra_torch.workloads import generate as G
+    from tpu_dra_torch.workloads import paged_kv as P
     from tpu_dra_torch.workloads import quantize as Q
     from tpu_dra_torch.workloads import sampling as S
     from tpu_dra_torch.workloads import specdraft as SD
@@ -1865,6 +2086,12 @@ def main() -> int:
             else:
                 parity[name] = res
         del q, kp, vp, tables, lens, k_, v_, sc
+    # Prefix sharing: all slots alias the same pages, then read private
+    # copies of them; bit-identical outputs.
+    for name, int8 in (("paged_decode_attention", False),
+                       ("paged_decode_attention_int8", True)):
+        parity[name]["aliased_table"] = aliased_table_parity(A, P, Q, gen,
+                                                             int8)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b in (1, 8, 13, 16):
         x, scale, tree = mlp_inputs(gen, b)
@@ -2163,7 +2390,37 @@ def main() -> int:
     tiny_out["train_loss_rel_diff"] = float(np.max(
         np.abs(np.subtract(twin_losses["cuda"], twin_losses["cpu"]))
         / np.abs(twin_losses["cpu"])))
+    # Prefix sharing (a 14-token prefix: a frozen boundary page) and a
+    # drain of the same trace: shared against private and drained
+    # against undrained on the card, shared on the card against the CPU.
+    ptrace = prefix_trace(tiny.vocab_size, 5, 20, (2, 8), 8, seed=6)
+    pec = E.EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=12,
+                         scan_chunk=3, prefill_chunk=8)
+    pruns = {}
+    for label, dev, plen in (("shared", "cuda", 14), ("private", "cuda", 0),
+                             ("shared_cpu", "cpu", 14)):
+        e = E.Engine(tiny, tparams, pec, device=dev)
+        pruns[label] = e.run(prefix_requests(E, ptrace, plen))
+        pool_whole_and_zero(e, f"tiny prefix {label}")
+        if plen and not (e.prefix_attached >= 2 and e.cow_copies >= 2):
+            raise AssertionError(f"tiny prefix {label}: attached "
+                                 f"{e.prefix_attached}, forks {e.cow_copies}")
+    gate = E.EventGate()
+    pruns["drained"], drill = drain_drill(
+        E, E.Engine(tiny, tparams, pec, gate=gate, device="cuda"), gate,
+        prefix_requests(E, ptrace, 14), followers=2, after=1)
+    pairs = {"shared_vs_private": ("shared", "private"),
+             "drained_vs_undrained": ("drained", "shared"),
+             "card_vs_cpu": ("shared", "shared_cpu")}
+    tiny_out["prefix"] = {
+        key: pair_report(G, tiny, tparams, ptrace, pruns[a], pruns[b])
+        for key, (a, b) in pairs.items()}
+    tiny_out["prefix"]["drain"] = drill
     emit("tiny", requests=len(trace), **tiny_out)
+    low = {k: v["token_agreement"] for k, v in tiny_out["prefix"].items()
+           if k in pairs and v["token_agreement"] < 0.97}
+    if low:
+        raise AssertionError(f"tiny prefix agreement under 0.97: {low}")
     if tiny_out["train_loss_rel_diff"] > FP32_REL:
         raise AssertionError(f"tiny train card vs CPU: {twin_losses}")
     if tiny_out["engine_bf_config_token_agreement"] < 0.97:
@@ -2512,6 +2769,109 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("engine_spec", model="LLAMA3_8B widths, 32 layers, spec_k 4, "
                               "random weights", **spec_out)
+
+    # --- 7d. prefix sharing, the drain and metrics export ------------------
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ptrace = prefix_trace(cfg.vocab_size, 8, PREFIX_LEN, (16, 64), 32,
+                          seed=4)
+    followers = len(ptrace) - 1
+    n_full, partial = divmod(PREFIX_LEN, ec.page_size)
+    # After the forks each follower shares the 12 full pages; the high-
+    # water mark also counts the frozen boundary page, which all
+    # followers attach in one tick before any of them forks it.
+    live_saved = followers * n_full
+    saved_hw = live_saved + (followers - 1 if partial else 0)
+    pruns, psum, precs = {}, {}, {}
+    for label, plen in (("shared", PREFIX_LEN), ("private", 0)):
+        precs[label] = MetricsRecorder()
+        e, d, launches, wall = serve(E, kernels, cfg, params, ec,
+                                     prefix_requests(E, ptrace, plen),
+                                     metrics=precs[label])
+        pool_whole_and_zero(e, f"engine_prefix {label}")
+        steps = e.decode_steps
+        want = {"paged_decode_attention": L * steps,
+                "decode_mlp_sm90": L * (steps
+                                        + e.prefill_single_token_buckets)}
+        if steps <= 0 or any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"engine_prefix {label}: launches "
+                                 f"{launches}, want {want}")
+        pruns[label] = d
+        psum[label] = {
+            **serve_summary(e, d, launches, wall),
+            "peak_pages": peak_pages(e),
+            "prefill_tokens": precs[label].counters.get(
+                "engine_prefill_tokens_total"),
+            "prefix_attached": e.prefix_attached,
+            "cow_copies": e.cow_copies,
+            "prefix_saved_hw": e.prefix_saved_hw,
+            "max_prefix_shared_pages_gauge": precs[label].gauge_max.get(
+                "engine_prefix_shared_pages"),
+        }
+        if label == "shared":
+            cow = copy_page_cost(P, e.cache)
+            pool_whole_and_zero(e, "engine_prefix after the copy timing")
+        del e
+        torch.cuda.empty_cache()
+    sh, rec = psum["shared"], precs["shared"]
+    shared_tokens = sum(len(c.tokens) for c in pruns["shared"].values())
+    checks = {
+        "prefix_attached": (sh["prefix_attached"], followers),
+        "cow_copies": (sh["cow_copies"], followers),
+        "prefix_saved_hw": (sh["prefix_saved_hw"], saved_hw),
+        "max_prefix_shared_pages_gauge": (
+            sh["max_prefix_shared_pages_gauge"], live_saved),
+        "private_prefix_attached": (psum["private"]["prefix_attached"], 0),
+        "engine_prefix_attached_total": (
+            rec.counters.get("engine_prefix_attached_total"),
+            sh["prefix_attached"]),
+        "engine_cow_copies_total": (
+            rec.counters.get("engine_cow_copies_total"), sh["cow_copies"]),
+        "engine_tokens_total": (rec.counters.get("engine_tokens_total"),
+                                shared_tokens),
+        "engine_completed_total": (rec.counters.get("engine_completed_total"),
+                                   len(pruns["shared"])),
+        "ttft_observations": (len(rec.observed["engine_ttft_seconds"]),
+                              len(ptrace)),
+    }
+    peak_saved = psum["private"]["peak_pages"] - sh["peak_pages"]
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad or peak_saved < live_saved - 1:
+        raise AssertionError(f"engine_prefix: (got, want) {bad}, peak pages "
+                             f"saved {peak_saved} < {live_saved - 1}")
+    gate, drec = E.EventGate(), MetricsRecorder()
+    e = E.Engine(cfg, params, ec, gate=gate, metrics=drec)
+    drained, drill = drain_drill(E, e, gate,
+                                 prefix_requests(E, ptrace, PREFIX_LEN),
+                                 followers, after=2)
+    drill["backpressure_drains_total"] = drec.counters.get(
+        "engine_backpressure_drains_total")
+    drill["completed_total"] = drec.counters.get("engine_completed_total")
+    # t_first survives the drain: a resumed request observes no TTFT.
+    drill["ttft_observations"] = len(drec.observed["engine_ttft_seconds"])
+    if (drill["backpressure_drains_total"] != 1
+            or drill["completed_total"] != len(ptrace)
+            or drill["ttft_observations"] != len(ptrace)):
+        raise AssertionError(f"engine_prefix drain: {drill}")
+    del e
+    torch.cuda.empty_cache()
+    emit("engine_prefix",
+         model="LLAMA3_8B widths, 32 layers, bf16, random weights",
+         trace={"requests": len(ptrace), "prefix_len": PREFIX_LEN,
+                "suffix_tokens": [len(p) - PREFIX_LEN for _, p, _ in ptrace],
+                "new_tokens": 32},
+         reckoned={"live_saved_pages": live_saved,
+                   "prefix_saved_hw": saved_hw,
+                   "peak_pages_saved_at_least": live_saved - 1},
+         **psum, peak_pages_saved=peak_saved, checks=checks,
+         cow_copy=cow, cow_launches=(
+             sh["cow_copies"] * cow["launches_per_copy"]
+             if isinstance(cow["launches_per_copy"], float) else None),
+         shared_vs_private=pair_report(G, cfg, params, ptrace,
+                                       pruns["shared"], pruns["private"]),
+         drain={**drill, "vs_undrained": pair_report(
+             G, cfg, params, ptrace, drained, pruns["shared"])})
+    del params
+    torch.cuda.empty_cache()
 
     # --- 8. greedy_generate at Llama-3-8B widths -----------------------------
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))

@@ -8,8 +8,10 @@ identical for every request, with fp32 pools and under
 fused == unfused, paged == contiguous, sampled tokens do not depend on
 the chunking or the admission order (the (seed, serial, position) key
 schedule), the allocator ends leak-free with every freed page zero
-(scale pools included), and every knob not ported yet raises instead of
-being ignored. Speculative decoding: tests/test_torch_spec.py.
+(scale pools included), and the knob not ported yet (``sharded``)
+raises instead of being ignored. Speculative decoding:
+tests/test_torch_spec.py; prefix sharing: tests/test_torch_prefix.py;
+lease gates, the drain and metrics: tests/test_torch_drain.py.
 """
 
 import dataclasses
@@ -252,37 +254,13 @@ def test_serial_prefill_rows_give_the_same_tokens(torch_params):
         assert np.array_equal(batched[rid].tokens, serial[rid].tokens), rid
 
 
-class _OtherGate(TE.LeaseGate):
-    pass
-
-
-@pytest.mark.parametrize(
-    "kw",
-    [
-        {"sharded": True},
-        {"gate": _OtherGate()},
-        {"metrics": object()},
-    ],
-    ids=[
-        "sharded", "gate", "metrics",
-    ],
-)
+@pytest.mark.parametrize("kw", [{"sharded": True}], ids=["sharded"])
 def test_unported_knobs_raise(torch_params, kw):
-    ctor = {k: kw.pop(k) for k in ("gate", "metrics") if k in kw}
     with pytest.raises(NotImplementedError, match="not ported"):
         TE.Engine(
             TCFG, torch_params, TE.EngineConfig(**{**EC, **kw}),
-            device="cpu", **ctor,
+            device="cpu",
         )
-
-
-def test_prefix_id_request_raises(torch_params):
-    eng = TE.Engine(TCFG, torch_params, TE.EngineConfig(**EC), device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix"):
-        eng.add_request(TE.Request(
-            rid="p", prompt=np.ones(4, np.int32), max_new_tokens=2,
-            prefix_id="sys", prefix_len=2,
-        ))
 
 
 @pytest.mark.parametrize(

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from tpu_dra_torch import kernels
+from tpu_dra_torch.workloads import paged_kv as TP
 from tpu_dra_torch.workloads.ops import attention as TA
 from tpu_dra_torch.workloads.ops import decode_mlp as TDM
 from tpu_dra_torch.workloads.ops import int8mm as TI
@@ -126,6 +127,52 @@ def test_paged_decode_kernel_bf16_8b_shape(cuda_device):
     _assert_bf16_close(plain, ref)
     _assert_bf16_close(got, plain)
     assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_decode_aliased_table_bit_identical(cuda_device, int8):
+    """Prefix sharing: all 8 slots alias the same 12 leading pages, then
+    each slot reads private copies of them (copy_page). The kernel reads
+    the same bytes in the same order: bit-identical outputs."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    b, page, shared, tail, kvh, n_rep, hd = 8, 16, 12, 5, 8, 4, 128
+    num_pages = 1 + shared + b * (shared + tail)
+    kp = torch.randn(num_pages, page, kvh, hd, generator=g)
+    vp = torch.randn(num_pages, page, kvh, hd, generator=g)
+    if int8:
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        cache = TP.PagedKVCache(k=[kq], v=[vq], k_scale=[ks], v_scale=[vs])
+    else:
+        cache = TP.PagedKVCache(k=[kp.bfloat16()], v=[vp.bfloat16()])
+    for _, pool in cache._pools():
+        pool[0] = pool[0].to(cuda_device)
+    aliased = torch.zeros(b, 64, dtype=torch.int32)
+    private = aliased.clone()
+    nxt = 1 + shared
+    for s in range(b):
+        aliased[s, :shared] = torch.arange(1, 1 + shared)
+        for j in range(shared):
+            TP.copy_page(cache, 1 + j, nxt)
+            private[s, j] = nxt
+            nxt += 1
+        aliased[s, shared:shared + tail] = torch.arange(nxt, nxt + tail)
+        private[s, shared:shared + tail] = aliased[s, shared:shared + tail]
+        nxt += tail
+    q = torch.randn(b, kvh * n_rep, hd, generator=g).bfloat16().to(
+        cuda_device)
+    lens = torch.tensor([192, 193, 200, 208, 209, 230, 255, 272],
+                        dtype=torch.int32, device=cuda_device)
+    scales = ({"k_scale": cache.k_scale[0], "v_scale": cache.v_scale[0]}
+              if int8 else {})
+    args = (q, cache.k[0], cache.v[0])
+    one = TA.paged_decode_attention(*args, aliased.to(cuda_device), lens,
+                                    **scales, impl="cuda")
+    two = TA.paged_decode_attention(*args, private.to(cuda_device), lens,
+                                    **scales, impl="cuda")
+    assert torch.equal(one, two)
+    _assert_bf16_close(one.float(), TA.paged_decode_attention(
+        *args, aliased.to(cuda_device), lens, **scales,
+        impl="reference").float())
 
 
 def _mlp(seed, b, d, ffn, dtype, device):

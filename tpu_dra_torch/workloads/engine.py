@@ -43,20 +43,39 @@ plain chain instead of the fused block); ``kv_quant="int8"`` keeps int8
 pools with f32 per-(token, kv head) scale pools, quantizing each new
 K/V row in flight before the scatter.
 
+Copy-on-write prefix sharing (``Request.prefix_id``), as in the JAX
+engine: the first sequence of a prefix registers its pages at prefill
+completion (full pages shared in place, a mid-page boundary frozen into
+a private copy), later sequences whose prompt tokens match attach them
+by ``PageAllocator.incref`` and fork a shared page
+(:func:`~.paged_kv.copy_page`) before their first write into it. The
+registry is an LRU of ``prefix_cache_entries`` that sheds under page
+pressure and flushes on a drain and on idle exit.
+
+Lease gates and the drain: the engine runs behind a :class:`LeaseGate`
+(:class:`EventGate` for drills, :class:`MultiplexLeaseGate` over the
+multiplex daemon, :func:`auto_gate`). When the gate closes, every
+in-flight sequence is checkpointed host-side (prompt + emitted tokens)
+and its pages freed; on re-acquire the drained sequences resume at the
+front of the queue, oldest first, re-prefilled from their checkpoint.
+
+Metrics: ``metrics`` is any object with ``inc``, ``set_gauge`` and
+``observe``; the engine exports the JAX engine's ``engine_*`` names.
+
 Entry points run on the card: ``Engine(..., device=None)`` means
 ``"cuda"`` and raises RuntimeError without a CUDA device; tests pass
 ``device="cpu"``.
 
-Not in this slice, refused at construction or in ``add_request``
-rather than ignored: mesh sharding, prefix sharing
-(``Request.prefix_id``), lease gates other than the always-open one, and
-metrics export.
+Not in this slice: mesh sharding (``sharded=True``, refused at
+construction rather than ignored) and the cross-replica methods
+(evacuate, export and import of a sequence's KV extent).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -80,6 +99,10 @@ from tpu_dra_torch.workloads.models.llama import (
     as_tree,
     rope_frequencies,
 )
+from tpu_dra_torch.workloads.multiplex_client import (
+    LeaseCooldownError,
+    MultiplexClient,
+)
 from tpu_dra_torch.workloads.ops.attention import (
     paged_decode_attention,
     paged_multiquery_attention,
@@ -90,9 +113,8 @@ from tpu_dra_torch.workloads.specdraft import NgramDraft
 
 
 class LeaseGate:
-    """May the engine touch the chip right now? The always-open gate
-    (exclusive claim, no multiplexing) — the only one this slice
-    serves behind."""
+    """May the engine touch the chip right now? The default gate is
+    always open (exclusive claim, no multiplexing)."""
 
     def ready(self) -> bool:
         return True
@@ -102,6 +124,77 @@ class LeaseGate:
 
     def close(self) -> None:
         pass
+
+
+class EventGate(LeaseGate):
+    """Test/drill gate: revoke() closes it, restore() reopens it."""
+
+    def __init__(self, ready: bool = True):
+        self._ready = ready
+        self.waits = 0
+
+    def ready(self) -> bool:
+        return self._ready
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        self.waits += 1
+        return self._ready
+
+    def revoke(self) -> None:
+        self._ready = False
+
+    def restore(self) -> None:
+        self._ready = True
+
+
+class MultiplexLeaseGate(LeaseGate):
+    """Holds the claim's chip lease through the multiplex daemon.
+    ready() pumps the client's event stream (a status RPC) so an async
+    revocation closes the gate; wait_ready() re-acquires, sitting out
+    any post-revocation cooldown the daemon imposes."""
+
+    def __init__(self, client):
+        assert isinstance(client, MultiplexClient)
+        self._client = client
+        self._lease = None
+
+    def ready(self) -> bool:
+        if self._lease is None:
+            return False
+        self._client.status()  # drains pending async revocation events
+        if self._client.revoked:
+            self._client.revoked = False
+            self._lease = None
+            return False
+        return True
+
+    def wait_ready(self, timeout: Optional[float] = None) -> bool:
+        if self._lease is not None:
+            return True
+        try:
+            self._lease = self._client.acquire()
+            return True
+        except LeaseCooldownError as e:
+            time.sleep(min(e.retry_after, timeout if timeout else 0.1))
+            return False
+
+    def close(self) -> None:
+        if self._lease is not None:
+            self._client.release()
+            self._lease = None
+        self._client.close()
+
+
+def auto_gate(environ=None) -> LeaseGate:
+    """MultiplexLeaseGate iff this process runs in a multiplexed
+    container (the CDI-injected env contract of
+    multiplex_client.auto_lease), the always-open gate otherwise."""
+    environ = os.environ if environ is None else environ
+    if environ.get("TPU_PROCESS_MULTIPLEXING") != "true":
+        return LeaseGate()
+    return MultiplexLeaseGate(
+        MultiplexClient(environ["TPU_MULTIPLEX_SOCKET_DIR"])
+    )
 
 
 @dataclasses.dataclass
@@ -167,6 +260,21 @@ class _Sequence:
         return self.req.max_new_tokens - len(self.out)
 
 
+class _SharedPrefix:
+    """One registered shared prefix: the verified tokens, and the pages
+    covering them (full pages shared in place with the registering
+    sequence; a mid-page boundary is a frozen private copy with a zero
+    tail), each holding one registry reference."""
+
+    __slots__ = ("prefix_id", "tokens", "length", "pages")
+
+    def __init__(self, prefix_id, tokens, length, pages):
+        self.prefix_id = prefix_id
+        self.tokens = tokens  # np.int32 [length]
+        self.length = length
+        self.pages = pages  # ordered page ids covering [0, length)
+
+
 @dataclasses.dataclass
 class EngineConfig:
     page_size: int = 16
@@ -199,7 +307,7 @@ class EngineConfig:
         return (self.temperature, self.top_k)
 
 
-def _check_supported(ec: EngineConfig, gate, metrics) -> None:
+def _check_supported(ec: EngineConfig) -> None:
     if ec.scan_chunk < 1 or ec.prefill_chunk < 1:
         raise ValueError("scan_chunk and prefill_chunk must be >= 1")
     if ec.spec_k < 0 or ec.prefill_batch < 0:
@@ -218,19 +326,11 @@ def _check_supported(ec: EngineConfig, gate, metrics) -> None:
             "spec_k with sharded=True is not supported (the verify pass "
             "has no sharding rules); run speculation on one device"
         )
-    unported = [
-        (ec.sharded, "mesh-sharded decode (sharded=True)"),
-        (
-            gate is not None and type(gate) is not LeaseGate,
-            "lease gates other than the always-open LeaseGate",
-        ),
-        (metrics is not None, "metrics export"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to the torch engine yet"
-            )
+    if ec.sharded:
+        raise NotImplementedError(
+            "mesh-sharded decode (sharded=True) is not ported to the "
+            "torch engine yet"
+        )
 
 
 class Engine:
@@ -240,7 +340,11 @@ class Engine:
     of tensors in either layout (stacked trees are unrolled once).
     ``device`` defaults to the CUDA device (see :func:`resolve_device`).
     ``draft_source`` proposes speculative drafts when ``spec_k > 0``
-    (default: ``NgramDraft(spec_lookup_order)``).
+    (default: ``NgramDraft(spec_lookup_order)``). ``gate`` defaults to
+    the always-open LeaseGate (pass :func:`auto_gate` () in multiplexed
+    containers); ``metrics`` is an optional object with ``inc``,
+    ``set_gauge`` and ``observe`` that receives the ``engine_*``
+    series.
     """
 
     def __init__(
@@ -257,7 +361,7 @@ class Engine:
         self.device = resolve_device(device)
         self.config = config
         self.ec = engine_config or EngineConfig()
-        _check_supported(self.ec, gate, metrics)
+        _check_supported(self.ec)
         self._draft = draft_source
         if self._draft is None and self.ec.spec_k > 0:
             self._draft = NgramDraft(self.ec.spec_lookup_order)
@@ -265,6 +369,7 @@ class Engine:
             unroll_tree(as_tree(params, self.device)), self.ec.weight_quant
         )
         self.gate = gate or LeaseGate()
+        self.metrics = metrics
         self.clock = clock
 
         P = self.ec.resolved_num_pages()
@@ -299,6 +404,14 @@ class Engine:
         self._queue: collections.deque = collections.deque()
         self._prefilling: collections.deque = collections.deque()
         self._pending_zero: List[int] = []
+        self._blocked_on_pages = False
+        self._stalled_since: Optional[float] = None
+        self._exhausted_exported = 0
+        # Prefix-sharing registry: prefix_id -> _SharedPrefix, an
+        # insertion-ordered dict used as an LRU. Entries pin their pages
+        # (incref); flushed on a drain and on idle exit, evicted at the
+        # cap and shed under page pressure.
+        self._prefix_registry: Dict[str, _SharedPrefix] = {}
         self._serial = 0
         self._rids: set = set()
         self._progress = 0
@@ -316,6 +429,11 @@ class Engine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.verify_passes = 0
+        # Prefix sharing: attaches, copy-on-write forks, and the
+        # high-water of the page allocations sharing stood in for.
+        self.prefix_attached = 0
+        self.cow_copies = 0
+        self.prefix_saved_hw = 0
 
     # --- public API ------------------------------------------------------
 
@@ -327,11 +445,6 @@ class Engine:
             )
         if req.rid in self._rids:
             raise ValueError(f"duplicate request rid {req.rid!r}")
-        if req.prefix_id is not None:
-            raise NotImplementedError(
-                f"request {req.rid}: prefix sharing (prefix_id) is not "
-                f"ported to the torch engine yet"
-            )
         if (
             req.sample_seed is not None
             and req.sample_seed != self.ec.sample_seed
@@ -365,31 +478,105 @@ class Engine:
         return self._progress
 
     def step(self) -> bool:
-        """One engine iteration: admissions, one prefill bucket, one
-        decode chunk. Returns True while work remains."""
+        """One engine iteration: gate check (drain on backpressure),
+        admissions, one prefill bucket, one decode chunk. Returns True
+        while work remains; never blocks on the gate (run() waits)."""
         now = self.clock()
+        if not self.gate.ready():
+            self._enter_stall(now)
+            self._export()
+            return self.busy
+        self._exit_stall()
         self._admit(now)
         self._prefill_tick(now)
         self._decode_tick(now)
+        self._export()
         return self.busy
 
     def run(
         self, requests=None, poll_seconds: float = 0.002
     ) -> Dict[str, Completion]:
-        """Submit ``requests`` (optional) and step until idle, sleeping
-        while the queue waits on a future arrival."""
+        """Submit ``requests`` (optional) and step until idle; waits on
+        the lease gate and on future arrivals between steps."""
         for r in requests or []:
             self.add_request(r)
         while self.busy:
+            stalled = self._stalled_since is not None
             before = self._progress
             self.step()
-            if self._progress == before:
-                time.sleep(poll_seconds)
+            made_progress = self._progress != before
+            if self._stalled_since is not None:
+                if not self.gate.wait_ready(timeout=poll_seconds):
+                    # A gate whose wait does not block (stub gates)
+                    # must not turn the stall into a hot spin.
+                    time.sleep(poll_seconds)
+            elif not made_progress and not stalled:
+                time.sleep(poll_seconds)  # waiting on a future arrival
+        # Idle exit: the prefix cache drops its page pins, so a finished
+        # run leaves the allocator whole; the next run re-registers.
+        self._flush_prefix_registry()
         self._flush_zero()
+        self._export()
         return self.completed
 
     def close(self) -> None:
         self.gate.close()
+
+    def _live(self):
+        """Every not-yet-completed sequence, exactly once (prefilling
+        sequences are in both _prefilling and _slots)."""
+        seen = set()
+        for s in (
+            list(self._queue) + list(self._prefilling)
+            + [x for x in self._slots if x is not None]
+        ):
+            if id(s) not in seen:
+                seen.add(id(s))
+                yield s
+
+    # --- backpressure ------------------------------------------------------
+
+    def _enter_stall(self, now: float) -> None:
+        if self._stalled_since is None:
+            self._stalled_since = now
+            if self._drain(now):
+                # Only stalls that drained work count: a cold engine
+                # waiting for its first lease is not an incident.
+                self._inc("engine_backpressure_drains_total")
+
+    def _exit_stall(self) -> None:
+        self._stalled_since = None
+
+    def _drain(self, now: float) -> int:
+        """Checkpoint every in-flight sequence host-side and free its
+        pages (the prefix cache's pins too): the co-tenant gets the chip
+        and the pages. Drained sequences resume at the front of the
+        queue, oldest first, with their emitted tokens folded into the
+        context; the first re-prefilled sharer re-registers its prefix
+        and the rest re-attach. Returns how many sequences drained."""
+        self._flush_prefix_registry()
+        drained: List[_Sequence] = []
+        for slot, seq in enumerate(self._slots):
+            if seq is None:
+                continue
+            self._release_slot(slot)
+            seq.context = np.concatenate(
+                [np.asarray(seq.req.prompt, np.int32),
+                 np.asarray(seq.out, np.int32)]
+            )
+            seq.prefill_cursor = 0
+            seq.prefill_done = False
+            seq.drains += 1
+            drained.append(seq)
+        self._prefilling.clear()
+        # appendleft reverses, so walk newest first; the admission
+        # serial breaks t_submit ties (a coarse clock stamps a burst
+        # with one value).
+        for seq in sorted(
+            drained, key=lambda s: (s.t_submit, s.serial), reverse=True
+        ):
+            self._queue.appendleft(seq)
+        return len(drained)
 
     # --- admission / slots ------------------------------------------------
 
@@ -400,6 +587,7 @@ class Engine:
         return -(-total // self.ec.page_size)
 
     def _admit(self, now: float) -> None:
+        self._blocked_on_pages = False
         while self._queue:
             seq = self._queue[0]
             if seq.t_submit + seq.req.arrival_s > now and not seq.drains:
@@ -410,8 +598,20 @@ class Engine:
             if slot is None:
                 return
             need = self._pages_for(seq)
+            if not self.ec.contiguous:
+                # A cache never blocks admission: shed prefix pins first
+                # (their pages free only once no table references them).
+                while self._prefix_registry and not (
+                    self.allocator.can_reserve(need)
+                ):
+                    self._evict_one_prefix()
             if not self.ec.contiguous and not self.allocator.reserve(need):
                 # Admission waits until evictions free pages (FIFO).
+                # Backpressure, exported as the blocked-on-pages gauge —
+                # never as engine_page_exhausted_total, which counts an
+                # allocation the reservations promised and could not
+                # serve.
+                self._blocked_on_pages = True
                 if not any(s is not None for s in self._slots):
                     raise paged_kv.PageExhaustedError(
                         f"request {seq.req.rid} needs {need} pages but "
@@ -428,6 +628,7 @@ class Engine:
             self._dev_state = None
             self._prefilling.append(seq)
             self._progress += 1
+            self._inc("engine_admitted_total")
 
     def _flush_zero(self) -> None:
         """Batch-zero every page released since the last flush; runs
@@ -479,6 +680,138 @@ class Engine:
         self._seeds[slot] = 0
         self._dev_state = None
 
+    # --- prefix sharing ---------------------------------------------------
+
+    def _try_attach_prefix(self, seq: _Sequence) -> None:
+        """Map a registered prefix's pages into this sequence's table by
+        incref and skip prefilling those positions. The id is a hint:
+        the registered tokens must match the sequence's own context."""
+        pid = seq.req.prefix_id
+        if not pid or self.ec.contiguous:
+            return
+        entry = self._prefix_registry.get(pid)
+        if entry is None or entry.length > len(seq.context) - 1:
+            return
+        if not np.array_equal(seq.context[: entry.length], entry.tokens):
+            return
+        for pg in entry.pages:
+            self.allocator.incref(pg)
+        seq.pages = list(entry.pages)
+        self._tables[seq.slot, : len(entry.pages)] = entry.pages
+        seq.prefill_cursor = entry.length
+        # The attached pages come off the worst-case reservation, less
+        # one page for the copy-on-write fork of a mid-page boundary.
+        release = len(entry.pages) - (
+            1 if entry.length % self.ec.page_size else 0)
+        release = min(release, seq.reserved_left)
+        if release > 0:
+            self.allocator.unreserve(release)
+            seq.reserved_left -= release
+        # LRU touch: re-insert at the tail.
+        self._prefix_registry[pid] = self._prefix_registry.pop(pid)
+        self.prefix_attached += 1
+        self._dev_state = None
+        self._inc("engine_prefix_attached_total")
+        self._track_shared()
+
+    def _maybe_register_prefix(self, seq: _Sequence) -> None:
+        """Register this sequence's prefix pages for later sharers (at
+        prefill completion, when the pages exist): full pages shared in
+        place, a mid-page boundary frozen into a private copy holding
+        exactly [0, p) with a zero tail, so every sharer forks from a
+        clean page and the registering sequence keeps its own."""
+        pid = seq.req.prefix_id
+        plen = seq.req.prefix_len
+        if not pid or plen < 1 or self.ec.contiguous:
+            return
+        if pid in self._prefix_registry:
+            return
+        # Inside the PROMPT (a drained context carries emitted tokens),
+        # and one context token short, whose prefill gives the logits of
+        # the first generated token.
+        p = min(plen, len(seq.req.prompt), len(seq.context) - 1)
+        if p < 1:
+            return
+        page = self.ec.page_size
+        n_full, partial = divmod(p, page)
+        pages = list(seq.pages[:n_full])
+        if partial:
+            # The frozen copy needs a page of unreserved headroom: a
+            # cache never eats into admission guarantees.
+            if self.allocator.free_pages - self.allocator.reserved_pages < 1:
+                return
+            self._flush_zero()
+            frozen = self.allocator.alloc()
+            paged_kv.copy_page_prefix(
+                self.cache, seq.pages[n_full], frozen, partial)
+            pages.append(frozen)
+        for pg in pages[:n_full]:
+            self.allocator.incref(pg)
+        self._prefix_registry[pid] = _SharedPrefix(
+            pid, np.asarray(seq.context[:p], np.int32).copy(), p, pages
+        )
+        while len(self._prefix_registry) > max(
+            self.ec.prefix_cache_entries, 1
+        ):
+            self._evict_one_prefix(exclude=pid)
+        self._inc("engine_prefix_registered_total")
+        self._track_shared()
+
+    def _evict_one_prefix(self, exclude: Optional[str] = None) -> bool:
+        """Drop the least recently used entry's page pins; a page is
+        queued for zeroing only when its last reference goes."""
+        for key in self._prefix_registry:
+            if key != exclude:
+                entry = self._prefix_registry.pop(key)
+                for pg in entry.pages:
+                    if self.allocator.decref(pg):
+                        self._pending_zero.append(pg)
+                return True
+        return False
+
+    def _flush_prefix_registry(self) -> None:
+        while self._evict_one_prefix():
+            pass
+
+    def _cow_range(self, seq: _Sequence, lo: int, hi: int) -> None:
+        """Copy-on-write guard for a write to positions [lo, hi): every
+        mapped page there still shared with another table (refcount > 1)
+        is copied whole (values and scales) into a new page that takes
+        its place in this table; the shared page loses one reference and
+        is never freed or zeroed here."""
+        if self.ec.contiguous:
+            return
+        page = self.ec.page_size
+        for j in range(lo // page, min(-(-hi // page), len(seq.pages))):
+            old = seq.pages[j]
+            if self.allocator.refcount(old) <= 1:
+                continue
+            self._flush_zero()
+            if seq.reserved_left > 0:
+                self.allocator.unreserve(1)
+                seq.reserved_left -= 1
+            new = self.allocator.alloc()
+            paged_kv.copy_page(self.cache, old, new)
+            self.allocator.decref(old)
+            seq.pages[j] = new
+            self._tables[seq.slot, j] = new
+            self.cow_copies += 1
+            self._dev_state = None
+            self._inc("engine_cow_copies_total")
+
+    def _track_shared(self) -> int:
+        """Page allocations that sharing stands in for now (the
+        registry's own pins discounted: a prefix registered and never
+        shared saves nothing); raises the high-water mark."""
+        pins: Dict[int, int] = {}
+        for entry in self._prefix_registry.values():
+            for pg in entry.pages:
+                pins[pg] = pins.get(pg, 0) + 1
+        saved = self.allocator.shared_extra(discount=pins)
+        if saved > self.prefix_saved_hw:
+            self.prefix_saved_hw = saved
+        return saved
+
     # --- prefill ----------------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -491,14 +824,33 @@ class Engine:
         ``prefill_batch`` (0 = all) prefilling sequences in ONE padded
         bucket; the chunk length and the row count are padded to powers
         of two (row count capped at max_slots). Pad positions and idle
-        rows write to the scratch page."""
+        rows write to the scratch page. A sequence that has not started
+        attaches its registered prefix first; one whose prefix a row of
+        this bucket will register waits a tick and attaches then."""
         if not self._prefilling:
             return
         limit = (
             len(self._prefilling) if self.ec.prefill_batch == 0
             else self.ec.prefill_batch
         )
-        rows = list(self._prefilling)[:limit]
+        rows: List[_Sequence] = []
+        leading: set = set()
+        for seq in self._prefilling:
+            if len(rows) >= limit:
+                break
+            if seq.prefill_cursor == 0 and not seq.pages:
+                self._try_attach_prefix(seq)
+            pid = seq.req.prefix_id
+            unregistered = (
+                pid and seq.req.prefix_len > 0
+                and pid not in self._prefix_registry
+                and not self.ec.contiguous
+            )
+            if unregistered and pid in leading:
+                continue
+            if unregistered:
+                leading.add(pid)
+            rows.append(seq)
         takes = [
             min(self.ec.prefill_chunk, len(seq.context) - seq.prefill_cursor)
             for seq in rows
@@ -516,6 +868,8 @@ class Engine:
         valids = np.zeros((B,), np.int32)
         trows = np.zeros((B,) + self._tables.shape[1:], np.int32)
         for i, (seq, take) in enumerate(zip(rows, takes)):
+            self._cow_range(
+                seq, seq.prefill_cursor, seq.prefill_cursor + take)
             self._ensure_pages(seq, seq.prefill_cursor + take)
             tokens[i, :take] = seq.context[
                 seq.prefill_cursor: seq.prefill_cursor + take
@@ -533,6 +887,7 @@ class Engine:
         finished: List[_Sequence] = []
         for i, (seq, take) in enumerate(zip(rows, takes)):
             seq.prefill_cursor += take
+            self._inc("engine_prefill_tokens_total", take)
             if seq.prefill_cursor == len(seq.context):
                 finished.append((i, seq))
                 seq.prefill_done = True
@@ -542,6 +897,7 @@ class Engine:
             firsts = torch.stack(firsts).cpu().tolist()
         for (_, seq), first in zip(finished, firsts):
             slot = seq.slot
+            self._maybe_register_prefix(seq)
             self._record_tokens(seq, [first])
             if seq.slot is not None:  # not finished by that token
                 self._lengths[slot] = len(seq.context)
@@ -663,8 +1019,12 @@ class Engine:
                     d = d[: int(bad[0])]
                 drafts[slot, : len(d)] = d
                 counts[slot] = len(d)
-            self._ensure_pages(
-                seq, int(self._lengths[slot]) + int(counts[slot]) + 1)
+            # The verify pass writes only private pages (what _rewind
+            # relies on): fork any shared page in its range first.
+            L = int(self._lengths[slot])
+            upto = L + int(counts[slot]) + 1
+            self._cow_range(seq, L, upto)
+            self._ensure_pages(seq, upto)
         tables_d, lengths_d, last_d, active_d, seeds_d, seed_d = (
             self._device_state())
         t0 = time.perf_counter()
@@ -691,6 +1051,10 @@ class Engine:
             npp = int(counts[slot])
             self.spec_proposed += npp
             self.spec_accepted += na
+            if npp:
+                self._inc("engine_spec_proposed_total", npp)
+            if na:
+                self._inc("engine_spec_accepted_total", na)
             written = int(self._lengths[slot]) + npp + 1
             valid = int(self._lengths[slot]) + na + 1
             # Host mirror of the device state, before a finish resets it.
@@ -746,8 +1110,17 @@ class Engine:
             return
         if seq.t_first is None:
             seq.t_first = now
+            if self.metrics is not None and not seq.req.ttft_preobserved:
+                # From arrival, as Completion.ttft_s. A drain keeps
+                # t_first, so a resume never observes again; a request
+                # resumed on another replica carries ttft_preobserved.
+                self.metrics.observe(
+                    "engine_ttft_seconds",
+                    now - (seq.t_submit + seq.req.arrival_s),
+                )
         seq.out.extend(int(t) for t in toks[:take])
         self._progress += 1
+        self._inc("engine_tokens_total", take)
         if seq.remaining == 0:
             self._finish(seq, now)
 
@@ -763,6 +1136,46 @@ class Engine:
             t_first_token=seq.t_first if seq.t_first is not None else now,
             t_done=now,
         )
+        self._inc("engine_completed_total")
+        if self.metrics is not None:
+            # From arrival, as Completion.latency_s.
+            self.metrics.observe(
+                "engine_request_latency_seconds",
+                now - (seq.t_submit + seq.req.arrival_s),
+            )
+
+    # --- metrics -----------------------------------------------------------
+
+    def _inc(self, name: str, value: float = 1.0) -> None:
+        if self.metrics is not None:
+            self.metrics.inc(name, value)
+
+    def _export(self) -> None:
+        if self.metrics is None:
+            return
+        m = self.metrics
+        m.set_gauge(
+            "engine_active_sequences",
+            float(sum(1 for s in self._slots if s is not None)),
+        )
+        m.set_gauge("engine_queued_sequences", float(len(self._queue)))
+        m.set_gauge("engine_pages_free", float(self.allocator.free_pages))
+        stalled = (
+            self.clock() - self._stalled_since
+            if self._stalled_since is not None else 0.0
+        )
+        m.set_gauge("engine_admission_stalled", stalled)
+        m.set_gauge(
+            "engine_admission_blocked_on_pages",
+            1.0 if self._blocked_on_pages else 0.0,
+        )
+        # The page allocations shared tables stand in for right now.
+        m.set_gauge(
+            "engine_prefix_shared_pages", float(self._track_shared()))
+        delta = self.allocator.exhausted - self._exhausted_exported
+        if delta:
+            m.inc("engine_page_exhausted_total", delta)
+            self._exhausted_exported = self.allocator.exhausted
 
 
 # --- forward functions ---------------------------------------------------

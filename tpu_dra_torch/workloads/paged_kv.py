@@ -20,8 +20,8 @@ are entirely zero (:func:`zero_pages` re-establishes it on free; the
 scratch page is exempt). :func:`tail_is_zero` / :func:`pages_are_zero`
 check it. :func:`zero_page_tail` (with :func:`copy_page_prefix`, the
 masked copy it is made of) re-establishes it on the kept boundary page
-after a speculative rewind. Extents and copy-on-write forks come with
-later slices.
+after a speculative rewind. :func:`copy_page` is the copy-on-write
+fork of a shared page. Extents come with a later slice.
 """
 
 from __future__ import annotations
@@ -228,6 +228,18 @@ def zero_pages(cache: PagedKVCache, page_ids) -> PagedKVCache:
     for _, pool in cache._pools():
         for layer in pool:
             layer[idx] = 0
+    return cache
+
+
+def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
+    """Copy page ``src`` onto ``dst`` in every pool (values AND scales,
+    every layer), in place — the copy-on-write fork: a sequence about to
+    write into a page another table still references writes into its
+    private copy, and an int8 copy dequantizes as its parent does.
+    Returns ``cache`` itself."""
+    for _, pool in cache._pools():
+        for layer in pool:
+            layer[dst] = layer[src]
     return cache
 
 
