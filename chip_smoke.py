@@ -177,6 +177,29 @@ exits non-zero without a result:
    and its pre-drain tokens first, sharing resumed. Reported: token
    agreement (first difference, top-2 gap), prefill buckets and
    tokens, TTFT p50, and a fork's launches and ms.
+7e. engine_migrate — evacuation and live KV migration at 8B widths
+   (the engine phase's config and requests, 32 layers, one weight tree
+   for bf16 and one int8 tree for every w8kv8 engine), each arm in bf16
+   and in w8kv8: the handoff (a source engine as a prefill-role replica,
+   a fresh destination as a decode-role one, in Replica._loop's order:
+   grafts between steps, steps, exports of every decoding_rids()) and
+   the whole batch (every decoding sequence exported at the step
+   boundary after the last prefill, imported in slot order into a fresh
+   engine) token-identical to the engine and engine_w8kv8 phases'
+   unmigrated completions (else the first difference and its top-2
+   gap); the handoff's launches read around it (32 paged-decode
+   launches a decode step of both engines, and the bf16 MLP's or the
+   int8 GEMV's); the evacuation (at the first step boundary where a
+   sequence decodes, resumed on a fresh engine as Request(prompt +
+   emitted)) reported as token agreement, first difference and top-2
+   gap (a re-prefill rounds otherwise than decode-written KV). Each
+   extent's bytes as reckoned (bf16 2 MiB a page, w8kv8 1.03 MiB),
+   serialize and graft ms and GB/s beside a 256 MiB pinned copy each
+   way, and the longest sequence's re-prefill alone to its first token
+   (the fallback migration replaces). At tiny fp32 on the card, greedy
+   and sampled: the handoff, the whole batch and the evacuation
+   token-identical to the unmigrated run. After every arm each engine's
+   pool is whole and zero.
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
    new tokens, once in bf16 and once with int8 weights and KV: 32
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16,
@@ -205,6 +228,7 @@ The line before last lists the kernels as JSON; the last line is
 from __future__ import annotations
 
 import ctypes
+import collections
 import dataclasses
 import functools
 import json
@@ -213,6 +237,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1923,6 +1948,253 @@ def drain_drill(E, eng, gate, reqs, followers: int, after: int) -> tuple:
                   "prefix_attached_after": eng.prefix_attached}
 
 
+def stitched(parts: dict) -> dict:
+    """rid -> an object with ``tokens`` (as a Completion has), from rid
+    -> a list of token arrays to join."""
+    return {rid: types.SimpleNamespace(tokens=np.concatenate(
+        [np.asarray(p, np.int32) for p in ps])) for rid, ps in parts.items()}
+
+
+def settle(*engines) -> None:
+    """Each engine's idle exit (the prefix registry's pins dropped, the
+    deferred zeroing done), then its pool whole and zero."""
+    for eng in engines:
+        if eng.busy:
+            raise AssertionError("settle: an engine still holds work")
+        eng.run()
+        pool_whole_and_zero(eng, "engine_migrate")
+
+
+def handoff(E, cfg, params, ec, reqs) -> tuple:
+    """The serving fabric's prefill→decode handoff without its Router: a
+    source engine as a prefill-role replica and a fresh destination as a
+    decode-role one, in Replica._loop's order — the destination grafts
+    the waiting extents between steps, both step, and the source exports
+    every decoding sequence. An import refused for capacity waits for a
+    later round, as the Router's waiting room holds an extent. Returns
+    (completions, (source, destination), one row per extent moved: its
+    pages, bytes, serialize and graft ms)."""
+    src, dst = E.Engine(cfg, params, ec), E.Engine(cfg, params, ec)
+    for r in reqs:
+        src.add_request(r)
+    inbox, moves, emitted = collections.deque(), [], {}
+    while src.busy or dst.busy or inbox:
+        waiting = collections.deque()
+        for sx, row in inbox:
+            t0 = time.perf_counter()
+            if waiting or not dst.import_sequence(sx):
+                if not dst.busy:
+                    raise AssertionError(
+                        f"handoff: an empty destination refused {sx.req.rid}")
+                waiting.append((sx, row))
+                continue
+            torch.cuda.synchronize()
+            row["graft_ms"] = (time.perf_counter() - t0) * 1e3
+        inbox = waiting
+        if src.busy:
+            src.step()
+        if dst.busy:
+            dst.step()
+        for rid in src.decoding_rids():
+            t0 = time.perf_counter()
+            sx = src.export_sequence(rid)
+            row = {"rid": rid, "kv_len": sx.kv_len,
+                   "pages": sx.extent.n_pages, "bytes": sx.extent.nbytes,
+                   "serialize_ms": (time.perf_counter() - t0) * 1e3}
+            emitted[rid] = sx.emitted
+            inbox.append((sx, row))
+            moves.append(row)
+    parts = {rid: [c.tokens] for rid, c in src.completed.items()}
+    parts.update({rid: [emitted[rid], c.tokens]
+                  for rid, c in dst.completed.items()})
+    settle(src, dst)
+    return stitched(parts), (src, dst), moves
+
+
+def whole_batch(E, cfg, params, ec, reqs) -> dict:
+    """Run ``reqs`` until the last prefill is done, export every decoding
+    sequence at that one step boundary, import them in slot order into a
+    fresh engine and finish there. Returns the stitched completions."""
+    a = E.Engine(cfg, params, ec)
+    for r in reqs:
+        a.add_request(r)
+    while a._queue or a._prefilling:
+        a.step()
+    b = E.Engine(cfg, params, ec)
+    emitted = {}
+    for rid in a.decoding_rids():
+        sx = a.export_sequence(rid)
+        if not b.import_sequence(sx):
+            raise AssertionError(f"whole batch: {rid} refused")
+        emitted[rid] = sx.emitted
+    if not emitted:
+        raise AssertionError("whole batch: nothing decoding at the boundary")
+    a.run()
+    parts = {rid: [c.tokens] for rid, c in a.completed.items()}
+    parts.update({rid: [emitted[rid], c.tokens]
+                  for rid, c in b.run().items()})
+    settle(a, b)
+    return stitched(parts)
+
+
+def evacuate_arm(E, cfg, params, ec, reqs) -> tuple:
+    """Evacuate an engine at the first step boundary where a sequence is
+    decoding and resume the evacuees on a fresh engine as the Router's
+    requeue does (queued and prefilling ones re-prefill too): a
+    Request(prompt + emitted) with the sampling schedule pinned (the
+    first run's admission serials). Returns (stitched completions,
+    sequences evacuated, tokens they had emitted)."""
+    a = E.Engine(cfg, params, ec)
+    for r in reqs:
+        a.add_request(r)
+    while not a.decoding_rids():
+        a.step()
+    ev = a.evacuate()
+    if not any(len(e.emitted) for e in ev):
+        raise AssertionError("evacuate: no sequence mid-generation")
+    serial = {r.rid: i + 1 for i, r in enumerate(reqs)}
+    b = E.Engine(cfg, params, ec)
+    resumed = b.run([E.Request(
+        rid=e.req.rid, prompt=np.concatenate([e.req.prompt, e.emitted]),
+        max_new_tokens=e.remaining, ttft_preobserved=e.t_first is not None,
+        sample_seed=ec.sample_seed, sample_serial=serial[e.req.rid])
+        for e in ev])
+    parts = {rid: [c.tokens] for rid, c in a.completed.items()}
+    parts.update({e.req.rid: [e.emitted, resumed[e.req.rid].tokens]
+                  for e in ev})
+    settle(a, b)
+    return stitched(parts), len(ev), int(sum(len(e.emitted) for e in ev))
+
+
+def pinned_copy_gbs(nbytes: int = 256 * 2**20, reps: int = 5) -> dict:
+    """A plain copy of ``nbytes`` between pinned host memory and the
+    card, each way: the median GB/s of ``reps`` copies (CUDA events)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for label, dst, src in (("host_to_device", dev, host),
+                            ("device_to_host", host, dev)):
+        dst.copy_(src)
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        out[label] = nbytes / statistics.median(times) / 1e9
+    del host, dev
+    return out
+
+
+def extent_report(moves: list, page_bytes: int) -> dict:
+    """The handoff's extents: bytes as reckoned (``page_bytes`` a page,
+    raises otherwise), and serialize/graft ms and GB/s for each and for
+    the longest."""
+    for row in moves:
+        if row["bytes"] != row["pages"] * page_bytes:
+            raise AssertionError(f"extent {row}: want {page_bytes} B a page")
+        row["mib"] = row["bytes"] / 2**20
+        for op in ("serialize", "graft"):
+            row[f"{op}_gb_s"] = row["bytes"] / row[f"{op}_ms"] / 1e6
+    longest = max(moves, key=lambda r: r["kv_len"])
+    return {"page_mib": page_bytes / 2**20, "extents": moves,
+            "longest": longest,
+            "serialize_ms_median": statistics.median(
+                r["serialize_ms"] for r in moves),
+            "graft_ms_median": statistics.median(r["graft_ms"] for r in moves)}
+
+
+def reprefill_ttft(E, cfg, params, ec, prompt) -> dict:
+    """The fallback migration replaces: one request prefilling
+    ``prompt`` (a migrated sequence's prompt + emitted) alone on a fresh
+    engine, to its first token."""
+    eng = E.Engine(cfg, params, ec)
+    t0 = time.perf_counter()
+    c = eng.run([E.Request(rid="reprefill", prompt=prompt,
+                           max_new_tokens=1)])["reprefill"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    settle(eng)
+    return {"context": len(prompt), "ttft_s": c.ttft_s, "wall_s": wall,
+            "prefill_buckets": eng.prefill_buckets}
+
+
+def migrate_phase(E, G, kernels, cfg, params, ec, reqs, want, label,
+                  page_bytes) -> dict:
+    """engine_migrate's arms for one storage mode at 8B widths: the
+    handoff (launches read around it), the whole batch and the
+    evacuation, each against ``want`` (the unmigrated run)."""
+    L = cfg.n_layers
+    trace = [(r.rid, r.prompt, r.max_new_tokens) for r in reqs]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done, (src, dst), moves = handoff(E, cfg, params, ec, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = src.decode_steps + dst.decode_steps
+    ones = src.prefill_single_token_buckets + dst.prefill_single_token_buckets
+    if ec.kv_quant == "int8":
+        want_l = {"paged_decode_attention_int8": L * steps,
+                  "paged_decode_attention": 0, "decode_mlp": 0}
+        ok = launches["int8mm_gemv_sm90"] > 0
+    else:
+        want_l = {"paged_decode_attention": L * steps,
+                  "decode_mlp_sm90": L * (steps + ones), "int8mm": 0}
+        ok = True
+    if not ok or any(launches[k] != v for k, v in want_l.items()):
+        raise AssertionError(f"engine_migrate {label}: launches {launches}, "
+                             f"want {want_l} ({steps} decode steps)")
+    identical_or_explain(G, cfg, params, trace, done, want,
+                         f"engine_migrate {label} handoff")
+    t1 = time.perf_counter()
+    identical_or_explain(G, cfg, params, trace,
+                         whole_batch(E, cfg, params, ec, reqs), want,
+                         f"engine_migrate {label} whole batch")
+    batch_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ev_done, n_ev, ev_tokens = evacuate_arm(E, cfg, params, ec, reqs)
+    evac_s = time.perf_counter() - t1
+    ext = extent_report(moves, page_bytes)
+    longest = ext["longest"]
+    prompt = next(np.concatenate([r.prompt, done[r.rid].tokens[
+        :longest["kv_len"] + 1 - len(r.prompt)]])
+        for r in reqs if r.rid == longest["rid"])
+    return {
+        "handoff": {"identical": True, "wall_s": wall, "moved": len(moves),
+                    "decode_steps": {"source": src.decode_steps,
+                                     "destination": dst.decode_steps},
+                    "launches": launches},
+        "whole_batch": {"identical": True, "wall_s": batch_s},
+        "evacuate": {"evacuated": n_ev, "tokens_before": ev_tokens,
+                     "wall_s": evac_s,
+                     **pair_report(G, cfg, params, trace, ev_done, want)},
+        **ext,
+        "reprefill_longest": reprefill_ttft(E, cfg, params, ec, prompt),
+    }
+
+
+def tiny_migrate(E, cfg, params, trace, ec) -> dict:
+    """The three arms at tiny fp32 on the card, each token-identical to
+    the unmigrated run there."""
+    reqs = [E.Request(rid=r, prompt=p, max_new_tokens=n) for r, p, n in trace]
+    eng = E.Engine(cfg, params, ec)
+    want = eng.run(reqs)
+    pool_whole_and_zero(eng, "tiny migrate, unmigrated")
+    arms = {"handoff": handoff(E, cfg, params, ec, reqs)[0],
+            "whole_batch": whole_batch(E, cfg, params, ec, reqs),
+            "evacuate": evacuate_arm(E, cfg, params, ec, reqs)[0]}
+    for arm, got in arms.items():
+        where = first_difference(got, want)
+        if where is not None:
+            raise AssertionError(f"tiny migrate {arm}: differs first at "
+                                 f"{where}")
+    return {arm: True for arm in arms}
+
+
 def copy_page_cost(P, cache) -> dict:
     """One copy-on-write fork (paged_kv.copy_page) on the engine's
     pools: its launches (the CUDA runtime's launch and copy calls) and
@@ -2518,6 +2790,7 @@ def main() -> int:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     with RouteLog(I8) as w8_routes:
         eng, done, launches, wall = serve(E, kernels, cfg, params, w8, reqs)
+    w8_done = dict(done)  # the profile below adds its own requests
     del params  # the engine holds the quantized tree only
     torch.cuda.empty_cache()
     steps = eng.decode_steps
@@ -2872,6 +3145,34 @@ def main() -> int:
              G, cfg, params, ptrace, drained, pruns["shared"])})
     del params
     torch.cuda.empty_cache()
+
+    # --- 7e. evacuation and live KV migration -----------------------------
+    t_migrate = time.perf_counter()
+    migrate = {"pinned_copy_gb_s": pinned_copy_gbs()}
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    # Bytes a page: K and V (and in int8 their f32 scales) of every layer.
+    kv_row = cfg.n_kv_heads * cfg.head_dim
+    page_bf16 = 2 * L * ec.page_size * kv_row * 2
+    page_w8 = 2 * L * ec.page_size * (kv_row + 4 * cfg.n_kv_heads)
+    migrate["bf16"] = migrate_phase(E, G, kernels, cfg, params, ec, reqs,
+                                    greedy_done, "bf16", page_bf16)
+    # One int8 tree for every w8kv8 engine: an engine leaves a tree
+    # that is already quantized as it is.
+    params = Q.quantize_params(G.unroll_params(G.as_tree(params)))
+    torch.cuda.empty_cache()
+    migrate["w8kv8"] = migrate_phase(E, G, kernels, cfg, params, w8, reqs,
+                                     w8_done, "w8kv8", page_w8)
+    del params
+    torch.cuda.empty_cache()
+    tec = E.EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=12,
+                         scan_chunk=3, prefill_chunk=8)
+    migrate["tiny_fp32"] = {
+        label: tiny_migrate(E, tiny, tparams, trace,
+                            dataclasses.replace(tec, **kw))
+        for label, kw in (("greedy", {}), ("sampled", sampled))}
+    emit("engine_migrate",
+         model="LLAMA3_8B widths, 32 layers, random weights; tiny fp32",
+         nvidia_smi=smi, seconds=time.perf_counter() - t_migrate, **migrate)
 
     # --- 8. greedy_generate at Llama-3-8B widths -----------------------------
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))

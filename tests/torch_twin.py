@@ -1,7 +1,10 @@
 """Helpers shared by the engine twin tests (tests/test_torch_prefix.py,
-tests/test_torch_drain.py): the JAX engine and the port's engine on
+tests/test_torch_drain.py, tests/test_torch_migrate.py,
+tests/test_torch_fabric.py): the JAX engine and the port's engine on
 TINY_LLAMA at fp32 with the same weights, stepped in lockstep through
-the same trace, their host state compared after every step."""
+the same trace, their host state compared after every step; KV extents
+carried between the two packages; Router replicas holding port
+engines."""
 
 import dataclasses
 
@@ -10,11 +13,16 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tpu_dra.serving.router import Replica
 from tpu_dra.workloads import engine as JE
+from tpu_dra.workloads import paged_kv as JP
 from tpu_dra.workloads.models.llama import TINY_LLAMA as JAX_TINY
 from tpu_dra.workloads.models.llama import Llama
 from tpu_dra_torch.workloads import engine as TE
-from tpu_dra_torch.workloads.convert import params_from_numpy
+from tpu_dra_torch.workloads.convert import (
+    extent_from_numpy,
+    params_from_numpy,
+)
 from tpu_dra_torch.workloads.models.llama import TINY_LLAMA
 
 JCFG = dataclasses.replace(JAX_TINY, dtype=jnp.float32, param_dtype=jnp.float32)
@@ -163,3 +171,42 @@ def rendered(metrics) -> tuple:
             name, value = line.split()
             counters[name] = float(value)
     return kinds, counters
+
+
+def extent_to_numpy(extent) -> JP.KVExtent:
+    """The port's KVExtent -> the JAX one, its payload numpy (bf16 as
+    ml_dtypes bfloat16 through the 16-bit pattern, bit for bit): the
+    reverse of ``convert.extent_from_numpy``."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(jnp.bfloat16)
+        return t.numpy()
+
+    return JP.KVExtent(
+        page_size=extent.page_size, length=extent.length,
+        quantized=extent.quantized, slots=tuple(extent.slots),
+        payload={name: tuple(leaf(t) for t in layers)
+                 for name, layers in extent.payload.items()},
+    )
+
+
+def to_port(sx):
+    """A JAX SequenceExtent whose extent the port's engine can graft."""
+    return dataclasses.replace(
+        sx, extent=extent_from_numpy(sx.extent, device="cpu"))
+
+
+def to_jax(sx):
+    """A port SequenceExtent whose extent the JAX engine can graft."""
+    return dataclasses.replace(sx, extent=extent_to_numpy(sx.extent))
+
+
+def torch_replica(name, params, role="both", ec=None, **kw) -> Replica:
+    """A serving-fabric Replica holding the port's engine on the CPU,
+    built as ``Twin`` builds it."""
+    ec = dict(EC if ec is None else ec)
+    ec.update(kw)
+    engine = TE.Engine(TCFG, params[1], TE.EngineConfig(**ec), device="cpu")
+    return Replica(name, engine, role=role)

@@ -22,6 +22,10 @@ For training, ``params_from_numpy(..., trainable=True)`` gives a tree
 whose leaves carry gradients, ``opt_state_from_numpy`` turns optax's
 AdamW state into the port's (so a step resumed from a JAX checkpoint
 matches JAX's), and ``params_to_numpy`` goes back the other way.
+
+``extent_from_numpy`` is the state counterpart: a JAX ``KVExtent``
+(numpy payload) becomes the port's :class:`~.paged_kv.KVExtent`, bf16
+pages carried through their 16-bit patterns, not through float32.
 """
 
 from __future__ import annotations
@@ -147,4 +151,37 @@ def opt_state_from_numpy(
             for n, a in _flat_names(unroll_tree(adam.mu)).items()},
         nu={n: _leaf(a, config.param_dtype, device)
             for n, a in _flat_names(unroll_tree(adam.nu)).items()},
+    )
+
+
+def _bits_leaf(arr, device) -> torch.Tensor:
+    """A numpy array -> a tensor of the same dtype and bits on
+    ``device``; ml_dtypes bfloat16 goes through its 16-bit pattern.
+    A copy: JAX hands out read-only buffers."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(arr).to(device)
+
+
+def extent_from_numpy(extent, device=None):
+    """A JAX ``paged_kv.KVExtent`` (payload: pool name -> L-tuple of
+    numpy arrays) -> the port's ``KVExtent`` with its payload on
+    ``device`` (default: the CUDA device, see
+    :func:`.device.resolve_device`), bit for bit."""
+    # Imported here: paged_kv imports generate, which imports this
+    # module.
+    from tpu_dra_torch.workloads.paged_kv import KVExtent
+
+    device = resolve_device(device)
+    return KVExtent(
+        page_size=int(extent.page_size),
+        length=int(extent.length),
+        quantized=bool(extent.quantized),
+        slots=tuple((str(kind), int(val)) for kind, val in extent.slots),
+        payload={
+            name: tuple(_bits_leaf(a, device) for a in layers)
+            for name, layers in extent.payload.items()
+        },
     )

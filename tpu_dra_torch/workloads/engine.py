@@ -66,9 +66,18 @@ Entry points run on the card: ``Engine(..., device=None)`` means
 ``"cuda"`` and raises RuntimeError without a CUDA device; tests pass
 ``device="cpu"``.
 
+Cross-replica methods, as in the JAX engine, so the serving fabric's
+Router and autoscaler drive this engine unchanged: :meth:`Engine.evacuate`
+(the drain, then the whole live set handed back as :class:`Evacuated`
+host checkpoints), and live KV migration — :meth:`Engine.decoding_rids`,
+:meth:`Engine.export_sequence` (a :class:`SequenceExtent` holding the
+sequence's pages as a :class:`~.paged_kv.KVExtent`) and
+:meth:`Engine.import_sequence` (graft them and resume decode at the
+exact position, no position recomputed). Requests are duck-typed: the
+Router hands in the JAX package's ``Request`` objects.
+
 Not in this slice: mesh sharding (``sharded=True``, refused at
-construction rather than ignored) and the cross-replica methods
-(evacuate, export and import of a sequence's KV extent).
+construction rather than ignored).
 """
 
 from __future__ import annotations
@@ -227,6 +236,69 @@ class Completion:
     @property
     def ttft_s(self) -> float:
         return self.t_first_token - self.t_arrival
+
+
+@dataclasses.dataclass
+class Evacuated:
+    """One sequence handed back by :meth:`Engine.evacuate` — the
+    host-side checkpoint the serving fabric moves to another replica:
+    the ORIGINAL request, every token this engine emitted for it, and
+    the arrival-side timestamps. ``remaining`` new tokens are still
+    owed; a resume prefills ``prompt + emitted`` and generates the
+    rest."""
+
+    req: Request
+    emitted: np.ndarray  # tokens THIS engine emitted (may be empty)
+    t_submit: float
+    t_first: Optional[float]  # None when no token was emitted yet
+
+    @property
+    def remaining(self) -> int:
+        return self.req.max_new_tokens - len(self.emitted)
+
+
+@dataclasses.dataclass
+class SequenceExtent:
+    """One sequence lifted off an engine by :meth:`Engine.export_sequence`
+    — the live-migration unit. Unlike :class:`Evacuated` (host
+    checkpoint, resume re-prefills), this carries the sequence's KV
+    pages themselves (:class:`~.paged_kv.KVExtent`), so
+    :meth:`Engine.import_sequence` grafts them into the destination and
+    decode resumes without recomputing a position. ``req`` + ``emitted``
+    still suffice to rebuild by re-prefill (the crash fallback)."""
+
+    req: Request  # the SOURCE engine's request (prompt = its context)
+    emitted: np.ndarray  # tokens the source engine emitted (>= 1)
+    extent: object  # paged_kv.KVExtent covering [0, kv_len)
+    kv_len: int  # positions written on the source = len(prompt')-1
+    t_submit: float
+    t_first: Optional[float]
+    sample_seed: int  # the source engine's seed — pinned on resume
+    sample_serial: int  # the source sequence's sampling serial
+
+    @property
+    def remaining(self) -> int:
+        return self.req.max_new_tokens - len(self.emitted)
+
+    def resume_request(self) -> Request:
+        """The destination-side request: emitted tokens fold into the
+        prompt, the sampling schedule pins, and TTFT rides
+        ``ttft_preobserved`` (the first token already happened on the
+        source)."""
+        return Request(
+            rid=self.req.rid,
+            prompt=np.concatenate([
+                np.asarray(self.req.prompt, np.int32),
+                np.asarray(self.emitted, np.int32),
+            ]),
+            max_new_tokens=self.remaining,
+            arrival_s=0.0,
+            ttft_preobserved=self.t_first is not None,
+            prefix_id=self.req.prefix_id,
+            prefix_len=self.req.prefix_len,
+            sample_seed=self.sample_seed,
+            sample_serial=self.sample_serial,
+        )
 
 
 class _Sequence:
@@ -521,6 +593,197 @@ class Engine:
 
     def close(self) -> None:
         self.gate.close()
+
+    def evacuate(self) -> List[Evacuated]:
+        """Drain every in-flight sequence to host state (pages freed,
+        contexts folded), then hand the WHOLE live set — drained and
+        still-queued alike — back to the caller, leaving the engine
+        empty: the autoscaler's scale-down primitive. The evacuees
+        resume elsewhere by prefilling ``prompt + emitted``; rids are
+        forgotten, so a sequence may later come back here."""
+        self._drain(self.clock())
+        out: List[Evacuated] = []
+        while self._queue:
+            seq = self._queue.popleft()
+            self._rids.discard(seq.req.rid)
+            out.append(Evacuated(
+                req=seq.req,
+                emitted=np.asarray(seq.out, np.int32),
+                t_submit=seq.t_submit,
+                t_first=seq.t_first,
+            ))
+        self._flush_zero()
+        self._inc("engine_evacuated_total", len(out))
+        self._export()
+        return out
+
+    # --- live KV migration ------------------------------------------------
+
+    def decoding_rids(self) -> List[str]:
+        """rids of sequences that finished prefill and are decoding —
+        the migration candidates a prefill-role replica ships."""
+        return [
+            s.req.rid
+            for s in self._slots
+            if s is not None and s.prefill_done and s.out
+        ]
+
+    def export_sequence(self, rid: str) -> SequenceExtent:
+        """Lift a decoding sequence off this engine: serialize its
+        block-table extent (every pool, int8 scales included), release
+        its slot and pages (each page decref'd once — shared-prefix
+        pages stay pinned by the registry and other tables), and forget
+        the rid so a fallback may resubmit here."""
+        if self.ec.contiguous:
+            raise ValueError(
+                "contiguous (oracle) engines do not export extents — "
+                "their block tables are fixed physical ranges"
+            )
+        seq = next(
+            (s for s in self._slots if s is not None and s.req.rid == rid),
+            None,
+        )
+        if seq is None or not seq.prefill_done or not seq.out:
+            raise ValueError(
+                f"rid {rid!r} is not an exportable decoding sequence"
+            )
+        slot = seq.slot
+        kv_len = int(self._lengths[slot])
+        keep = -(-kv_len // self.ec.page_size)
+        # Pages past the written extent are scan-chunk slack, entirely
+        # zero: they stay behind and free with the slot.
+        extent = paged_kv.serialize_extent(self.cache, seq.pages[:keep],
+                                           kv_len)
+        sx = SequenceExtent(
+            req=seq.req,
+            emitted=np.asarray(seq.out, np.int32),
+            extent=extent,
+            kv_len=kv_len,
+            t_submit=seq.t_submit,
+            t_first=seq.t_first,
+            sample_seed=self.ec.sample_seed,
+            sample_serial=seq.sample_serial,
+        )
+        self._release_slot(slot)
+        self._rids.discard(rid)
+        self._progress += 1
+        self._inc("engine_kv_exports_total")
+        return sx
+
+    def import_sequence(self, sx, req=None) -> bool:
+        """Graft an exported sequence (``sx``: a :class:`SequenceExtent`
+        or the JAX engine's, its extent this package's
+        :class:`~.paged_kv.KVExtent`) and resume its decode at position
+        ``kv_len`` — no position recomputed. False when the engine lacks
+        a free slot or page headroom right now (the caller falls back to
+        re-prefill); every mismatch raises. Leading full pages of a
+        registered matching prefix attach by incref instead of copying,
+        and the imported prefix registers here for later sharers."""
+        if self.ec.contiguous:
+            raise ValueError(
+                "contiguous (oracle) engines do not import extents"
+            )
+        req = req if req is not None else sx.resume_request()
+        if req.rid in self._rids:
+            raise ValueError(f"duplicate request rid {req.rid!r}")
+        if (
+            req.sample_seed is not None
+            and req.sample_seed != self.ec.sample_seed
+        ):
+            raise ValueError(
+                f"request {req.rid}: pinned sample_seed "
+                f"{req.sample_seed} != engine seed {self.ec.sample_seed}"
+            )
+        if sx.extent.page_size != self.ec.page_size:
+            raise ValueError(
+                f"extent page_size {sx.extent.page_size} != engine "
+                f"page_size {self.ec.page_size}"
+            )
+        if len(req.prompt) != sx.kv_len + 1 or req.max_new_tokens < 1:
+            raise ValueError(
+                f"request {req.rid}: prompt must cover kv_len "
+                f"{sx.kv_len} + 1 not-yet-written token, with >= 1 "
+                f"token still owed"
+            )
+        total = len(req.prompt) + req.max_new_tokens + self.ec.scan_chunk
+        if total > self.ec.max_pages_per_seq * self.ec.page_size:
+            raise ValueError(
+                f"request {req.rid}: prompt {len(req.prompt)} + "
+                f"max_new {req.max_new_tokens} (+ chunk slack "
+                f"{self.ec.scan_chunk}) exceeds the per-sequence page "
+                f"budget {self.ec.max_pages_per_seq}x{self.ec.page_size}"
+            )
+        slot = next(
+            (i for i, s in enumerate(self._slots) if s is None), None
+        )
+        if slot is None:
+            return False
+        self._serial += 1
+        seq = _Sequence(req, t_submit=sx.t_submit, serial=self._serial)
+        seq.t_first = sx.t_first
+        seq.prefill_done = True
+        seq.prefill_cursor = len(seq.context)
+        need = self._pages_for(seq)
+        if not self.allocator.reserve(need):
+            while self._prefix_registry and not (
+                self.allocator.can_reserve(need)
+            ):
+                self._evict_one_prefix()
+            if not self.allocator.reserve(need):
+                return False
+        self._rids.add(req.rid)
+        seq.slot = slot
+        seq.reserved_left = need
+        # Import-side by-id carry: leading FULL pages of a registered
+        # matching prefix attach by incref; prefill K/V is a function of
+        # the tokens, so those pages hold the payload's content.
+        attach: Dict[int, int] = {}
+        entry = (
+            self._prefix_registry.get(req.prefix_id)
+            if req.prefix_id else None
+        )
+        if entry is not None and np.array_equal(
+            seq.context[: entry.length], entry.tokens
+        ):
+            n_full = min(entry.length // self.ec.page_size,
+                         sx.extent.n_pages)
+            for j in range(n_full):
+                attach[j] = entry.pages[j]
+        # Deferred zeroing lands before a freed page joins the graft.
+        self._flush_zero()
+
+        def _alloc():
+            self.allocator.unreserve(1)
+            seq.reserved_left -= 1
+            return self.allocator.alloc()
+
+        self.cache, pages = paged_kv.graft_extent(
+            self.cache, self.allocator, sx.extent,
+            alloc=_alloc, attach=attach,
+        )
+        if attach:
+            # Attached pages come off the worst-case reservation.
+            release = min(len(attach), seq.reserved_left)
+            if release > 0:
+                self.allocator.unreserve(release)
+                seq.reserved_left -= release
+            self.prefix_attached += 1
+            self._inc("engine_prefix_attached_total")
+        seq.pages = pages
+        self._slots[slot] = seq
+        self._tables[slot, : len(pages)] = pages
+        self._lengths[slot] = sx.kv_len
+        self._last_tokens[slot] = int(seq.context[-1])
+        self._active[slot] = True
+        self._seeds[slot] = seq.sample_serial
+        # The device copies of the slot state hold the previous
+        # occupant's row until the next upload.
+        self._dev_state = None
+        self._maybe_register_prefix(seq)
+        self._track_shared()
+        self._progress += 1
+        self._inc("engine_kv_imports_total")
+        return True
 
     def _live(self):
         """Every not-yet-completed sequence, exactly once (prefilling

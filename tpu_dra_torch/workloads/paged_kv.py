@@ -21,13 +21,20 @@ scratch page is exempt). :func:`tail_is_zero` / :func:`pages_are_zero`
 check it. :func:`zero_page_tail` (with :func:`copy_page_prefix`, the
 masked copy it is made of) re-establishes it on the kept boundary page
 after a speculative rewind. :func:`copy_page` is the copy-on-write
-fork of a shared page. Extents come with a later slice.
+fork of a shared page.
+
+KV extents (:class:`KVExtent`, :func:`serialize_extent`,
+:func:`graft_extent`) lift a sequence's pages off one cache and graft
+them into another — the unit of live prefill→decode migration. The
+payload is CPU torch tensors where the reference's is numpy (numpy has
+no bfloat16; ``convert.extent_from_numpy`` carries a JAX extent across
+bit for bit).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -295,3 +302,183 @@ def pages_are_zero(cache: PagedKVCache, page_ids) -> bool:
                 if bool(layer[pid].to(torch.float32).abs().sum() != 0):
                     return False
     return True
+
+
+# --- KV extents: ship a sequence's pages between caches ------------------
+
+
+@dataclasses.dataclass
+class KVExtent:
+    """A sequence's KV state lifted off its cache — the transferable
+    unit behind live prefill→decode migration.
+
+    ``slots[i]`` describes position range ``[i*page_size,
+    (i+1)*page_size)`` of the sequence: either ``("page", source_id)``
+    for a page carried BY ID (a shared-prefix page both caches can
+    already reach — grafting increfs it instead of copying), or
+    ``("payload", j)`` for a page whose content rides in ``payload``
+    at row ``j``. ``payload`` maps pool name ("k"/"v" and, in int8
+    mode, "k_scale"/"v_scale") to an L-tuple of CPU tensors of shape
+    ``[n_payload, page_size, ...]`` in the pool's dtype — full pages
+    including their zero tails, so the zero-tail invariant transfers
+    with the content. The reference's payload is numpy, which has no
+    bfloat16; :func:`~.convert.extent_from_numpy` converts one."""
+
+    page_size: int
+    length: int
+    quantized: bool
+    slots: tuple  # of ("page", id) | ("payload", row)
+    payload: dict  # pool name -> L-tuple of [n_payload, page, ...] tensors
+
+    @property
+    def n_pages(self) -> int:
+        return len(self.slots)
+
+    @property
+    def n_payload_pages(self) -> int:
+        return sum(1 for kind, _ in self.slots if kind == "payload")
+
+    @property
+    def n_shared_pages(self) -> int:
+        return self.n_pages - self.n_payload_pages
+
+    @property
+    def nbytes(self) -> int:
+        return sum(
+            layer.numel() * layer.element_size()
+            for pool in self.payload.values() for layer in pool
+        )
+
+
+def serialize_extent(
+    cache: PagedKVCache, pages, length: int, by_id=()
+) -> KVExtent:
+    """Gather a sequence's block-table extent off ``cache`` into host
+    memory. ``pages`` is the ordered page-id list covering ``length``
+    written positions; ids in ``by_id`` are carried by reference, the
+    rest as full-page payload — one gather per pool per layer and one
+    copy to the host per pool. The caller must have flushed any
+    deferred page zeroing first: a payload page is copied verbatim,
+    zero tail and all."""
+    pages = [int(p) for p in pages]
+    by_id = set(int(p) for p in by_id)
+    if length > len(pages) * cache.page_size:
+        raise ValueError(
+            f"length {length} exceeds {len(pages)} pages of "
+            f"{cache.page_size}"
+        )
+    slots = []
+    rows = []
+    for pid in pages:
+        if pid in by_id:
+            slots.append(("page", pid))
+        else:
+            slots.append(("payload", len(rows)))
+            rows.append(pid)
+    payload: Dict[str, tuple] = {}
+    ids = torch.as_tensor(rows, dtype=torch.long, device=cache.k[0].device)
+    for name, pool in cache._pools():
+        if rows:
+            host = torch.stack([layer.index_select(0, ids) for layer in pool])
+            payload[name] = tuple(host.cpu().unbind(0))
+        else:
+            payload[name] = ()
+    return KVExtent(
+        page_size=cache.page_size,
+        length=length,
+        quantized=cache.quantized,
+        slots=tuple(slots),
+        payload=payload,
+    )
+
+
+def _check_payload(cache: PagedKVCache, extent: KVExtent) -> None:
+    """Every pool's payload must be L layers of ``[n_payload, ...]`` in
+    the pool's page shape and dtype: a silent cast or a short payload
+    would graft other content than was lifted."""
+    n = extent.n_payload_pages
+    if not n:
+        return
+    for name, pool in cache._pools():
+        layers = extent.payload.get(name, ())
+        if len(layers) != len(pool):
+            raise ValueError(
+                f"extent payload {name!r} has {len(layers)} layers, the "
+                f"cache {len(pool)}"
+            )
+        want = (n,) + tuple(pool[0].shape[1:])
+        for layer in layers:
+            if tuple(layer.shape) != want or layer.dtype != pool[0].dtype:
+                raise ValueError(
+                    f"extent payload {name!r} is {tuple(layer.shape)} "
+                    f"{layer.dtype}, the cache's pages {want} "
+                    f"{pool[0].dtype}"
+                )
+
+
+def graft_extent(
+    cache: PagedKVCache,
+    allocator: PageAllocator,
+    extent: KVExtent,
+    *,
+    alloc=None,
+    id_map=None,
+    attach=None,
+):
+    """Materialize ``extent`` into ``cache``/``allocator``: by-id slots
+    are INCREF'd (through ``id_map`` when the destination knows the
+    shared pages under different ids), payload slots get fresh pages via
+    ``alloc`` (defaults to ``allocator.alloc`` — the engine passes a
+    callable that also burns its admission reservation) and one scatter
+    per pool per layer writes their content, in place. ``attach`` maps
+    slot INDEX -> destination page id the importer already holds
+    equivalent content for (a registered shared prefix): those slots
+    incref the destination page instead of copying, payload or not.
+    Returns ``(cache, pages)`` — the same cache object — with ``pages``
+    the sequence's ordered block table. On any failure nothing is left
+    allocated or increfed."""
+    if extent.page_size != cache.page_size:
+        raise ValueError(
+            f"extent page_size {extent.page_size} != cache "
+            f"{cache.page_size}"
+        )
+    if extent.quantized != cache.quantized:
+        raise ValueError("extent/cache kv-quantization modes differ")
+    _check_payload(cache, extent)
+    alloc = alloc or allocator.alloc
+    id_map = id_map or {}
+    attach = attach or {}
+    pages = []
+    increfed = []
+    fresh = []
+    rows = []  # (payload row, fresh page) scatter pairs
+    try:
+        for i, (kind, val) in enumerate(extent.slots):
+            if i in attach:
+                pid = int(attach[i])
+                allocator.incref(pid)
+                increfed.append(pid)
+            elif kind == "page":
+                pid = int(id_map.get(val, val))
+                allocator.incref(pid)
+                increfed.append(pid)
+            else:
+                pid = alloc()
+                fresh.append(pid)
+                rows.append(val)
+            pages.append(pid)
+    except BaseException:
+        for pid in increfed:
+            allocator.decref(pid)
+        for pid in fresh:
+            allocator.decref(pid)
+        raise
+    if fresh:
+        device = cache.k[0].device
+        dst = torch.as_tensor(fresh, dtype=torch.long, device=device)
+        sel = torch.as_tensor(rows, dtype=torch.long)
+        for name, pool in cache._pools():
+            for layer, prows in zip(pool, extent.payload[name]):
+                layer[dst] = prows.index_select(0, sel.to(prows.device)).to(
+                    device)
+    return cache, pages
