@@ -220,6 +220,16 @@ exits non-zero without a result:
    cosine 0.99999; in bf16 each leaf's gap (1 - cosine) to an fp32
    reference at most BF16_GAP_RATIO times the plain version's (gaps
    under 1e-5 count as equal).
+9b. train_mixtral — the same phase (train_phase) at Mixtral-8x7B widths
+   (d 4096, ffn 14336, 8 experts, top-2, 32 heads over 8 kv heads, hd
+   128, vocab 32000, rope theta 1e6, capacity factor 1.25) cut to 2
+   layers (AdamW state for 3.16 B parameters, ~32 GB), bf16, remat
+   "nothing", b=2, s=2048, 5 steps: the same launch, loss and step
+   bars, and besides: the MoE layer's device ms in the profiled step
+   split into router, dispatch, experts and combine (moe_split), the
+   share of top-2 routing decisions that agree between the compared
+   arms, and an MFU on the active parameters
+   (mixtral_active_flops_per_token).
 
 The line before last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -274,6 +284,8 @@ FP32_GRAD_REL = 1e-4
 # count as equal (it is the fp32 bar's gap).
 TRAIN_FP32_COSINE = 0.99999
 TRAIN_GAP_FLOOR = 1e-5
+# The train phases' batch and sequence length.
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 FLASH_CASES = (
     # name, sq, skv, causal, lse cotangent
     ("s2048_causal", 2048, 2048, True, False),
@@ -1423,14 +1435,79 @@ def flash_timing(A, kernels, gen, rates, flush) -> dict:
     return rows
 
 
+# Profiler spans: the train step's (train.py) and those of the MoE layer
+# and its block (models/mixtral.py). The profiler also lists each span's
+# extent on the device timeline beside the kernels; that is no kernel.
+TRAIN_SPANS = ("train_step/forward", "train_step/optimizer")
+MOE_SPANS = ("moe/router", "moe/dispatch", "moe/experts", "moe/combine")
+MIXTRAL_BLOCK_SPAN = "mixtral/block"
+SPAN_NAMES = TRAIN_SPANS + MOE_SPANS + (MIXTRAL_BLOCK_SPAN,)
+
+
+def kernel_split(events) -> dict:
+    """Device ms of a profiled step's kernels, each attributed by walking
+    up from the op that launched it. Phase: the enclosing
+    ``train_step/*`` span (forward, optimizer), else the backward (the
+    remat recompute included). MoE part: the nearest enclosing MoE span
+    (forward, the recompute included), or for a kernel of a backward
+    node the span of the forward op that made the node (matched by
+    forward thread and sequence number), each as router, dispatch,
+    experts or combine; the blocks' attention and norms and everything
+    outside them are ``other``. ``walked_ms``, the sum, checks the walk
+    against the profiler's kernel total."""
+    def enclosing(ev):
+        while ev is not None and ev.name not in MOE_SPANS:
+            ev = ev.cpu_parent
+        return ev.name if ev is not None else None
+
+    span_of = {}
+    for ev in events:
+        if ev.sequence_nr >= 0 and "Backward" not in ev.name:
+            span = enclosing(ev)
+            if span:
+                span_of[(ev.thread, ev.sequence_nr)] = span
+    phase = dict.fromkeys(("forward", "optimizer", "backward_remainder"), 0.0)
+    moe = collections.defaultdict(float)
+    for ev in events:
+        us = sum(k.duration for k in getattr(ev, "kernels", ())
+                 if k.name not in SPAN_NAMES)
+        if not us:
+            continue
+        part, where, node = None, "backward_remainder", ev
+        while node is not None:
+            if part is None:
+                if node.name in MOE_SPANS:
+                    part = f"{node.name[4:]}_forward_ms"
+                elif node.name == MIXTRAL_BLOCK_SPAN:
+                    part = "other"
+                elif node.sequence_nr >= 0 and "Backward" in node.name:
+                    span = span_of.get((node.fwd_thread, node.sequence_nr))
+                    part = f"{span[4:]}_backward_ms" if span else "other"
+            if node.name in TRAIN_SPANS:
+                where = node.name[len("train_step/"):]
+                break
+            node = node.cpu_parent
+        phase[where] += us / 1e3
+        moe[part or "other"] += us / 1e3
+    parts = {name[4:]: moe[f"{name[4:]}_forward_ms"]
+             + moe[f"{name[4:]}_backward_ms"] for name in MOE_SPANS}
+    return {
+        "phase_device_ms": phase, "walked_ms": sum(phase.values()),
+        "moe": {"device_ms": parts, "total_device_ms": sum(parts.values()),
+                "by_direction": {k: v for k, v in sorted(moe.items())
+                                 if k != "other"},
+                "forward_ops_matched": len(span_of)},
+    }
+
+
 def profile_train_step(step, state, tokens) -> tuple:
     """One more train step under torch.profiler: device kernel time by
     kernel, the flash kernels' share, the step's phases and the device
     busy share of the host window. Only device-side events count (a CPU
     op such as the autograd.Function around a ctypes launch is charged
-    its kernel's time too). The forward and optimizer are train.py's
-    ``train_step/*`` spans; the backward runs on autograd's own thread,
-    outside them, and is the remainder. Returns (state, report)."""
+    its kernel's time too). The phases and a MoE model's split come
+    from kernel_split; the backward runs on autograd's own thread,
+    outside the train step's spans. Returns (state, report)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1441,11 +1518,10 @@ def profile_train_step(step, state, tokens) -> tuple:
         float(loss)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    kernels_, spans = [], {}
+    kernels_ = []
     for ev in prof.key_averages():
-        if ev.key.startswith("train_step/"):
-            spans[ev.key] = ev.device_time_total / 1e3
-        elif ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.key not in SPAN_NAMES
+                and ev.device_type == torch.autograd.DeviceType.CUDA):
             kernels_.append((ev.self_device_time_total, ev.count, ev.key))
     if not kernels_:
         return state, {"device_busy_share": "not measured",
@@ -1459,28 +1535,41 @@ def profile_train_step(step, state, tokens) -> tuple:
             if f"{name}_kernel" in key:
                 flash[name] = {"device_ms": us / 1e3, "count": n}
     flash_ms = sum(v["device_ms"] for v in flash.values())
-    return state, {
+    split = kernel_split(prof.events())
+    report = {
         "window_ms": window_ms, "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / window_ms,
         "kernel_launches": sum(k[1] for k in kernels_),
         "flash": flash, "flash_device_ms": flash_ms,
         "flash_share_of_device_time": flash_ms / device_ms,
-        "phase_device_ms": {
-            "forward": spans.get("train_step/forward"),
-            "optimizer": spans.get("train_step/optimizer"),
-            "backward_remainder": device_ms - sum(spans.values()),
-        },
+        "phase_device_ms": split["phase_device_ms"],
+        "walked_kernel_ms": split["walked_ms"],
         "top_kernels": [{"name": key[:90], "device_ms": us / 1e3, "count": n}
                         for us, n, key in kernels_[:12]],
     }
+    if split["moe"]["forward_ops_matched"]:
+        report["moe"] = {**split["moe"], "share_of_device_time":
+                         split["moe"]["total_device_ms"] / device_ms}
+    return state, report
 
 
-def grad_step(T, cfg, params, tokens) -> tuple:
+def grad_step(T, cfg, params, tokens, routes=None) -> tuple:
     """(loss, {name: grad}) of one forward and backward from ``params``
-    under ``cfg`` (the weights are not updated)."""
-    params.zero_grad(set_to_none=True)
-    loss = T.loss_fn(T.build_model(cfg), params, tokens)
-    loss.backward()
+    under ``cfg`` (the weights are not updated). With a ``routes`` list
+    (a MoE model), each router call appends its top-k expert ids: the
+    forward's first, one a layer, then the remat recompute's."""
+    model = T.build_model(cfg)
+    hook = None
+    if routes is not None:
+        hook = model.block.moe.router.register_forward_hook(
+            lambda mod, args, out: routes.append(out[2]))
+    try:
+        params.zero_grad(set_to_none=True)
+        loss = T.loss_fn(model, params, tokens)
+        loss.backward()
+    finally:
+        if hook is not None:
+            hook.remove()
     grads = {n: p.grad for n, p in params.named_parameters()}
     params.zero_grad(set_to_none=True)
     return float(loss.detach()), grads
@@ -1496,12 +1585,32 @@ def leaf_cosines(a: dict, b: dict) -> dict:
     return {n: cos(a[n], b[n]) for n in a}
 
 
-def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
-                rates) -> dict:
-    """The Trainer at Llama-3-8B widths, 4 layers, then the compared
-    steps (see the module docstring)."""
-    cfg = dataclasses.replace(LLAMA3_8B, n_layers=4)
-    L, b, s, steps = cfg.n_layers, 2, 2048, 5
+def mixtral_active_flops_per_token(cfg, seq: int) -> float:
+    """Model FLOPs per trained token on the parameters a token uses:
+    attention, the router, top_k of the experts and the lm_head at 6 a
+    parameter, plus the causal attention term (as Llama's
+    train_flops_per_token). Capacity padding and the dispatch and
+    combine products are not counted."""
+    c = cfg
+    hd = c.head_dim
+    per_layer = (2 * c.dim * c.n_heads * hd + 2 * c.dim * c.n_kv_heads * hd
+                 + c.dim * c.n_experts + c.top_k * 3 * c.dim * c.ffn_dim)
+    return (6.0 * (c.n_layers * per_layer + c.dim * c.vocab_size)
+            + 6.0 * c.n_layers * c.dim * seq)
+
+
+def route_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Share of (layer, token, slot) top-k expert ids that agree."""
+    return float((a == b).float().mean())
+
+
+def train_phase(T, kernels, cfg, init_params, flops_per_token, rates,
+                label: str) -> dict:
+    """The Trainer on ``cfg`` (bf16, remat "nothing"), 5 steps, then the
+    compared steps (see the module docstring). A MoE config also reports
+    its routing agreement between the compared arms."""
+    L, b, s, steps = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ, 5
+    moe = hasattr(T.build_model(cfg), "apply_with_aux")
     tokens = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
     torch.cuda.empty_cache()
@@ -1530,18 +1639,20 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
     for i, d in enumerate(per_step):
         other = {k: v for k, v in d.items() if k not in want and v}
         if any(d[k] != v for k, v in want.items()) or other:
-            raise AssertionError(f"train step {i}: launches {d}, want {want}")
+            raise AssertionError(f"{label} step {i}: launches {d}, want "
+                                 f"{want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"train losses {losses}: finite and falling")
+        raise AssertionError(f"{label} losses {losses}: finite and falling")
     steady = statistics.median(step_ms[1:])
     tokens_per_step = b * s
     out = {
-        "model": "LLAMA3_8B widths cut to 4 layers, bf16, remat nothing, "
-                 "random weights", "batch": b, "seq": s,
+        "model": f"{label}, bf16, remat nothing, random weights",
+        "batch": b, "seq": s,
         "losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
         "trained_tok_s": tokens_per_step / (steady / 1e3),
-        "mfu": train_flops_per_token(cfg, s) * tokens_per_step
+        "mfu": flops_per_token(cfg, s) * tokens_per_step
         / (steady / 1e3) / rates[1],
+        "flops_per_token": flops_per_token(cfg, s),
         "peak_memory_gb": peak_gb, "launches": launches,
         "launches_per_step": per_step[-1], "profile": profile,
         **{f"{name}_device_ms_per_step": profile.get("flash", {}).get(
@@ -1556,16 +1667,19 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
     # (the same weights upcast, reference attention).
     del state, trainer, step
     torch.cuda.empty_cache()
+    routes = {arm: [] if moe else None for arm in ("kernels", "torch",
+                                                   "fp32")}
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          trainable=True)
-    loss_k, g_k = grad_step(T, cfg, params, tokens)
+    loss_k, g_k = grad_step(T, cfg, params, tokens, routes["kernels"])
     loss_p, g_p = grad_step(
-        T, dataclasses.replace(cfg, attention_impl="torch"), params, tokens)
+        T, dataclasses.replace(cfg, attention_impl="torch"), params, tokens,
+        routes["torch"])
     ref_cfg = dataclasses.replace(cfg, dtype=torch.float32,
                                   param_dtype=torch.float32,
                                   attention_impl="reference")
     params.float()
-    loss_r, g_r = grad_step(T, ref_cfg, params, tokens)
+    loss_r, g_r = grad_step(T, ref_cfg, params, tokens, routes["fp32"])
     del params
     torch.cuda.empty_cache()
     cos_kr, cos_pr = leaf_cosines(g_k, g_r), leaf_cosines(g_p, g_r)
@@ -1581,12 +1695,21 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
         "worst_gap_ratio_leaf": max(ratios, key=ratios.get),
         "bar": BF16_GAP_RATIO,
     }
-    del g_k, g_p, g_r
+    if moe:
+        ids = {arm: torch.stack(r[:L]) for arm, r in routes.items()}
+        bf16["top_k_route_agreement"] = {
+            "kernels_vs_torch": route_agreement(ids["kernels"], ids["torch"]),
+            "kernels_vs_fp32": route_agreement(ids["kernels"], ids["fp32"]),
+            "torch_vs_fp32": route_agreement(ids["torch"], ids["fp32"]),
+        }
+        del ids
+    del g_k, g_p, g_r, routes
     if not (np.isfinite([loss_k, loss_p, loss_r]).all()
             and bf16["worst_gap_ratio"] <= BF16_GAP_RATIO):
-        raise AssertionError(f"bf16 train step, kernels vs plain: {bf16}")
+        raise AssertionError(f"{label} bf16 train step, kernels vs plain: "
+                             f"{bf16}")
 
-    c32 = dataclasses.replace(LLAMA3_8B, n_layers=2, dtype=torch.float32,
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32,
                               param_dtype=torch.float32)
     params = init_params(c32, torch.Generator(device="cuda").manual_seed(0),
                          trainable=True)
@@ -1606,8 +1729,9 @@ def train_phase(T, kernels, LLAMA3_8B, init_params, train_flops_per_token,
     }
     if not (fp32["loss_rel_diff"] <= FP32_REL
             and fp32["worst_leaf_cosine"] >= TRAIN_FP32_COSINE):
-        raise AssertionError(f"fp32 train step, kernels vs plain: {fp32}")
-    out["step_check"] = {"bf16_4_layers": bf16, "fp32_2_layers": fp32}
+        raise AssertionError(f"{label} fp32 train step, kernels vs plain: "
+                             f"{fp32}")
+    out["step_check"] = {f"bf16_{L}_layers": bf16, "fp32_2_layers": fp32}
     return out
 
 
@@ -2297,6 +2421,7 @@ def main() -> int:
     from tpu_dra_torch.workloads import sampling as S
     from tpu_dra_torch.workloads import specdraft as SD
     from tpu_dra_torch.workloads import train as T
+    from tpu_dra_torch.workloads.models import mixtral as M
     from tpu_dra_torch.workloads.models.llama import (
         LLAMA3_8B,
         TINY_LLAMA,
@@ -3233,9 +3358,17 @@ def main() -> int:
              (tokens["bf16"] == tokens["w8kv8"]).float().mean()))
 
     # --- 9. training at Llama-3-8B widths, 4 layers ------------------------
-    train = train_phase(T, kernels, LLAMA3_8B, init_params,
-                        train_flops_per_token, rates)
+    train = train_phase(T, kernels, dataclasses.replace(LLAMA3_8B, n_layers=4),
+                        init_params, train_flops_per_token, rates,
+                        "LLAMA3_8B widths cut to 4 layers")
     emit("train", **train)
+
+    # --- 9b. Mixtral training at Mixtral-8x7B widths, 2 layers ---------------
+    mixtral = train_phase(T, kernels,
+                          dataclasses.replace(M.MIXTRAL_8X7B, n_layers=2),
+                          M.init_params, mixtral_active_flops_per_token,
+                          rates, "MIXTRAL_8X7B widths cut to 2 layers")
+    emit("train_mixtral", **mixtral)
 
     # --- kernel list and result ----------------------------------------------
     rows = []
@@ -3271,7 +3404,8 @@ def main() -> int:
         (name, f"tpu_dra_torch/csrc/{source}",
          f"tpu_dra/workloads/ops/attention.py:{line}",
          {"vs_plain": parity["flash_s2048_causal_bf16"][f"{out}_vs_plain"]},
-         timing[name], train["launches"][counter])
+         timing[name],
+         train["launches"][counter] + mixtral["launches"][counter])
         for name, source, counter, line, out in (
             ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
             ("flash_bwd_dq", "flash_bwd_dq_sm90.cu", "flash_bwd_dq_sm90",

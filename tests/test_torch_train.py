@@ -25,7 +25,6 @@ import torch  # noqa: E402
 
 from tpu_dra.workloads import train as JT  # noqa: E402
 from tpu_dra.workloads.models import llama as JL  # noqa: E402
-from tpu_dra.workloads.models import mixtral as JM  # noqa: E402
 from tpu_dra.workloads.ops import attention as JA  # noqa: E402
 from tpu_dra.workloads.parallel.mesh import MeshConfig as JMesh  # noqa: E402
 from tpu_dra_torch.workloads import train as TT  # noqa: E402
@@ -37,6 +36,7 @@ from tpu_dra_torch.workloads.convert import (  # noqa: E402
 )
 from tpu_dra_torch.workloads.models import build_model  # noqa: E402
 from tpu_dra_torch.workloads.models import llama as TL  # noqa: E402
+from tpu_dra_torch.workloads.models import mixtral as TM  # noqa: E402
 from tpu_dra_torch.workloads.ops import attention as TA  # noqa: E402
 
 TWIN = dict(dim=256, ffn_dim=512, attention_block_q=32, attention_block_k=32)
@@ -308,8 +308,9 @@ def test_unported_paths_raise_and_name_the_roadmap():
     with pytest.raises(NotImplementedError,
                        match=r"item 11 \(parallel training\)"):
         TT.Trainer(TCFG, TT.MeshConfig(fsdp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 10 \(Mixtral\)"):
-        build_model(JM.TINY_MIXTRAL)
+    with pytest.raises(NotImplementedError,
+                       match=r"item 11 \(parallel training\)"):
+        TT.Trainer(TM.TINY_MIXTRAL, TT.MeshConfig(ep=2), device="cpu")
     with pytest.raises(NotImplementedError,
                        match=r"item 9 \(bootstrap and collective smokes\)"):
         TT.main(["--distributed", "--device", "cpu"])

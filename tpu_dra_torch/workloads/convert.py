@@ -1,12 +1,13 @@
 """JAX parameter tree -> the port's unrolled torch tree.
 
-``params_from_numpy`` takes the flax tree as nested dicts of numpy
-arrays (``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side)
-in either layout — scan-stacked ``layers/block/...`` leaves with a
-leading ``L`` axis, or unrolled ``layer_{i}`` subtrees — and returns
-the unrolled tree (this is the port's copy of
+``params_from_numpy`` takes the flax tree of a Llama or a Mixtral as
+nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
+params)`` on the JAX side) in either layout — scan-stacked
+``layers/block/...`` leaves with a leading ``L`` axis (Mixtral's
+experts ``[L, E, d, f]``), or unrolled ``layer_{i}`` subtrees — and
+returns the unrolled tree (this is the port's copy of
 ``generate.unroll_params``), cast to ``config.param_dtype`` on
-``device``.
+``device``, in the family's parameter module.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` refuses; they go through float32, which holds
@@ -37,6 +38,7 @@ import torch
 
 from tpu_dra_torch.workloads.device import resolve_device
 from tpu_dra_torch.workloads.models.llama import LlamaConfig, LlamaParams
+from tpu_dra_torch.workloads.models.mixtral import MixtralConfig, MixtralParams
 from tpu_dra_torch.workloads.train import AdamState
 
 
@@ -82,15 +84,18 @@ def _convert(node, dtype: torch.dtype, device):
 
 
 def params_from_numpy(
-    tree: dict, config: LlamaConfig, device=None, trainable: bool = False
+    tree: dict, config: "LlamaConfig | MixtralConfig", device=None,
+    trainable: bool = False,
 ) -> LlamaParams:
-    """Nested dicts of numpy arrays (either JAX layout) -> LlamaParams
-    holding the unrolled tree in ``config.param_dtype`` on ``device``
-    (default: the CUDA device, see :func:`.device.resolve_device`);
-    int8 weight-only leaves keep int8 and f32. ``trainable`` makes the
-    floating leaves carry gradients."""
+    """Nested dicts of numpy arrays (either JAX layout) -> the family's
+    parameter module (LlamaParams, MixtralParams) holding the unrolled
+    tree in ``config.param_dtype`` on ``device`` (default: the CUDA
+    device, see :func:`.device.resolve_device`); int8 weight-only leaves
+    keep int8 and f32. ``trainable`` makes the floating leaves carry
+    gradients."""
     device = resolve_device(device)
-    return LlamaParams(
+    module = MixtralParams if isinstance(config, MixtralConfig) else LlamaParams
+    return module(
         config, _convert(unroll_tree(tree), config.param_dtype, device),
         trainable,
     )
@@ -132,7 +137,7 @@ def _find_adam(state):
 
 
 def opt_state_from_numpy(
-    state, config: LlamaConfig, device=None
+    state, config: "LlamaConfig | MixtralConfig", device=None
 ) -> AdamState:
     """optax's state for ``make_optimizer`` — ``(EmptyState(),
     (ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState()))``

@@ -124,20 +124,29 @@ def apply_rope(
 
 def _to_module(tree: dict, trainable: bool) -> nn.Module:
     """Nested dict -> nested ModuleDict; dicts of tensors become
-    ParameterDicts, carrying gradients only when ``trainable`` (and only
+    ParameterDicts, and a dict that mixes both (Mixtral's ``moe``) a
+    ModuleDict that holds its tensor leaves as its own Parameters. The
+    Parameters carry gradients only when ``trainable`` (and only
     floating leaves can)."""
+
+    def param(v):
+        return nn.Parameter(v, requires_grad=trainable and v.is_floating_point())
+
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({
-            k: nn.Parameter(v, requires_grad=trainable and v.is_floating_point())
-            for k, v in tree.items()
-        })
-    return nn.ModuleDict({k: _to_module(v, trainable) for k, v in tree.items()})
+        return nn.ParameterDict({k: param(v) for k, v in tree.items()})
+    node = nn.ModuleDict({k: _to_module(v, trainable) for k, v in tree.items()
+                          if not isinstance(v, torch.Tensor)})
+    for k, v in tree.items():
+        if isinstance(v, torch.Tensor):
+            node.register_parameter(k, param(v))
+    return node
 
 
 def _to_tree(module: nn.Module, detach: bool) -> dict:
-    if isinstance(module, nn.ParameterDict):
-        return {k: v.data if detach else v for k, v in module.items()}
-    return {k: _to_tree(v, detach) for k, v in module.items()}
+    tree = {k: v.data if detach else v
+            for k, v in module.named_parameters(recurse=False)}
+    tree.update((k, _to_tree(v, detach)) for k, v in module.named_children())
+    return tree
 
 
 class LlamaParams(nn.Module):

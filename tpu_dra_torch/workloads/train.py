@@ -1,11 +1,12 @@
-"""Single-device training for the Llama family.
+"""Single-device training for the Llama and Mixtral families.
 
 Counterpart of ``tpu_dra/workloads/train.py`` on one device: bf16
 parameters, the port's own AdamW with fp32 first moments, the
-materialised-logits or fused cross-entropy loss, and a ``Trainer`` with
-``init_state`` / ``make_train_step`` / ``make_forward``. A mesh with any
-axis above 1 (FSDP, TP, SP, ring or Ulysses attention) is ROADMAP Queue
-A item 11 (parallel training); ``--distributed`` bootstrap is item 9
+materialised-logits or fused cross-entropy loss (plus Mixtral's
+load-balance loss), and a ``Trainer`` with ``init_state`` /
+``make_train_step`` / ``make_forward``. A mesh with any axis above 1
+(FSDP, TP, SP, EP, ring or Ulysses attention) is ROADMAP Queue A item
+11 (parallel training); ``--distributed`` bootstrap is item 9
 (bootstrap and collective smokes).
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
@@ -38,7 +39,7 @@ import torch
 from torch.profiler import record_function
 
 from tpu_dra_torch.workloads.device import resolve_device
-from tpu_dra_torch.workloads.models import build_model
+from tpu_dra_torch.workloads.models import build_model, mixtral
 from tpu_dra_torch.workloads.models.llama import (
     LlamaParams,
     init_params,
@@ -98,10 +99,11 @@ def _flax_order(names) -> list:
 
 
 class AdamW:
-    """The optax chain of :func:`make_optimizer` over a LlamaParams tree
-    and a dict of its gradients by parameter name. ``update`` writes the
-    new parameters in place (no second copy of the weights) and returns
-    the new state; the old state's tensors are updated in place too."""
+    """The optax chain of :func:`make_optimizer` over a parameter module
+    (LlamaParams, or its MixtralParams subclass) and a dict of its
+    gradients by parameter name. ``update`` writes the new parameters in
+    place (no second copy of the weights) and returns the new state; the
+    old state's tensors are updated in place too."""
 
     EPS = 1e-8  # optax adamw's default, outside the square root
 
@@ -169,22 +171,26 @@ def make_optimizer(config: TrainConfig) -> AdamW:
 
 
 def loss_fn(model, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy over [b, s] int tokens: the fp32 logits
-    path, or with ``config.fused_ce`` the chunked head (ops/loss.py).
-    The MoE branch (aux loss) waits for Mixtral, ROADMAP Queue A item
-    10 (Mixtral)."""
-    c = model.config
-    if c.fused_ce:
+    """Next-token cross entropy over [b, s] int tokens, in JAX's order of
+    branches: a model with ``apply_with_aux`` (Mixtral) adds its summed
+    load-balance loss to the fp32 logits' loss; otherwise
+    ``config.fused_ce`` takes the chunked head (ops/loss.py), else the
+    fp32 logits path."""
+    aux = 0.0
+    if hasattr(model, "apply_with_aux"):
+        logits, aux = model.apply_with_aux(params, tokens)
+    elif model.config.fused_ce:
         hidden = model(tokens, return_hidden=True, params=params)
         return fused_next_token_xent(
             hidden, param_tree(params)["lm_head"]["kernel"], tokens,
-            chunk=c.ce_chunk,
+            chunk=model.config.ce_chunk,
         )
-    logits = model(tokens, params=params)  # [b, s, v] fp32
+    else:
+        logits = model(tokens, params=params)  # [b, s, v] fp32
     targets = tokens[:, 1:].to(device=logits.device, dtype=torch.long)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-    return -ll.mean()
+    return -ll.mean() + aux
 
 
 class Trainer:
@@ -218,7 +224,10 @@ class Trainer:
         are JAX's tracing shapes; torch needs none."""
         del batch, seq
         rng = rng or torch.Generator(device=self.device).manual_seed(0)
-        params = init_params(self.model_config, rng, trainable=True)
+        init = (mixtral.init_params
+                if isinstance(self.model_config, mixtral.MixtralConfig)
+                else init_params)
+        params = init(self.model_config, rng, trainable=True)
         params.to(self.device)
         return {"params": params, "opt_state": self.optimizer.init(params),
                 "step": 0}
@@ -266,6 +275,8 @@ class Trainer:
 MODEL_PRESETS = {
     "llama3-8b": "LLAMA3_8B",
     "tiny": "TINY_LLAMA",
+    "mixtral-8x7b": "MIXTRAL_8X7B",
+    "tiny-moe": "TINY_MIXTRAL",
 }
 
 
