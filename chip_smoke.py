@@ -63,8 +63,9 @@ exits non-zero without a result:
    kernel matches its plain version within 1e-5 of the output's largest
    magnitude (the flash lse too); the flash gradients within 1e-4, as
    they sum up to n_rep * s rows in another order.
-4. timing  — CUDA events around single launches after warm-up, L2
-   flushed before each, median of 60, the host's enqueue time kept out
+4. timing  — CUDA events around single launches after warm-up, the L2
+   cleared before each by reading a 64 MB buffer (L2_EVICT), median of
+   60, the host's enqueue time kept out
    of the interval (time_ms): kernel, plain version, and the least time
    the card could take (bytes over the memory rate vs operations over
    the bf16 peak, whichever is larger). Each kernel also has
@@ -207,6 +208,24 @@ exits non-zero without a result:
    step; the w8kv8 prefill's
    225 (M = 2048, the lm_head over every position) all on the wgmma
    tile, the decode steps' all on the tensor-core GEMV.
+8b. bench_serve — the port's serve and decode benches through their
+   entry points. enginebench.run_serve_bench on the tiny fp32 model on
+   the card (TINY_SERVE_ENV, a saturating rate), with every identity
+   assert inside the helpers: the prefix fleet's shared against private
+   tokens, spec against non-spec on the lookup trace. Then, at
+   Llama-3-8B widths (32 layers, bf16, random weights from a seeded CUDA
+   generator): decodebench.measure_step_breakdown at batch 8, context
+   512, 10 reps, every part's host and device ms, the step's launches
+   and busy share; and run_serve_bench SERVE_RUNS times over SERVE_ENV,
+   the launch counts set to 0 before each run: every arm's requests
+   complete with their token counts and its allocator ends whole
+   (ArmWatch), each arm moves the launch counters ARM_LAUNCHES names
+   and no flash counter, batched prefill's TTFT p50 is under serial's,
+   and the shared against private and spec against non-spec token
+   agreement (not asserted: in bf16 a row's product depends on the
+   shape it rides in) is reported; each run's result and arms print as
+   a "bench_serve_run" line, then each end-to-end key's median and
+   spread (min, max) over the runs, and decode tok/s's.
 9. train   — the Trainer at Llama-3-8B widths cut to 4 layers, bf16,
    remat "nothing", TrainConfig() defaults, b=2, s=2048, 5 steps on one
    seeded batch: the loss is finite and falls, and every step launches
@@ -251,6 +270,12 @@ import types
 
 import numpy as np
 import torch
+
+from tpu_dra_torch.workloads.enginebench import (
+    MetricsRecorder,
+    first_difference,
+    token_agreement,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -360,22 +385,46 @@ def short_name(fn: str) -> str:
     return fn.split("(")[0]
 
 
-def time_ms(fn, flush: torch.Tensor, shield: bool = True) -> float:
+def evict_by_writing(flush: torch.Tensor) -> None:
+    """Evict the inputs from the 50 MB L2 by writing a 64 MB buffer: the
+    L2 is left full of dirty lines, which a timed read then writes back
+    as it evicts them."""
+    flush.zero_()
+
+
+def evict_by_reading(flush: torch.Tensor) -> None:
+    """Evict the inputs from the 50 MB L2 by reading a 64 MB buffer: any
+    dirty line is written back during the read, and the L2 is left
+    holding clean lines only."""
+    flush.view(torch.int64).sum()
+
+
+# How time_ms clears the L2 before each timed call. Reading: on an H100
+# 80GB HBM3 at 700 W, writing made the paged decode, decode MLP and
+# decode GEMV rows 8.0 %, 6.7 % and 25.0 % slower, each beyond its
+# spread (l2_flush_ablation.py).
+L2_EVICT = evict_by_reading
+
+
+def time_ms(fn, flush: torch.Tensor, shield: bool = True,
+            evict=None) -> float:
     """Median device time of one call of ``fn`` between CUDA events,
-    the L2 flushed before each. With ``shield`` the stream first sleeps
-    for HOST_SHIELD_CYCLES, so the host enqueues the call's launches
+    the L2 cleared before each by ``evict`` (default L2_EVICT) over the
+    buffer ``flush``. With ``shield`` the stream first sleeps for
+    HOST_SHIELD_CYCLES, so the host enqueues the call's launches
     (wrapper checks, allocations, ctypes) while the device is still
     busy and the interval holds device work only; without it the
     wrapper's host time falls inside the interval whenever it exceeds
     the kernel's. A call that syncs with the host
     inside (the plain paged walk reads its longest length) is host
     bound either way."""
+    evict = evict or L2_EVICT
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     samples = []
     for _ in range(TIMING_ITERS):
-        flush.zero_()  # evict the inputs from the 50 MB L2
+        evict(flush)
         if shield:
             torch.cuda._sleep(HOST_SHIELD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -956,7 +1005,7 @@ def body_profile(call, flush, reps: int = 20) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            flush.zero_()
+            L2_EVICT(flush)
             call()
         torch.cuda.synchronize()
     out = {}
@@ -1209,7 +1258,7 @@ def mlp_pass_profile(call, flush, reps: int = 20) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            flush.zero_()
+            L2_EVICT(flush)
             call()
         torch.cuda.synchronize()
     out = {}
@@ -1895,18 +1944,6 @@ def sampling_phase(S, SP, G, kernels, rates) -> dict:
     return out
 
 
-def first_difference(a: dict, b: dict):
-    """(rid, position) of the first token where two runs differ, or
-    None."""
-    for rid in sorted(a):
-        ta, tb = a[rid].tokens, b[rid].tokens
-        n = min(len(ta), len(tb))
-        diff = np.flatnonzero(ta[:n] != tb[:n])
-        if diff.size or len(ta) != len(tb):
-            return rid, int(diff[0]) if diff.size else n
-    return None
-
-
 def top2_gap(G, cfg, params, prompt, tokens) -> float:
     """The gap between the two largest logits after ``prompt`` plus
     ``tokens`` (one contiguous forward on the card)."""
@@ -1961,10 +1998,6 @@ class ReplayDraft:
         return np.zeros(0, np.int32)
 
 
-def token_agreement(a: dict, b: dict) -> float:
-    return float(np.mean([np.mean(a[r].tokens == b[r].tokens) for r in a]))
-
-
 def pair_report(G, cfg, params, trace, got, want) -> dict:
     """Token agreement of two runs of ``trace``, and where they first
     differ with the top-2 logit gap of ``want``'s context there."""
@@ -1977,24 +2010,6 @@ def pair_report(G, cfg, params, trace, got, want) -> dict:
         out["top2_gap"] = top2_gap(G, cfg, params, prompt,
                                    want[rid].tokens[:pos])
     return out
-
-
-class MetricsRecorder:
-    """The engine's ``metrics`` duck type (inc, set_gauge, observe):
-    counters summed, each gauge's largest value, every observation
-    kept."""
-
-    def __init__(self):
-        self.counters, self.gauge_max, self.observed = {}, {}, {}
-
-    def inc(self, name: str, value: float = 1.0) -> None:
-        self.counters[name] = self.counters.get(name, 0.0) + value
-
-    def set_gauge(self, name: str, value: float) -> None:
-        self.gauge_max[name] = max(self.gauge_max.get(name, value), value)
-
-    def observe(self, name: str, value: float) -> None:
-        self.observed.setdefault(name, []).append(value)
 
 
 def prefix_trace(vocab: int, n: int, prefix: int, suffix: tuple, new: int,
@@ -2406,6 +2421,176 @@ def aliased_table_parity(A, P, Q, gen, int8: bool) -> dict:
     return out
 
 
+# The bench_serve phase: run_serve_bench at Llama-3-8B widths, SERVE_RUNS
+# times, over SERVE_ENV (the JAX defaults otherwise: rate 1000 rps,
+# prompts 16/64/128/256, outputs 8/32/96/192, page 16, chunk 8, T 0.8,
+# top-k 40, spec_k 6, a prefix fleet of 8). 8 requests, not 16, to keep
+# three runs near the phase's ~200 s: one 16-request run took 72 s on an
+# H100 80GB HBM3 at 700 W. The spec arm and its lookup baseline run a
+# cut lookup trace: a verify pass is plain PyTorch, ~25K launches at the
+# full trace's contexts.
+SERVE_RUNS = 3
+SERVE_ENV = {
+    "BENCH_SERVE_REQUESTS": "8", "BENCH_SERVE_BATCH": "8",
+    "BENCH_SPEC_REQUESTS": "4", "BENCH_SPEC_PROMPTS": "16,64",
+    "BENCH_SPEC_OUTPUTS": "8,32",
+}
+# run_serve_bench's end-to-end keys, printed as median and spread.
+SERVE_KEYS = (
+    "serve_tok_s", "serve_sampled_tok_s", "serve_w8_tok_s", "serve_p50_ms",
+    "serve_p99_ms", "serve_ttft_p50_ms", "serve_baseline_tok_s",
+    "serve_spec_tok_s",
+)
+# The same entry point on the tiny fp32 model, where every token-identity
+# assert inside the helpers holds: bench.py's drill sizes at a
+# saturating rate (a deterministic schedule).
+TINY_SERVE_ENV = {
+    "BENCH_SERVE_REQUESTS": "8", "BENCH_SERVE_BATCH": "4",
+    "BENCH_SERVE_RATE_RPS": "1e9", "BENCH_SERVE_PROMPTS": "6,10,16,24",
+    "BENCH_SERVE_OUTPUTS": "4,8,12,20",
+}
+# Per arm of run_serve_bench at 8B bf16: the launch counters it must
+# move, and those it must leave at 0 (every flash counter too).
+ARM_LAUNCHES = {
+    "baseline": (("decode_attention", "decode_mlp_sm90"),
+                 ("paged_decode_attention", "int8mm")),
+    "engine": (("paged_decode_attention", "decode_mlp_sm90"),
+               ("int8mm", "decode_attention", "sample_pick")),
+    "w8": (("paged_decode_attention", "int8mm_gemv_sm90", "int8mm_sm90"),
+           ("decode_mlp", "int8mm_gemv")),
+    "sampled": (("paged_decode_attention", "decode_mlp_sm90", "sample_pick"),
+                ("int8mm",)),
+    "lookup": (("paged_decode_attention", "decode_mlp_sm90"), ("int8mm",)),
+    "spec": ((), ("int8mm",)),
+    "prefix_fleet": (("paged_decode_attention", "decode_mlp_sm90"),
+                     ("int8mm",)),
+    "prefill_batched": (("paged_decode_attention", "decode_mlp_sm90"),
+                        ("int8mm",)),
+    "prefill_serial": (("paged_decode_attention", "decode_mlp_sm90"),
+                       ("int8mm",)),
+}
+
+
+class ArmWatch:
+    """run_serve_bench's ``on_arm``: for each arm, the launch counters it
+    moved (the change since the previous arm), the host seconds since
+    the previous arm, and, for an engine run, its decode tok/s; raises
+    unless every request completed with its token count, the allocator
+    ended whole and, with ``expect`` (ARM_LAUNCHES), the arm moved the
+    counters it should and no other."""
+
+    def __init__(self, kernels, expect=None):
+        self.kernels, self.expect = kernels, expect
+        self.prev = dict(kernels.LAUNCHES)
+        self.t = time.perf_counter()
+        self.arms = {}
+
+    def __call__(self, name, trace, run):
+        now, t = dict(self.kernels.LAUNCHES), time.perf_counter()
+        delta = {k: now[k] - self.prev[k] for k in now}
+        rec = {"seconds": t - self.t,
+               "launches": {k: v for k, v in delta.items() if v}}
+        self.prev, self.t = now, t
+        if "engine" in run:
+            eng, done = run["engine"], run["completions"]
+            bad = [r.rid for r in trace
+                   if len(done[r.rid].tokens) != r.max_new_tokens]
+            alloc = eng.allocator
+            if bad or alloc.free_pages != alloc.num_pages - 1 or (
+                    alloc.reserved_pages):
+                raise AssertionError(
+                    f"bench_serve {name}: token counts off on {bad}, or "
+                    f"the allocator leaked ({alloc.free_pages} free of "
+                    f"{alloc.num_pages - 1})")
+            rec.update(wall_seconds=run["wall_seconds"],
+                       decode_seconds=run["decode_seconds"],
+                       decode_tok_s=sum(len(c.tokens) - 1
+                                        for c in done.values())
+                       / max(run["decode_seconds"], 1e-9),
+                       verify_passes=eng.verify_passes)
+        if self.expect is not None:
+            moved, idle = self.expect[name]
+            idle += tuple(k for k in delta if k.startswith("flash"))
+            off = {k: delta[k] for k in moved if delta[k] <= 0}
+            off.update({k: delta[k] for k in idle if delta[k]})
+            if off:
+                raise AssertionError(f"bench_serve {name}: launches {off} "
+                                     f"(must move {moved}, leave {idle})")
+        self.arms[name] = rec
+
+
+def spread(values: list) -> dict:
+    return {"median": statistics.median(values), "min": min(values),
+            "max": max(values), "runs": values}
+
+
+def bench_serve_phase(kernels, EB, DB, cfg, init_params, tiny,
+                      tparams) -> tuple:
+    """The serve and decode benches of the port (enginebench,
+    decodebench) through their entry points: run_serve_bench on the tiny
+    fp32 model with every identity assert; the decode-step breakdown at
+    Llama-3-8B widths (batch 8, context 512, bf16) with host and device
+    ms by part; run_serve_bench at those widths SERVE_RUNS times, each
+    run with the launch counts set to 0 before it. Returns (report,
+    the serve runs' launches summed)."""
+    t0 = time.perf_counter()
+    report = {}
+    tiny_watch = ArmWatch(kernels)
+    res = EB.run_serve_bench(tiny, tparams, TINY_SERVE_ENV, device="cuda",
+                             exact=True, on_arm=tiny_watch)
+    report["tiny_fp32"] = {
+        "env": TINY_SERVE_ENV, "identity_asserts": "held",
+        "spec_proposed": res["spec_proposed"],
+        "spec_accepted": res["spec_accepted"],
+        "prefix_pages_saved": res["prefix_pages_saved"],
+        "seconds": time.perf_counter() - t0,
+    }
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    kernels.reset_launches()
+    bd = DB.measure_step_breakdown(cfg, params, batch=8, ctx_len=512,
+                                   reps=10)
+    bd["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    parts = [k for k in bd if k.endswith("_device_ms")]
+    if len(parts) != 9 or min(bd[k] for k in parts) <= 0 or not (
+            0 < bd["busy_share"] <= 1):
+        raise AssertionError(f"bench_serve breakdown: {bd}")
+    report["breakdown"] = bd
+    runs, launches = [], collections.Counter()
+    for i in range(SERVE_RUNS):
+        kernels.reset_launches()
+        watch = ArmWatch(kernels, ARM_LAUNCHES)
+        t_run = time.perf_counter()
+        res = EB.run_serve_bench(cfg, params, SERVE_ENV, device="cuda",
+                                 exact=False, on_arm=watch)
+        totals = dict(kernels.LAUNCHES)
+        launches.update(totals)
+        if not (res["prefill_batched_ttft_p50_ms"]
+                < res["prefill_serial_ttft_p50_ms"]):
+            raise AssertionError(
+                f"bench_serve run {i}: batched prefill TTFT p50 "
+                f"{res['prefill_batched_ttft_p50_ms']} ms not under serial "
+                f"{res['prefill_serial_ttft_p50_ms']} ms")
+        runs.append({"result": res, "arms": watch.arms})
+        emit("bench_serve_run", run=i, seconds=time.perf_counter() - t_run,
+             result=res, arms=watch.arms,
+             launches={k: v for k, v in totals.items() if v})
+    del params
+    torch.cuda.empty_cache()
+    summary = {key: spread([r["result"][key] for r in runs])
+               for key in SERVE_KEYS}
+    summary["decode_tok_s"] = spread(
+        [r["arms"]["engine"]["decode_tok_s"] for r in runs])
+    report.update(
+        model="LLAMA3_8B widths, 32 layers, bf16, random weights",
+        env=SERVE_ENV, runs=SERVE_RUNS, summary=summary,
+        token_agreement={pair: [
+            (r["result"][f"{pair}_token_agreement"],
+             r["result"][f"{pair}_first_difference"]) for r in runs]
+            for pair in ("spec", "prefix")},
+        seconds=time.perf_counter() - t0)
+    return report, dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -2414,7 +2599,9 @@ def main() -> int:
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     from tpu_dra_torch import kernels
+    from tpu_dra_torch.workloads import decodebench as DB
     from tpu_dra_torch.workloads import engine as E
+    from tpu_dra_torch.workloads import enginebench as EB
     from tpu_dra_torch.workloads import generate as G
     from tpu_dra_torch.workloads import paged_kv as P
     from tpu_dra_torch.workloads import quantize as Q
@@ -3357,6 +3544,11 @@ def main() -> int:
          w8kv8_vs_bf16_token_agreement=float(
              (tokens["bf16"] == tokens["w8kv8"]).float().mean()))
 
+    # --- 8b. the serve and decode benches -----------------------------------
+    bench, bench_launches = bench_serve_phase(kernels, EB, DB, cfg,
+                                              init_params, tiny, tparams)
+    emit("bench_serve", nvidia_smi=smi, **bench)
+
     # --- 9. training at Llama-3-8B widths, 4 layers ------------------------
     train = train_phase(T, kernels, dataclasses.replace(LLAMA3_8B, n_layers=4),
                         init_params, train_flops_per_token, rates,
@@ -3376,36 +3568,42 @@ def main() -> int:
         ("paged_decode_attention", "tpu_dra_torch/csrc/paged_decode.cu",
          "tpu_dra/workloads/ops/attention.py:1128",
          parity["paged_decode_attention"], timing["paged_decode_attention"],
-         engine_launches["paged_decode_attention"]),
+         engine_launches["paged_decode_attention"]
+         + bench_launches.get("paged_decode_attention", 0)),
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
-         timing["decode_mlp"], engine_launches["decode_mlp_sm90"]),
+         timing["decode_mlp"], engine_launches["decode_mlp_sm90"]
+         + bench_launches.get("decode_mlp_sm90", 0)),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
         # for M <= 16 (decode) and the wgmma tile for M > 16 (prefill).
         ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m8_k4096_n14336"], timing["int8mm"],
-         w8_launches["int8mm_gemv_sm90"]),
+         w8_launches["int8mm_gemv_sm90"]
+         + bench_launches.get("int8mm_gemv_sm90", 0)),
         ("int8mm_sm90", "tpu_dra_torch/csrc/int8mm_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m1024_k4096_n14336"], timing["int8mm_prefill"],
-         w8_launches["int8mm_sm90"]),
+         w8_launches["int8mm_sm90"] + bench_launches.get("int8mm_sm90", 0)),
         ("decode_attention", "tpu_dra_torch/csrc/decode.cu",
          "tpu_dra/workloads/ops/attention.py:803",
          parity["decode_attention"]["length_1000"],
          timing["decode_attention"],
-         sum(v["decode_attention"] for v in gen_launches.values())),
+         sum(v["decode_attention"] for v in gen_launches.values())
+         + bench_launches.get("decode_attention", 0)),
         ("paged_decode_attention_int8", "tpu_dra_torch/csrc/paged_decode.cu",
          "tpu_dra/workloads/ops/attention.py:1128",
          parity["paged_decode_attention_int8"],
          timing["paged_decode_attention_int8"],
-         w8_launches["paged_decode_attention_int8"]),
+         w8_launches["paged_decode_attention_int8"]
+         + bench_launches.get("paged_decode_attention_int8", 0)),
     ) + tuple(
         (name, f"tpu_dra_torch/csrc/{source}",
          f"tpu_dra/workloads/ops/attention.py:{line}",
          {"vs_plain": parity["flash_s2048_causal_bf16"][f"{out}_vs_plain"]},
          timing[name],
-         train["launches"][counter] + mixtral["launches"][counter])
+         train["launches"][counter] + mixtral["launches"][counter]
+         + bench_launches.get(counter, 0))
         for name, source, counter, line, out in (
             ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
             ("flash_bwd_dq", "flash_bwd_dq_sm90.cu", "flash_bwd_dq_sm90",
@@ -3441,7 +3639,8 @@ def main() -> int:
         "name": "sample_pick", "route": "cuda",
         "source": "tpu_dra_torch/csrc/sample.cu",
         "replaces": "tpu_dra/workloads/generate.py:559",
-        "launches": sampled_launches["sample_pick"],
+        "launches": sampled_launches["sample_pick"]
+        + bench_launches.get("sample_pick", 0),
         "max_abs_err": max(c["max_abs_err"] for c in pick_cases.values()),
         "ms": pick["ms"], "plain_ms": pick["plain_ms"],
         "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],

@@ -1,9 +1,9 @@
 """The port stands alone: no module under tpu_dra_torch/, and not
 chip_smoke.py or the ablation scripts that run beside it on the card
-(int8mm_ablation.py, decode_mlp_ablation.py), imports jax, flax or
-anything of the JAX package (tpu_dra). The card's machine has no JAX,
-and the JAX package is the reference the port is held to, never a
-dependency of it."""
+(int8mm_ablation.py, decode_mlp_ablation.py, l2_flush_ablation.py),
+imports jax, flax or anything of the JAX package (tpu_dra). The card's
+machine has no JAX, and the JAX package is the reference the port is
+held to, never a dependency of it."""
 
 import ast
 from pathlib import Path
@@ -17,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_dra")
 def _port_files():
     files = sorted((REPO / "tpu_dra_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "int8mm_ablation.py",
-              REPO / "decode_mlp_ablation.py"]
+              REPO / "decode_mlp_ablation.py", REPO / "l2_flush_ablation.py"]
     return files
 
 

@@ -1252,3 +1252,39 @@ def test_sample_pick_refuses_on_the_card_without_falling_back(cuda_device):
         TSP.sample_pick(x.to(torch.bfloat16), 1.0, 8, key=key)
     with pytest.raises(ValueError, match="int64"):
         TSP.sample_pick(x, 1.0, 8, key=key.int())
+
+
+# --- the benches (tpu_dra_torch/workloads/decodebench.py, enginebench.py) --
+
+
+def test_step_breakdown_reads_device_time_on_the_card(cuda_device):
+    from tpu_dra_torch.workloads import decodebench as TD
+    from tpu_dra_torch.workloads import enginebench as TB
+
+    cfg, params = TB._smoke_config(cuda_device)
+    bd = TD.measure_step_breakdown(cfg, params, batch=2, ctx_len=24, reps=2,
+                                   device=cuda_device)
+    parts = sorted(k for k in bd if k.endswith("_device_ms"))
+    assert [k[: -len("_device_ms")] for k in parts] == sorted(
+        ["step", "sampled_step", "attention", "qkv", "attn_out", "mlp",
+         "embed_norm", "logits", "sampling"])
+    assert all(bd[k] > 0 for k in parts), bd
+    assert 0 < bd["busy_share"] <= 1 and bd["step_launches"] > 0
+
+
+def test_engine_trace_gives_the_cpu_greedy_tokens_on_the_card(cuda_device):
+    from tpu_dra_torch.workloads import engine as TE
+    from tpu_dra_torch.workloads import enginebench as TB
+
+    cfg, params = TB._smoke_config("cpu")
+    ec = TE.EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=10,
+                         scan_chunk=3, prefill_chunk=5)
+    runs = {
+        dev: TB.run_engine_trace(cfg, params, ec, TB._smoke_trace(cfg),
+                                 device=dev)["completions"]
+        for dev in (cuda_device, torch.device("cpu"))
+    }
+    assert TA._LAST_PAGED_IMPL == "torch"  # the CPU run went last
+    assert sorted(runs[cuda_device]) == sorted(runs[torch.device("cpu")])
+    assert TB.first_difference(runs[cuda_device],
+                               runs[torch.device("cpu")]) is None

@@ -15,3 +15,11 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' for the plain PyTorch path"
         )
     return device
+
+
+def synchronize(device) -> None:
+    """Wait until the work queued on ``device`` has run (a CPU tensor's
+    work has run when its call returns)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
