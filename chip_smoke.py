@@ -19,6 +19,26 @@ exits non-zero without a result:
    (int8mm_gemv_sm90.cu, both planes) and of the tensor-core decode MLP
    (decode_mlp_sm90.cu: gate/up and down, both planes) must spill 0
    bytes.
+2b. bootstrap — the slice bootstrap and collective smokes
+   (tpu_dra_torch/workloads/{bootstrap,smoke,icibandwidth,
+   rendezvous_smoke}.py), at most about 60 s: matmul_smoke (bf16
+   1024 x 1024) and decode_smoke on the card, the default one
+   (SMOKE_LLAMA, bf16, batch 2, 16 new tokens) launching
+   csrc/decode.cu and the tensor-core decode MLP once a layer a decode
+   step (its launches go to the kernels line), each kernel held against
+   its plain version on every input that run gave it (the bf16 bar
+   below), and at fp32 (decode.cu's fp32 build and decode_mlp.cu, each
+   launched once a layer a step; the plain arm launches none) its
+   tokens identical to the same call with the plain attention and MLP; a
+   world-1 NCCL process group built by bootstrap.rendezvous (the path
+   initialize_from_env takes), running pmap_psum_smoke and
+   measure_collectives (one rank: the hbm_copy probe, 64 MB, 10 reps,
+   printed beside the nvidia-smi line; one card shows no fabric);
+   rendezvous_smoke as 2 gloo ranks on the host from config dirs
+   rendered as the slice daemon renders them (psum 3, the same loss on
+   both); and python -m tpu_dra_torch.workloads.train --distributed
+   --model tiny --steps 2 with a 1-process env. Every subprocess has its
+   own timeout (SLICE_TIMEOUT_S) and is reaped.
 3. parity  — each kernel against its plain PyTorch version and the fp32
    reference, in bf16 at Llama-3-8B widths (h=32, kvh=8, hd=128,
    d=4096, ffn=14336, vocab 128256): paged decode with B=8, page 16,
@@ -258,6 +278,7 @@ from __future__ import annotations
 
 import ctypes
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2591,6 +2612,215 @@ def bench_serve_phase(kernels, EB, DB, cfg, init_params, tiny,
     return report, dict(launches)
 
 
+# --- 2b. the slice bootstrap and the collective smokes ----------------------
+
+SLICE_TIMEOUT_S = 90  # each launch of the bootstrap phase's subprocesses
+HBM_COPY_MB, HBM_COPY_REPS = 64.0, 10  # icibandwidth's CLI defaults
+
+
+def rank_launcher():
+    """tests/torch_ranks.py, the launcher the CPU tests start their
+    ranks with (loaded by path: it is no package of the port)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_ranks", os.path.join(REPO, "tests", "torch_ranks.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_workloads(R, argvs: list, envs: list) -> list:
+    """``python -m <argv>`` once per (argv, env), all together, through
+    torch_ranks.launch (SLICE_TIMEOUT_S for the launch, what outlives it
+    killed, every process reaped); raises if any failed. Returns
+    (stdout, stderr, seconds)."""
+    results = R.launch([["-m", *argv] for argv in argvs], envs,
+                       timeout=SLICE_TIMEOUT_S)
+    failed = [f"{' '.join(argv)}: rc {rc}\n{err[-3000:]}"
+              for argv, (rc, _, err, _) in zip(argvs, results) if rc != 0]
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return [(out, err, seconds) for _, out, err, seconds in results]
+
+
+def render_slice(root: str, n: int, port: int) -> list:
+    """One config dir a host of an n-host slice, written as the slice
+    daemon writes them (tpu_dra/computedomain/daemon/bootstrap.py
+    render_bootstrap_env and write_bootstrap_files): bootstrap.env with
+    daemon-0's DNS name as the coordinator, and peers.json, the only
+    place that maps that name (to 127.0.0.1 here)."""
+    names = [f"compute-domain-daemon-{i}" for i in range(n)]
+    peers = [{"index": i, "nodeName": f"node-{i}", "ipAddress": "127.0.0.1",
+              "dnsName": names[i], "status": "Ready"} for i in range(n)]
+    dirs = []
+    for i in range(n):
+        env = {
+            "TPU_WORKER_ID": str(i), "TPU_WORKER_HOSTNAMES": ",".join(names),
+            "TPU_ACCELERATOR_TYPE": "", "TPU_TOPOLOGY": "",
+            "JAX_COORDINATOR_ADDRESS": f"{names[0]}:{port}",
+            "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(i),
+        }
+        d = os.path.join(root, f"cd-{i}")
+        os.makedirs(d)
+        with open(os.path.join(d, "bootstrap.env"), "w") as f:
+            f.writelines(f"{k}={v}\n" for k, v in sorted(env.items()))
+        with open(os.path.join(d, "peers.json"), "w") as f:
+            json.dump(peers, f, indent=2)
+        dirs.append(d)
+    return dirs
+
+
+@contextlib.contextmanager
+def recorded(module, names: tuple):
+    """Stand in for ``module``'s functions ``names`` while the body
+    runs: each call is forwarded and a copy of its inputs kept, under
+    its name, so a kernel can then be held against its plain version on
+    exactly the inputs the path gave it."""
+    def copy(a):
+        return a.clone() if torch.is_tensor(a) else a
+
+    calls = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def stand_in(name):
+        def call(*args, **kw):
+            calls[name].append(([copy(a) for a in args],
+                                {k: copy(v) for k, v in kw.items()}))
+            return saved[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(module, name, stand_in(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(module, name, saved[name])
+
+
+def smoke_kernel_parity(A, DM, calls: dict) -> dict:
+    """Each decode kernel against its plain version on every input the
+    bf16 decode_smoke gave it (at the parity phase's bf16 bar); the MLP's
+    inputs must take the tensor-core route."""
+    out = {}
+    for name, fn in (("decode_attention", A.decode_attention),
+                     ("decode_mlp", DM.decode_mlp)):
+        worst = {"max_abs_err": 0.0, "worst_err_over_limit": 0.0}
+        for i, (args, kw) in enumerate(calls[name]):
+            if name == "decode_mlp":
+                route = DM._decode_mlp_route(args[0], mlp_weights(args[2]))
+                if route != "sm90":
+                    raise AssertionError(f"decode_smoke's MLP call {i}: "
+                                         f"route {route}, want sm90")
+            got = fn(*args, **{**kw, "impl": "cuda"})
+            plain = fn(*args, **{**kw, "impl": "torch"})
+            res = compare(f"decode_smoke {name} call {i} vs plain", got,
+                          plain)
+            for k in worst:
+                worst[k] = max(worst[k], res[k])
+        out[name] = {"calls": len(calls[name]), "shape": list(
+            calls[name][0][0][0].shape), "rtol": BF16_RTOL, **worst}
+    return out
+
+
+def bootstrap_phase(kernels, BS, SM, IB, G, A, DM, rates) -> tuple:
+    """matmul_smoke and decode_smoke on the card (decode_smoke's kernel
+    launches counted, and each kernel held against its plain version on
+    the inputs the smoke gave it), a world-1 NCCL group through
+    bootstrap.rendezvous (initialize_from_env's path) running
+    pmap_psum_smoke and measure_collectives, rendezvous_smoke as 2 gloo
+    CPU ranks from rendered config dirs, and train --distributed with a
+    1-process env. Returns (report, decode_smoke's launches)."""
+    import tempfile
+
+    R = rank_launcher()
+    t_phase = time.perf_counter()
+    out = {}
+    out["matmul"] = SM.matmul_smoke(device="cuda")
+    if not out["matmul"]["ok"]:
+        raise AssertionError(f"matmul_smoke: {out['matmul']}")
+    # The smoke's own model and dtype (SMOKE_LLAMA, bf16): the main path.
+    # The timed call carries the recorder's input copies.
+    kernels.reset_launches()
+    with recorded(G, ("decode_attention", "decode_mlp")) as calls:
+        decode = SM.decode_smoke(device="cuda")
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    steps = 2 * SM.SMOKE_LLAMA.n_layers * 15  # 2 calls x 15 decode steps
+    if not (decode["ok"] and launches.get("decode_attention") == steps
+            and launches.get("decode_mlp_sm90") == steps
+            and all(len(c) == steps for c in calls.values())):
+        raise AssertionError(f"decode_smoke: {decode}, launches {launches}")
+    out["decode"] = {**decode, "launches": launches,
+                     "vs_plain": smoke_kernel_parity(A, DM, calls),
+                     "seconds": time.perf_counter() - t_phase}
+    del calls
+    # fp32: the kernels (decode.cu's fp32 build, decode_mlp.cu) against
+    # the plain arm, the same call otherwise; tokens identical.
+    fp32 = dataclasses.replace(SM.SMOKE_LLAMA, dtype=torch.float32,
+                               param_dtype=torch.float32)
+    arms, arm_launches = {}, {}
+    for arm, cfg in (("kernels", fp32),
+                     ("plain", dataclasses.replace(
+                         fp32, decode_impl="torch", decode_mlp_impl="torch"))):
+        kernels.reset_launches()
+        report, arms[arm] = SM.decode_smoke(device="cuda", config=cfg,
+                                            return_tokens=True)
+        arm_launches[arm] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        out["decode"][f"fp32_{arm}_tok_s"] = report["decode_tok_s"]
+    out["decode"]["fp32_launches"] = arm_launches
+    if arm_launches != {"kernels": {"decode_attention": steps,
+                                    "decode_mlp": steps}, "plain": {}}:
+        raise AssertionError(f"decode_smoke fp32 launches: {arm_launches}")
+    out["decode"]["fp32_tokens_identical"] = bool(
+        torch.equal(arms["kernels"], arms["plain"]))
+    if not out["decode"]["fp32_tokens_identical"]:
+        raise AssertionError(f"decode_smoke fp32: kernels {arms['kernels']} "
+                             f"vs plain {arms['plain']}")
+    # A world-1 NCCL group. One card shows no fabric: NCCL puts no two
+    # ranks on one GPU, so measure_collectives takes its hbm_copy probe.
+    t0 = time.perf_counter()
+    backend = BS.rendezvous(f"127.0.0.1:{R.free_port()}", 0, 1,
+                            device="cuda", timeout_s=60)
+    try:
+        psum = SM.pmap_psum_smoke()
+        bw = IB.measure_collectives(HBM_COPY_MB, HBM_COPY_REPS)
+    finally:
+        BS.shutdown()
+    if backend != "nccl" or not psum["ok"] or psum["platform"] != "gpu":
+        raise AssertionError(f"world-1 group: {backend} {psum}")
+    gbps = bw["hbm_copy"]["gbps"]
+    out["nccl_world1"] = {
+        "backend": backend, "psum": psum, "collectives": bw,
+        "hbm_copy_share_of_3_35_tb_s": gbps * 1e9 / rates[0],
+        "seconds": time.perf_counter() - t0,
+    }
+    if not gbps > 0:
+        raise AssertionError(f"hbm_copy: {bw}")
+    with tempfile.TemporaryDirectory() as root:
+        dirs = render_slice(root, 2, R.free_port())
+        ranks = run_workloads(
+            R, [["tpu_dra_torch.workloads.rendezvous_smoke", "--config-dir",
+                 d, "--device", "cpu"] for d in dirs], [{}, {}])
+    rdv = [json.loads(R.last_json(o)) for o, _, _ in ranks]
+    if not (sorted(r["worker"] for r in rdv) == [0, 1]
+            and all(r["psum"] == 3.0 and r["global_devices"] == 2
+                    for r in rdv)
+            and rdv[0]["loss"] == rdv[1]["loss"]):
+        raise AssertionError(f"rendezvous_smoke: {rdv}")
+    out["rendezvous_gloo"] = {"ranks": rdv, "seconds": ranks[-1][2]}
+    (train_out, _, train_s), = run_workloads(
+        R, [["tpu_dra_torch.workloads.train", "--distributed", "--model",
+             "tiny", "--steps", "2"]],
+        [{"JAX_NUM_PROCESSES": "1", "TPU_WORKER_ID": "0"}])
+    if "'ok': True" not in train_out or "'device': 'cuda" not in train_out:
+        raise AssertionError(f"train --distributed: {train_out}")
+    out["train_distributed"] = {"stdout": train_out.strip()[-400:],
+                                "seconds": train_s}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -2599,13 +2829,16 @@ def main() -> int:
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     from tpu_dra_torch import kernels
+    from tpu_dra_torch.workloads import bootstrap as BS
     from tpu_dra_torch.workloads import decodebench as DB
     from tpu_dra_torch.workloads import engine as E
     from tpu_dra_torch.workloads import enginebench as EB
     from tpu_dra_torch.workloads import generate as G
+    from tpu_dra_torch.workloads import icibandwidth as IB
     from tpu_dra_torch.workloads import paged_kv as P
     from tpu_dra_torch.workloads import quantize as Q
     from tpu_dra_torch.workloads import sampling as S
+    from tpu_dra_torch.workloads import smoke as SM
     from tpu_dra_torch.workloads import specdraft as SD
     from tpu_dra_torch.workloads import train as T
     from tpu_dra_torch.workloads.models import mixtral as M
@@ -2650,6 +2883,11 @@ def main() -> int:
          decode_body=decode_body_build(kernels, report),
          gemv_sm90=gemv_sm90_build(kernels, report),
          mlp_sm90=mlp_sm90_build(kernels, report))
+
+    # --- 2b. the slice bootstrap and the collective smokes -------------------
+    boot, boot_launches = bootstrap_phase(kernels, BS, SM, IB, G, A,
+                                           DM, rates)
+    emit("bootstrap", nvidia_smi=smi, **boot)
 
     # --- 3. parity at 8B widths ------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -3573,7 +3811,8 @@ def main() -> int:
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
          timing["decode_mlp"], engine_launches["decode_mlp_sm90"]
-         + bench_launches.get("decode_mlp_sm90", 0)),
+         + bench_launches.get("decode_mlp_sm90", 0)
+         + boot_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
         # for M <= 16 (decode) and the wgmma tile for M > 16 (prefill).
         ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
@@ -3590,7 +3829,8 @@ def main() -> int:
          parity["decode_attention"]["length_1000"],
          timing["decode_attention"],
          sum(v["decode_attention"] for v in gen_launches.values())
-         + bench_launches.get("decode_attention", 0)),
+         + bench_launches.get("decode_attention", 0)
+         + boot_launches["decode_attention"]),
         ("paged_decode_attention_int8", "tpu_dra_torch/csrc/paged_decode.cu",
          "tpu_dra/workloads/ops/attention.py:1128",
          parity["paged_decode_attention_int8"],

@@ -63,8 +63,11 @@ def test_scanner_catches_forbidden_imports(tmp_path):
     probe.write_text(
         "import jax.numpy as jnp\n"
         "from tpu_dra.workloads import engine\n"
+        "from tpu_dra.computedomain.daemon.bootstrap import "
+        "read_bootstrap_env\n"
         "import importlib\n"
         "importlib.import_module('flax.linen')\n"
     )
     roots = [root for _, root in _imported_roots(probe)]
     assert {"jax", "tpu_dra", "flax"} <= set(roots)
+    assert roots.count("tpu_dra") == 2

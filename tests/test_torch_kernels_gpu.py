@@ -1288,3 +1288,36 @@ def test_engine_trace_gives_the_cpu_greedy_tokens_on_the_card(cuda_device):
     assert sorted(runs[cuda_device]) == sorted(runs[torch.device("cpu")])
     assert TB.first_difference(runs[cuda_device],
                                runs[torch.device("cpu")]) is None
+
+
+# --- the smokes (tpu_dra_torch/workloads/smoke.py) ---------------------------
+
+
+def test_decode_smoke_launches_the_decode_kernels(cuda_device):
+    """The default bf16 smoke goes through csrc/decode.cu and the
+    tensor-core decode MLP; at fp32 its tokens equal the plain arm's
+    (the same call with the plain attention and MLP) on the card."""
+    from tpu_dra_torch.workloads import smoke as TS
+
+    kernels.reset_launches()
+    report = TS.decode_smoke(device=cuda_device)
+    launches = dict(kernels.LAUNCHES)
+    assert report["ok"] and report["platform"] == "gpu", report
+    # Two calls of 2 layers x 15 decode steps (16 new tokens).
+    assert launches["decode_attention"] == 2 * 2 * 15, launches
+    assert launches["decode_mlp_sm90"] == 2 * 2 * 15, launches
+    fp32 = dataclasses.replace(TS.SMOKE_LLAMA, dtype=torch.float32,
+                               param_dtype=torch.float32)
+    plain = dataclasses.replace(fp32, decode_impl="torch",
+                                decode_mlp_impl="torch")
+    kernels.reset_launches()
+    _, tokens = TS.decode_smoke(device=cuda_device, config=fp32,
+                                return_tokens=True)
+    assert kernels.LAUNCHES["decode_attention"] > 0
+    assert kernels.LAUNCHES["decode_mlp"] > 0
+    kernels.reset_launches()
+    _, want = TS.decode_smoke(device=cuda_device, config=plain,
+                              return_tokens=True)
+    assert kernels.LAUNCHES["decode_attention"] == 0
+    assert kernels.LAUNCHES["decode_mlp"] == 0
+    assert torch.equal(tokens, want)

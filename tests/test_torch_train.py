@@ -311,9 +311,11 @@ def test_unported_paths_raise_and_name_the_roadmap():
     with pytest.raises(NotImplementedError,
                        match=r"item 11 \(parallel training\)"):
         TT.Trainer(TM.TINY_MIXTRAL, TT.MeshConfig(ep=2), device="cpu")
+    # train --distributed at a world of 2 (tests/test_torch_rendezvous.py
+    # runs it over 2 gloo ranks): JAX's default mesh, then item 11.
     with pytest.raises(NotImplementedError,
-                       match=r"item 9 \(bootstrap and collective smokes\)"):
-        TT.main(["--distributed", "--device", "cpu"])
+                       match=r"item 11 \(parallel training\)"):
+        TT.Trainer(TCFG, TT.MeshConfig.for_device_count(2), device="cpu")
     with pytest.raises(NotImplementedError,
                        match=r"item 11 \(parallel training\)"):
         TL.Llama(dataclasses.replace(TCFG, attention_impl="ring"))(

@@ -22,6 +22,8 @@ the probabilities).
 - :func:`paged_multiquery_attention`: s queries per sequence (batched
   prefill). The JAX package has no Pallas kernel for it, so plain
   PyTorch is its port here; a kernel is later work.
+  :func:`paged_prefill_attention` is its one-sequence form (one chunk
+  over one block table), plain PyTorch for the same reason.
 - :func:`decode_attention`: one query per row over a contiguous cache
   ``[b, max_seq, kvh, hd]`` with one live length (greedy_generate's s=1
   step). ``"cuda"`` is ``csrc/decode.cu``, the port of the Pallas
@@ -547,6 +549,41 @@ def paged_multiquery_attention(
     raise ValueError(
         f"unknown paged multiquery attention impl: {impl!r}"
     )
+
+
+def paged_prefill_attention(
+    q, k_pages, v_pages, table, pos, k_scale=None, v_scale=None
+):
+    """Chunked-prefill attention for ONE sequence over its block table.
+
+    q: [s, h, hd], the chunk's queries at absolute positions
+    [pos, pos + s), whose K/V pages are already written
+    (write-then-attend); table: [max_pages] int32; pos: an int or a
+    0-dim tensor. Causal: key j is visible to query i iff j <= pos + i.
+    Returns [s, h, hd] in q's dtype. The block walk is
+    :func:`paged_multiquery_attention`'s for a batch of one (the JAX
+    op's online softmax, block by block); plain PyTorch on every device,
+    as the JAX op has no kernel.
+    """
+    s, h, hd = q.shape
+    if k_pages.shape != v_pages.shape or k_pages.shape[3] != hd:
+        raise ValueError(
+            f"paged cache shape mismatch: q {tuple(q.shape)} vs k_pages "
+            f"{tuple(k_pages.shape)} v_pages {tuple(v_pages.shape)}"
+        )
+    if h % k_pages.shape[2]:
+        raise ValueError(
+            f"query heads ({h}) must be a multiple of kv heads "
+            f"({k_pages.shape[2]})"
+        )
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be provided together")
+    if table.ndim != 1:
+        raise ValueError(f"table must be [max_pages], got {tuple(table.shape)}")
+    pos = torch.as_tensor(pos, dtype=torch.int32).reshape(1)
+    return _torch_paged_multiquery_attention(
+        q[None], k_pages, v_pages, table[None], pos, k_scale, v_scale
+    )[0]
 
 
 # --- contiguous-cache decode: the fixed-batch greedy_generate path -----------

@@ -6,8 +6,9 @@ materialised-logits or fused cross-entropy loss (plus Mixtral's
 load-balance loss), and a ``Trainer`` with ``init_state`` /
 ``make_train_step`` / ``make_forward``. A mesh with any axis above 1
 (FSDP, TP, SP, EP, ring or Ulysses attention) is ROADMAP Queue A item
-11 (parallel training); ``--distributed`` bootstrap is item 9
-(bootstrap and collective smokes).
+11 (parallel training). ``--distributed`` joins the slice's process
+group from the driver-rendered env (:mod:`.bootstrap`) and takes JAX's
+default mesh for the world, ``MeshConfig.for_device_count``.
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 adamw(lr, b1, b2, eps=1e-8, weight_decay, mu_dtype=float32))`` (optax
@@ -74,6 +75,19 @@ class MeshConfig:
     @property
     def size(self) -> int:
         return self.dp * self.fsdp * self.sp * self.tp * self.ep * self.pp
+
+    @classmethod
+    def for_device_count(cls, n: int) -> "MeshConfig":
+        """JAX's default factorization: prefer fsdp, then tp (4, else 2)
+        when n is strictly above its square."""
+        if n <= 0:
+            raise ValueError("need at least one device")
+        tp = 1
+        for cand in (4, 2):
+            if n % cand == 0 and n > cand * cand:
+                tp = cand
+                break
+        return cls(fsdp=n // tp, tp=tp)
 
 
 class AdamState(NamedTuple):
@@ -283,8 +297,6 @@ MODEL_PRESETS = {
 def main(argv=None) -> int:
     import argparse
 
-    from tpu_dra_torch.workloads import models as models_mod
-
     p = argparse.ArgumentParser("tpu-dra-torch-train")
     p.add_argument("--model", choices=sorted(MODEL_PRESETS), default="tiny")
 
@@ -308,8 +320,8 @@ def main(argv=None) -> int:
     p.add_argument("--seq", type=positive_int, default=512)
     p.add_argument(
         "--distributed", action="store_true",
-        help="multi-host bootstrap (not ported: ROADMAP Queue A item 9, "
-             "bootstrap and collective smokes)",
+        help="initialize torch.distributed from the driver-injected slice "
+             "env",
     )
     p.add_argument(
         "--device", default=None,
@@ -319,13 +331,26 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed bootstrap is not ported yet: ROADMAP Queue A "
-            "item 9 (bootstrap and collective smokes)"
-        )
+    if not args.distributed:
+        return _train(args, None)
+    from tpu_dra_torch.workloads.bootstrap import initialize_from_env, shutdown
+
+    slice_env = initialize_from_env(device=args.device)
+    log.info("slice bootstrap: %s", slice_env)
+    try:
+        # JAX's default mesh over every device of the slice, one a rank.
+        return _train(
+            args, MeshConfig.for_device_count(slice_env.num_processes))
+    finally:
+        shutdown()
+
+
+def _train(args, mesh_config: Optional[MeshConfig]) -> int:
+    from tpu_dra_torch.workloads import models as models_mod
+
     model_config = getattr(models_mod, MODEL_PRESETS[args.model])
-    trainer = Trainer(model_config, device=args.device)
+    trainer = Trainer(model_config, mesh_config=mesh_config,
+                      device=args.device)
     batch = args.batch or 1
     state = trainer.init_state(batch=batch, seq=args.seq)
     step = trainer.make_train_step()
