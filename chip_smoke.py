@@ -228,6 +228,25 @@ exits non-zero without a result:
    step; the w8kv8 prefill's
    225 (M = 2048, the lm_head over every position) all on the wgmma
    tile, the decode steps' all on the tensor-core GEMV.
+8a. engine_sharded — mesh-sharded decode (tpu_dra_torch/workloads/
+   parallel/mesh.py). World 1, inside a world-1 NCCL group built by
+   bootstrap.rendezvous: the engine phase's requests through
+   EngineConfig(sharded=True) (run in phase 6, on its weights) and the
+   generate phase's bf16 call over shard_decode_params (run in phase 8):
+   a (1, 1) mesh, the config kept (so the kernels), no collective, the
+   kernel launches and the tokens of the unsharded runs. World 2:
+   python -m tpu_dra_torch.workloads.shardbench as two ranks sharing
+   the card over gloo (NCCL puts no two ranks on one GPU; gloo takes
+   the CUDA tensors of the gathers and stages them through host memory),
+   from config dirs rendered as the slice daemon renders them, at
+   Llama-3-8B widths cut to 2 layers, fp32, weights from one seeded
+   CUDA generator: the (1, 2) mesh's greedy_generate and engine (greedy
+   and sampled) tokens identical to the unsharded runs of the same
+   plain config on both ranks, else the first decode step's logits at
+   cosine >= 0.9999998 (SHARDED_FP32_COSINE), recorded; the gathers a
+   decode step, their host ms, the decode ms a step, the logit cosine
+   and whether a column block of an fp32 product equals those columns
+   of the full product bit for bit.
 8b. bench_serve — the port's serve and decode benches through their
    entry points. enginebench.run_serve_bench on the tiny fp32 model on
    the card (TINY_SERVE_ENV, a saturating rate), with every identity
@@ -2630,13 +2649,14 @@ def rank_launcher():
     return mod
 
 
-def run_workloads(R, argvs: list, envs: list) -> list:
+def run_workloads(R, argvs: list, envs: list,
+                  timeout: float = SLICE_TIMEOUT_S) -> list:
     """``python -m <argv>`` once per (argv, env), all together, through
-    torch_ranks.launch (SLICE_TIMEOUT_S for the launch, what outlives it
+    torch_ranks.launch (``timeout`` for the launch, what outlives it
     killed, every process reaped); raises if any failed. Returns
     (stdout, stderr, seconds)."""
     results = R.launch([["-m", *argv] for argv in argvs], envs,
-                       timeout=SLICE_TIMEOUT_S)
+                       timeout=timeout)
     failed = [f"{' '.join(argv)}: rc {rc}\n{err[-3000:]}"
               for argv, (rc, _, err, _) in zip(argvs, results) if rc != 0]
     if failed:
@@ -2821,6 +2841,113 @@ def bootstrap_phase(kernels, BS, SM, IB, G, A, DM, rates) -> tuple:
     return out, launches
 
 
+# --- engine_sharded: the (batch x model) decode mesh ------------------------
+
+SHARDED_WORLD2_TIMEOUT_S = 150  # the two shardbench ranks' launch
+SHARDED_FP32_COSINE = 0.9999998  # the 2-layer fp32 decode-step logit bar
+
+
+@contextlib.contextmanager
+def world1_nccl(BS):
+    """A world-1 NCCL process group through bootstrap.rendezvous (the
+    path initialize_from_env takes), as the bootstrap phase opens it."""
+    R = rank_launcher()
+    backend = BS.rendezvous(f"127.0.0.1:{R.free_port()}", 0, 1,
+                            device="cuda", timeout_s=60)
+    try:
+        if backend != "nccl":
+            raise AssertionError(f"world-1 group on {backend}")
+        yield backend
+    finally:
+        BS.shutdown()
+
+
+def sharded_world1_engine(E, BS, kernels, cfg, params, ec, reqs, want_done,
+                          want_launches) -> tuple:
+    """The engine phase's requests through ``EngineConfig(sharded=True)``
+    inside a world-1 NCCL group: a (1, 1) mesh that keeps the config
+    (the kernels), issues no collective, launches what the engine phase
+    launched and gives its tokens. Returns (report, launches)."""
+    t0 = time.perf_counter()
+    with world1_nccl(BS):
+        eng, done, launches, wall = serve(
+            E, kernels, cfg, params, dataclasses.replace(ec, sharded=True),
+            reqs)
+    out = {
+        "mesh": eng.mesh.shape, "config_kept": eng.config is cfg,
+        "collectives": dict(eng.mesh.collectives),
+        "decode_steps": eng.decode_steps,
+        "launches_equal_engine_phase": launches == want_launches,
+        "first_difference": first_difference(want_done, done),
+        "wall_seconds": wall, "seconds": time.perf_counter() - t0,
+    }
+    if not (out["mesh"] == {"batch": 1, "model": 1} and out["config_kept"]
+            and not out["collectives"] and out["launches_equal_engine_phase"]
+            and out["first_difference"] is None):
+        raise AssertionError(f"engine_sharded world 1: {out}, launches "
+                             f"{launches} vs {want_launches}")
+    return out, launches
+
+
+def sharded_world1_generate(BS, G, MS, kernels, cfg, params, prompt, new,
+                            want_tokens, want_launches) -> tuple:
+    """``greedy_generate`` over ``shard_decode_params`` of a world-1
+    NCCL group's (1, 1) mesh: the generate phase's tokens and launches,
+    no collective. Returns (report, launches)."""
+    t0 = time.perf_counter()
+    with world1_nccl(BS):
+        mesh = MS.build_decode_mesh(cfg)
+        shard = MS.shard_decode_params(mesh, params)
+        kernels.reset_launches()
+        out = G.greedy_generate(cfg, shard, prompt, new)
+        launches = dict(kernels.LAUNCHES)
+    rep = {"mesh": mesh.shape, "collectives": dict(mesh.collectives),
+           "tokens_identical": bool(torch.equal(out[:, prompt.shape[1]:],
+                                                want_tokens)),
+           "launches_equal_generate_phase": launches == want_launches,
+           "seconds": time.perf_counter() - t0}
+    if not (rep["mesh"] == {"batch": 1, "model": 1} and not rep["collectives"]
+            and rep["tokens_identical"]
+            and rep["launches_equal_generate_phase"]):
+        raise AssertionError(f"generate sharded world 1: {rep}, launches "
+                             f"{launches} vs {want_launches}")
+    return rep, launches
+
+
+def sharded_world2_card(R) -> dict:
+    """shardbench as two ranks sharing the card over gloo (NCCL puts no
+    two ranks on one GPU), from rendered config dirs, at Llama-3-8B
+    widths cut to 2 layers in fp32: the world's (1, 2) mesh against the
+    unsharded runs of the same config, greedy_generate and the engine
+    (greedy and sampled). gloo takes the CUDA tensors of the gathers;
+    ``host_staged`` records whether a profiler trace of one gather shows
+    it copying them through host memory (None: the trace saw no copy)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        dirs = render_slice(root, 2, R.free_port())
+        ranks = run_workloads(R, [[
+            "tpu_dra_torch.workloads.shardbench", "--config-dir", d,
+            "--device", "cuda:0", "--backend", "gloo", "--model",
+            "llama3-8b", "--layers", "2", "--fallback-cosine",
+            str(SHARDED_FP32_COSINE)] for d in dirs], [{}, {}],
+            timeout=SHARDED_WORLD2_TIMEOUT_S)
+    rep = json.loads(R.last_json(ranks[0][0]))
+    rep["rank_seconds"] = [sec for _, _, sec in ranks]
+    identical = (rep.get("greedy_parity_1x2")
+                 and rep.get("engine_parity_greedy") == 6
+                 and rep.get("engine_parity_sampled") == 6)
+    rep["tokens_identical"] = bool(identical)
+    names = " ".join(rep.get("gather_copies", {}))
+    rep["host_staged"] = ("DtoH" in names and "HtoD" in names) if names \
+        else None
+    if not (rep["ok"] and rep["ranks_agree"] and rep["backend"] == "gloo"
+            and rep["device"] == "cuda:0"
+            and rep["mesh_shapes"][1] == {"batch": 1, "model": 2}):
+        raise AssertionError(f"engine_sharded world 2: {rep}")
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -2853,6 +2980,7 @@ def main() -> int:
     from tpu_dra_torch.workloads.ops import decode_mlp as DM
     from tpu_dra_torch.workloads.ops import int8mm as I8
     from tpu_dra_torch.workloads.ops import sample as SP
+    from tpu_dra_torch.workloads.parallel import mesh as MS
 
     t_start = time.perf_counter()
     # --- 1. device ---------------------------------------------------------
@@ -3274,6 +3402,10 @@ def main() -> int:
     ]
     eng, done, launches, wall = serve(E, kernels, cfg, params, ec, reqs)
     greedy_done = dict(done)  # the profile below adds its own requests
+    # engine_sharded (a): the same engine with sharded=True, world 1.
+    sharded = {}
+    sharded["engine_world1"], sharded_launches = sharded_world1_engine(
+        E, BS, kernels, cfg, params, ec, reqs, greedy_done, launches)
     del params
     steps = eng.decode_steps
     want_attn = L * steps
@@ -3763,6 +3895,12 @@ def main() -> int:
                 and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size):
             raise AssertionError(f"generate {label}: bad output {out.shape}")
         tokens[label] = out[:, s:]
+        if label == "bf16":
+            # engine_sharded (a): over shard_decode_params, world 1.
+            sharded["generate_world1"], gen_sharded_launches = (
+                sharded_world1_generate(BS, G, MS, kernels, cfg, params,
+                                        prompt, new, tokens[label],
+                                        launches))
         gen_out[label] = {
             "wall_seconds": wall, "tok_s": b * new / wall,
             "launches": launches,
@@ -3781,6 +3919,24 @@ def main() -> int:
          batch=b, prompt=s, new_tokens=new, **gen_out,
          w8kv8_vs_bf16_token_agreement=float(
              (tokens["bf16"] == tokens["w8kv8"]).float().mean()))
+
+    # --- 8a. sharded decode: world 1 above, world 2 on the one card --------
+    t0 = time.perf_counter()
+    sharded["world2_gloo"] = sharded_world2_card(rank_launcher())
+    sharded["world2_seconds"] = time.perf_counter() - t0
+    w2 = sharded["world2_gloo"]
+    if not w2["tokens_identical"]:
+        # The stated fallback, for greedy_generate only (shardbench holds
+        # the engine's tokens exact): its 2-layer fp32 logit bar, recorded.
+        cos = [v for k, v in w2.items() if k.startswith("greedy_logit_cos")]
+        if not cos or min(cos) < SHARDED_FP32_COSINE:
+            raise AssertionError(f"engine_sharded world 2: tokens differ "
+                                 f"and logit cosines {cos}: {w2}")
+    emit("engine_sharded", nvidia_smi=smi,
+         model="world 1: LLAMA3_8B widths, 32 layers, bf16 (the engine and "
+               "generate phases' runs); world 2: LLAMA3_8B widths cut to 2 "
+               "layers, fp32, two gloo ranks on the one card",
+         **sharded)
 
     # --- 8b. the serve and decode benches -----------------------------------
     bench, bench_launches = bench_serve_phase(kernels, EB, DB, cfg,
@@ -3807,10 +3963,13 @@ def main() -> int:
          "tpu_dra/workloads/ops/attention.py:1128",
          parity["paged_decode_attention"], timing["paged_decode_attention"],
          engine_launches["paged_decode_attention"]
+         + sharded_launches["paged_decode_attention"]
          + bench_launches.get("paged_decode_attention", 0)),
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
          timing["decode_mlp"], engine_launches["decode_mlp_sm90"]
+         + sharded_launches["decode_mlp_sm90"]
+         + gen_sharded_launches["decode_mlp_sm90"]
          + bench_launches.get("decode_mlp_sm90", 0)
          + boot_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
@@ -3829,6 +3988,7 @@ def main() -> int:
          parity["decode_attention"]["length_1000"],
          timing["decode_attention"],
          sum(v["decode_attention"] for v in gen_launches.values())
+         + gen_sharded_launches["decode_attention"]
          + bench_launches.get("decode_attention", 0)
          + boot_launches["decode_attention"]),
         ("paged_decode_attention_int8", "tpu_dra_torch/csrc/paged_decode.cu",

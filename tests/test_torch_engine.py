@@ -8,8 +8,8 @@ identical for every request, with fp32 pools and under
 fused == unfused, paged == contiguous, sampled tokens do not depend on
 the chunking or the admission order (the (seed, serial, position) key
 schedule), the allocator ends leak-free with every freed page zero
-(scale pools included), and the knob not ported yet (``sharded``)
-raises instead of being ignored. Speculative decoding:
+(scale pools included), and ``sharded`` without a process group is the
+unsharded engine on a (1, 1) mesh. Speculative decoding:
 tests/test_torch_spec.py; prefix sharing: tests/test_torch_prefix.py;
 lease gates, the drain and metrics: tests/test_torch_drain.py.
 """
@@ -255,12 +255,17 @@ def test_serial_prefill_rows_give_the_same_tokens(torch_params):
 
 
 @pytest.mark.parametrize("kw", [{"sharded": True}], ids=["sharded"])
-def test_unported_knobs_raise(torch_params, kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TE.Engine(
-            TCFG, torch_params, TE.EngineConfig(**{**EC, **kw}),
-            device="cpu",
-        )
+def test_unported_knobs_raise(torch_params, jax_done, kw):
+    """Every EngineConfig knob is ported now: ``sharded=True`` without a
+    process group builds a (1, 1) mesh, keeps the config (and so the
+    kernels), issues no collective and gives the unsharded tokens (the
+    multi-rank meshes: tests/test_torch_sharded.py)."""
+    eng, done = _torch_run(torch_params, **kw)
+    assert eng.mesh.shape == {"batch": 1, "model": 1}
+    assert eng.config is TCFG
+    assert sum(eng.mesh.collectives.values()) == 0
+    for rid, _prompt, _n in _trace():
+        assert np.array_equal(done[rid].tokens, jax_done[rid].tokens), rid
 
 
 @pytest.mark.parametrize(

@@ -1,7 +1,9 @@
-"""The port stands alone: no module under tpu_dra_torch/, and not
-chip_smoke.py or the ablation scripts that run beside it on the card
-(int8mm_ablation.py, decode_mlp_ablation.py, l2_flush_ablation.py),
-imports jax, flax or anything of the JAX package (tpu_dra). The card's
+"""The port stands alone: no module under tpu_dra_torch/ (the decode
+mesh's parallel/ package included), and not chip_smoke.py, the ablation
+scripts that run beside it on the card (int8mm_ablation.py,
+decode_mlp_ablation.py, l2_flush_ablation.py) or the sharded-decode rank
+helper (tests/torch_sharded_rank.py), imports jax, flax or anything of
+the JAX package (tpu_dra). The card's
 machine has no JAX, and the JAX package is the reference the port is
 held to, never a dependency of it."""
 
@@ -17,8 +19,17 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tpu_dra")
 def _port_files():
     files = sorted((REPO / "tpu_dra_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "int8mm_ablation.py",
-              REPO / "decode_mlp_ablation.py", REPO / "l2_flush_ablation.py"]
+              REPO / "decode_mlp_ablation.py", REPO / "l2_flush_ablation.py",
+              REPO / "tests" / "torch_sharded_rank.py"]
     return files
+
+
+def test_decode_mesh_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"tpu_dra_torch/workloads/parallel/__init__.py",
+            "tpu_dra_torch/workloads/parallel/mesh.py",
+            "tpu_dra_torch/workloads/shardbench.py",
+            "tests/torch_sharded_rank.py"} <= names
 
 
 def _imported_roots(path: Path):

@@ -32,11 +32,9 @@ def rank_env(rank: int, world: int, coordinator: str, **extra) -> dict:
     return env
 
 
-def launch(argvs, envs, timeout: float = 120.0, cwd=None):
-    """Start one process per (argv, env) together; wait for all of them
-    up to ``timeout`` seconds in total, killing any still running.
-    Returns [(returncode, stdout, stderr, seconds)] in order; a killed
-    process reports returncode None."""
+def start(argvs, envs, cwd=None):
+    """Start one process per (argv, env) together, without waiting:
+    hand the result to :func:`wait`."""
     base = {k: v for k, v in os.environ.items()
             if not k.startswith(("TPU_", "JAX_", "MEGASCALE_", "CD_"))}
     base["PYTHONPATH"] = os.pathsep.join(
@@ -49,6 +47,15 @@ def launch(argvs, envs, timeout: float = 120.0, cwd=None):
             cwd=cwd or str(REPO), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True,
         ))
+    return t0, procs
+
+
+def wait(started, timeout: float = 120.0):
+    """Wait for the processes :func:`start` began, up to ``timeout``
+    seconds in total from their start, killing any still running.
+    Returns [(returncode, stdout, stderr, seconds)] in order; a killed
+    process reports returncode None."""
+    t0, procs = started
     out = []
     for p in procs:
         left = max(0.1, timeout - (time.monotonic() - t0))
@@ -64,6 +71,14 @@ def launch(argvs, envs, timeout: float = 120.0, cwd=None):
             p.kill()
             p.wait()
     return out
+
+
+def launch(argvs, envs, timeout: float = 120.0, cwd=None):
+    """Start one process per (argv, env) together; wait for all of them
+    up to ``timeout`` seconds in total, killing any still running.
+    Returns [(returncode, stdout, stderr, seconds)] in order; a killed
+    process reports returncode None."""
+    return wait(start(argvs, envs, cwd), timeout)
 
 
 def last_json(stdout: str) -> str:

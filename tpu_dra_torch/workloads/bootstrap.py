@@ -159,11 +159,14 @@ def backend_for(device: torch.device) -> str:
 def rendezvous(
     coordinator: str, rank: int, world: int, device=None,
     timeout_s: float = DEFAULT_INIT_TIMEOUT_SECONDS,
+    backend: Optional[str] = None,
 ) -> str:
     """Join the default process group of ``world`` ranks as ``rank``
     through the TCPStore at ``coordinator`` (``host:port``; rank 0
     serves it on that port). Returns the backend: NCCL for a CUDA
-    ``device`` (the default), gloo for the CPU.
+    ``device`` (the default), gloo for the CPU, or ``backend`` when
+    given (gloo over CUDA tensors puts several ranks on one card, which
+    NCCL refuses; it stages each collective through host memory).
 
     ``timeout_s`` bounds the rendezvous only: rank 0 waits that long for
     every peer to connect and a peer that long for rank 0, then raises.
@@ -180,7 +183,7 @@ def rendezvous(
         raise ValueError(f"coordinator {coordinator!r} is not host:port")
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
-    backend = backend_for(device)
+    backend = backend or backend_for(device)
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -212,14 +215,15 @@ def shutdown() -> None:
 
 def initialize_from_env(
     env: Optional[dict] = None, config_dir: Optional[str] = None,
-    device=None,
+    device=None, backend: Optional[str] = None,
 ) -> SliceEnv:
     """torch.distributed from the injected bootstrap env: a no-op on
     single-process allocations, else :func:`rendezvous` at the resolved
     coordinator with rank ``worker_id`` and world ``num_processes``.
     ``config_dir`` points at the mounted per-CD config dir for the
     peers.json fallback (default ``$CD_CONFIG_DIR`` or /tpu-cd);
-    ``device`` picks the backend (default: the CUDA device, NCCL).
+    ``device`` picks the backend (default: the CUDA device, NCCL)
+    unless ``backend`` names one.
 
     A peer that never arrives fails the rendezvous within
     ``TPU_DRA_INIT_TIMEOUT_SECONDS`` (default 120): the Job-level restart
@@ -235,8 +239,9 @@ def initialize_from_env(
                               str(DEFAULT_INIT_TIMEOUT_SECONDS)))
         log.info(
             "initializing torch.distributed (%s): process %d/%d via %s",
-            backend_for(device), se.worker_id, se.num_processes, coordinator,
+            backend or backend_for(device), se.worker_id, se.num_processes,
+            coordinator,
         )
         rendezvous(coordinator, se.worker_id, se.num_processes, device,
-                   timeout_s)
+                   timeout_s, backend)
     return se

@@ -76,13 +76,27 @@ sequence's pages as a :class:`~.paged_kv.KVExtent`) and
 exact position, no position recomputed). Requests are duck-typed: the
 Router hands in the JAX package's ``Request`` objects.
 
-Not in this slice: mesh sharding (``sharded=True``, refused at
-construction rather than ignored).
+Mesh-sharded decode (``sharded=True``), as in the JAX engine: a
+(batch x model) decode mesh over the ranks of the default process group
+(``parallel/mesh.py`` ``build_decode_mesh``; (1, 1) without a group),
+the config through ``sharded_safe_config``, this rank's column shard of
+the weights (``shard_decode_params``) and its kv heads of the pools.
+Every rank runs the same engine on the same requests: the clock reading
+and the gate state each ``step()`` (and each ``add_request``) acts on
+are agreed over the mesh (:meth:`.DecodeMesh.agree`: the first rank's
+clock, ready only when every gate is), so host scheduling is the same on
+every rank; the decode rows split over the batch axis when
+``max_slots`` tiles it (``_put_row``), each step gathering the new K/V
+rows over it before the pool write and each chunk its tokens. The
+cross-replica methods refuse an engine over more than one rank (ROADMAP
+Queue A item 8b); over one rank the mesh is (1, 1), no collective is
+issued and the kernels run as unsharded.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import time
@@ -117,6 +131,7 @@ from tpu_dra_torch.workloads.ops.attention import (
     paged_multiquery_attention,
 )
 from tpu_dra_torch.workloads.ops.sample import sample_pick
+from tpu_dra_torch.workloads.parallel import mesh as meshlib
 from tpu_dra_torch.workloads.quantize import quantize_kv
 from tpu_dra_torch.workloads.specdraft import NgramDraft
 
@@ -398,11 +413,6 @@ def _check_supported(ec: EngineConfig) -> None:
             "spec_k with sharded=True is not supported (the verify pass "
             "has no sharding rules); run speculation on one device"
         )
-    if ec.sharded:
-        raise NotImplementedError(
-            "mesh-sharded decode (sharded=True) is not ported to the "
-            "torch engine yet"
-        )
 
 
 class Engine:
@@ -416,7 +426,8 @@ class Engine:
     the always-open LeaseGate (pass :func:`auto_gate` () in multiplexed
     containers); ``metrics`` is an optional object with ``inc``,
     ``set_gauge`` and ``observe`` that receives the ``engine_*``
-    series.
+    series. With ``sharded=True`` every rank of the default process
+    group constructs the engine alike and feeds it the same requests.
     """
 
     def __init__(
@@ -437,9 +448,26 @@ class Engine:
         self._draft = draft_source
         if self._draft is None and self.ec.spec_k > 0:
             self._draft = NgramDraft(self.ec.spec_lookup_order)
-        self.params = _maybe_quantize_params(
+        params = _maybe_quantize_params(
             unroll_tree(as_tree(params, self.device)), self.ec.weight_quant
         )
+        self.mesh = None
+        # [lo, hi) of the decode rows this rank holds when they split
+        # over the batch axis; None when every rank holds every row.
+        self._rows = None
+        if self.ec.sharded:
+            self.mesh = meshlib.build_decode_mesh(config, device=self.device)
+            # Over more than one device every op takes its plain version
+            # (mesh.sharded_safe_config); the config is re-bound.
+            self.config = config = meshlib.sharded_safe_config(
+                config, self.mesh)
+            meshlib.check_decode_config(config, self.mesh)
+            params = meshlib.shard_decode_params(self.mesh, params)
+            B = self.ec.max_slots
+            if self.mesh.shape["batch"] > 1 and meshlib.decode_data_sharding(
+                    self.mesh, B) == ("batch",):
+                self._rows = self.mesh.row_block(B)
+        self.params = params
         self.gate = gate or LeaseGate()
         self.metrics = metrics
         self.clock = clock
@@ -454,7 +482,7 @@ class Engine:
                 )
         self.cache = paged_kv.init_paged_cache(
             config, P, self.ec.page_size, kv_quant=self.ec.kv_quant,
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
         self.allocator = paged_kv.PageAllocator(P)
         B, M = self.ec.max_slots, self.ec.max_pages_per_seq
@@ -536,7 +564,7 @@ class Engine:
         self._rids.add(req.rid)
         self._serial += 1
         self._queue.append(
-            _Sequence(req, t_submit=self.clock(), serial=self._serial)
+            _Sequence(req, t_submit=self._now(), serial=self._serial)
         )
 
     @property
@@ -552,9 +580,13 @@ class Engine:
     def step(self) -> bool:
         """One engine iteration: gate check (drain on backpressure),
         admissions, one prefill bucket, one decode chunk. Returns True
-        while work remains; never blocks on the gate (run() waits)."""
-        now = self.clock()
-        if not self.gate.ready():
+        while work remains; never blocks on the gate (run() waits).
+        Over more than one rank the clock reading and the gate state are
+        agreed over the mesh first."""
+        now, ready = self.clock(), self.gate.ready()
+        if self._spans_ranks:
+            now, ready = self.mesh.agree(now, ready)
+        if not ready:
             self._enter_stall(now)
             self._export()
             return self.busy
@@ -594,6 +626,28 @@ class Engine:
     def close(self) -> None:
         self.gate.close()
 
+    @property
+    def _spans_ranks(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _now(self) -> float:
+        """The clock, agreed over the mesh when it spans ranks."""
+        now = self.clock()
+        if self._spans_ranks:
+            now, _ = self.mesh.agree(now)
+        return now
+
+    def _single_rank(self, method: str) -> None:
+        """The cross-replica methods hand one replica's state to another;
+        an engine sharded over several ranks has no such path yet."""
+        if self._spans_ranks:
+            raise NotImplementedError(
+                f"{method} on an engine sharded over a "
+                f"{self.mesh.shape['batch']}x{self.mesh.shape['model']} "
+                f"mesh of ranks is not ported yet: ROADMAP Queue A item 8b "
+                f"(cross-replica methods at world > 1)"
+            )
+
     def evacuate(self) -> List[Evacuated]:
         """Drain every in-flight sequence to host state (pages freed,
         contexts folded), then hand the WHOLE live set — drained and
@@ -601,6 +655,7 @@ class Engine:
         empty: the autoscaler's scale-down primitive. The evacuees
         resume elsewhere by prefilling ``prompt + emitted``; rids are
         forgotten, so a sequence may later come back here."""
+        self._single_rank("evacuate")
         self._drain(self.clock())
         out: List[Evacuated] = []
         while self._queue:
@@ -634,6 +689,7 @@ class Engine:
         its slot and pages (each page decref'd once — shared-prefix
         pages stay pinned by the registry and other tables), and forget
         the rid so a fallback may resubmit here."""
+        self._single_rank("export_sequence")
         if self.ec.contiguous:
             raise ValueError(
                 "contiguous (oracle) engines do not export extents — "
@@ -679,6 +735,7 @@ class Engine:
         re-prefill); every mismatch raises. Leading full pages of a
         registered matching prefix attach by incref instead of copying,
         and the imported prefix registers here for later sharers."""
+        self._single_rank("import_sequence")
         if self.ec.contiguous:
             raise ValueError(
                 "contiguous (oracle) engines do not import extents"
@@ -1082,6 +1139,15 @@ class Engine:
         which the bookkeeping mutates in place)."""
         return torch.tensor(arr, device=self.device)
 
+    def _put_row(self, arr: np.ndarray) -> torch.Tensor:
+        """Host batch array -> device: this rank's row block when the
+        decode rows split over the batch axis (``decode_data_sharding``),
+        the whole array otherwise."""
+        if self._rows is not None:
+            lo, hi = self._rows
+            arr = arr[lo:hi]
+        return self._upload(arr)
+
     def _prefill_tick(self, now: float) -> None:
         """One batched-prefill iteration: chunks from up to
         ``prefill_batch`` (0 = all) prefilling sequences in ONE padded
@@ -1195,11 +1261,11 @@ class Engine:
         if self._dev_state is None:
             sampled = self.ec.sampling() is not None
             self._dev_state = (
-                self._upload(self._tables),
-                self._upload(self._lengths),
-                self._upload(self._last_tokens),
-                self._upload(self._active),
-                self._upload(self._seeds) if sampled else None,
+                self._put_row(self._tables),
+                self._put_row(self._lengths),
+                self._put_row(self._last_tokens),
+                self._put_row(self._active),
+                self._put_row(self._seeds) if sampled else None,
                 self._seed_d,
             )
         return self._dev_state
@@ -1216,25 +1282,32 @@ class Engine:
         tables_d, lengths_d, last_d, active_d, seeds_d, seed_d = (
             self._device_state())
         pick = dict(sampling=self.ec.sampling(), seeds=seeds_d,
-                    sample_seed=seed_d)
+                    sample_seed=seed_d, rows_split=self._rows is not None)
+        # The mesh counts this chunk's collectives under "decode/".
+        phase = (contextlib.nullcontext() if self.mesh is None
+                 else self.mesh.in_phase("decode"))
         t0 = time.perf_counter()
-        if self.ec.fused:
-            lengths, last, out_d = _decode_chunk(
-                self.config, self.params, self.cache, tables_d, lengths_d,
-                last_d, active_d, steps=steps, **pick,
-            )
-            out = out_d.cpu().numpy()  # the chunk's one device->host copy
-        else:
-            # Per-token oracle: the same step math, one host copy per
-            # token.
-            lengths, last, outs = lengths_d, last_d, []
-            for _ in range(steps):
-                lengths, last, _ = _decode_step(
+        with phase:
+            if self.ec.fused:
+                lengths, last, out_d = _decode_chunk(
                     self.config, self.params, self.cache, tables_d,
-                    lengths, last, active_d, **pick,
+                    lengths_d, last_d, active_d, steps=steps, **pick,
                 )
-                outs.append(last.cpu().numpy())
-            out = np.stack(outs)
+                out = out_d.cpu().numpy()  # the chunk's one device->host copy
+            else:
+                # Per-token oracle: the same step math, one host copy per
+                # token.
+                lengths, last, outs = lengths_d, last_d, []
+                for _ in range(steps):
+                    lengths, last, _ = _decode_step(
+                        self.config, self.params, self.cache, tables_d,
+                        lengths, last, active_d, **pick,
+                    )
+                    rows = last
+                    if self._rows is not None:
+                        rows = self.mesh.gather_batch(last)
+                    outs.append(rows.cpu().numpy())
+                out = np.stack(outs)
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += steps
         self._dev_state = (tables_d, lengths, last, active_d, seeds_d, seed_d)
@@ -1449,7 +1522,8 @@ def _embed(c: LlamaConfig, params: dict, tokens: torch.Tensor):
 
 
 def _decode_step(c, params, cache, tables, lengths, tokens, active, *,
-                 sampling=None, seeds=None, sample_seed=None):
+                 sampling=None, seeds=None, sample_seed=None,
+                 rows_split=False):
     """One paged decode step for the whole slot batch. tables [B, M],
     lengths/tokens [B] int32, active [B] bool. Writes each active
     slot's new K/V at position ``lengths`` in place, quantized first
@@ -1458,27 +1532,42 @@ def _decode_step(c, params, cache, tables, lengths, tokens, active, *,
     ``sampling`` is (temperature, top_k) or None for greedy; sampled
     tokens draw with the keys of (sample_seed, seeds [B], position).
     Returns (lengths after the write, next tokens — inactive slots pass
-    theirs through, fp32 logits [B, vocab])."""
+    theirs through, fp32 logits [B, vocab]).
+
+    Over a sharded tree (its mesh on ``params``) the layers run this
+    rank's heads and gather over the model axis (``_finish_block``, the
+    logits); with ``rows_split`` the inputs are this rank's row block of
+    the batch axis, and the write positions and each layer's new K/V
+    rows are gathered over it, so every rank's pools take every row."""
     B = tokens.shape[0]
     page = cache.page_size
+    mesh = meshlib.params_mesh(params)
+    split = rows_split and mesh is not None
     x = _embed(c, params, tokens)[:, None, :]  # [B, 1, d]
     cos, sin = rope_frequencies(c, lengths[:, None])  # [B, 1, hd/2]
     rows = torch.clamp(lengths // page, max=tables.shape[1] - 1).long()
     pids = torch.gather(tables, 1, rows[:, None])[:, 0]
     pids = torch.where(active, pids, paged_kv.SCRATCH_PAGE).long()
     offs = torch.where(active, lengths % page, 0).long()
+    if split:
+        pids, offs = mesh.gather_batch(torch.stack([pids, offs]), dim=1)
     len_eff = lengths + active.to(lengths.dtype)
     for layer in range(c.n_layers):
         lp = params[f"layer_{layer}"]
         q, k, v = _project_qkv(c, lp, x, cos, sin, B, 1)
-        scales = _write_kv(cache, layer, pids, offs, k[:, 0], v[:, 0])
+        k, v = k[:, 0], v[:, 0]
+        if split:
+            kv = mesh.gather_batch(torch.stack([k, v], dim=1))
+            k, v = kv[:, 0], kv[:, 1]
+        scales = _write_kv(cache, layer, pids, offs, k, v)
         out = paged_decode_attention(
             q[:, 0], cache.k[layer], cache.v[layer], tables, len_eff,
             *scales, impl=c.paged_decode_impl,
         )[:, None].to(c.dtype)
-        x = _finish_block(c, lp, x, out, B, 1)
+        x = _finish_block(c, lp, x, out, B, 1, mesh)
     x = _rms(x, params["final_norm"]["scale"], c.norm_eps)
-    logits = _mm(x, params["lm_head"]).to(torch.float32)[:, 0]
+    logits = meshlib.gather_model(
+        mesh, _mm(x, params["lm_head"]).to(torch.float32)[:, 0])
     nxt = _pick_tokens(
         sampling, logits, seeds, len_eff, tokens.dtype, sample_seed)
     return len_eff, torch.where(active, nxt, tokens), logits
@@ -1518,15 +1607,21 @@ def _decode_chunk(c, params, cache, tables, lengths, tokens, active, *,
     """``steps`` decode steps back to back on the device (the JAX
     engine's ``lax.scan`` chunk). Returns (lengths, last tokens, tokens
     [steps, B]) as device tensors; the caller copies the tokens to the
-    host once. ``pick`` holds :func:`_decode_step`'s sampling
-    arguments."""
+    host once. ``pick`` holds :func:`_decode_step`'s sampling and
+    ``rows_split`` arguments: with split rows, lengths and last tokens
+    stay this rank's rows and the chunk's tokens are gathered over the
+    batch axis once, at the end."""
     outs = []
     for _ in range(steps):
         lengths, tokens, _ = _decode_step(
             c, params, cache, tables, lengths, tokens, active, **pick
         )
         outs.append(tokens)
-    return lengths, tokens, torch.stack(outs)
+    out = torch.stack(outs)
+    mesh = meshlib.params_mesh(params)
+    if pick.get("rows_split") and mesh is not None:
+        out = mesh.gather_batch(out, dim=1)
+    return lengths, tokens, out
 
 
 def _prefill_batch(c, params, cache, tables, starts, tokens, valids):
@@ -1534,7 +1629,10 @@ def _prefill_batch(c, params, cache, tables, starts, tokens, valids):
     tokens[i, :valids[i]] at positions starts[i] + j through its table
     (pad positions and idle rows write to the scratch page and are never
     read). Returns fp32 logits [B, vocab] at each row's last valid
-    position (only rows finishing their prefill read them)."""
+    position (only rows finishing their prefill read them). Over a
+    sharded tree the bucket runs whole on every rank of a batch column
+    (replicated over the batch axis, as in JAX) and the logits are
+    gathered over the model axis."""
     B, s = tokens.shape
     page = cache.page_size
     dev = tokens.device
@@ -1552,7 +1650,8 @@ def _prefill_batch(c, params, cache, tables, starts, tokens, valids):
     )
     last_idx = torch.clamp(valids - 1, min=0).long()
     x_last = x[torch.arange(B, device=dev), last_idx][:, None]  # [B, 1, d]
-    return _mm(x_last, params["lm_head"]).to(torch.float32)[:, 0]
+    return meshlib.gather_model(meshlib.params_mesh(params), _mm(
+        x_last, params["lm_head"]).to(torch.float32)[:, 0])
 
 
 def _write_kv(cache, layer: int, pids, offs, k, v) -> tuple:
@@ -1581,6 +1680,7 @@ def _write_then_attend(c, params, cache, tables, pids, offs, pos_q, toks,
     paged_multiquery_attention with per-row chunk starts ``pos_q``, and
     return the final-norm hidden states."""
     B, S = toks.shape
+    mesh = meshlib.params_mesh(params)
     x = _embed(c, params, toks)  # [B, S, d]
     cos, sin = rope_frequencies(c, positions)  # [B, S, hd/2]
     for layer in range(c.n_layers):
@@ -1590,7 +1690,7 @@ def _write_then_attend(c, params, cache, tables, pids, offs, pos_q, toks,
         out = paged_multiquery_attention(
             q, cache.k[layer], cache.v[layer], tables, pos_q, *scales,
         ).to(c.dtype)
-        x = _finish_block(c, lp, x, out, B, S)
+        x = _finish_block(c, lp, x, out, B, S, mesh)
     return _rms(x, params["final_norm"]["scale"], c.norm_eps)
 
 

@@ -22,6 +22,13 @@ into the decode step unquantized (``extra_k``/``extra_v``), while its
 unrolled layout quantizes that token into the cache first; with an int8
 cache the two differ, and this port matches the **unrolled** one.
 
+Over a decode mesh (``parallel/mesh.py`` ``shard_decode_params``, as
+JAX's ``greedy_generate`` over decode-sharded params): the tree carries
+its mesh, the layers run on this rank's heads and ffn columns with the
+plain impls (``sharded_safe_config``), the cache holds its kv heads, and
+the attention output, ``silu(gate)·up`` and the logits are gathered over
+the model axis; rows stay whole (replicated over the batch axis).
+
 ``DecodeCache.pos`` is a host int: positions, cache slices and the
 decode kernel's length are known on the host, so the decode loop needs
 no device->host sync; the generated tokens stay on the device and are
@@ -61,6 +68,14 @@ from tpu_dra_torch.workloads.ops.decode_mlp import (
 from tpu_dra_torch.workloads.ops.sample import (  # noqa: F401
     sample_pick,
     topk_exact,
+)
+from tpu_dra_torch.workloads.parallel.mesh import (
+    check_decode_config,
+    gather_model,
+    local_kv_heads,
+    params_mesh,
+    sharded_safe_config,
+    with_mesh,
 )
 from tpu_dra_torch.workloads.quantize import quantize_kv, quantize_params
 from tpu_dra_torch.workloads.sampling import MASK32, fold_in
@@ -141,9 +156,11 @@ def init_cache(
     max_seq: int,
     kv_quant: str = "none",
     device=None,
+    mesh=None,
 ) -> DecodeCache:
     """A zeroed cache on ``device`` (default: the CUDA device, see
-    :func:`.device.resolve_device`)."""
+    :func:`.device.resolve_device`), of this rank's kv heads on a decode
+    ``mesh``."""
     device = resolve_device(device)
     if kv_quant not in KV_QUANT_MODES:
         raise ValueError(
@@ -151,8 +168,9 @@ def init_cache(
         )
     quant = kv_quant == "int8"
     kv_dtype = torch.int8 if quant else config.dtype
-    shape = (batch, max_seq, config.n_kv_heads, config.head_dim)
-    sshape = (batch, max_seq, config.n_kv_heads)
+    kvh = local_kv_heads(mesh, config.n_kv_heads)
+    shape = (batch, max_seq, kvh, config.head_dim)
+    sshape = (batch, max_seq, kvh)
     L = config.n_layers
 
     def zeros(shp, dtype):
@@ -167,27 +185,33 @@ def init_cache(
 
 
 def _project_qkv(c: LlamaConfig, lp: dict, x, cos, sin, b: int, s: int):
-    """Front half of a decoder layer: pre-norm + roped q/k/v."""
+    """Front half of a decoder layer: pre-norm + roped q/k/v, over the
+    heads the projections hold (all of them, or a model shard's)."""
     att = lp["attention"]
     h = _rms(x, lp["attention_norm"]["scale"], c.norm_eps)
-    q = _mm(h, att["wq"]).reshape(b, s, c.n_heads, c.head_dim)
-    k = _mm(h, att["wk"]).reshape(b, s, c.n_kv_heads, c.head_dim)
-    v = _mm(h, att["wv"]).reshape(b, s, c.n_kv_heads, c.head_dim)
+    q = _mm(h, att["wq"]).reshape(b, s, -1, c.head_dim)
+    k = _mm(h, att["wk"]).reshape(b, s, -1, c.head_dim)
+    v = _mm(h, att["wv"]).reshape(b, s, -1, c.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_block(c: LlamaConfig, lp: dict, x, out, b: int, s: int):
+def _finish_block(c: LlamaConfig, lp: dict, x, out, b: int, s: int,
+                  mesh=None):
     """Back half: attention output projection + residual MLP. The s=1
-    decode step takes the fused block (ops/decode_mlp.py)."""
+    decode step takes the fused block (ops/decode_mlp.py). On a decode
+    ``mesh`` the attention output of this rank's heads is gathered over
+    the model axis before the replicated ``wo``, and the MLP gathers
+    ``silu(gate)·up`` before ``w_down``."""
     att = lp["attention"]
-    out = out.reshape(b, s, c.n_heads * c.head_dim)
+    out = gather_model(mesh, out.reshape(b, s, -1))
     x = x + _mm(out, att["wo"])
     scale = lp["mlp_norm"]["scale"]
     if s == 1:
         return decode_mlp(
-            x[:, 0], scale, lp["mlp"], c.norm_eps, impl=c.decode_mlp_impl
+            x[:, 0], scale, lp["mlp"], c.norm_eps, impl=c.decode_mlp_impl,
+            mesh=mesh,
         )[:, None]
-    return _torch_decode_mlp(x, scale, lp["mlp"], c.norm_eps)
+    return _torch_decode_mlp(x, scale, lp["mlp"], c.norm_eps, mesh)
 
 
 def _key_scale_cols(s: torch.Tensor) -> torch.Tensor:
@@ -236,7 +260,7 @@ def _write_cache(ck, cv, ks, vs, k, v, pos: int):
 
 
 def _block_inplace(c, lp, x, ck, cv, ks, vs, pos: int, mask, cos, sin,
-                   b: int, s: int):
+                   b: int, s: int, mesh=None):
     """One decoder layer over its cache: append this chunk's K/V in
     place (quantizing in flight), then attend over the updated buffer.
     The s=1 step attends through ``decode_attention``."""
@@ -249,14 +273,14 @@ def _block_inplace(c, lp, x, ck, cv, ks, vs, pos: int, mask, cos, sin,
         )[:, None].to(c.dtype)
     else:
         n_rep = c.n_heads // c.n_kv_heads
-        qg = q.reshape(b, s, c.n_kv_heads, n_rep, c.head_dim)
+        qg = q.reshape(b, s, -1, n_rep, c.head_dim)
         logits = _attend_chunk_scores(c, qg, ck, ks)
         logits = torch.where(
             mask[None, None, None], logits, torch.full_like(logits, NEG_INF)
         )
         probs = torch.softmax(logits, dim=-1)
         out = _attend_chunk_values(c, probs, cv, vs).to(c.dtype)
-    return _finish_block(c, lp, x, out, b, s)
+    return _finish_block(c, lp, x, out, b, s, mesh)
 
 
 def forward_chunk(
@@ -267,8 +291,12 @@ def forward_chunk(
     cache.pos+s-1`` of an unrolled tree: write their K/V into ``cache``
     in place, attend over everything written so far, advance
     ``cache.pos`` and return fp32 logits [b, s, vocab]. Prefill is a
-    long chunk; a decode step is s=1 and runs ``decode_attention``."""
+    long chunk; a decode step is s=1 and runs ``decode_attention``.
+    Over a tree from ``shard_decode_params`` (its mesh on the tree, the
+    cache of this rank's kv heads, a config from ``sharded_safe_config``)
+    the logits are gathered over the model axis."""
     c = config
+    mesh = params_mesh(params)
     if "layers" in params:
         raise ValueError(
             "forward_chunk takes the unrolled layer_{i} tree; unroll a "
@@ -294,11 +322,11 @@ def forward_chunk(
             c, params[f"layer_{i}"], x, cache.k[i], cache.v[i],
             cache.k_scale[i] if cache.quantized else None,
             cache.v_scale[i] if cache.quantized else None,
-            pos, mask, cos, sin, b, s,
+            pos, mask, cos, sin, b, s, mesh,
         )
     cache.pos = pos + s
     x = _rms(x, params["final_norm"]["scale"], c.norm_eps)
-    return _mm(x, params["lm_head"]).to(torch.float32)
+    return gather_model(mesh, _mm(x, params["lm_head"]).to(torch.float32))
 
 
 def _generate(
@@ -314,10 +342,16 @@ def _generate(
 ) -> torch.Tensor:
     """Prefill + a loop of s=1 steps; ``pick(logits [b, vocab], i)``
     chooses the token of step i. The tokens stay on the device and are
-    copied to the host once, at the end."""
+    copied to the host once, at the end. A tree from
+    ``shard_decode_params`` runs sharded over its mesh, under
+    ``sharded_safe_config`` of ``config``."""
     device = resolve_device(device)
+    mesh = params_mesh(params)
+    if mesh is not None:
+        config = sharded_safe_config(config, mesh)
+        check_decode_config(config, mesh)
     tree = unroll_params(as_tree(params, device))
-    tree = _maybe_quantize_params(tree, weight_quant)
+    tree = with_mesh(_maybe_quantize_params(tree, weight_quant), mesh)
     prompt = torch.as_tensor(prompt, device=device)
     b, s = prompt.shape
     if not max_seq:
@@ -331,7 +365,8 @@ def _generate(
             f"cache too small: max_seq={max_seq} < prompt {s} + "
             f"max_new_tokens {max_new_tokens}"
         )
-    cache = init_cache(config, b, max_seq, kv_quant, device=device)
+    cache = init_cache(config, b, max_seq, kv_quant, device=device,
+                       mesh=mesh)
     logits = forward_chunk(config, tree, cache, prompt)
     tok = pick(logits[:, -1], 0).to(prompt.dtype)
     out = [tok]
@@ -359,8 +394,10 @@ def greedy_generate(
     cache int8 with per-(token, kv head) scales; ``weight_quant="int8"``
     runs every matmul of the path (projections, MLP, logits) over the
     int8 weight-only tree. The params may be a LlamaParams, or a nested
-    dict in either layout, plain or already quantized. Ties go to the
-    lowest id, as ``jnp.argmax`` does."""
+    dict in either layout, plain or already quantized, or this rank's
+    shard from ``shard_decode_params`` (every rank of its mesh calls
+    with the same prompt). Ties go to the lowest id, as ``jnp.argmax``
+    does."""
     return _generate(
         config, params, prompt, max_new_tokens, max_seq,
         pick=lambda logits, _i: torch.argmax(logits, dim=-1),

@@ -97,14 +97,19 @@ def _dense(w: dict) -> torch.Tensor:
     return w["kernel"].to(torch.float32)
 
 
-def _torch_decode_mlp(x, norm_scale, mlp, eps):
+def _torch_decode_mlp(x, norm_scale, mlp, eps, mesh=None):
     """The residual norm+MLP chain as plain ops, on rows of any leading
     shape: the twin of ``_xla_decode_mlp`` and of the s>1 branch of the
-    JAX ``generate._finish_block``."""
+    JAX ``generate._finish_block``. On a decode mesh (parallel/mesh.py)
+    ``w_gate``/``w_up`` are this rank's column shards: ``silu(gate)·up``
+    is gathered over the model axis before the replicated ``w_down``."""
     h = _rms(x, norm_scale, eps)
     gate = _mm(h, mlp["w_gate"])
     up = _mm(h, mlp["w_up"])
-    return x + _mm(F.silu(gate) * up, mlp["w_down"])
+    act = F.silu(gate) * up
+    if mesh is not None:
+        act = mesh.gather_model(act)
+    return x + _mm(act, mlp["w_down"])
 
 
 def reference_decode_mlp(x, norm_scale, mlp, eps):
@@ -372,17 +377,26 @@ def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     return out
 
 
-def decode_mlp(x, norm_scale, mlp: dict, eps: float, impl: str = "auto"):
+def decode_mlp(x, norm_scale, mlp: dict, eps: float, impl: str = "auto",
+               mesh=None):
     """The decode step's post-attention block for a [b, d] token batch.
 
     ``mlp`` is the layer's subtree ({"w_gate", "w_up", "w_down"}, plain
     or int8 weight-only leaves). impl: "auto" | "cuda" | "torch" |
     "reference". The CUDA kernels size their own tiles: the JAX op's
-    ``block_f`` (its VMEM tile width) has no counterpart here.
+    ``block_f`` (its VMEM tile width) has no counterpart here. ``mesh``:
+    the decode mesh whose model axis shards ``w_gate``/``w_up``; over
+    more than one model coordinate only the plain chain takes a shard,
+    and any other impl raises.
     """
     if x.ndim != 2:
         raise ValueError(
             f"decode_mlp expects [b, d] tokens, got {tuple(x.shape)}"
+        )
+    if mesh is not None and mesh.shape["model"] > 1 and impl != "torch":
+        raise ValueError(
+            f"decode_mlp impl={impl!r} on a model shard: only the plain "
+            f"chain ('torch') gathers between gate/up and down"
         )
     if impl == "auto":
         impl = "cuda" if x.is_cuda and _kernels(mlp) is not None else "torch"
@@ -397,7 +411,7 @@ def decode_mlp(x, norm_scale, mlp: dict, eps: float, impl: str = "auto"):
             )
         return _cuda_decode_mlp(x, norm_scale, *ws, eps=eps)
     if impl == "torch":
-        return _torch_decode_mlp(x, norm_scale, mlp, eps)
+        return _torch_decode_mlp(x, norm_scale, mlp, eps, mesh)
     if impl == "reference":
         return reference_decode_mlp(x, norm_scale, mlp, eps)
     raise ValueError(f"unknown decode mlp impl: {impl!r}")

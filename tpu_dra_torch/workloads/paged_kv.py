@@ -41,6 +41,7 @@ import torch
 from tpu_dra_torch.workloads.device import resolve_device
 from tpu_dra_torch.workloads.generate import KV_QUANT_MODES
 from tpu_dra_torch.workloads.models.llama import LlamaConfig
+from tpu_dra_torch.workloads.parallel.mesh import local_kv_heads
 
 # Page id 0 is the poison scratch page (see module doc).
 SCRATCH_PAGE = 0
@@ -199,9 +200,13 @@ def init_paged_cache(
     page_size: int,
     kv_quant: str = "none",
     device=None,
+    mesh=None,
 ) -> PagedKVCache:
     """Zeroed pools for every layer on ``device`` (default: the CUDA
-    device, see :func:`.device.resolve_device`)."""
+    device, see :func:`.device.resolve_device`). On a decode ``mesh``
+    (parallel/mesh.py) the pools, values and int8 scales, hold this
+    rank's kv heads (``decode_pool_sharding``); page ids are the same on
+    every rank, so every page operation below stays rank-local."""
     device = resolve_device(device)
     if kv_quant not in KV_QUANT_MODES:
         raise ValueError(
@@ -209,8 +214,9 @@ def init_paged_cache(
         )
     quant = kv_quant == "int8"
     kv_dtype = torch.int8 if quant else config.dtype
-    shape = (num_pages, page_size, config.n_kv_heads, config.head_dim)
-    sshape = (num_pages, page_size, config.n_kv_heads)
+    kvh = local_kv_heads(mesh, config.n_kv_heads)
+    shape = (num_pages, page_size, kvh, config.head_dim)
+    sshape = (num_pages, page_size, kvh)
     L = config.n_layers
 
     def zeros(shp, dtype):
