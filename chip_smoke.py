@@ -72,7 +72,9 @@ exits non-zero without a result:
    are bit-identical); the three flash kernels (forward, dQ,
    dK/dV) at b=2, h=32, kvh=8, hd=128 for s=2048 causal and non-causal,
    ragged s=1000 causal and suffix queries sq=512 over skv=2048 (with a
-   non-zero lse cotangent folded into delta), each against its plain
+   non-zero lse cotangent folded into delta), and the ring's chunk pairs
+   on a tp=2 head shard, sq = skv = 1024 at h 16 over kvh 4, causal and
+   full, each with an lse cotangent, each against its plain
    version on the same inputs, bf16 and fp32, reruns bit-identical;
    each case names the forward's, the dQ and the dK/dV kernel's routes
    (sm90: the wgmma kernels for bf16 at hd 64/128, which every bf16 case
@@ -288,6 +290,26 @@ exits non-zero without a result:
    share of top-2 routing decisions that agree between the compared
    arms, and an MFU on the active parameters
    (mixtral_active_flops_per_token).
+9c. train_sharded — sharded Llama training (tpu_dra_torch/workloads/
+   parallel/: the training mesh, ring and Ulysses attention) through
+   python -m tpu_dra_torch.workloads.train --distributed as two gloo
+   ranks sharing the card (NCCL puts no two ranks on one GPU), at
+   Llama-3-8B widths cut to 2 layers, bf16, remat "nothing", b=2,
+   s=2048, 2 steps, weights from the seeded CUDA generator, on
+   TRAIN_SHARDED_RUNS in order: sp=2 ring, tp=2, fsdp=2 (train
+   --distributed's default at world 2), then sp=2 Ulysses while the
+   phase is within TRAIN_SHARDED_BUDGET_S. Before them, on the card, the
+   unsharded Trainer's 2 steps on the same weights and tokens and the
+   fp32 reference loss (reference attention) of step 1. Each run: every
+   step's loss the same on both ranks; every step's flash launches on
+   each rank (forward, dQ and dK/dV, all on the wgmma route, nothing
+   else launched) equal to the count reckoned from the mesh
+   (reckoned_flash_launches: at sp=2 the ring's rank 0 runs one chunk
+   pair a layer, rank 1 two); step 1's loss gap to the fp32 reference
+   at most BF16_GAP_RATIO times the unsharded loss's (gaps under
+   TRAIN_SHARDED_GAP_FLOOR, a bf16 ulp of a mean over b·s tokens, count
+   as equal); the step ms and the collectives by kind (count, host ms,
+   MB, staged through pinned host memory) of each rank.
 
 The line before last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -298,9 +320,11 @@ from __future__ import annotations
 import ctypes
 import collections
 import contextlib
+import ast
 import dataclasses
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -352,11 +376,16 @@ TRAIN_GAP_FLOOR = 1e-5
 # The train phases' batch and sequence length.
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 FLASH_CASES = (
-    # name, sq, skv, causal, lse cotangent
-    ("s2048_causal", 2048, 2048, True, False),
-    ("s2048_noncausal", 2048, 2048, False, False),
-    ("s1000_causal", 1000, 1000, True, False),
-    ("suffix_512_of_2048", 512, 2048, True, True),
+    # name, sq, skv, causal, lse cotangent, heads, kv heads
+    ("s2048_causal", 2048, 2048, True, False, 32, 8),
+    ("s2048_noncausal", 2048, 2048, False, False, 32, 8),
+    ("s1000_causal", 1000, 1000, True, False, 32, 8),
+    ("suffix_512_of_2048", 512, 2048, True, True, 32, 8),
+    # The ring's chunk pairs on a tp=2 head shard (train_sharded): the
+    # diagonal and a full chunk, each merged by logsumexp, so its lse
+    # gets a cotangent.
+    ("ring_s1024_h16_causal", 1024, 1024, True, True, 16, 4),
+    ("ring_s1024_h16_full", 1024, 1024, False, True, 16, 4),
 )
 
 
@@ -1361,9 +1390,10 @@ def flash_parity(A, gen) -> dict:
     the backward pair takes the plain forward's lse and delta. Every
     bf16 case must take the wgmma forward, dQ and dK/dV kernels."""
     out = {}
-    for name, sq, skv, causal, with_glse in FLASH_CASES:
+    for name, sq, skv, causal, with_glse, h, kvh in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do, g_lse = flash_inputs(gen, sq, skv, dtype)
+            q, k, v, do, g_lse = flash_inputs(gen, sq, skv, dtype, h=h,
+                                              kvh=kvh)
             o_k, lse_k = A._cuda_flash_fwd(q, k, v, causal)
             o_p, lse_p = A._torch_flash_fwd(q, k, v, causal)
             delta = flash_delta(o_p, do, g_lse if with_glse else None)
@@ -2948,6 +2978,131 @@ def sharded_world2_card(R) -> dict:
     return rep
 
 
+# --- train_sharded: sharded Llama training on the one card --------------------
+
+#: (label, --mesh, --attention) of the train_sharded runs, in order; the
+#: last runs only while the phase is within TRAIN_SHARDED_BUDGET_S.
+TRAIN_SHARDED_RUNS = (
+    ("sp2_ring", "sp=2", "ring"),
+    ("tp2", "tp=2", "auto"),
+    ("fsdp2", "fsdp=2", "auto"),
+    ("sp2_ulysses", "sp=2", "ulysses"),
+)
+TRAIN_SHARDED_LAYERS, TRAIN_SHARDED_STEPS = 2, 2
+TRAIN_SHARDED_BUDGET_S = 150.0
+TRAIN_SHARDED_TIMEOUT_S = 150  # each launch of two ranks
+# Step-1 loss gaps to the fp32 reference (relative) under one bf16 ulp
+# (2^-8) of a mean over the b·s tokens count as equal.
+TRAIN_SHARDED_GAP_FLOOR = 2.0 ** -8 / math.sqrt(TRAIN_BATCH * TRAIN_SEQ)
+FLASH_COUNTERS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd_dq",
+                  "flash_bwd_dq_sm90", "flash_bwd_dkv", "flash_bwd_dkv_sm90")
+
+
+def reckoned_flash_launches(attention: str, rank: int, layers: int) -> dict:
+    """A train step's flash launches on one rank of a two-rank mesh, all
+    on the wgmma route (bf16, hd 128): a layer's attention runs forward
+    twice (remat "nothing" recomputes the block) and backward once. The
+    ring's rank i (its sp coordinate, the mesh having no other axis)
+    runs i + 1 chunk pairs, its diagonal and i full chunks; every other
+    run one attention a layer (a head shard, a batch row, or Ulysses'
+    head group over the whole sequence)."""
+    pairs = rank + 1 if attention == "ring" else 1
+    fwd, bwd = 2 * layers * pairs, layers * pairs
+    return {"flash_fwd": fwd, "flash_fwd_sm90": fwd, "flash_bwd_dq": bwd,
+            "flash_bwd_dq_sm90": bwd, "flash_bwd_dkv": bwd,
+            "flash_bwd_dkv_sm90": bwd}
+
+
+def train_sharded_phase(R, T, cfg, init_params) -> tuple:
+    """The train_sharded phase (see the module docstring): returns its
+    report and the flash launches of every rank of every run, summed."""
+    t_phase = time.perf_counter()
+    b, s, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_SHARDED_STEPS
+    # train --distributed's batch: np.random.default_rng(1).
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    torch.cuda.empty_cache()
+    trainer = T.Trainer(cfg, T.MeshConfig())
+    state = trainer.init_state()  # seed 0 on the card, as every rank's
+    step = trainer.make_train_step()
+    unsharded = []
+    for _ in range(steps):
+        state, loss = step(state, tokens)
+        unsharded.append(float(loss))
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params.float()
+    ref_cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                  param_dtype=torch.float32,
+                                  attention_impl="reference")
+    with torch.no_grad():
+        loss_ref = float(T.loss_fn(T.build_model(ref_cfg), params, tokens))
+    del params
+    torch.cuda.empty_cache()
+    gap_unsharded = abs(unsharded[0] - loss_ref) / abs(loss_ref)
+    out = {"model": "LLAMA3_8B widths cut to 2 layers, bf16, remat nothing, "
+                    "random weights; two gloo ranks on the one card",
+           "batch": b, "seq": s, "steps": steps,
+           "unsharded_losses": unsharded, "fp32_reference_loss": loss_ref,
+           "unsharded_gap": gap_unsharded, "gap_floor": TRAIN_SHARDED_GAP_FLOOR,
+           "gap_ratio_bar": BF16_GAP_RATIO, "runs": {}}
+    launches = collections.Counter()
+    for label, mesh, attention in TRAIN_SHARDED_RUNS:
+        elapsed = time.perf_counter() - t_phase
+        longest = max((r["seconds"] for r in out["runs"].values()),
+                      default=0.0)
+        if label == "sp2_ulysses" and elapsed + longest > \
+                TRAIN_SHARDED_BUDGET_S:
+            out["runs"][label] = {"skipped": f"the phase at {elapsed:.1f} s "
+                                  f"of its {TRAIN_SHARDED_BUDGET_S} s budget"}
+            continue
+        argv = ["tpu_dra_torch.workloads.train", "--distributed", "--device",
+                "cuda:0", "--backend", "gloo", "--model", "llama3-8b",
+                "--layers", str(TRAIN_SHARDED_LAYERS), "--mesh", mesh,
+                "--attention", attention, "--steps", str(steps), "--batch",
+                str(b), "--seq", str(s)]
+        coordinator = f"127.0.0.1:{R.free_port()}"
+        t0 = time.perf_counter()
+        ranks = run_workloads(R, [argv, argv],
+                              [R.rank_env(r, 2, coordinator) for r in range(2)],
+                              timeout=TRAIN_SHARDED_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        res = [ast.literal_eval(R.last_json(o)) for o, _, _ in ranks]
+        losses = [r["losses"] for r in res]
+        gap = abs(losses[0][0] - loss_ref) / abs(loss_ref)
+        ratio = gap / max(gap_unsharded, TRAIN_SHARDED_GAP_FLOOR)
+        run = {
+            "mesh": res[0]["mesh"], "attention": attention,
+            "losses_by_rank": losses,
+            "gap_to_fp32": gap, "gap_ratio": ratio,
+            "rel_diff_vs_unsharded": [abs(a - u) / abs(u) for a, u in zip(
+                losses[0], unsharded)],
+            "step_ms_by_rank": [r["step_ms"] for r in res],
+            "launches_by_rank": [r["launches_per_step"] for r in res],
+            "reckoned_launches_by_rank": [reckoned_flash_launches(
+                attention, r["rank"], TRAIN_SHARDED_LAYERS) for r in res],
+            "collectives_by_rank": [r["collectives"] for r in res],
+            "seconds": seconds,
+        }
+        out["runs"][label] = run
+        bad = []
+        if losses[0] != losses[1] or not np.isfinite(losses).all():
+            bad.append("losses differ across ranks or are not finite")
+        for r, want in zip(res, run["reckoned_launches_by_rank"]):
+            for i, got in enumerate(r["launches_per_step"]):
+                if got != want:
+                    bad.append(f"rank {r['rank']} step {i}: launches {got}, "
+                               f"want {want}")
+                launches.update(got)
+        if ratio > BF16_GAP_RATIO:
+            bad.append(f"step-1 loss gap ratio {ratio} above {BF16_GAP_RATIO}")
+        if bad:
+            raise AssertionError(f"train_sharded {label}: {bad}: {run}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, {k: launches[k] for k in FLASH_COUNTERS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -3956,6 +4111,13 @@ def main() -> int:
                           rates, "MIXTRAL_8X7B widths cut to 2 layers")
     emit("train_mixtral", **mixtral)
 
+    # --- 9c. sharded Llama training: two gloo ranks on the card ------------
+    sharded_train, sharded_train_launches = train_sharded_phase(
+        rank_launcher(), T,
+        dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_SHARDED_LAYERS),
+        init_params)
+    emit("train_sharded", nvidia_smi=smi, **sharded_train)
+
     # --- kernel list and result ----------------------------------------------
     rows = []
     for name, source, replaces, par, t, n_launch in (
@@ -4003,7 +4165,8 @@ def main() -> int:
          {"vs_plain": parity["flash_s2048_causal_bf16"][f"{out}_vs_plain"]},
          timing[name],
          train["launches"][counter] + mixtral["launches"][counter]
-         + bench_launches.get(counter, 0))
+         + bench_launches.get(counter, 0)
+         + sharded_train_launches[counter])
         for name, source, counter, line, out in (
             ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
             ("flash_bwd_dq", "flash_bwd_dq_sm90.cu", "flash_bwd_dq_sm90",

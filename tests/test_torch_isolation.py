@@ -1,8 +1,9 @@
 """The port stands alone: no module under tpu_dra_torch/ (the decode
 mesh's parallel/ package included), and not chip_smoke.py, the ablation
 scripts that run beside it on the card (int8mm_ablation.py,
-decode_mlp_ablation.py, l2_flush_ablation.py) or the sharded-decode rank
-helper (tests/torch_sharded_rank.py), imports jax, flax or anything of
+decode_mlp_ablation.py, l2_flush_ablation.py) or the rank helpers of the
+gloo twins (tests/torch_{sharded,mesh,seqpar,train}_rank.py), imports
+jax, flax or anything of
 the JAX package (tpu_dra). The card's
 machine has no JAX, and the JAX package is the reference the port is
 held to, never a dependency of it."""
@@ -21,6 +22,8 @@ def _port_files():
     files += [REPO / "chip_smoke.py", REPO / "int8mm_ablation.py",
               REPO / "decode_mlp_ablation.py", REPO / "l2_flush_ablation.py",
               REPO / "tests" / "torch_sharded_rank.py"]
+    files += [REPO / "tests" / f"torch_{name}_rank.py"
+              for name in ("mesh", "seqpar", "train")]
     return files
 
 
@@ -30,6 +33,15 @@ def test_decode_mesh_modules_are_scanned():
             "tpu_dra_torch/workloads/parallel/mesh.py",
             "tpu_dra_torch/workloads/shardbench.py",
             "tests/torch_sharded_rank.py"} <= names
+
+
+def test_training_mesh_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"tpu_dra_torch/workloads/parallel/context.py",
+            "tpu_dra_torch/workloads/parallel/ring_attention.py",
+            "tpu_dra_torch/workloads/parallel/ulysses.py",
+            "tests/torch_mesh_rank.py", "tests/torch_seqpar_rank.py",
+            "tests/torch_train_rank.py"} <= names
 
 
 def _imported_roots(path: Path):

@@ -2,9 +2,10 @@
 (tpu_dra/workloads/rendezvous_smoke.py): the same data-parallel step on
 the same global batch gives JAX's losses, in one process and over 2 gloo
 ranks bootstrapped from config dirs the slice daemon's own renderer
-wrote; and ``train --distributed`` trains at world 1 and reaches the
-parallel-training refusal at world 2."""
+wrote; and ``train --distributed`` trains at world 1 and, on JAX's
+default mesh (fsdp=2), at world 2."""
 
+import ast
 import json
 
 import numpy as np
@@ -120,14 +121,22 @@ def test_train_distributed_world_one_trains(clean_env, capsys):
 
 
 def test_train_distributed_world_two_reaches_the_parallel_refusal():
+    """World two trains (the name is the one from before parallel
+    training was ported): both ranks bootstrap, train one step on JAX's
+    default mesh for 2 devices (fsdp=2) with its default batch of one
+    row a shard, and print the same loss."""
     coordinator = f"127.0.0.1:{free_port()}"
     argv = ["-m", "tpu_dra_torch.workloads.train", "--distributed",
             "--device", "cpu", "--steps", "1", "--seq", "16"]
     results = launch([argv, argv],
                      [rank_env(r, 2, coordinator) for r in range(2)],
                      timeout=120)
+    got = []
     for rank, (rc, out, err, _) in enumerate(results):
-        assert rc not in (0, None), (rank, rc, err[-3000:])
+        assert rc == 0, (rank, rc, err[-3000:])
         assert "slice bootstrap: SliceEnv(worker_id=%d" % rank in err
-        assert "NotImplementedError" in err and "item 11" in err, err[-3000:]
-        assert "MeshConfig(dp=1, fsdp=2" in err
+        got.append(ast.literal_eval(last_json(out)))
+    for r in got:
+        assert r["ok"] and r["steps"] == 1 and r["device"] == "cpu"
+        assert r["mesh"] == {"fsdp": 2} and r["batch"] == 2
+    assert got[0]["loss"] == got[1]["loss"]

@@ -13,6 +13,7 @@ Trainer within 1e-4 relative.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 import torch  # noqa: E402
 
+from tests import torch_train_rank as RK  # noqa: E402
+from tests.torch_ranks import free_port, last_json, rank_env, start, wait  # noqa: E402
 from tpu_dra.workloads import train as JT  # noqa: E402
 from tpu_dra.workloads.models import llama as JL  # noqa: E402
 from tpu_dra.workloads.ops import attention as JA  # noqa: E402
@@ -304,24 +307,43 @@ def test_trainer_three_steps_match_jax_trainer():
     assert logits.shape == (2, 64, 256) and logits.dtype == torch.float32
 
 
-def test_unported_paths_raise_and_name_the_roadmap():
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11 \(parallel training\)"):
-        TT.Trainer(TCFG, TT.MeshConfig(fsdp=2), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11 \(parallel training\)"):
+def test_unported_paths_raise_and_name_the_roadmap(tmp_path):
+    """ep, pp and Mixtral on a mesh above one device still raise, naming
+    item 11. ``MeshConfig(fsdp=2)``, which is ``for_device_count(2)`` and
+    so ``train --distributed``'s mesh at a world of 2, now builds and
+    trains: 2 gloo ranks (tests/torch_train_rank.py) give the
+    single-device trainer's losses. Ring attention without a mesh is
+    single-device attention, as in JAX."""
+    item_11 = r"item 11 \(parallel training\)"
+    with pytest.raises(NotImplementedError, match=item_11):
         TT.Trainer(TM.TINY_MIXTRAL, TT.MeshConfig(ep=2), device="cpu")
-    # train --distributed at a world of 2 (tests/test_torch_rendezvous.py
-    # runs it over 2 gloo ranks): JAX's default mesh, then item 11.
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11 \(parallel training\)"):
-        TT.Trainer(TCFG, TT.MeshConfig.for_device_count(2), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11 \(parallel training\)"):
-        TL.Llama(dataclasses.replace(TCFG, attention_impl="ring"))(
-            torch.zeros((1, 4), dtype=torch.int32),
-            params=TL.init_params(TCFG, torch.Generator().manual_seed(0),
-                                  "cpu"))
+    with pytest.raises(NotImplementedError, match=item_11):
+        TT.Trainer(TCFG, TT.MeshConfig(pp=2), device="cpu")
+    with pytest.raises(NotImplementedError, match=item_11):
+        TT.Trainer(TM.TINY_MIXTRAL, TT.MeshConfig(fsdp=2), device="cpu")
+    assert TT.MeshConfig.for_device_count(2) == TT.MeshConfig(fsdp=2)
+    coordinator = f"127.0.0.1:{free_port()}"
+    started = start([["tests/torch_train_rank.py", str(tmp_path), "fsdp2"]] * 2,
+                    [rank_env(r, 2, coordinator) for r in range(2)])
+    case = RK.CASES["fsdp2"]
+    single = TT.Trainer(RK.config_of(case), TT.MeshConfig(),
+                        TT.TrainConfig(learning_rate=case.lr), device="cpu")
+    state, step, want = single.init_state(), single.make_train_step(), []
+    for _ in range(case.steps):
+        state, loss = step(state, torch.from_numpy(RK.TOKENS[case.tokens]))
+        want.append(float(loss))
+    got = []
+    for rank, (rc, out, err, _) in enumerate(wait(started, 300)):
+        assert rc == 0, (rank, rc, err[-3000:])
+        got.append(json.loads(last_json(out))["fsdp2"])
+    assert got[0]["losses"] == got[1]["losses"]
+    np.testing.assert_allclose(got[0]["losses"], want, rtol=1e-5)
+    assert got[0]["mesh"] == {"fsdp": 2} and got[0]["step"] == 2
+    tokens = torch.from_numpy(_tokens(3, 1, 16))
+    params = TL.init_params(TCFG, torch.Generator().manual_seed(0), "cpu")
+    ring = TL.Llama(dataclasses.replace(TCFG, attention_impl="ring"))(
+        tokens, params=params)
+    assert torch.equal(ring, TL.Llama(TCFG)(tokens, params=params))
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             TT.Trainer(TCFG)

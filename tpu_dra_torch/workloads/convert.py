@@ -23,6 +23,9 @@ For training, ``params_from_numpy(..., trainable=True)`` gives a tree
 whose leaves carry gradients, ``opt_state_from_numpy`` turns optax's
 AdamW state into the port's (so a step resumed from a JAX checkpoint
 matches JAX's), and ``params_to_numpy`` goes back the other way.
+``train_state_from_numpy`` is the one path from a JAX training state to
+a Trainer's: both converted, then cut to a mesh rank's blocks
+(``parallel.mesh.shard_train_params`` / ``shard_opt_state``).
 
 ``extent_from_numpy`` is the state counterpart: a JAX ``KVExtent``
 (numpy payload) becomes the port's :class:`~.paged_kv.KVExtent`, bf16
@@ -39,7 +42,6 @@ import torch
 from tpu_dra_torch.workloads.device import resolve_device
 from tpu_dra_torch.workloads.models.llama import LlamaConfig, LlamaParams
 from tpu_dra_torch.workloads.models.mixtral import MixtralConfig, MixtralParams
-from tpu_dra_torch.workloads.train import AdamState
 
 
 def _leaf(arr, dtype: torch.dtype, device) -> torch.Tensor:
@@ -138,13 +140,17 @@ def _find_adam(state):
 
 def opt_state_from_numpy(
     state, config: "LlamaConfig | MixtralConfig", device=None
-) -> AdamState:
+) -> "AdamState":
     """optax's state for ``make_optimizer`` — ``(EmptyState(),
     (ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState()))``
     with numpy leaves (``jax.tree_util.tree_map(np.asarray, state)``),
     mu and nu in either JAX layout — -> the port's AdamState: count
     int32, mu fp32, nu in ``config.param_dtype``, keyed by parameter
     name."""
+    # Imported here: train imports parallel.mesh, which imports this
+    # module.
+    from tpu_dra_torch.workloads.train import AdamState
+
     device = resolve_device(device)
     adam = _find_adam(state)
     if adam is None:
@@ -157,6 +163,24 @@ def opt_state_from_numpy(
         nu={n: _leaf(a, config.param_dtype, device)
             for n, a in _flat_names(unroll_tree(adam.nu)).items()},
     )
+
+
+def train_state_from_numpy(params, opt_state, config, mesh=None,
+                           device=None, step: int = 0) -> dict:
+    """A JAX training state (its params and optax state as numpy trees,
+    either layout) -> a Trainer's state on ``device``: trainable
+    parameters and AdamW state, cut to this rank's blocks of ``mesh``
+    (a ``parallel.mesh.TrainMesh``; whole without one)."""
+    from tpu_dra_torch.workloads.parallel.mesh import (
+        shard_opt_state,
+        shard_train_params,
+    )
+
+    p = params_from_numpy(params, config, device=device, trainable=True)
+    o = opt_state_from_numpy(opt_state, config, device=device)
+    if mesh is not None:
+        p, o = shard_train_params(mesh, p), shard_opt_state(mesh, o)
+    return {"params": p, "opt_state": o, "step": step}
 
 
 def _bits_leaf(arr, device) -> torch.Tensor:

@@ -11,6 +11,22 @@ loads. The training path adds the modules of the flax model
 ``Llama``) as stateless ``nn.Module``s that take their flax-named
 subtree as the first argument, per-layer remat through
 ``torch.utils.checkpoint``, and ``train_flops_per_token``.
+
+On a training mesh of more than one rank (the global one of
+:mod:`..parallel.context`, which ``Trainer`` sets) the forward is this
+rank's share of JAX's GSPMD program, its tokens the rank's rows and
+``sp`` chunk, its parameters the rank's blocks (:mod:`..parallel.mesh`
+``PARAM_RULES``): each weight is all-gathered over fsdp where it is
+used; tp gives a rank ``n_heads/tp`` and ``n_kv_heads/tp`` heads and
+``ffn_dim/tp`` columns, ``wq/wk/wv/w_gate/w_up`` column-parallel after
+an identity whose backward all-reduces over tp, ``wo/w_down``
+row-parallel with an fp32 all-reduce over tp after them; the embedding
+and ``lm_head`` gather their tp blocks too (exact, the computation
+around them replicated over tp); rope positions start at the rank's
+chunk. Attention takes ring or Ulysses sequence parallelism by
+``attention_impl``; any other impl with sp above 1 gathers K/V over sp
+and runs the rank's queries as the suffix of the keys up to its chunk's
+end, as GSPMD gathers the sequence for JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ from torch.utils.checkpoint import (
 
 from tpu_dra_torch.workloads.ops.attention import attention
 from tpu_dra_torch.workloads.ops.decode_mlp import _mm, _rms
+from tpu_dra_torch.workloads.parallel.context import get_global_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +73,8 @@ class LlamaConfig:
     remat: bool = True
     remat_policy: str = "nothing"
     # Full-sequence attention (ops/attention.py attention): "auto" |
-    # "cuda" | "torch" | "reference". The block sizes are the JAX
+    # "cuda" | "torch" | "reference", or sequence parallelism on a
+    # training mesh: "ring" | "ulysses". The block sizes are the JAX
     # kernels' TPU tiles: the port keeps them for parity and ignores
     # them (its kernels size their own 64-row tiles).
     attention_impl: str = "auto"
@@ -285,10 +303,41 @@ class RMSNorm(nn.Module):
         return _rms(x, p["scale"], self.eps)
 
 
+def _train_mesh():
+    """The global training mesh when it spans more than one rank, else
+    None (the single-device forward)."""
+    mesh = get_global_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _weight(mesh, p: dict, path: str, tp: bool = False) -> dict:
+    """A ``{"kernel"}`` weight as a forward reads it: on a mesh, this
+    rank's block gathered over fsdp (and tp with ``tp``)."""
+    if mesh is None:
+        return p
+    return {"kernel": mesh.gather_param(p["kernel"], path, tp)}
+
+
+def _tp_in(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel region: identity, its gradient
+    all-reduced over tp (Megatron's f)."""
+    return x if mesh is None else mesh.all_reduce_grad(x, "tp")
+
+
+def _tp_out(mesh, y: torch.Tensor) -> torch.Tensor:
+    """The output of a row-parallel matmul: the tp partial sums added in
+    fp32 (Megatron's g)."""
+    if mesh is None or mesh.shape["tp"] == 1:
+        return y
+    return mesh.all_reduce(y.float(), "tp").to(y.dtype)
+
+
 class LlamaAttention(nn.Module):
     """Projections, rope and causal GQA attention (ops/attention.py
-    ``attention`` with ``config.attention_impl``). forward(p, x, cos,
-    sin), p = {wq, wk, wv, wo}/kernel."""
+    ``attention`` with ``config.attention_impl``; ring or Ulysses
+    sequence parallelism for "ring" / "ulysses", which fall back to
+    ``attention`` without a mesh). forward(p, x, cos, sin), p = {wq, wk,
+    wv, wo}/kernel: on a training mesh this rank's blocks."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -296,36 +345,68 @@ class LlamaAttention(nn.Module):
 
     def forward(self, p: dict, x, cos, sin) -> torch.Tensor:
         c = self.config
-        if c.attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_impl={c.attention_impl!r} (sequence parallelism) "
-                f"is not ported yet: ROADMAP Queue A item 11 (parallel "
-                f"training)"
-            )
+        mesh = _train_mesh()
+        tp = 1 if mesh is None else mesh.shape["tp"]
+        h, kvh = c.n_heads // tp, c.n_kv_heads // tp
         b, s, _ = x.shape
-        q = _mm(x, p["wq"]).reshape(b, s, c.n_heads, c.head_dim)
-        k = _mm(x, p["wk"]).reshape(b, s, c.n_kv_heads, c.head_dim)
-        v = _mm(x, p["wv"]).reshape(b, s, c.n_kv_heads, c.head_dim)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        out = attention(
-            q, k, v, causal=True, impl=c.attention_impl,
-            block_q=c.attention_block_q, block_k=c.attention_block_k,
-        )
-        return _mm(out.reshape(b, s, c.n_heads * c.head_dim), p["wo"])
+        x = _tp_in(mesh, x)
+        q = _mm(x, _weight(mesh, p["wq"], "attention/wq/kernel"))
+        k = _mm(x, _weight(mesh, p["wk"], "attention/wk/kernel"))
+        v = _mm(x, _weight(mesh, p["wv"], "attention/wv/kernel"))
+        q = apply_rope(q.reshape(b, s, h, c.head_dim), cos, sin)
+        k = apply_rope(k.reshape(b, s, kvh, c.head_dim), cos, sin)
+        v = v.reshape(b, s, kvh, c.head_dim)
+        if c.attention_impl == "ulysses":
+            from tpu_dra_torch.workloads.parallel.ulysses import (
+                ulysses_attention,
+            )
+
+            out = ulysses_attention(q, k, v)
+        elif c.attention_impl == "ring":
+            from tpu_dra_torch.workloads.parallel.ring_attention import (
+                ring_attention,
+            )
+
+            out = ring_attention(q, k, v)
+        else:
+            if mesh is not None and mesh.shape["sp"] > 1:
+                k, v = _sequence_prefix(mesh, k, v)
+            out = attention(
+                q, k, v, causal=True, impl=c.attention_impl,
+                block_q=c.attention_block_q, block_k=c.attention_block_k,
+            )
+        y = _mm(out.reshape(b, s, h * c.head_dim),
+                _weight(mesh, p["wo"], "attention/wo/kernel"))
+        return _tp_out(mesh, y)
+
+
+def _sequence_prefix(mesh, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """K and V of every position up to the end of this rank's sp chunk:
+    gathered over sp as one tensor (the backward reduce-scatters their
+    gradients), so the rank's queries are the suffix of the keys and the
+    causal offset of the flash kernels places them."""
+    kv = mesh.all_gather(torch.stack([k, v]), "sp", 2)
+    end = (mesh.index("sp") + 1) * k.shape[1]
+    return kv[0, :, :end], kv[1, :, :end]
 
 
 class LlamaMLP(nn.Module):
-    """SwiGLU: w_down(silu(w_gate x) * w_up x). forward(p, x)."""
+    """SwiGLU: w_down(silu(w_gate x) * w_up x). forward(p, x); on a
+    training mesh w_gate/w_up column-parallel and w_down row-parallel
+    over tp."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
 
     def forward(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        gate = _mm(x, p["w_gate"])
-        up = _mm(x, p["w_up"])
-        return _mm(F.silu(gate) * up, p["w_down"])
+        mesh = _train_mesh()
+        x = _tp_in(mesh, x)
+        gate = _mm(x, _weight(mesh, p["w_gate"], "mlp/w_gate/kernel"))
+        up = _mm(x, _weight(mesh, p["w_up"], "mlp/w_up/kernel"))
+        y = _mm(F.silu(gate) * up,
+                _weight(mesh, p["w_down"], "mlp/w_down/kernel"))
+        return _tp_out(mesh, y)
 
 
 class LlamaBlock(nn.Module):
@@ -369,7 +450,9 @@ class Llama(nn.Module):
     -> fp32 logits [b, s, vocab], or the final-norm hidden states
     [b, s, dim] in the compute dtype (the fused loss applies the LM head
     itself, ops/loss.py). The port holds the unrolled tree;
-    ``scan_layers`` only names the JAX layout."""
+    ``scan_layers`` only names the JAX layout. On a training mesh,
+    ``tokens`` are this rank's rows and sp chunk, and so is the output;
+    logits and hidden states span the whole vocab and width."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -380,12 +463,16 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False, *,
                 params: "LlamaParams | dict") -> torch.Tensor:
         c = self.config
+        mesh = _train_mesh()
         tree = param_tree(params)
-        emb = tree["embed"]["embedding"]
+        emb = _weight(mesh, {"kernel": tree["embed"]["embedding"]},
+                      "embed/embedding", tp=True)["kernel"]
         x = F.embedding(tokens.to(device=emb.device, dtype=torch.long), emb)
         x = x.to(c.dtype)
+        s = tokens.shape[1]
+        start = 0 if mesh is None else mesh.index("sp") * s
         cos, sin = rope_frequencies(
-            c, torch.arange(tokens.shape[1], device=x.device)
+            c, torch.arange(start, start + s, device=x.device)
         )
         context = _remat_context(c.remat_policy) if c.remat else None
         for i in range(c.n_layers):
@@ -398,4 +485,5 @@ class Llama(nn.Module):
         x = self.final_norm(tree["final_norm"], x)
         if return_hidden:
             return x
-        return _mm(x, tree["lm_head"]).to(torch.float32)
+        head = _weight(mesh, tree["lm_head"], "lm_head/kernel", tp=True)
+        return _mm(x, head).to(torch.float32)

@@ -931,6 +931,17 @@ def _validate_flash_shapes(q, k, v) -> None:
         )
 
 
+def sequence_attention(q, k, v) -> torch.Tensor:
+    """Causal attention as JAX's ``attention(q, k, v, causal=True)``
+    resolves "auto" for the ring's and Ulysses' single-device work: the
+    flash kernels (their plain versions off the card) where they take
+    the head dim (a multiple of 16 up to 128), else the fp32-softmax
+    reference, as JAX takes XLA where its Pallas kernels refuse."""
+    hd = q.shape[-1]
+    impl = "auto" if hd % 16 == 0 and 16 <= hd <= 128 else "reference"
+    return attention(q, k, v, causal=True, impl=impl)
+
+
 def _group(x: torch.Tensor, kvh: int) -> torch.Tensor:
     """[b, s, h, hd] -> [b, s, kvh, n_rep, hd] (a view)."""
     b, s, h, hd = x.shape

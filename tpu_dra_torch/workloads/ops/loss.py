@@ -44,16 +44,32 @@ def fused_next_token_xent(
     b, s, d = x.shape
     if s < 2:
         raise ValueError(f"fused_next_token_xent needs seq >= 2, got {s}")
+    tokens = tokens.to(device=x.device, dtype=torch.long)
+    return fused_xent_sum(x, kernel, tokens[:, 1:], chunk) / (b * (s - 1))
+
+
+def fused_xent_sum(
+    x: torch.Tensor, kernel: torch.Tensor, targets: torch.Tensor,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """The summed cross entropy of the first ``targets.shape[1]``
+    positions of x [b, s, d] against targets [b, <= s] int, over uniform
+    chunks of min(chunk, s) (later positions and the padding up to a
+    whole chunk weigh zero). The training mesh's loss calls it on a
+    rank's chunk, whose last target may lie in the next chunk."""
+    b, s, d = x.shape
     c = min(chunk, s)
     padded = _padded_len(s, c)
-    tokens = tokens.to(device=x.device, dtype=torch.long)
+    n = targets.shape[1]
     targets = torch.cat(
-        [tokens[:, 1:], tokens.new_zeros((b, 1 + padded - s))], dim=1
+        [targets.to(device=x.device, dtype=torch.long),
+         targets.new_zeros((b, padded - n), device=x.device,
+                           dtype=torch.long)], dim=1
     )
     weights = torch.cat(
         [
-            torch.ones((b, s - 1), dtype=torch.float32, device=x.device),
-            torch.zeros((b, 1 + padded - s), dtype=torch.float32,
+            torch.ones((b, n), dtype=torch.float32, device=x.device),
+            torch.zeros((b, padded - n), dtype=torch.float32,
                         device=x.device),
         ],
         dim=1,
@@ -68,4 +84,4 @@ def fused_next_token_xent(
             _chunk_loss, x[:, sl], k, targets[:, sl], weights[:, sl],
             use_reentrant=False,
         )
-    return total / (b * (s - 1))
+    return total

@@ -1,14 +1,44 @@
-"""The (batch x model) decode mesh over a torch.distributed group.
+"""Device meshes over a torch.distributed group: the training mesh and
+the (batch x model) decode mesh.
 
-Counterpart of the decode half of ``tpu_dra/workloads/parallel/mesh.py``
-(``DECODE_AXES`` through ``decode_pool_sharding``), with JAX's names.
-JAX compiles one GSPMD program over every chip the rendered env
-exposes. The port is multi-controller, as JAX is on a multi-host
-slice: every rank of the default process group (joined by
-:func:`.bootstrap.rendezvous` / :func:`.bootstrap.initialize_from_env`)
-runs the same engine on the same requests, its host decisions the same
-on every rank, and only the device math is sharded.
+Counterpart of ``tpu_dra/workloads/parallel/mesh.py``, with JAX's names.
+JAX compiles one GSPMD program over every chip the rendered env exposes
+and lets XLA insert the collectives. The port is multi-controller, as
+JAX is on a multi-host slice: every rank of the default process group
+(joined by :func:`.bootstrap.rendezvous` /
+:func:`.bootstrap.initialize_from_env`) runs the same program on its own
+shards, plain tensors whose layout a spec tuple names, and every
+collective GSPMD would insert, forward and backward, is written out.
+Specs are tuples of axis names or None, ``()`` meaning replicated: the
+tuples of JAX's ``PartitionSpec``s.
 
+TRAINING MESH (JAX's ``AXES`` through ``replicated``). Ranks lie
+row-major over ``(pp, dp, fsdp, ep, sp, tp)``, tp innermost, as JAX
+lays out devices. Parameters shard by ``PARAM_RULES``: a dim named
+``fsdp`` is cut over fsdp, one named ``tp`` over tp (contiguous blocks
+in coordinate order), and a leaf is replicated over every other axis;
+the batch rows split over ``(dp, fsdp)`` and the sequence over ``sp``.
+:class:`TrainMesh` holds one process group a line of each axis set the
+step needs and the differentiable collectives, each an
+``autograd.Function`` with its conjugate backward:
+
+- ``all_gather``: backward reduce_scatter (the gathered value's
+  consumers differ over the line, so their gradients add up), or with
+  ``replicated=True`` this rank's block of the gradient (the consumers
+  are replicated over the line, every rank holds the whole gradient);
+- ``reduce_scatter``: backward all_gather;
+- ``all_reduce`` (forward all_reduce, backward identity) and
+  ``all_reduce_grad`` (forward identity, backward all_reduce): the
+  Megatron g/f pair around a tensor-parallel region;
+- ``ppermute``: backward the inverse permutation;
+- ``all_to_all``: backward the reverse all_to_all.
+
+On a gloo group, collectives that gloo does not run on CUDA tensors
+(``reduce_scatter``, ``ppermute``, ``all_to_all``) are staged through
+pinned host memory by the mesh and counted under ``staged``; gloo stages
+``all_reduce`` and ``all_gather`` of CUDA tensors itself.
+
+DECODE MESH (JAX's ``DECODE_AXES`` through ``decode_pool_sharding``).
 EXACTNESS CONTRACT (the reference's): sharded decode is
 TOKEN-IDENTICAL to unsharded decode, so the model axis shards only
 non-contracted dimensions:
@@ -35,11 +65,9 @@ when ``max_slots`` tiles it, and the pools are replicated over it
 K/V rows over the batch axis before the pool write, and each chunk its
 tokens. Prefill runs replicated over the batch axis, as in JAX.
 
-Specs are tuples of axis names or None, ``()`` meaning replicated: the
-tuples of JAX's ``PartitionSpec``s. With no process group, or a world of
-one, the mesh is (1, 1): it builds no group and issues no collective,
-so the single-card path launches exactly what the unsharded engine
-launches.
+With no process group, or a world of one, either mesh has size 1: it
+builds no group and issues no collective, so the single-card path
+launches exactly what the unsharded program launches.
 """
 
 from __future__ import annotations
@@ -58,6 +86,558 @@ import torch.distributed as dist
 from tpu_dra_torch.workloads.convert import unroll_tree
 from tpu_dra_torch.workloads.device import resolve_device
 from tpu_dra_torch.workloads.models.llama import as_tree
+
+# --- the training mesh ---------------------------------------------------------
+
+AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
+
+#: The batch rows split over these axes (JAX's ``batch_sharding``).
+BATCH_AXES = ("dp", "fsdp")
+#: The data axes: each holds other rows or positions, and no parameter
+#: is sharded over dp or sp. The loss sums over them; a gradient is
+#: summed over those its leaf is not sharded over.
+DATA_AXES = ("dp", "fsdp", "sp")
+#: The axis sets a rank's process groups cover, besides each single
+#: axis: the batch rows, the data axes (the loss; the gradients of
+#: leaves not sharded over fsdp), the data axes but fsdp (the gradients
+#: of fsdp-sharded leaves) and fsdp with tp (the norm of a leaf sharded
+#: over both).
+GROUP_AXES = tuple((a,) for a in AXES) + (
+    BATCH_AXES, DATA_AXES, ("dp", "sp"), ("fsdp", "tp"))
+#: Collectives gloo runs on CUDA tensors itself (it copies them through
+#: pinned host memory); the mesh stages the others there.
+GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    dp: int = 1
+    fsdp: int = 1
+    sp: int = 1
+    tp: int = 1
+    ep: int = 1
+    pp: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.fsdp * self.sp * self.tp * self.ep * self.pp
+
+    @classmethod
+    def for_device_count(cls, n: int) -> "MeshConfig":
+        """JAX's default factorization: prefer fsdp, then tp (4, else 2)
+        when n is strictly above its square: 4 -> fsdp 4, 8 -> fsdp 4 x
+        tp 2, 32 -> fsdp 8 x tp 4."""
+        if n <= 0:
+            raise ValueError("need at least one device")
+        tp = 1
+        for cand in (4, 2):
+            # Only give tp a slice of the mesh when enough devices remain
+            # for a meaningful fsdp group (n strictly above cand^2).
+            if n % cand == 0 and n > cand * cand:
+                tp = cand
+                break
+        return cls(fsdp=n // tp, tp=tp)
+
+
+def _axes(entry) -> tuple:
+    """The axes of one spec entry: None, a name, or a tuple of names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: tuple) -> tuple:
+    """Every axis a spec names, in its order."""
+    return tuple(a for entry in spec for a in _axes(entry))
+
+
+def _coords(config: MeshConfig, rank: int) -> dict:
+    """A rank's coordinates: ranks lie row-major over AXES, tp
+    innermost."""
+    coords = {}
+    for a in reversed(AXES):
+        rank, coords[a] = divmod(rank, getattr(config, a))
+    return {a: coords[a] for a in AXES}
+
+
+def _line_key(coords: dict, axes: tuple) -> tuple:
+    """The coordinates off ``axes``: equal for the ranks of one line."""
+    return tuple(coords[a] for a in AXES if a not in axes)
+
+
+class TrainMesh:
+    """This rank's view of the training mesh: the axis sizes (``shape``,
+    as JAX's ``Mesh.shape``), its coordinates, the device its tensors
+    live on, and the process group of its line over each axis set of
+    ``GROUP_AXES`` whose size is above 1 (an axis set is reduced to its
+    axes of size above 1 first, so equal lines share one group).
+
+    ``collectives`` counts the collectives issued by kind,
+    ``<op>:<axes>`` (``all_gather:fsdp``, ``all_reduce:dp+fsdp+sp``),
+    prefixed ``<phase>/`` inside :meth:`in_phase`; ``seconds`` and
+    ``bytes`` hold their host seconds and the bytes of their larger
+    buffer, and ``staged`` those staged through pinned host memory,
+    under the same keys."""
+
+    def __init__(self, config: MeshConfig, rank: int, device,
+                 groups: Optional[dict] = None):
+        self.config = config
+        self.shape = {a: getattr(config, a) for a in AXES}
+        self.rank = rank
+        self.device = torch.device(device)
+        self.coords = _coords(config, rank)
+        self.groups = groups or {}
+        self.collectives: collections.Counter = collections.Counter()
+        self.seconds: collections.Counter = collections.Counter()
+        self.bytes: collections.Counter = collections.Counter()
+        self.staged: collections.Counter = collections.Counter()
+        self.phase: Optional[str] = None
+
+    def __repr__(self) -> str:
+        live = ", ".join(f"{a}={n}" for a, n in self.shape.items() if n > 1)
+        return f"TrainMesh({live or 'size 1'}, rank={self.rank})"
+
+    @property
+    def size(self) -> int:
+        return self.config.size
+
+    def live(self, axes) -> tuple:
+        """``axes`` (a name or names) reduced to those of size above 1,
+        in mesh order."""
+        axes = _axes(axes)
+        return tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+
+    def axis_size(self, axes) -> int:
+        n = 1
+        for a in self.live(axes):
+            n *= self.shape[a]
+        return n
+
+    def index(self, axes) -> int:
+        """This rank's row-major coordinate over ``axes``: its place in
+        the line's group, and the block of a dim sharded over them."""
+        i = 0
+        for a in self.live(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def line(self, axes) -> list:
+        """The global ranks of this rank's line over ``axes``, in
+        coordinate order."""
+        key = _line_key(self.coords, self.live(axes))
+        return [r for r in range(self.size)
+                if _line_key(_coords(self.config, r), self.live(axes)) == key]
+
+    def block(self, n: int, axes) -> Tuple[int, int]:
+        """[lo, hi) of this rank's block of ``n`` split over ``axes``."""
+        k = self.axis_size(axes)
+        if n % k:
+            raise ValueError(f"{n} does not split over {axes} of size {k}")
+        i = self.index(axes)
+        return i * (n // k), (i + 1) * (n // k)
+
+    @contextlib.contextmanager
+    def in_phase(self, phase: str):
+        """Count the collectives issued inside under ``<phase>/<kind>``."""
+        outer, self.phase = self.phase, phase
+        try:
+            yield
+        finally:
+            self.phase = outer
+
+    def _issue(self, op: str, axes: tuple, x: torch.Tensor, run,
+               nbytes: int) -> torch.Tensor:
+        """``run(x, group)`` for the collective ``op`` over ``axes``,
+        counted and timed; through pinned host memory where gloo does not
+        take ``x``'s CUDA tensors."""
+        group = self.groups[axes]
+        kind = f"{op}:{'+'.join(axes)}"
+        key = kind if self.phase is None else f"{self.phase}/{kind}"
+        t0 = time.perf_counter()
+        if x.is_cuda and op not in GLOO_CUDA_OPS and \
+                dist.get_backend(group) == "gloo":
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x)
+            out = run(host, group).to(x.device)
+            self.staged[key] += 1
+        else:
+            out = run(x, group)
+        self.seconds[key] += time.perf_counter() - t0
+        self.bytes[key] += nbytes
+        self.collectives[key] += 1
+        return out
+
+    # --- the raw collectives (no autograd) -----------------------------------
+
+    def all_gather_raw(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        axes, n = self.live(axes), self.axis_size(axes)
+        if n == 1:
+            return x
+
+        def run(x, group):
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=group)
+            return torch.cat(parts, dim)
+
+        return self._issue("all_gather", axes, x.contiguous(), run,
+                           x.nbytes * n)
+
+    def reduce_scatter_raw(self, x: torch.Tensor, axes,
+                           dim: int) -> torch.Tensor:
+        axes, n = self.live(axes), self.axis_size(axes)
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {axes} of size {n}")
+        lead = x.movedim(dim, 0).contiguous()
+
+        def run(x, group):
+            out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+            dist.reduce_scatter_tensor(out, x, group=group)
+            return out
+
+        return self._issue("reduce_scatter", axes, lead, run,
+                           lead.nbytes).movedim(0, dim)
+
+    def all_reduce_raw(self, x: torch.Tensor, axes,
+                       inplace: bool = False) -> torch.Tensor:
+        """The sum over the line; ``inplace`` sums into ``x`` itself (a
+        contiguous tensor nothing else reads)."""
+        axes = self.live(axes)
+        if not axes:
+            return x
+
+        def run(x, group):
+            dist.all_reduce(x, group=group)
+            return x
+
+        if not inplace:
+            x = x.clone(memory_format=torch.contiguous_format)
+        out = self._issue("all_reduce", axes, x, run, x.nbytes)
+        if out is not x:  # staged: copy the sum back
+            x.copy_(out)
+        return x
+
+    def ppermute_raw(self, x: torch.Tensor, axes, shift: int) -> torch.Tensor:
+        """Send ``x`` to the rank ``shift`` places on along the line
+        (cyclically) and return what the rank ``shift`` places back
+        sent."""
+        axes, n = self.live(axes), self.axis_size(axes)
+        if n == 1:
+            return x
+        line, i = self.line(axes), self.index(axes)
+        dst, src = line[(i + shift) % n], line[(i - shift) % n]
+
+        def run(x, group):
+            out = torch.empty_like(x)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, dst, group),
+                    dist.P2POp(dist.irecv, out, src, group)]):
+                req.wait()
+            return out
+
+        return self._issue("ppermute", axes, x.contiguous(), run, x.nbytes)
+
+    def all_to_all_raw(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """x [n, ...]: slot j goes to the line's rank j; slot j of the
+        result is what rank j sent this rank."""
+        axes, n = self.live(axes), self.axis_size(axes)
+        if n == 1:
+            return x
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all over {axes} needs a leading dim "
+                             f"of {n}, got {tuple(x.shape)}")
+
+        def run(x, group):
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=group)
+            return out
+
+        return self._issue("all_to_all", axes, x.contiguous(), run, x.nbytes)
+
+    def split(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's block of ``x`` along ``dim`` (no communication)."""
+        lo, hi = self.block(x.shape[dim], axes)
+        return x.narrow(dim, lo, hi - lo)
+
+    # --- the differentiable collectives --------------------------------------
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int,
+                   replicated: bool = False) -> torch.Tensor:
+        if self.axis_size(axes) == 1:
+            return x
+        return _AllGather.apply(x, self, self.live(axes), dim, replicated)
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        if self.axis_size(axes) == 1:
+            return x
+        return _ReduceScatter.apply(x, self, self.live(axes), dim)
+
+    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Forward all_reduce, backward identity (Megatron's g)."""
+        if self.axis_size(axes) == 1:
+            return x
+        return _AllReduce.apply(x, self, self.live(axes))
+
+    def all_reduce_grad(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Forward identity, backward all_reduce (Megatron's f)."""
+        if self.axis_size(axes) == 1:
+            return x
+        return _AllReduceGrad.apply(x, self, self.live(axes))
+
+    def ppermute(self, x: torch.Tensor, axes, shift: int = 1) -> torch.Tensor:
+        if self.axis_size(axes) == 1:
+            return x
+        return _PPermute.apply(x, self, self.live(axes), shift)
+
+    def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
+        if self.axis_size(axes) == 1:
+            return x
+        return _AllToAll.apply(x, self, self.live(axes))
+
+    # --- parameters and data -------------------------------------------------
+
+    def gather_param(self, w: torch.Tensor, path: str,
+                     tp: bool = False) -> torch.Tensor:
+        """The leaf at ``path``, this rank's block ``w`` of it, gathered
+        over fsdp (and with ``tp`` over tp too) for a forward: the fsdp
+        gather's backward reduce-scatters (each rank's rows add their
+        part), the tp gather's takes this rank's block (the computation
+        that reads the whole leaf is replicated over tp)."""
+        for d, entry in enumerate(param_spec(path, w)):
+            for a in _axes(entry):
+                if a == "fsdp" or (a == "tp" and tp):
+                    w = self.all_gather(w, a, d, replicated=a == "tp")
+        return w
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, replicated):
+        ctx.args = (mesh, axes, dim, replicated)
+        return mesh.all_gather_raw(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, replicated = ctx.args
+        g = (mesh.split(g, axes, dim).contiguous() if replicated
+             else mesh.reduce_scatter_raw(g, axes, dim))
+        return g, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return mesh.reduce_scatter_raw(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return mesh.all_gather_raw(g, axes, dim), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce_raw(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return mesh.all_reduce_raw(g, axes), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, shift):
+        ctx.args = (mesh, axes, shift)
+        return mesh.ppermute_raw(x, axes, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, shift = ctx.args
+        return mesh.ppermute_raw(g, axes, -shift), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return mesh.all_to_all_raw(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return mesh.all_to_all_raw(g, axes), None, None
+
+
+def build_mesh(config: MeshConfig, device=None) -> TrainMesh:
+    """The training mesh of ``config`` over every rank of the default
+    process group (or over this process alone when there is none): its
+    size must be the world's, as JAX's ``build_mesh`` asks for one device
+    a mesh slot. Every rank must call it alike: it creates, for each axis
+    set of ``GROUP_AXES`` (reduced to its axes of size above 1, each
+    distinct set once), one subgroup a line, in order, as
+    :func:`build_decode_mesh` does. ``device``: where this rank's tensors
+    live (default: the CUDA device)."""
+    device = resolve_device(device)
+    if dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+    else:
+        world, rank = 1, 0
+    if config.size != world:
+        raise ValueError(f"mesh config {config} needs {config.size} devices, "
+                         f"have {world}")
+    mesh = TrainMesh(config, rank, device)
+    for axes in dict.fromkeys(mesh.live(a) for a in GROUP_AXES):
+        if not axes:
+            continue
+        lines = {}
+        for r in range(world):
+            lines.setdefault(_line_key(_coords(config, r), axes), []).append(r)
+        for ranks in lines.values():
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mesh.groups[axes] = group
+    return mesh
+
+
+# Parameter path (regex) -> spec. Weights shard the contraction/feature
+# dims over fsdp and the parallel dims (heads, ffn hidden, vocab) over
+# tp; biases and norms are replicated.
+PARAM_RULES: List[Tuple[str, tuple]] = [
+    # MoE expert weights carry a leading expert dim sharded over ep
+    # (matched before the generic w_gate/w_up/w_down rules).
+    (r".*experts.*(w_gate|w_up)$", ("ep", "fsdp", "tp")),  # [E, d, ffn]
+    (r".*experts.*w_down$", ("ep", "tp", "fsdp")),  # [E, ffn, d]
+    (r".*router.*kernel$", ("fsdp", None)),  # [d, E]
+    (r".*embed.*embedding$", ("tp", "fsdp")),  # [vocab, d]
+    (r".*(wq|wk|wv).*kernel$", ("fsdp", "tp")),  # [d, heads*hd]
+    (r".*wo.*kernel$", ("tp", "fsdp")),  # [heads*hd, d]
+    (r".*(w_gate|w_up).*kernel$", ("fsdp", "tp")),  # [d, ffn]
+    (r".*w_down.*kernel$", ("tp", "fsdp")),  # [ffn, d]
+    (r".*lm_head.*kernel$", ("fsdp", "tp")),  # [d, vocab]
+    (r".*(norm|scale).*", ()),  # replicated
+]
+
+
+def param_spec(path: str, value=None) -> tuple:
+    """Training spec of one parameter leaf by path (``/``-joined flax
+    names). int8 weight-only ``kernel_q`` leaves take their plain
+    kernel's spec; the small per-channel scale falls through to
+    replicated. Leaves of more dims than the rule (a stacked layer axis)
+    get leading Nones."""
+    path = re.sub(r"/kernel_q$", "/kernel", path)
+    for pattern, spec in PARAM_RULES:
+        if re.fullmatch(pattern, path):
+            if value is not None and getattr(value, "ndim", 0) > len(spec):
+                return (None,) * (value.ndim - len(spec)) + spec
+            return spec
+    return ()
+
+
+def param_shardings(mesh: TrainMesh, params) -> dict:
+    """The spec tree of a parameter tree (either layout)."""
+    del mesh  # the specs name axes; the mesh sizes them
+    return _map_with_path(
+        as_tree(params),
+        lambda path, leaf: param_spec(_flatten_path(path), leaf))
+
+
+def batch_sharding(mesh: TrainMesh) -> tuple:
+    """Spec of the [batch, seq] tokens: rows over (dp, fsdp), positions
+    over sp."""
+    del mesh
+    return (BATCH_AXES, "sp")
+
+
+def replicated(mesh: TrainMesh) -> tuple:
+    del mesh
+    return ()
+
+
+def _leaf_block(t: torch.Tensor, spec: tuple, mesh: TrainMesh,
+                path: str) -> torch.Tensor:
+    for d, entry in enumerate(spec):
+        n = mesh.axis_size(entry)
+        if n == 1:
+            continue
+        if t.shape[d] % n:
+            raise ValueError(f"{path}: dim {d} of {tuple(t.shape)} does not "
+                             f"split over {entry} of size {n}")
+        t = mesh.split(t, entry, d)
+    return t
+
+
+def shard_train_params(mesh: TrainMesh, params):
+    """This rank's blocks of a full parameter tree by ``param_spec``: a
+    dim named fsdp cut over fsdp, one named tp over tp, every other
+    dim and leaf whole. A LlamaParams (or MixtralParams) gives the same
+    kind of module, its leaves carrying gradients as the input's did; a
+    nested dict gives a nested dict. Cut leaves are copies (the full
+    tree can go); on a mesh of one nothing is copied."""
+    from tpu_dra_torch.workloads.models.llama import LlamaParams
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        block = _leaf_block(node, param_spec(path, node), mesh, path)
+        return block if block is node else block.clone()
+
+    if mesh.size == 1:
+        return params
+    if isinstance(params, LlamaParams):
+        trainable = any(p.requires_grad for p in params.parameters())
+        return type(params)(params.config, walk(params.tree(), ""),
+                            trainable)
+    return walk(params, "")
+
+
+def shard_opt_state(mesh: TrainMesh, state):
+    """This rank's blocks of an AdamState of full moments (keyed by
+    parameter name): each moment cut as its parameter is; the count
+    whole."""
+    def cut(moments):
+        return {n: _leaf_block(t, param_spec(n.replace(".", "/"), t), mesh,
+                               n).clone() for n, t in moments.items()}
+
+    if mesh.size == 1:
+        return state
+    return state._replace(mu=cut(state.mu), nu=cut(state.nu))
+
+
+def gather_train_params(mesh: TrainMesh, params) -> dict:
+    """The full tree (nested dict of detached tensors) from every rank's
+    blocks: each leaf all-gathered over the axes its spec names. Every
+    rank of the mesh must call it alike (its collectives are the
+    mesh's)."""
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        t = node.detach()
+        for d, entry in enumerate(param_spec(path, t)):
+            t = mesh.all_gather_raw(t, entry, d)
+        return t
+
+    return walk(as_tree(params), "")
+
+
+# --- the decode mesh -----------------------------------------------------------
 
 DECODE_AXES = ("batch", "model")
 

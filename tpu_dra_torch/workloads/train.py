@@ -1,14 +1,26 @@
-"""Single-device training for the Llama and Mixtral families.
+"""Training for the Llama and Mixtral families, on one device or a mesh.
 
-Counterpart of ``tpu_dra/workloads/train.py`` on one device: bf16
-parameters, the port's own AdamW with fp32 first moments, the
-materialised-logits or fused cross-entropy loss (plus Mixtral's
-load-balance loss), and a ``Trainer`` with ``init_state`` /
-``make_train_step`` / ``make_forward``. A mesh with any axis above 1
-(FSDP, TP, SP, EP, ring or Ulysses attention) is ROADMAP Queue A item
-11 (parallel training). ``--distributed`` joins the slice's process
-group from the driver-rendered env (:mod:`.bootstrap`) and takes JAX's
-default mesh for the world, ``MeshConfig.for_device_count``.
+Counterpart of ``tpu_dra/workloads/train.py``: bf16 parameters, the
+port's own AdamW with fp32 first moments, the materialised-logits or
+fused cross-entropy loss (plus Mixtral's load-balance loss), and a
+``Trainer`` with ``init_state`` / ``state_shardings`` /
+``make_train_step`` / ``make_forward``. ``--distributed`` joins the
+slice's process group from the driver-rendered env (:mod:`.bootstrap`)
+and trains on JAX's default mesh for the world,
+``MeshConfig.for_device_count``, with JAX's default batch of one row a
+``(dp, fsdp)`` shard.
+
+Llama trains on a mesh of any ``dp``, ``fsdp``, ``sp`` and ``tp``
+(:mod:`.parallel.mesh`), one rank a mesh slot, with attention "auto",
+"ring" or "ulysses". Every rank holds its blocks of the parameters and
+moments and takes its rows and ``sp`` chunk of the global batch; a step
+is JAX's GSPMD step with its collectives written out: the loss is the
+global mean (the log-likelihood sum and count all-reduced over the data
+axes), a gradient is summed over the data axes its leaf is not sharded
+over, the clipping norm adds each leaf's squares over the axes it is
+sharded over, and AdamW updates the local blocks with no communication.
+``ep``, ``pp`` and Mixtral on a mesh above one device are still ROADMAP
+Queue A item 11 (parallel training).
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 adamw(lr, b1, b2, eps=1e-8, weight_decay, mu_dtype=float32))`` (optax
@@ -37,6 +49,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from tpu_dra_torch.workloads.device import resolve_device
@@ -46,7 +59,23 @@ from tpu_dra_torch.workloads.models.llama import (
     init_params,
     param_tree,
 )
-from tpu_dra_torch.workloads.ops.loss import fused_next_token_xent
+from tpu_dra_torch.workloads.ops.loss import (
+    fused_next_token_xent,
+    fused_xent_sum,
+)
+from tpu_dra_torch.workloads.parallel.context import set_global_mesh
+from tpu_dra_torch.workloads.parallel.mesh import (
+    BATCH_AXES,
+    DATA_AXES,
+    MeshConfig,
+    TrainMesh,
+    build_mesh,
+    param_shardings,
+    param_spec,
+    replicated,
+    shard_train_params,
+    spec_axes,
+)
 
 log = logging.getLogger(__name__)
 
@@ -58,36 +87,6 @@ class TrainConfig:
     beta1: float = 0.9
     beta2: float = 0.95
     grad_clip: float = 1.0
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """The JAX mesh axes, kept so a config names its layout; the port
-    trains on one device, so every axis must be 1."""
-
-    dp: int = 1
-    fsdp: int = 1
-    sp: int = 1
-    tp: int = 1
-    ep: int = 1
-    pp: int = 1
-
-    @property
-    def size(self) -> int:
-        return self.dp * self.fsdp * self.sp * self.tp * self.ep * self.pp
-
-    @classmethod
-    def for_device_count(cls, n: int) -> "MeshConfig":
-        """JAX's default factorization: prefer fsdp, then tp (4, else 2)
-        when n is strictly above its square."""
-        if n <= 0:
-            raise ValueError("need at least one device")
-        tp = 1
-        for cand in (4, 2):
-            if n % cand == 0 and n > cand * cand:
-                tp = cand
-                break
-        return cls(fsdp=n // tp, tp=tp)
 
 
 class AdamState(NamedTuple):
@@ -112,17 +111,25 @@ def _flax_order(names) -> list:
     return sorted(names, key=lambda n: n.split("."))
 
 
+def _path(name: str) -> str:
+    """A parameter name (flax path joined by dots) as a spec path."""
+    return name.replace(".", "/")
+
+
 class AdamW:
     """The optax chain of :func:`make_optimizer` over a parameter module
     (LlamaParams, or its MixtralParams subclass) and a dict of its
     gradients by parameter name. ``update`` writes the new parameters in
     place (no second copy of the weights) and returns the new state; the
-    old state's tensors are updated in place too."""
+    old state's tensors are updated in place too. On a ``mesh`` the
+    parameters, gradients and moments are this rank's blocks: only the
+    clipping norm communicates."""
 
     EPS = 1e-8  # optax adamw's default, outside the square root
 
-    def __init__(self, config: TrainConfig):
+    def __init__(self, config: TrainConfig, mesh: Optional[TrainMesh] = None):
         self.config = config
+        self.mesh = mesh
 
     def init(self, params: LlamaParams) -> AdamState:
         named = dict(params.named_parameters())
@@ -136,12 +143,26 @@ class AdamW:
 
     def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """optax ``global_norm``: sqrt of the sum over leaves (flax
-        order) of sum(g * g), each in the leaf's dtype."""
+        order) of sum(g * g), each in the leaf's dtype. On a mesh each
+        leaf's sum over its block is all-reduced (in fp32) over the axes
+        the leaf is sharded over, one all_reduce an axis set, so a
+        replicated leaf counts once."""
+        sq = {name: (g * g).sum() for name, g in grads.items()}
+        if self.mesh is not None and self.mesh.size > 1:
+            by_axes: Dict[tuple, list] = {}
+            for name in sorted(sq):
+                axes = self.mesh.live(spec_axes(param_spec(_path(name))))
+                if axes:
+                    by_axes.setdefault(axes, []).append(name)
+            for axes, names in by_axes.items():
+                summed = self.mesh.all_reduce_raw(
+                    torch.stack([sq[n].float() for n in names]), axes,
+                    inplace=True)
+                for n, v in zip(names, summed):
+                    sq[n] = v.to(sq[n].dtype)
         total = None
         for name in _flax_order(grads):
-            g = grads[name]
-            sq = (g * g).sum()
-            total = sq if total is None else total + sq
+            total = sq[name] if total is None else total + sq[name]
         return torch.sqrt(total)
 
     @torch.no_grad()
@@ -180,16 +201,87 @@ class AdamW:
         return AdamState(count=count, mu=state.mu, nu=state.nu)
 
 
-def make_optimizer(config: TrainConfig) -> AdamW:
-    return AdamW(config)
+def make_optimizer(config: TrainConfig,
+                   mesh: Optional[TrainMesh] = None) -> AdamW:
+    return AdamW(config, mesh)
 
 
-def loss_fn(model, params, tokens: torch.Tensor) -> torch.Tensor:
+#: The largest all_reduce of summed gradients (a leaf above it goes
+#: alone): bounds the bucket and, over gloo, its pinned host copy.
+GRAD_BUCKET_BYTES = 256 * 2**20
+
+
+def sum_grads(mesh: TrainMesh, grads: Dict[str, torch.Tensor]) -> None:
+    """Sum each gradient, in place, over the data axes (dp, fsdp, sp) its
+    leaf is not sharded over: the contributions of the other rows and
+    positions (an fsdp-sharded leaf's came in its gather's
+    reduce_scatter). Leaves of one axis set and dtype go in buckets of
+    up to GRAD_BUCKET_BYTES, one all_reduce a bucket, in name order on
+    every rank."""
+    buckets: Dict[tuple, list] = {}
+    for name in sorted(grads):
+        sharded = spec_axes(param_spec(_path(name)))
+        axes = mesh.live(tuple(a for a in DATA_AXES if a not in sharded))
+        if not axes:
+            continue
+        g = grads[name]
+        runs = buckets.setdefault((axes, g.dtype), [[]])
+        if runs[-1] and sum(grads[n].nbytes for n in runs[-1]) + g.nbytes \
+                > GRAD_BUCKET_BYTES:
+            runs.append([])
+        runs[-1].append(name)
+    for (axes, _), runs in buckets.items():
+        for names in runs:
+            flat = mesh.all_reduce_raw(
+                torch.cat([grads[n].reshape(-1) for n in names]), axes,
+                inplace=True)
+            offset = 0
+            for n in names:
+                g = grads[n]
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+            del flat
+
+
+def _sharded_loss(model, params, tokens: torch.Tensor,
+                  mesh: TrainMesh) -> torch.Tensor:
+    """The global mean next-token loss of the global [B, S] ``tokens`` on
+    this rank's rows and sp chunk: a chunk's last target is the next
+    chunk's first token, the sequence's last position has none. The
+    log-likelihood sum and the count are all-reduced over the data axes
+    (the backward passes the gradient through: every rank's sum enters
+    the mean once)."""
+    b, s = tokens.shape
+    r0, r1 = mesh.block(b, BATCH_AXES)
+    c0, c1 = mesh.block(s, "sp")
+    local = tokens[r0:r1, c0:c1]
+    targets = tokens[r0:r1, c0 + 1:c1 + 1].to(torch.long)
+    n = targets.shape[1]
+    if model.config.fused_ce:
+        hidden = model(local, return_hidden=True, params=params)
+        head = mesh.gather_param(param_tree(params)["lm_head"]["kernel"],
+                                 "lm_head/kernel", tp=True)
+        nll = fused_xent_sum(hidden, head, targets,
+                             chunk=model.config.ce_chunk)
+    else:
+        logits = model(local, params=params)[:, :n]
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets.to(logp.device)[..., None]).sum()
+    count = torch.tensor(float(targets.numel()), device=nll.device)
+    total = mesh.all_reduce(torch.stack([nll, count]), DATA_AXES)
+    return total[0] / total[1]
+
+
+def loss_fn(model, params, tokens: torch.Tensor,
+            mesh: Optional[TrainMesh] = None) -> torch.Tensor:
     """Next-token cross entropy over [b, s] int tokens, in JAX's order of
     branches: a model with ``apply_with_aux`` (Mixtral) adds its summed
     load-balance loss to the fp32 logits' loss; otherwise
     ``config.fused_ce`` takes the chunked head (ops/loss.py), else the
-    fp32 logits path."""
+    fp32 logits path. On a ``mesh`` above one device ``tokens`` is the
+    global batch and the loss its global mean (Llama only)."""
+    if mesh is not None and mesh.size > 1:
+        return _sharded_loss(model, params, tokens, mesh)
     aux = 0.0
     if hasattr(model, "apply_with_aux"):
         logits, aux = model.apply_with_aux(params, tokens)
@@ -207,9 +299,39 @@ def loss_fn(model, params, tokens: torch.Tensor) -> torch.Tensor:
     return -ll.mean() + aux
 
 
+ITEM_11 = "ROADMAP Queue A item 11 (parallel training)"
+
+
+def check_mesh(model_config, mesh_config: MeshConfig) -> None:
+    """Refuse a mesh the port does not train on: ep or pp above 1,
+    Mixtral above one device (NotImplementedError naming item 11), and
+    heads, kv heads, ffn or vocab that tp does not split by whole
+    blocks, or a width fsdp does not (ValueError)."""
+    if mesh_config.ep > 1 or mesh_config.pp > 1:
+        raise NotImplementedError(
+            f"{mesh_config}: expert (ep) and pipeline (pp) parallelism are "
+            f"not ported yet: {ITEM_11}")
+    if isinstance(model_config, mixtral.MixtralConfig) and \
+            mesh_config.size > 1:
+        raise NotImplementedError(
+            f"{mesh_config}: Mixtral trains on one device only (its expert "
+            f"capacity depends on the global sequence, "
+            f"MixtralConfig.capacity): {ITEM_11}")
+    c, tp = model_config, mesh_config.tp
+    if c.n_heads % tp or c.n_kv_heads % tp or c.ffn_dim % tp \
+            or c.vocab_size % tp or c.dim % mesh_config.fsdp:
+        raise ValueError(
+            f"{mesh_config}: tp must split {c.n_heads} heads, "
+            f"{c.n_kv_heads} kv heads, ffn {c.ffn_dim} and vocab "
+            f"{c.vocab_size}, fsdp the width {c.dim}")
+
+
 class Trainer:
-    """Owns the model, the optimizer and the train/forward steps on one
-    device (the CUDA device unless ``device`` says otherwise)."""
+    """Owns the model, the mesh, the optimizer and the train/forward
+    steps. The mesh defaults to JAX's: ``MeshConfig.for_device_count``
+    of the process group's world (one device without a group); this
+    rank's tensors live on the CUDA device unless ``device`` says
+    otherwise. The mesh becomes the global one (parallel/context.py)."""
 
     def __init__(
         self,
@@ -218,39 +340,65 @@ class Trainer:
         train_config: TrainConfig = TrainConfig(),
         device=None,
     ):
-        if mesh_config is not None and mesh_config.size > 1:
-            raise NotImplementedError(
-                f"{mesh_config}: sharded training is not ported yet: "
-                f"ROADMAP Queue A item 11 (parallel training); the port "
-                f"trains on one device"
-            )
+        if mesh_config is None:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            mesh_config = MeshConfig.for_device_count(world)
+        check_mesh(model_config, mesh_config)
         self.model_config = model_config
         self.model = build_model(model_config)
-        self.mesh_config = mesh_config or MeshConfig()
+        self.mesh_config = mesh_config
         self.train_config = train_config
-        self.optimizer = make_optimizer(train_config)
         self.device = resolve_device(device)
+        self.mesh = build_mesh(mesh_config, device=self.device)
+        set_global_mesh(self.mesh)
+        self.optimizer = make_optimizer(train_config, self.mesh)
 
     def init_state(self, rng: Optional[torch.Generator] = None,
                    batch: int = 1, seq: int = 8) -> Dict:
-        """Fresh trainable parameters (drawn on ``rng``'s device, then
-        moved to the trainer's) and optimizer state. ``batch``/``seq``
+        """Fresh trainable parameters (drawn whole on ``rng``'s device,
+        on every rank alike, then cut to this rank's blocks and moved to
+        the trainer's device) and optimizer state: a sharded trainer
+        starts from the single-device trainer's weights. ``batch``/``seq``
         are JAX's tracing shapes; torch needs none."""
         del batch, seq
         rng = rng or torch.Generator(device=self.device).manual_seed(0)
         init = (mixtral.init_params
                 if isinstance(self.model_config, mixtral.MixtralConfig)
                 else init_params)
-        params = init(self.model_config, rng, trainable=True)
+        params = shard_train_params(
+            self.mesh, init(self.model_config, rng, trainable=True))
         params.to(self.device)
         return {"params": params, "opt_state": self.optimizer.init(params),
                 "step": 0}
 
+    def state_shardings(self, state: Dict) -> Dict:
+        """The spec tree of ``state``: parameters by ``param_spec``; the
+        moments mirror their parameter's spec, the count and the step
+        are replicated."""
+        params, opt = state["params"], state["opt_state"]
+
+        def opt_sharding(name, leaf):
+            if leaf.ndim == 0:
+                return replicated(self.mesh)
+            return param_spec(_path(name), leaf)
+
+        return {
+            "params": param_shardings(self.mesh, params),
+            "opt_state": AdamState(
+                count=replicated(self.mesh),
+                mu={n: opt_sharding(n, t) for n, t in opt.mu.items()},
+                nu={n: opt_sharding(n, t) for n, t in opt.nu.items()},
+            ),
+            "step": replicated(self.mesh),
+        }
+
     def make_train_step(self) -> Callable:
         """(state, tokens [b, s]) -> (state, loss): one forward and
         backward, then the optimizer, which updates the parameters in
-        place."""
-        model, opt, device = self.model, self.optimizer, self.device
+        place. On a mesh ``tokens`` is the global batch on every rank and
+        the loss its global mean, the same on every rank."""
+        model, opt, device, mesh = (self.model, self.optimizer, self.device,
+                                    self.mesh)
 
         def train_step(state, tokens):
             params = state["params"]
@@ -258,12 +406,17 @@ class Trainer:
             params.zero_grad(set_to_none=True)
             # Spans for a profiler trace (no cost without one); the
             # backward runs on autograd's thread, outside any span here.
-            with record_function("train_step/forward"):
-                loss = loss_fn(model, params, tokens)
-            loss.backward()
+            with record_function("train_step/forward"), \
+                    mesh.in_phase("forward"):
+                loss = loss_fn(model, params, tokens, mesh)
+            with mesh.in_phase("backward"):
+                loss.backward()
             with record_function("train_step/optimizer"):
                 grads = {n: p.grad for n, p in params.named_parameters()}
-                opt_state = opt.update(grads, state["opt_state"], params)
+                with mesh.in_phase("grads"):
+                    sum_grads(mesh, grads)
+                with mesh.in_phase("optimizer"):
+                    opt_state = opt.update(grads, state["opt_state"], params)
                 del grads
             params.zero_grad(set_to_none=True)
             return (
@@ -275,11 +428,20 @@ class Trainer:
         return train_step
 
     def make_forward(self) -> Callable:
-        model, device = self.model, self.device
+        """(params, tokens [b, s]) -> fp32 logits [b, s, vocab]; on a
+        mesh, the global logits of the global batch on every rank."""
+        model, device, mesh = self.model, self.device, self.mesh
 
         @torch.no_grad()
         def forward(params, tokens):
-            return model(torch.as_tensor(tokens, device=device), params=params)
+            tokens = torch.as_tensor(tokens, device=device)
+            if mesh.size == 1:
+                return model(tokens, params=params)
+            r0, r1 = mesh.block(tokens.shape[0], BATCH_AXES)
+            c0, c1 = mesh.block(tokens.shape[1], "sp")
+            logits = model(tokens[r0:r1, c0:c1], params=params)
+            logits = mesh.all_gather_raw(logits, "sp", 1)
+            return mesh.all_gather_raw(logits, BATCH_AXES, 0)
 
         return forward
 
@@ -315,7 +477,7 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=positive_int, default=10)
     p.add_argument(
         "--batch", type=nonnegative_int, default=0,
-        help="global batch (0: one, the single device's data shard)",
+        help="global batch (0: one per (dp, fsdp) data shard)",
     )
     p.add_argument("--seq", type=positive_int, default=512)
     p.add_argument(
@@ -328,30 +490,62 @@ def main(argv=None) -> int:
         help="torch device (default: the CUDA device; 'cpu' for the "
              "plain PyTorch path)",
     )
+    p.add_argument(
+        "--mesh", type=mesh_flag, default=None,
+        help="mesh axes, e.g. 'sp=2' or 'fsdp=2,tp=2' (default: JAX's "
+             "MeshConfig.for_device_count of the world)",
+    )
+    p.add_argument(
+        "--attention", default=None,
+        choices=("auto", "cuda", "torch", "reference", "ring", "ulysses"),
+        help="the model's attention_impl (default: the preset's)",
+    )
+    p.add_argument("--layers", type=nonnegative_int, default=0,
+                   help="cut the preset to this many layers (0: keep)")
+    p.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                   help="process group backend (default: NCCL for CUDA, "
+                        "gloo for the CPU)")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     if not args.distributed:
-        return _train(args, None)
+        return _train(args, args.mesh)
     from tpu_dra_torch.workloads.bootstrap import initialize_from_env, shutdown
 
-    slice_env = initialize_from_env(device=args.device)
+    slice_env = initialize_from_env(device=args.device, backend=args.backend)
     log.info("slice bootstrap: %s", slice_env)
     try:
         # JAX's default mesh over every device of the slice, one a rank.
-        return _train(
-            args, MeshConfig.for_device_count(slice_env.num_processes))
+        return _train(args, args.mesh or MeshConfig.for_device_count(
+            slice_env.num_processes))
     finally:
         shutdown()
 
 
+def mesh_flag(text: str) -> MeshConfig:
+    """'axis=n,...' -> MeshConfig."""
+    try:
+        return MeshConfig(**{a.strip(): int(n) for a, n in (
+            part.split("=") for part in text.split(",") if part.strip())})
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"--mesh {text!r}: want axis=n,... over "
+                         f"dp, fsdp, sp, tp, ep, pp") from e
+
+
 def _train(args, mesh_config: Optional[MeshConfig]) -> int:
+    from tpu_dra_torch import kernels
     from tpu_dra_torch.workloads import models as models_mod
 
     model_config = getattr(models_mod, MODEL_PRESETS[args.model])
+    if args.layers:
+        model_config = dataclasses.replace(model_config, n_layers=args.layers)
+    if args.attention:
+        model_config = dataclasses.replace(model_config,
+                                           attention_impl=args.attention)
     trainer = Trainer(model_config, mesh_config=mesh_config,
                       device=args.device)
-    batch = args.batch or 1
+    mesh = trainer.mesh
+    batch = args.batch or mesh.shape["dp"] * mesh.shape["fsdp"]
     state = trainer.init_state(batch=batch, seq=args.seq)
     step = trainer.make_train_step()
     tokens = torch.from_numpy(
@@ -359,20 +553,38 @@ def _train(args, mesh_config: Optional[MeshConfig]) -> int:
         .integers(0, model_config.vocab_size, (batch, args.seq))
         .astype(np.int32)
     )
-    loss = None
-    t0 = time.monotonic()
+    losses, step_ms, launches = [], [], []
     for _ in range(args.steps):
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
         state, loss = step(state, tokens)
-    loss = float(loss)  # waits for the device
-    dt = time.monotonic() - t0
-    tok_per_s = args.steps * batch * args.seq / dt if dt > 0 else 0.0
+        losses.append(float(loss))  # waits for the device
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: n - before.get(k, 0)
+                         for k, n in kernels.LAUNCHES.items()
+                         if n != before.get(k, 0)})
+    loss = losses[-1]
+    tok_per_s = args.steps * batch * args.seq / (sum(step_ms) / 1e3)
     log.info(
-        "trained %d steps (%s, batch=%d seq=%d, %s): loss=%.4f, %.0f tok/s",
-        args.steps, args.model, batch, args.seq, trainer.device, loss,
-        tok_per_s,
+        "trained %d steps (%s, batch=%d seq=%d, %s, %r): loss=%.4f, "
+        "%.0f tok/s", args.steps, args.model, batch, args.seq,
+        trainer.device, mesh, loss, tok_per_s,
     )
+    collectives = {}
+    for key, n in mesh.collectives.items():
+        kind = key.split("/", 1)[-1]
+        c = collectives.setdefault(kind, {"count": 0, "ms": 0.0, "mb": 0.0,
+                                          "staged": 0})
+        c["count"] += n
+        c["ms"] += mesh.seconds[key] * 1e3
+        c["mb"] += mesh.bytes[key] / 1e6
+        c["staged"] += mesh.staged[key]
     print({"ok": loss == loss, "steps": args.steps, "loss": loss,
-           "tok_per_s": tok_per_s, "device": str(trainer.device)})
+           "losses": losses, "step_ms": step_ms, "tok_per_s": tok_per_s,
+           "device": str(trainer.device), "rank": mesh.rank,
+           "mesh": {a: n for a, n in mesh.shape.items() if n > 1},
+           "batch": batch, "launches_per_step": launches,
+           "collectives": collectives})
     return 0
 
 
