@@ -310,8 +310,24 @@ exits non-zero without a result:
    TRAIN_SHARDED_GAP_FLOOR, a bf16 ulp of a mean over b·s tokens, count
    as equal); the step ms and the collectives by kind (count, host ms,
    MB, staged through pinned host memory) of each rank.
+9d. train_moe_sharded — Mixtral on a training mesh (the ep axis, the
+   shard-aware MoE: capacity and positions over the global sequence,
+   the load-balance loss over the global batch, experts over ep and tp)
+   through the same two gloo ranks (train --distributed --model
+   mixtral-8x7b), Mixtral-8x7B widths, bf16, remat "nothing", b=2,
+   s=2048, 2 steps, on TRAIN_MOE_RUNS in order: ep=2 at 2 layers (a rank
+   holds 4 of the 8 experts: 1.755 B parameters), then sp=2 with ring
+   attention at 1 layer (a rank holds all 1.711 B parameters) while the
+   phase is within TRAIN_MOE_BUDGET_S. Before each run, on the card, the
+   unsharded Trainer's 2 steps and the fp32 reference loss of its
+   config, released before the ranks start. The bars and the report are
+   train_sharded's: losses equal on both ranks, step 1's gap ratio at
+   most BF16_GAP_RATIO, every step's flash launches as reckoned (at ep=2
+   the unsharded count: attention is replicated over ep; at sp=2 the
+   ring's); besides, each rank's peak memory.
 
-The line before last lists the kernels as JSON; the last line is
+Every phase's line carries ``at_s``, the script's seconds when it was
+printed. The line before last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -389,8 +405,12 @@ FLASH_CASES = (
 )
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - T_START,
+                      **fields}), flush=True)
 
 
 def bf16_row_atol(ref: torch.Tensor, atol_floor: float = 0.0):
@@ -2494,12 +2514,12 @@ def aliased_table_parity(A, P, Q, gen, int8: bool) -> dict:
 # The bench_serve phase: run_serve_bench at Llama-3-8B widths, SERVE_RUNS
 # times, over SERVE_ENV (the JAX defaults otherwise: rate 1000 rps,
 # prompts 16/64/128/256, outputs 8/32/96/192, page 16, chunk 8, T 0.8,
-# top-k 40, spec_k 6, a prefix fleet of 8). 8 requests, not 16, to keep
-# three runs near the phase's ~200 s: one 16-request run took 72 s on an
-# H100 80GB HBM3 at 700 W. The spec arm and its lookup baseline run a
-# cut lookup trace: a verify pass is plain PyTorch, ~25K launches at the
-# full trace's contexts.
-SERVE_RUNS = 3
+# top-k 40, spec_k 6, a prefix fleet of 8). 8 requests, not 16, and two
+# runs, not three, to keep the phase near ~150 s: one 16-request run took
+# 72 s on an H100 80GB HBM3 at 700 W, an 8-request run 63-80 s. The spec
+# arm and its lookup baseline run a cut lookup trace: a verify pass is
+# plain PyTorch, ~25K launches at the full trace's contexts.
+SERVE_RUNS = 2
 SERVE_ENV = {
     "BENCH_SERVE_REQUESTS": "8", "BENCH_SERVE_BATCH": "8",
     "BENCH_SPEC_REQUESTS": "4", "BENCH_SPEC_PROMPTS": "16,64",
@@ -3013,14 +3033,12 @@ def reckoned_flash_launches(attention: str, rank: int, layers: int) -> dict:
             "flash_bwd_dkv_sm90": bwd}
 
 
-def train_sharded_phase(R, T, cfg, init_params) -> tuple:
-    """The train_sharded phase (see the module docstring): returns its
-    report and the flash launches of every rank of every run, summed."""
-    t_phase = time.perf_counter()
-    b, s, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_SHARDED_STEPS
-    # train --distributed's batch: np.random.default_rng(1).
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+def unsharded_reference(T, cfg, init_params, tokens, steps: int) -> dict:
+    """What the two-rank runs of ``cfg`` are held to, computed here on
+    the card and released before the ranks start: the unsharded
+    Trainer's losses on the ranks' weights (seed 0 on the card) and
+    tokens, and step 1's fp32 reference loss (the weights upcast,
+    reference attention)."""
     torch.cuda.empty_cache()
     trainer = T.Trainer(cfg, T.MeshConfig())
     state = trainer.init_state()  # seed 0 on the card, as every rank's
@@ -3040,65 +3058,146 @@ def train_sharded_phase(R, T, cfg, init_params) -> tuple:
         loss_ref = float(T.loss_fn(T.build_model(ref_cfg), params, tokens))
     del params
     torch.cuda.empty_cache()
-    gap_unsharded = abs(unsharded[0] - loss_ref) / abs(loss_ref)
+    return {"unsharded_losses": unsharded, "fp32_reference_loss": loss_ref,
+            "unsharded_gap": abs(unsharded[0] - loss_ref) / abs(loss_ref)}
+
+
+def two_rank_train(R, model: str, mesh: str, attention: str, layers: int,
+                   ref: dict, launches: collections.Counter,
+                   timeout: float) -> dict:
+    """``train --distributed`` as two gloo ranks on the card (b=2,
+    s=2048, ref's steps) and its bars against ``ref``
+    (unsharded_reference): losses equal on both ranks and finite, step
+    1's gap ratio at most BF16_GAP_RATIO, every step's flash launches as
+    reckoned; raises on any. Adds the ranks' launches to ``launches``."""
+    steps = len(ref["unsharded_losses"])
+    argv = ["tpu_dra_torch.workloads.train", "--distributed", "--device",
+            "cuda:0", "--backend", "gloo", "--model", model, "--layers",
+            str(layers), "--mesh", mesh, "--attention", attention, "--steps",
+            str(steps), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    coordinator = f"127.0.0.1:{R.free_port()}"
+    t0 = time.perf_counter()
+    ranks = run_workloads(R, [argv, argv],
+                          [R.rank_env(r, 2, coordinator) for r in range(2)],
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    res = [ast.literal_eval(R.last_json(o)) for o, _, _ in ranks]
+    losses = [r["losses"] for r in res]
+    loss_ref, unsharded = ref["fp32_reference_loss"], ref["unsharded_losses"]
+    gap = abs(losses[0][0] - loss_ref) / abs(loss_ref)
+    ratio = gap / max(ref["unsharded_gap"], TRAIN_SHARDED_GAP_FLOOR)
+    run = {
+        "mesh": res[0]["mesh"], "attention": attention, "layers": layers,
+        "losses_by_rank": losses, "gap_to_fp32": gap, "gap_ratio": ratio,
+        "rel_diff_vs_unsharded": [abs(a - u) / abs(u) for a, u in zip(
+            losses[0], unsharded)],
+        "step_ms_by_rank": [r["step_ms"] for r in res],
+        "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in res],
+        "launches_by_rank": [r["launches_per_step"] for r in res],
+        "reckoned_launches_by_rank": [reckoned_flash_launches(
+            attention, r["rank"], layers) for r in res],
+        "collectives_by_rank": [r["collectives"] for r in res],
+        "seconds": seconds,
+    }
+    bad = []
+    if losses[0] != losses[1] or not np.isfinite(losses).all():
+        bad.append("losses differ across ranks or are not finite")
+    for r, want in zip(res, run["reckoned_launches_by_rank"]):
+        for i, got in enumerate(r["launches_per_step"]):
+            if got != want:
+                bad.append(f"rank {r['rank']} step {i}: launches {got}, "
+                           f"want {want}")
+            launches.update(got)
+    if ratio > BF16_GAP_RATIO:
+        bad.append(f"step-1 loss gap ratio {ratio} above {BF16_GAP_RATIO}")
+    if bad:
+        raise AssertionError(f"{model} --mesh {mesh} --attention "
+                             f"{attention}: {bad}: {run}")
+    return run
+
+
+def ranks_tokens(cfg) -> torch.Tensor:
+    """train --distributed's batch (np.random.default_rng(1)) on the
+    card."""
+    return torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).cuda()
+
+
+def within_budget(out: dict, t_phase: float, budget: float) -> bool:
+    """Whether the phase, at its seconds so far, has room for one more
+    run as long as its longest so far."""
+    elapsed = time.perf_counter() - t_phase
+    longest = max((r["seconds"] for r in out["runs"].values()
+                   if "seconds" in r), default=0.0)
+    return elapsed + longest <= budget
+
+
+def train_sharded_phase(R, T, cfg, init_params) -> tuple:
+    """The train_sharded phase (see the module docstring): returns its
+    report and the flash launches of every rank of every run, summed."""
+    t_phase = time.perf_counter()
+    ref = unsharded_reference(T, cfg, init_params, ranks_tokens(cfg),
+                              TRAIN_SHARDED_STEPS)
     out = {"model": "LLAMA3_8B widths cut to 2 layers, bf16, remat nothing, "
                     "random weights; two gloo ranks on the one card",
-           "batch": b, "seq": s, "steps": steps,
-           "unsharded_losses": unsharded, "fp32_reference_loss": loss_ref,
-           "unsharded_gap": gap_unsharded, "gap_floor": TRAIN_SHARDED_GAP_FLOOR,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_SHARDED_STEPS, **ref,
+           "gap_floor": TRAIN_SHARDED_GAP_FLOOR,
            "gap_ratio_bar": BF16_GAP_RATIO, "runs": {}}
     launches = collections.Counter()
     for label, mesh, attention in TRAIN_SHARDED_RUNS:
-        elapsed = time.perf_counter() - t_phase
-        longest = max((r["seconds"] for r in out["runs"].values()),
-                      default=0.0)
-        if label == "sp2_ulysses" and elapsed + longest > \
-                TRAIN_SHARDED_BUDGET_S:
-            out["runs"][label] = {"skipped": f"the phase at {elapsed:.1f} s "
-                                  f"of its {TRAIN_SHARDED_BUDGET_S} s budget"}
+        if label == "sp2_ulysses" and not within_budget(
+                out, t_phase, TRAIN_SHARDED_BUDGET_S):
+            out["runs"][label] = {
+                "skipped": f"the phase at {time.perf_counter() - t_phase:.1f}"
+                           f" s of its {TRAIN_SHARDED_BUDGET_S} s budget"}
             continue
-        argv = ["tpu_dra_torch.workloads.train", "--distributed", "--device",
-                "cuda:0", "--backend", "gloo", "--model", "llama3-8b",
-                "--layers", str(TRAIN_SHARDED_LAYERS), "--mesh", mesh,
-                "--attention", attention, "--steps", str(steps), "--batch",
-                str(b), "--seq", str(s)]
-        coordinator = f"127.0.0.1:{R.free_port()}"
+        out["runs"][label] = two_rank_train(
+            R, "llama3-8b", mesh, attention, TRAIN_SHARDED_LAYERS, ref,
+            launches, TRAIN_SHARDED_TIMEOUT_S)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, {k: launches[k] for k in FLASH_COUNTERS}
+
+
+# --- train_moe_sharded: Mixtral on a training mesh on the one card -------------
+
+#: (label, --mesh, --attention, --layers) of the train_moe_sharded runs,
+#: in order; the last runs only while the phase is within
+#: TRAIN_MOE_BUDGET_S.
+TRAIN_MOE_RUNS = (
+    ("ep2", "ep=2", "auto", 2),
+    ("sp2_ring", "sp=2", "ring", 1),
+)
+TRAIN_MOE_BUDGET_S = 120.0
+
+
+def train_moe_sharded_phase(R, T, M) -> tuple:
+    """The train_moe_sharded phase (see the module docstring): returns
+    its report and the flash launches of every rank of every run,
+    summed."""
+    t_phase = time.perf_counter()
+    out = {"model": "MIXTRAL_8X7B widths, bf16, remat nothing, random "
+                    "weights; two gloo ranks on the one card",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_SHARDED_STEPS,
+           "gap_floor": TRAIN_SHARDED_GAP_FLOOR,
+           "gap_ratio_bar": BF16_GAP_RATIO, "runs": {}}
+    launches = collections.Counter()
+    for label, mesh, attention, layers in TRAIN_MOE_RUNS:
+        if label == "sp2_ring" and not within_budget(out, t_phase,
+                                                     TRAIN_MOE_BUDGET_S):
+            out["runs"][label] = {
+                "skipped": f"the phase at {time.perf_counter() - t_phase:.1f}"
+                           f" s of its {TRAIN_MOE_BUDGET_S} s budget"}
+            continue
         t0 = time.perf_counter()
-        ranks = run_workloads(R, [argv, argv],
-                              [R.rank_env(r, 2, coordinator) for r in range(2)],
-                              timeout=TRAIN_SHARDED_TIMEOUT_S)
-        seconds = time.perf_counter() - t0
-        res = [ast.literal_eval(R.last_json(o)) for o, _, _ in ranks]
-        losses = [r["losses"] for r in res]
-        gap = abs(losses[0][0] - loss_ref) / abs(loss_ref)
-        ratio = gap / max(gap_unsharded, TRAIN_SHARDED_GAP_FLOOR)
-        run = {
-            "mesh": res[0]["mesh"], "attention": attention,
-            "losses_by_rank": losses,
-            "gap_to_fp32": gap, "gap_ratio": ratio,
-            "rel_diff_vs_unsharded": [abs(a - u) / abs(u) for a, u in zip(
-                losses[0], unsharded)],
-            "step_ms_by_rank": [r["step_ms"] for r in res],
-            "launches_by_rank": [r["launches_per_step"] for r in res],
-            "reckoned_launches_by_rank": [reckoned_flash_launches(
-                attention, r["rank"], TRAIN_SHARDED_LAYERS) for r in res],
-            "collectives_by_rank": [r["collectives"] for r in res],
-            "seconds": seconds,
-        }
-        out["runs"][label] = run
-        bad = []
-        if losses[0] != losses[1] or not np.isfinite(losses).all():
-            bad.append("losses differ across ranks or are not finite")
-        for r, want in zip(res, run["reckoned_launches_by_rank"]):
-            for i, got in enumerate(r["launches_per_step"]):
-                if got != want:
-                    bad.append(f"rank {r['rank']} step {i}: launches {got}, "
-                               f"want {want}")
-                launches.update(got)
-        if ratio > BF16_GAP_RATIO:
-            bad.append(f"step-1 loss gap ratio {ratio} above {BF16_GAP_RATIO}")
-        if bad:
-            raise AssertionError(f"train_sharded {label}: {bad}: {run}")
+        cfg = dataclasses.replace(M.MIXTRAL_8X7B, n_layers=layers)
+        ref = unsharded_reference(T, cfg, M.init_params, ranks_tokens(cfg),
+                                  TRAIN_SHARDED_STEPS)
+        run = two_rank_train(R, "mixtral-8x7b", mesh, attention, layers,
+                             ref, launches, TRAIN_SHARDED_TIMEOUT_S)
+        out["runs"][label] = {**ref, **run, "launch_seconds": run["seconds"],
+                              "seconds": time.perf_counter() - t0}
     out["seconds"] = time.perf_counter() - t_phase
     return out, {k: launches[k] for k in FLASH_COUNTERS}
 
@@ -4118,6 +4217,11 @@ def main() -> int:
         init_params)
     emit("train_sharded", nvidia_smi=smi, **sharded_train)
 
+    # --- 9d. Mixtral on a training mesh: two gloo ranks on the card ---------
+    moe_train, moe_train_launches = train_moe_sharded_phase(
+        rank_launcher(), T, M)
+    emit("train_moe_sharded", nvidia_smi=smi, **moe_train)
+
     # --- kernel list and result ----------------------------------------------
     rows = []
     for name, source, replaces, par, t, n_launch in (
@@ -4166,7 +4270,7 @@ def main() -> int:
          timing[name],
          train["launches"][counter] + mixtral["launches"][counter]
          + bench_launches.get(counter, 0)
-         + sharded_train_launches[counter])
+         + sharded_train_launches[counter] + moe_train_launches[counter])
         for name, source, counter, line, out in (
             ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
             ("flash_bwd_dq", "flash_bwd_dq_sm90.cu", "flash_bwd_dq_sm90",

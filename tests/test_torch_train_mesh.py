@@ -3,11 +3,12 @@ parallel/mesh.py) held to JAX's (tpu_dra/workloads/parallel/mesh.py):
 ``param_spec`` over every rule and a stacked leaf (the twin of
 tests/test_workloads.py test_param_spec_rules), ``MeshConfig`` and
 ``for_device_count``, ``batch_sharding`` / ``replicated``, the rank
-layout of ``build_mesh`` against JAX's device array, and, over 8 gloo
-ranks on the CPU (tests/torch_mesh_rank.py, one launch): each rank's
-process groups, the ``shard_train_params`` / ``gather_train_params``
-round trip, and each differentiable collective's forward and backward
-against its conjugate."""
+layout of ``build_mesh`` against JAX's device array, each rank's blocks
+of TINY_LLAMA's and TINY_MIXTRAL's trees against JAX's addressable
+shards, and, over 8 gloo ranks on the CPU (tests/torch_mesh_rank.py,
+one launch): each rank's process groups, the ``shard_train_params`` /
+``gather_train_params`` round trips, and each differentiable
+collective's forward and backward against its conjugate."""
 
 import json
 
@@ -22,6 +23,7 @@ from tests import torch_mesh_rank as RK  # noqa: E402
 from tests.torch_ranks import free_port, last_json, rank_env, start, wait  # noqa: E402
 from tpu_dra.workloads.parallel import mesh as JM  # noqa: E402
 from tpu_dra_torch.workloads import train as TT  # noqa: E402
+from tpu_dra_torch.workloads.models import mixtral  # noqa: E402
 from tpu_dra_torch.workloads.models.llama import TINY_LLAMA, init_params  # noqa: E402
 from tpu_dra_torch.workloads.parallel import mesh as TM  # noqa: E402
 
@@ -101,13 +103,21 @@ def test_rank_layout_matches_jax_device_array(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(fsdp=2, sp=2, tp=2), dict(fsdp=4, tp=2),
-                                dict(dp=2, fsdp=2, tp=2)])
+                                dict(dp=2, fsdp=2, tp=2),
+                                dict(ep=2, fsdp=2, tp=2, model="mixtral"),
+                                dict(ep=4, tp=2, model="mixtral")])
 def test_shard_blocks_reassemble_and_moments_follow(kw):
-    """Every rank's blocks (cut without a group) put back by spec give
-    the full tree; an AdamState's moments are cut as their parameters."""
+    """Every rank's blocks (cut without a group) are the bits of JAX's
+    addressable shard of that rank's device under ``param_shardings``
+    and put back by spec give the full tree; an AdamState's moments are
+    cut as their parameters. TINY_LLAMA, or TINY_MIXTRAL with its
+    experts over ep."""
+    kw = dict(kw)
+    moe = kw.pop("model", "llama") == "mixtral"
     config = TM.MeshConfig(**kw)
-    params = init_params(TINY_LLAMA, torch.Generator().manual_seed(5), "cpu",
-                         trainable=True)
+    init = mixtral.init_params if moe else init_params
+    params = init(mixtral.TINY_MIXTRAL if moe else TINY_LLAMA,
+                  torch.Generator().manual_seed(5), "cpu", trainable=True)
     full = {n: p.detach() for n, p in params.named_parameters()}
     meshes = [TM.TrainMesh(config, r, "cpu") for r in range(WORLD)]
     blocks = [dict(TM.shard_train_params(m, params).named_parameters())
@@ -115,14 +125,22 @@ def test_shard_blocks_reassemble_and_moments_follow(kw):
     state = TT.AdamState(count=torch.zeros((), dtype=torch.int32),
                          mu={n: t.float() + 1 for n, t in full.items()},
                          nu={n: t * 2 for n, t in full.items()})
+    jmesh = JM.build_mesh(JM.MeshConfig(**kw))
     for name, t in full.items():
         spec = TM.param_spec(name.replace(".", "/"), t)
+        jarr = jax.device_put(t.float().numpy(), JM.NamedSharding(
+            jmesh, JM.param_spec(name.replace(".", "/"), t)))
+        shards = {s.device.id: np.asarray(s.data)
+                  for s in jarr.addressable_shards}
         for r, m in enumerate(meshes):
             want = t
             for d, entry in enumerate(spec):
                 lo, hi = m.block(t.shape[d], entry)
                 want = want.narrow(d, lo, hi - lo)
             assert torch.equal(blocks[r][name].detach(), want), (name, r)
+            np.testing.assert_array_equal(
+                blocks[r][name].detach().float().numpy(), shards[r],
+                err_msg=f"{name} rank {r}")
             assert blocks[r][name].requires_grad
             cut = TM.shard_opt_state(m, state)
             assert torch.equal(cut.mu[name], want.float() + 1)
@@ -158,6 +176,12 @@ def test_shard_gather_round_trip(ranks):
         assert shapes["layer_0.mlp.w_down.kernel"] == [64, 32]
         assert shapes["lm_head.kernel"] == [32, 128]
         assert shapes["final_norm.scale"] == [64]
+        # TINY_MIXTRAL over dp=2, ep=2, tp=2: the experts over ep and tp.
+        assert o["moe_round_trip_exact"]
+        moe = o["moe_local_shapes"]
+        assert moe["layer_0.moe.experts_w_gate"] == [2, 64, 64]
+        assert moe["layer_0.moe.experts_w_down"] == [2, 64, 64]
+        assert moe["layer_0.moe.router.kernel"] == [64, 4]
 
 
 def _blocks(a: np.ndarray, n: int, dim: int) -> list:

@@ -4,7 +4,8 @@ Run as ``python tests/torch_mesh_rank.py`` in the env the slice daemon
 renders (tests/torch_ranks.py ``rank_env``) at a world of 8: it builds
 the meshes of ``MESHES`` over the group, and prints one JSON line with,
 for each mesh, this rank's coordinates and the ranks of each of its
-groups, the shard/gather round trip of TINY_LLAMA's parameters, and for
+groups, the shard/gather round trip of TINY_LLAMA's parameters (and of
+TINY_MIXTRAL's on the ep mesh), and for
 each differentiable collective of ``COLLECTIVES`` its input, output,
 cotangent and gradient (inputs from ``rank_input``, so the parent can
 reckon every rank's). No JAX import: the ranks are the port's.
@@ -21,6 +22,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 MESHES = {
     "fsdp_sp_tp": dict(fsdp=2, sp=2, tp=2),
     "dp_sp4": dict(dp=2, sp=4),
+    "dp_ep_tp": dict(dp=2, ep=2, tp=2),
 }
 
 #: name -> (mesh, method, axes, keyword arguments, the input's shape,
@@ -43,6 +45,11 @@ COLLECTIVES = {
     "ppermute_sp_back2": ("dp_sp4", "ppermute", "sp", {"shift": -2}, (2, 3),
                           None),
     "all_to_all_sp": ("dp_sp4", "all_to_all", "sp", {}, (4, 2, 3), None),
+    # The MoE's pair over its expert axes.
+    "all_reduce_experts": ("dp_ep_tp", "all_reduce", ("ep", "tp"), {},
+                           (2, 3), "out"),
+    "all_reduce_grad_experts": ("dp_ep_tp", "all_reduce_grad", ("ep", "tp"),
+                                {}, (2, 3), "in"),
 }
 
 
@@ -64,6 +71,7 @@ def main() -> int:
     import torch.distributed as dist
 
     from tpu_dra_torch.workloads.bootstrap import initialize_from_env, shutdown
+    from tpu_dra_torch.workloads.models import mixtral
     from tpu_dra_torch.workloads.models.llama import TINY_LLAMA, init_params
     from tpu_dra_torch.workloads.parallel import mesh as M
 
@@ -81,30 +89,40 @@ def main() -> int:
                 "lines": {"+".join(axes): mesh.line(axes)
                           for axes in mesh.groups},
             }
-        # The shard/gather round trip and the local shapes.
-        mesh = meshes["fsdp_sp_tp"]
-        params = init_params(TINY_LLAMA, torch.Generator().manual_seed(3),
-                             "cpu", trainable=True)
-        local = M.shard_train_params(mesh, params)
-        back = M.gather_train_params(mesh, local)
-        flat_full = dict(params.named_parameters())
-        flat_back = {}
+        # The shard/gather round trips and the local shapes.
+        def round_trip(mesh, params):
+            local = M.shard_train_params(mesh, params)
+            back = M.gather_train_params(mesh, local)
+            flat_full = dict(params.named_parameters())
+            flat_back = {}
 
-        def walk(node, prefix):
-            for k, v in node.items():
-                if isinstance(v, dict):
-                    walk(v, f"{prefix}{k}.")
-                else:
-                    flat_back[prefix + k] = v
+            def walk(node, prefix):
+                for k, v in node.items():
+                    if isinstance(v, dict):
+                        walk(v, f"{prefix}{k}.")
+                    else:
+                        flat_back[prefix + k] = v
 
-        walk(back, "")
-        out["round_trip_exact"] = sorted(flat_back) == sorted(flat_full) \
-            and all(torch.equal(flat_back[n], flat_full[n].detach())
-                    for n in flat_full)
+            walk(back, "")
+            exact = sorted(flat_back) == sorted(flat_full) and all(
+                torch.equal(flat_back[n], flat_full[n].detach())
+                for n in flat_full)
+            return local, exact
+
+        local, out["round_trip_exact"] = round_trip(
+            meshes["fsdp_sp_tp"], init_params(
+                TINY_LLAMA, torch.Generator().manual_seed(3), "cpu",
+                trainable=True))
         out["local_shapes"] = {n: list(p.shape)
                                for n, p in local.named_parameters()}
         out["local_requires_grad"] = all(
             p.requires_grad for p in local.parameters())
+        moe, out["moe_round_trip_exact"] = round_trip(
+            meshes["dp_ep_tp"], mixtral.init_params(
+                mixtral.TINY_MIXTRAL, torch.Generator().manual_seed(3), "cpu",
+                trainable=True))
+        out["moe_local_shapes"] = {n: list(p.shape)
+                                   for n, p in moe.named_parameters()}
         # Each differentiable collective: forward, and the gradient of
         # sum(out * y) for a cotangent y.
         res = {}

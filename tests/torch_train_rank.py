@@ -1,5 +1,5 @@
 """One gloo rank of the sharded-training twins (tests/test_torch_train.py,
-tests/test_torch_train_sharded.py).
+tests/test_torch_train_sharded.py, tests/test_torch_train_moe.py).
 
 Run as ``python tests/torch_train_rank.py DIR CASE [CASE ...]`` in the env
 the slice daemon renders (tests/torch_ranks.py ``rank_env``): it joins
@@ -12,8 +12,8 @@ Trainer's own seeded ``init_state``. With ``gather``, rank 0 writes the
 global logits of the starting weights (``make_forward``) to
 ``DIR/<case>_logits.npy``, and the step-1 gradients and the final
 parameters, gathered whole (``gather_train_params``), to
-``DIR/<case>_grads.npz`` and ``DIR/<case>_params.npz``. No JAX
-import: the ranks are the port's.
+``DIR/<case>_grads.npz`` and ``DIR/<case>_params.npz``; a case of no
+steps only runs the forward. No JAX import: the ranks are the port's.
 """
 
 import dataclasses
@@ -31,6 +31,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 TOKENS = {
     "b4": np.tile(np.arange(16, dtype=np.int32)[None], (4, 1)),
     "b2": np.tile(np.arange(16, dtype=np.int32)[None], (2, 1)),
+    # The MoE twins': seeded rows that route apart.
+    "r4": np.random.default_rng(1).integers(0, 256, (4, 16)).astype(np.int32),
 }
 
 
@@ -42,8 +44,9 @@ class Case:
     tokens: str = "b4"
     steps: int = 2
     lr: float = 1e-3
-    config: tuple = ()  # LlamaConfig overrides, (name, value) pairs
+    config: tuple = ()  # config overrides, (name, value) pairs
     gather: bool = False
+    model: str = "llama"  # "llama" (TINY_LLAMA) | "mixtral" (TINY_MIXTRAL)
 
 
 CASES = {
@@ -65,6 +68,26 @@ CASES = {
                      config=(("fused_ce", True), ("ce_chunk", 4))),
     # train --distributed's default mesh at a world of 2.
     "fsdp2": Case({}, "fp32", "seed", tokens="b2"),
+    # tests/test_moe_pipeline.py test_mixtral_trainer_ep_step.
+    "moe_dp_ep_tp": Case(dict(dp=2, ep=2, tp=2), "fp32", "moe_fp32",
+                         tokens="r4", gather=True, model="mixtral"),
+    # tests/test_moe_pipeline.py test_mixtral_ep_sharded_matches_single_
+    # device: the forward alone, in fp32 and bf16.
+    "moe_ep4_fwd": Case(dict(ep=4, tp=2), "fp32", "moe_fp32", tokens="r4",
+                        steps=0, gather=True, model="mixtral"),
+    "moe_ep4_fwd_bf16": Case(dict(ep=4, tp=2), "bf16", "moe_bf16",
+                             tokens="r4", steps=0, gather=True,
+                             model="mixtral"),
+    # Tight capacity over the global sequence, chunked over sp.
+    "moe_fsdp_sp_ep": Case(dict(fsdp=2, sp=2, ep=2), "fp32", "moe_fp32",
+                           tokens="r4", gather=True, model="mixtral",
+                           config=(("attention_impl", "ring"),
+                                   ("capacity_factor", 0.5))),
+    "moe_ulysses": Case(dict(sp=2, tp=2), "bf16", "moe_bf16", tokens="r4",
+                        model="mixtral",
+                        config=(("attention_impl", "ulysses"),)),
+    # A dense Llama at ep=2: replicated over ep.
+    "llama_ep2": Case(dict(ep=2), "fp32", "seed", tokens="r4"),
 }
 
 
@@ -72,9 +95,11 @@ def config_of(case: Case):
     import torch
 
     from tpu_dra_torch.workloads.models.llama import TINY_LLAMA
+    from tpu_dra_torch.workloads.models.mixtral import TINY_MIXTRAL
 
+    base = {"llama": TINY_LLAMA, "mixtral": TINY_MIXTRAL}[case.model]
     dtype = torch.float32 if case.dtype == "fp32" else torch.bfloat16
-    return dataclasses.replace(TINY_LLAMA, dtype=dtype, param_dtype=dtype,
+    return dataclasses.replace(base, dtype=dtype, param_dtype=dtype,
                                **dict(case.config))
 
 
@@ -155,6 +180,7 @@ def run_case(name: str, case: Case, root: Path, rank: int) -> dict:
         logits = trainer.make_forward()(state["params"], tokens)
         if rank == 0:
             np.save(root / f"{name}_logits.npy", logits.float().numpy())
+    if case.gather and case.steps:
         update = trainer.optimizer.update
 
         def spy(grads, opt_state, params):
@@ -177,8 +203,11 @@ def run_case(name: str, case: Case, root: Path, rank: int) -> dict:
         "collectives": dict(mesh.collectives), "staged": dict(mesh.staged),
         "step": state["step"], "count": int(state["opt_state"].count),
         "specs": specs,
+        "local_moe": {n: list(t.shape) for n, t in
+                      state["params"].named_parameters()
+                      if n.startswith("layer_0.moe.")},
     }
-    if case.gather:
+    if case.gather and case.steps:
         full = gather_train_params(mesh, state["params"])
         if rank == 0:
             np.savez(root / f"{name}_grads.npz", **_flat_numpy(grads_seen[0]))

@@ -24,6 +24,34 @@ Where the reference's numerics fix the port's:
 - dispatch and combine are cast to the compute dtype before their
   products (each gate rounded once), and a token's k slots are summed
   in it.
+
+On a training mesh of more than one rank (:mod:`..parallel.mesh`; the
+rank's rows and ``sp`` chunk, its parameter blocks) the MoE is this
+rank's share of JAX's GSPMD program, which computes what the unsharded
+layer computes:
+
+- capacity and positions are the global sequence's: ``capacity`` of the
+  whole length, and a slot's position counts, before its own chunk's,
+  the slots every earlier ``sp`` chunk of its row gave its expert (one
+  all_gather of ``[b, E]`` counts over sp);
+- the load-balance loss is ``E * sum(token_frac * prob_frac)`` with both
+  fractions means over the global batch, their sums all-reduced over the
+  data axes before the product (its backward hands each rank's
+  ``probs`` their own share once);
+- the router kernel is gathered over fsdp and runs replicated over ep
+  and tp; the experts are the rank's ep block gathered over fsdp,
+  ``w_gate``/``w_up`` column-parallel and ``w_down`` row-parallel over
+  tp; dispatch and combine take the rank's experts only;
+- the expert path's input ``x`` and the gates enter through an identity
+  whose backward all-reduces over (ep, tp) (the rank's experts and ffn
+  columns give only their share of those cotangents), and the combined
+  slots' partial sums over (ep, tp) are added in fp32 before the cast
+  (over ep a slot is one rank's value plus zeros);
+- at ``sp`` above 1 the dispatched buffers are reduce-scattered over sp
+  along the capacity (each slot comes from one chunk), the experts run
+  on ``C/sp`` slots of every buffer and their outputs are all-gathered
+  back, so an expert's gradient sums over sp, by ``train.sum_grads``,
+  each slot once.
 """
 
 from __future__ import annotations
@@ -44,6 +72,8 @@ from tpu_dra_torch.workloads.models.llama import (
     LlamaConfig,
     LlamaParams,
     RMSNorm,
+    _train_mesh,
+    _weight,
     param_tree,
     rope_frequencies,
 )
@@ -73,7 +103,8 @@ class MixtralConfig:
     # recomputes in the backward pass (JAX's nothing_saveable).
     remat: bool = True
     # ops/attention.py ``attention``: "auto" | "cuda" | "torch" |
-    # "reference" ("ring" and "ulysses" raise: sequence parallelism).
+    # "reference", or sequence parallelism on a training mesh: "ring" |
+    # "ulysses" (the port's LlamaAttention).
     attention_impl: str = "auto"
 
     @property
@@ -208,19 +239,61 @@ def top_k(x: torch.Tensor, k: int) -> tuple:
     return values[..., :k], indices[..., :k]
 
 
-def dispatch_mask(idx: torch.Tensor, n_experts: int, cap: int) -> torch.Tensor:
+def dispatch_mask(idx: torch.Tensor, n_experts: int, cap: int,
+                  block: "tuple | None" = None,
+                  earlier: "torch.Tensor | None" = None) -> torch.Tensor:
     """Expert ids ``[b, s, k]`` -> dispatch ``[b, s*k, E, cap]`` fp32:
     slot t (token-major: a token's k slots together, earlier tokens
     first) goes to position ``cumsum - 1`` of its expert's buffer, and
-    is dropped (a zero row) past ``cap``."""
+    is dropped (a zero row) past ``cap``. ``block`` = (lo, hi) keeps
+    experts lo..hi-1 only (a rank's ep block); ``earlier`` [b, hi-lo]
+    counts the slots earlier chunks of each row gave them, where ``idx``
+    is one sp chunk of the row."""
     b, s, k = idx.shape
-    experts = torch.arange(n_experts, device=idx.device)
+    lo, hi = block or (0, n_experts)
+    experts = torch.arange(lo, hi, device=idx.device)
     flat_mask = (idx[..., None] == experts).to(torch.float32).reshape(
-        b, s * k, n_experts)
+        b, s * k, hi - lo)
     position = torch.cumsum(flat_mask, dim=1) - 1.0  # [b, s*k, E]
+    if earlier is not None:
+        position = position + earlier[:, None, :]
     keep = flat_mask * (position < cap)
     slots = torch.arange(cap, device=idx.device, dtype=torch.float32)
     return keep[..., None] * (position[..., None] == slots)
+
+
+def earlier_slots(mesh, idx: torch.Tensor, block: tuple) -> torch.Tensor:
+    """[b, hi-lo] fp32: the slots the sp chunks before this rank's give
+    each expert of ``block`` in each row (one all_gather of the chunks'
+    counts over sp; no gradient)."""
+    lo, hi = block
+    experts = torch.arange(lo, hi, device=idx.device)
+    counts = (idx[..., None] == experts).sum(dim=(1, 2)).to(torch.float32)
+    every = mesh.all_gather_raw(counts[None], "sp", 0)  # [sp, b, E]
+    return every[:mesh.index("sp")].sum(dim=0)
+
+
+def load_balance(mesh, probs: torch.Tensor, idx: torch.Tensor,
+                 n_experts: int) -> torch.Tensor:
+    """Switch eq. 4: ``E * sum_e f_e * p_e``, f the share of tokens whose
+    top-1 choice is e (no gradient), p the mean probability of e, both
+    over the global batch: on a mesh their sums are all-reduced over the
+    data axes before the product (the all_reduce's backward is the
+    identity: each rank's probs take their own share once)."""
+    experts = torch.arange(n_experts, device=probs.device)
+    top1 = (idx[..., 0, None] == experts).to(torch.float32)
+    if mesh is None:
+        token_frac, prob_frac = top1.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+    else:
+        # Imported here: parallel.mesh imports convert, which imports
+        # this module.
+        from tpu_dra_torch.workloads.parallel.mesh import DATA_AXES
+
+        n = top1.shape[0] * top1.shape[1] * mesh.axis_size(DATA_AXES)
+        sums = mesh.all_reduce(torch.stack(
+            [top1.sum(dim=(0, 1)), probs.sum(dim=(0, 1))]), DATA_AXES) / n
+        token_frac, prob_frac = sums[0], sums[1]
+    return n_experts * torch.sum(token_frac * prob_frac)
 
 
 class MixtralRouter(nn.Module):
@@ -243,7 +316,8 @@ class MixtralMoE(nn.Module):
     """Top-k routed SwiGLU expert layer with capacity-based dispatch.
     forward(p, x [b, s, d]) -> (y [b, s, d] in x's dtype, the layer's
     weighted load-balance loss ``router_aux_weight * aux``), p = one
-    ``layer_{i}/moe`` subtree."""
+    ``layer_{i}/moe`` subtree: on a training mesh this rank's blocks,
+    ``x`` its rows and sp chunk (see the module docstring)."""
 
     def __init__(self, config: MixtralConfig):
         super().__init__()
@@ -251,35 +325,53 @@ class MixtralMoE(nn.Module):
         self.router = MixtralRouter(config)
 
     def forward(self, p: dict, x: torch.Tensor) -> tuple:
+        from tpu_dra_torch.workloads.parallel.mesh import EXPERT_AXES  # cycle
+
         c = self.config
+        mesh = _train_mesh()
         b, s, d = x.shape
         k, n_exp = c.top_k, c.n_experts
-        cap = c.capacity(s)
+        sp = 1 if mesh is None else mesh.shape["sp"]
+        cap = c.capacity(s * sp)  # the global sequence's
+        block = (0, n_exp) if mesh is None else mesh.block(n_exp, "ep")
+        if cap % sp:
+            raise ValueError(f"expert capacity {cap} does not split over "
+                             f"sp={sp}")
+
+        def expert(name):
+            w = p[name]
+            return w if mesh is None else mesh.gather_param(w, f"moe/{name}")
+
+        def partial_grad(t):  # the cotangent of t sums over (ep, tp)
+            return t if mesh is None else mesh.all_reduce_grad(t, EXPERT_AXES)
 
         # Profiler spans (no cost without a profiler): a trace splits the
         # layer's device time into these four.
         with record_function("moe/router"):
-            probs, gate, idx = self.router(p["router"], x)
+            probs, gate, idx = self.router(
+                _weight(mesh, p["router"], "moe/router/kernel"), x)
             gate = gate / torch.clamp_min(gate.sum(dim=-1, keepdim=True), 1e-9)
-            # Load-balance loss (Switch eq. 4): E * sum_e f_e * p_e, f
-            # from the top-1 choice (no gradient), p from the
-            # probabilities.
-            experts = torch.arange(n_exp, device=x.device)
-            token_frac = (idx[..., 0, None] == experts).to(torch.float32).mean(
-                dim=(0, 1))
-            prob_frac = probs.mean(dim=(0, 1))
-            aux = n_exp * torch.sum(token_frac * prob_frac)
+            aux = load_balance(mesh, probs, idx, n_exp)
         with record_function("moe/dispatch"):
-            dispatch = dispatch_mask(idx, n_exp, cap)  # [b, s*k, E, C]
-            x_slots = torch.repeat_interleave(x, k, dim=1)  # [b, s*k, d]
+            earlier = None if sp == 1 else earlier_slots(mesh, idx, block)
+            dispatch = dispatch_mask(idx, n_exp, cap, block, earlier)
+            x_slots = torch.repeat_interleave(partial_grad(x), k, dim=1)
             xe = _einsum("btec,btd->ebcd", dispatch.to(c.dtype), x_slots)
+            if sp > 1:  # each rank's experts on C/sp slots of every buffer
+                xe = mesh.reduce_scatter(xe, "sp", 2)
         with record_function("moe/experts"):
-            h = F.silu(_einsum("ebcd,edf->ebcf", xe, p["experts_w_gate"])) * (
-                _einsum("ebcd,edf->ebcf", xe, p["experts_w_up"]))
-            ye = _einsum("ebcf,efd->ebcd", h, p["experts_w_down"])
+            h = F.silu(_einsum("ebcd,edf->ebcf", xe, expert("experts_w_gate"))) * (
+                _einsum("ebcd,edf->ebcf", xe, expert("experts_w_up")))
+            ye = _einsum("ebcf,efd->ebcd", h, expert("experts_w_down"))
+            if sp > 1:
+                ye = mesh.all_gather(ye, "sp", 2)
         with record_function("moe/combine"):
-            combine = dispatch * gate.reshape(b, s * k)[..., None, None]
+            combine = dispatch * partial_grad(gate).reshape(b, s * k)[
+                ..., None, None]
             y_slots = _einsum("ebcd,btec->btd", ye, combine.to(c.dtype))
+            if mesh is not None and mesh.axis_size(EXPERT_AXES) > 1:
+                y_slots = mesh.all_reduce(y_slots.float(), EXPERT_AXES).to(
+                    y_slots.dtype)
             y = y_slots.reshape(b, s, k, d).sum(dim=2)
         return y.to(x.dtype), c.router_aux_weight * aux
 
@@ -321,14 +413,21 @@ class Mixtral(nn.Module):
 
     def apply_with_aux(self, params: "MixtralParams | dict",
                        tokens: torch.Tensor) -> tuple:
-        """(logits, total aux loss): each layer's weighted aux, summed."""
+        """(logits, total aux loss): each layer's weighted aux, summed.
+        On a training mesh, ``tokens`` are this rank's rows and sp chunk
+        and so are the logits (the whole vocab); the aux is the global
+        batch's, the same on every rank."""
         c = self.config
+        mesh = _train_mesh()
         tree = param_tree(params)
-        emb = tree["embed"]["embedding"]
+        emb = _weight(mesh, {"kernel": tree["embed"]["embedding"]},
+                      "embed/embedding", tp=True)["kernel"]
         x = F.embedding(tokens.to(device=emb.device, dtype=torch.long), emb)
         x = x.to(c.dtype)
+        s = tokens.shape[1]
+        start = 0 if mesh is None else mesh.index("sp") * s
         cos, sin = rope_frequencies(
-            c.attention_config(), torch.arange(tokens.shape[1], device=x.device)
+            c.attention_config(), torch.arange(start, start + s, device=x.device)
         )
         total = 0.0
         for i in range(c.n_layers):
@@ -339,7 +438,8 @@ class Mixtral(nn.Module):
                 x, aux = block(x, cos, sin)
             total = total + aux
         x = self.final_norm(tree["final_norm"], x)
-        return _mm(x, tree["lm_head"]).to(torch.float32), total
+        head = _weight(mesh, tree["lm_head"], "lm_head/kernel", tp=True)
+        return _mm(x, head).to(torch.float32), total
 
     def forward(self, tokens: torch.Tensor, *,
                 params: "MixtralParams | dict") -> torch.Tensor:

@@ -15,9 +15,11 @@ tuples of JAX's ``PartitionSpec``s.
 TRAINING MESH (JAX's ``AXES`` through ``replicated``). Ranks lie
 row-major over ``(pp, dp, fsdp, ep, sp, tp)``, tp innermost, as JAX
 lays out devices. Parameters shard by ``PARAM_RULES``: a dim named
-``fsdp`` is cut over fsdp, one named ``tp`` over tp (contiguous blocks
-in coordinate order), and a leaf is replicated over every other axis;
-the batch rows split over ``(dp, fsdp)`` and the sequence over ``sp``.
+``fsdp`` is cut over fsdp, one named ``tp`` over tp, one named ``ep``
+(an expert leaf's leading dim) over ep (contiguous blocks in coordinate
+order), and a leaf is replicated over every other axis; the batch rows
+split over ``(dp, fsdp)`` and the sequence over ``sp``, so the ranks of
+an ep line hold the same rows and ep splits experts, not tokens.
 :class:`TrainMesh` holds one process group a line of each axis set the
 step needs and the differentiable collectives, each an
 ``autograd.Function`` with its conjugate backward:
@@ -97,13 +99,18 @@ BATCH_AXES = ("dp", "fsdp")
 #: is sharded over dp or sp. The loss sums over them; a gradient is
 #: summed over those its leaf is not sharded over.
 DATA_AXES = ("dp", "fsdp", "sp")
+#: The axes over which the MoE's expert path holds partial sums: its
+#: experts over ep, the ffn columns of each over tp.
+EXPERT_AXES = ("ep", "tp")
 #: The axis sets a rank's process groups cover, besides each single
 #: axis: the batch rows, the data axes (the loss; the gradients of
 #: leaves not sharded over fsdp), the data axes but fsdp (the gradients
-#: of fsdp-sharded leaves) and fsdp with tp (the norm of a leaf sharded
-#: over both).
+#: of fsdp-sharded leaves), fsdp with tp (the norm of a leaf sharded
+#: over both), the expert axes (the MoE's partial sums) and those with
+#: fsdp (the norm of an expert leaf).
 GROUP_AXES = tuple((a,) for a in AXES) + (
-    BATCH_AXES, DATA_AXES, ("dp", "sp"), ("fsdp", "tp"))
+    BATCH_AXES, DATA_AXES, ("dp", "sp"), ("fsdp", "tp"), EXPERT_AXES,
+    ("fsdp",) + EXPERT_AXES)
 #: Collectives gloo runs on CUDA tensors itself (it copies them through
 #: pinned host memory); the mesh stages the others there.
 GLOO_CUDA_OPS = frozenset({"all_reduce", "all_gather"})
@@ -584,10 +591,10 @@ def _leaf_block(t: torch.Tensor, spec: tuple, mesh: TrainMesh,
 
 def shard_train_params(mesh: TrainMesh, params):
     """This rank's blocks of a full parameter tree by ``param_spec``: a
-    dim named fsdp cut over fsdp, one named tp over tp, every other
-    dim and leaf whole. A LlamaParams (or MixtralParams) gives the same
-    kind of module, its leaves carrying gradients as the input's did; a
-    nested dict gives a nested dict. Cut leaves are copies (the full
+    dim named fsdp cut over fsdp, one named tp over tp, one named ep
+    over ep, every other dim and leaf whole. A LlamaParams (or
+    MixtralParams) gives the same kind of module, its leaves carrying
+    gradients as the input's did; a nested dict gives a nested dict. Cut leaves are copies (the full
     tree can go); on a mesh of one nothing is copied."""
     from tpu_dra_torch.workloads.models.llama import LlamaParams
 

@@ -10,17 +10,20 @@ and trains on JAX's default mesh for the world,
 ``MeshConfig.for_device_count``, with JAX's default batch of one row a
 ``(dp, fsdp)`` shard.
 
-Llama trains on a mesh of any ``dp``, ``fsdp``, ``sp`` and ``tp``
-(:mod:`.parallel.mesh`), one rank a mesh slot, with attention "auto",
-"ring" or "ulysses". Every rank holds its blocks of the parameters and
-moments and takes its rows and ``sp`` chunk of the global batch; a step
-is JAX's GSPMD step with its collectives written out: the loss is the
-global mean (the log-likelihood sum and count all-reduced over the data
-axes), a gradient is summed over the data axes its leaf is not sharded
-over, the clipping norm adds each leaf's squares over the axes it is
-sharded over, and AdamW updates the local blocks with no communication.
-``ep``, ``pp`` and Mixtral on a mesh above one device are still ROADMAP
-Queue A item 11 (parallel training).
+Llama and Mixtral train on a mesh of any ``dp``, ``fsdp``, ``sp``,
+``tp`` and ``ep`` (:mod:`.parallel.mesh`), one rank a mesh slot, with
+attention "auto", "ring" or "ulysses". Every rank holds its blocks of
+the parameters and moments and takes its rows and ``sp`` chunk of the
+global batch (the ranks of an ep line the same ones); a step is JAX's
+GSPMD step with its collectives written out: the loss is the global
+mean (the log-likelihood sum and count all-reduced over the data axes)
+plus Mixtral's load-balance loss, already the global batch's, a
+gradient is summed over the data axes its leaf is not sharded over, the
+clipping norm adds each leaf's squares over the axes it is sharded
+over, and AdamW updates the local blocks with no communication. A dense
+Llama at ``ep`` above 1 is replicated over ep, as JAX's rules name no
+ep dim for its leaves. ``pp`` is still ROADMAP Queue A item 11
+(parallel training).
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 adamw(lr, b1, b2, eps=1e-8, weight_decay, mu_dtype=float32))`` (optax
@@ -250,26 +253,31 @@ def _sharded_loss(model, params, tokens: torch.Tensor,
     chunk's first token, the sequence's last position has none. The
     log-likelihood sum and the count are all-reduced over the data axes
     (the backward passes the gradient through: every rank's sum enters
-    the mean once)."""
+    the mean once). A model with ``apply_with_aux`` (Mixtral) adds its
+    load-balance loss once: it is already the global batch's."""
     b, s = tokens.shape
     r0, r1 = mesh.block(b, BATCH_AXES)
     c0, c1 = mesh.block(s, "sp")
     local = tokens[r0:r1, c0:c1]
     targets = tokens[r0:r1, c0 + 1:c1 + 1].to(torch.long)
     n = targets.shape[1]
-    if model.config.fused_ce:
+    aux = 0.0
+    if getattr(model.config, "fused_ce", False):
         hidden = model(local, return_hidden=True, params=params)
         head = mesh.gather_param(param_tree(params)["lm_head"]["kernel"],
                                  "lm_head/kernel", tp=True)
         nll = fused_xent_sum(hidden, head, targets,
                              chunk=model.config.ce_chunk)
     else:
-        logits = model(local, params=params)[:, :n]
-        logp = torch.log_softmax(logits, dim=-1)
+        if hasattr(model, "apply_with_aux"):
+            logits, aux = model.apply_with_aux(params, local)
+        else:
+            logits = model(local, params=params)
+        logp = torch.log_softmax(logits[:, :n], dim=-1)
         nll = -torch.gather(logp, -1, targets.to(logp.device)[..., None]).sum()
     count = torch.tensor(float(targets.numel()), device=nll.device)
     total = mesh.all_reduce(torch.stack([nll, count]), DATA_AXES)
-    return total[0] / total[1]
+    return total[0] / total[1] + aux
 
 
 def loss_fn(model, params, tokens: torch.Tensor,
@@ -279,7 +287,7 @@ def loss_fn(model, params, tokens: torch.Tensor,
     load-balance loss to the fp32 logits' loss; otherwise
     ``config.fused_ce`` takes the chunked head (ops/loss.py), else the
     fp32 logits path. On a ``mesh`` above one device ``tokens`` is the
-    global batch and the loss its global mean (Llama only)."""
+    global batch and the loss its global mean."""
     if mesh is not None and mesh.size > 1:
         return _sharded_loss(model, params, tokens, mesh)
     aux = 0.0
@@ -303,20 +311,14 @@ ITEM_11 = "ROADMAP Queue A item 11 (parallel training)"
 
 
 def check_mesh(model_config, mesh_config: MeshConfig) -> None:
-    """Refuse a mesh the port does not train on: ep or pp above 1,
-    Mixtral above one device (NotImplementedError naming item 11), and
-    heads, kv heads, ffn or vocab that tp does not split by whole
-    blocks, or a width fsdp does not (ValueError)."""
-    if mesh_config.ep > 1 or mesh_config.pp > 1:
+    """Refuse a mesh the port does not train on: pp above 1
+    (NotImplementedError naming item 11), and heads, kv heads, ffn or
+    vocab that tp does not split by whole blocks, a width fsdp does not,
+    or experts ep does not (ValueError)."""
+    if mesh_config.pp > 1:
         raise NotImplementedError(
-            f"{mesh_config}: expert (ep) and pipeline (pp) parallelism are "
-            f"not ported yet: {ITEM_11}")
-    if isinstance(model_config, mixtral.MixtralConfig) and \
-            mesh_config.size > 1:
-        raise NotImplementedError(
-            f"{mesh_config}: Mixtral trains on one device only (its expert "
-            f"capacity depends on the global sequence, "
-            f"MixtralConfig.capacity): {ITEM_11}")
+            f"{mesh_config}: pipeline (pp) parallelism is not ported yet: "
+            f"{ITEM_11}")
     c, tp = model_config, mesh_config.tp
     if c.n_heads % tp or c.n_kv_heads % tp or c.ffn_dim % tp \
             or c.vocab_size % tp or c.dim % mesh_config.fsdp:
@@ -324,6 +326,9 @@ def check_mesh(model_config, mesh_config: MeshConfig) -> None:
             f"{mesh_config}: tp must split {c.n_heads} heads, "
             f"{c.n_kv_heads} kv heads, ffn {c.ffn_dim} and vocab "
             f"{c.vocab_size}, fsdp the width {c.dim}")
+    if isinstance(c, mixtral.MixtralConfig) and c.n_experts % mesh_config.ep:
+        raise ValueError(
+            f"{mesh_config}: ep must split the {c.n_experts} experts")
 
 
 class Trainer:
@@ -579,8 +584,11 @@ def _train(args, mesh_config: Optional[MeshConfig]) -> int:
         c["ms"] += mesh.seconds[key] * 1e3
         c["mb"] += mesh.bytes[key] / 1e6
         c["staged"] += mesh.staged[key]
+    peak_gb = (torch.cuda.max_memory_allocated(trainer.device) / 1e9
+               if trainer.device.type == "cuda" else None)
     print({"ok": loss == loss, "steps": args.steps, "loss": loss,
            "losses": losses, "step_ms": step_ms, "tok_per_s": tok_per_s,
+           "peak_memory_gb": peak_gb,
            "device": str(trainer.device), "rank": mesh.rank,
            "mesh": {a: n for a, n in mesh.shape.items() if n > 1},
            "batch": batch, "launches_per_step": launches,
