@@ -180,11 +180,16 @@ exits non-zero without a result:
    token-identical to its fused=False, contiguous=True oracle on the
    card (else the first differing position and its top-2 logit gap),
    its pool whole and zero; at 8B widths (bf16, 32 layers) with the
-   n-gram draft and a replay of the greedy run's tokens: proposed,
-   accepted, decode tok/s against the non-spec engine and token
-   agreement with it (no identity gate: the verify pass runs the plain
-   attention and MLP chain, the per-token step the kernels); w8kv8 with
-   the n-gram draft, every verify-pass matmul (M = 40) on the wgmma tile.
+   n-gram draft and a replay of the greedy run's tokens, on the engine
+   phase's first SPEC8_REQUESTS (4) requests cut to SPEC8_NEW_TOKENS
+   (16) new tokens: proposed, accepted, decode tok/s against the
+   non-spec engine and token agreement with the greedy run's first
+   tokens (no identity gate: the verify pass runs the plain attention
+   and MLP chain, the per-token step the kernels); w8kv8 with the
+   n-gram draft on all 8 requests, every verify-pass matmul (M = 40) on
+   the wgmma tile. The cut took the two 8B bf16 runs from 39.2 and 42.0
+   s (8 requests, 32-64 new tokens) to 13.5 and 12.1 s, the phase from
+   136.7 to 91.2 s (NVIDIA H100 80GB HBM3, 700.00 W).
 7d. engine_prefix — the engine phase's config, 8 requests sharing a
    seeded 200-token prompt (12 full pages and a frozen boundary page)
    with 16-64-token suffixes and 32 new tokens, run shared
@@ -248,7 +253,20 @@ exits non-zero without a result:
    cosine >= 0.9999998 (SHARDED_FP32_COSINE), recorded; the gathers a
    decode step, their host ms, the decode ms a step, the logit cosine
    and whether a column block of an fp32 product equals those columns
-   of the full product bit for bit.
+   of the full product bit for bit. In the same launch, live migration
+   at world 2 (shardbench's ``migrate``): the first decoding sequence
+   exported from the (1, 2) engine, its pools' kv-head blocks gathered
+   over the model axis (2 gathers: k and v), holds each rank's pool
+   pages bit for bit (and so do the pages an import into a fresh (1, 2)
+   engine grafts: the round trip is lossless), is the sequence the
+   unsharded engine exports at the same step (the same length, tokens
+   and pages) with its K/V within shardbench's MIGRATE_FP32_REL (1e-5)
+   of the largest value, and finishes token-identical to the unmigrated
+   run once imported; reported: whether the extent is the unsharded
+   one's bit for bit (not on the card: cuBLAS rounds a 512-column block
+   of wk/wv otherwise than the 1024-column product, as
+   column_slice_bit_identical shows for w_gate), the largest difference,
+   the extent's MB, export and import ms.
 8b. bench_serve — the port's serve and decode benches through their
    entry points. enginebench.run_serve_bench on the tiny fp32 model on
    the card (TINY_SERVE_ENV, a saturating rate), with every identity
@@ -325,6 +343,29 @@ exits non-zero without a result:
    most BF16_GAP_RATIO, every step's flash launches as reckoned (at ep=2
    the unsharded count: attention is replicated over ep; at sp=2 the
    ring's); besides, each rank's peak memory.
+9e. train_pipeline — the pipeline relay (tpu_dra_torch/workloads/
+   parallel/pipeline.py) through python -m
+   tpu_dra_torch.workloads.pipestep as two gloo ranks sharing the card,
+   pp=2: Llama-3-8B widths cut to 2 layers, one a stage, bf16, b=2,
+   s=2048, 2 microbatches, the weights of the seeded CUDA generator;
+   each rank runs pipelined_llama_forward and its backward on the
+   next-token loss TRAIN_PIPELINE_STEPS times (no optimizer, the first
+   warms up), then the unpipelined forward and backward of the same
+   weights. Before the launch, on the card, the
+   unsharded Trainer's loss on those weights and the fp32 reference
+   loss (unsharded_reference), released before the ranks start. Bars:
+   the loss equal on both ranks bit for bit; its gap to the fp32
+   reference at most BF16_GAP_RATIO times the unsharded gap (floor
+   TRAIN_SHARDED_GAP_FLOOR); rank i's stage is layer i and every leaf of
+   it has a nonzero gradient; every gradient leaf's cosine to the
+   unpipelined gradient at least TRAIN_PIPELINE_COSINE on each rank,
+   and the cosines of embed, final_norm and lm_head (whole on every
+   rank) equal on both; every step's flash launches on each rank as
+   reckoned (reckoned_pipeline_launches: 3 ticks of one layer, so 3
+   forwards, 3 dQ and 3 dK/dV, all on the wgmma route, nothing else
+   launched). Reported: the ppermutes' count and MB, the step ms and
+   the peak memory of each rank. The phase took 23.4 s, the engine_sharded world-2 launch
+   with its round trip 26.9 s (22.8 s before it; the same card).
 
 Every phase's line carries ``at_s``, the script's seconds when it was
 printed. The line before last lists the kernels as JSON; the last line is
@@ -380,6 +421,9 @@ FP32_REL = 1e-5
 FP32_COSINE = 0.9999
 BF16_COSINE = 0.999
 BF16_GAP_RATIO = 1.5
+# engine_spec's two 8B bf16 runs (the n-gram draft, the greedy replay):
+# the engine phase's first 4 requests, at most 16 new tokens each.
+SPEC8_REQUESTS, SPEC8_NEW_TOKENS = 4, 16
 # Llama-3-8B: 7 int8 projections per layer (q, k, v, o, gate, up,
 # down) plus the lm_head.
 INT8MM_PER_LAYER = 7
@@ -2995,6 +3039,10 @@ def sharded_world2_card(R) -> dict:
             and rep["device"] == "cuda:0"
             and rep["mesh_shapes"][1] == {"batch": 1, "model": 2}):
         raise AssertionError(f"engine_sharded world 2: {rep}")
+    mig = rep["migrate"]
+    if not (mig["imported"] and mig["lossless"] and mig["same_sequence"]
+            and mig["tokens_identical"] and mig["export_gathers"] == 2):
+        raise AssertionError(f"engine_sharded world 2 migration: {mig}")
     return rep
 
 
@@ -3198,6 +3246,118 @@ def train_moe_sharded_phase(R, T, M) -> tuple:
                              ref, launches, TRAIN_SHARDED_TIMEOUT_S)
         out["runs"][label] = {**ref, **run, "launch_seconds": run["seconds"],
                               "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, {k: launches[k] for k in FLASH_COUNTERS}
+
+
+# --- train_pipeline: the pp relay on the one card ------------------------------
+
+TRAIN_PIPELINE_LAYERS, TRAIN_PIPELINE_MICROBATCHES = 2, 2
+# The first step warms the ranks up (cuBLAS, the kernels' first calls);
+# both are held to the bars, the second is the one timed.
+TRAIN_PIPELINE_STEPS = 2
+TRAIN_PIPELINE_TIMEOUT_S = 120  # the launch of two ranks
+# Each gradient leaf's cosine to the unpipelined gradient, on each rank
+# (the CPU twin's bar, tests/test_torch_pipeline.py).
+TRAIN_PIPELINE_COSINE = 0.999
+
+
+def reckoned_pipeline_launches(layers: int, pp: int,
+                               microbatches: int) -> dict:
+    """A pipelined forward and backward's flash launches on one rank,
+    all on the wgmma route (bf16, hd 128): every tick, the bubble ones
+    included, runs the stage's layers forward once (no remat, as JAX's
+    pipelined forward) and backward once."""
+    n = (microbatches + pp - 1) * layers // pp
+    return {k: n for k in FLASH_COUNTERS}
+
+
+def train_pipeline_phase(R, T, cfg, init_params) -> tuple:
+    """The train_pipeline phase (see the module docstring): returns its
+    report and the flash launches of both ranks' steps, summed."""
+    t_phase = time.perf_counter()
+    ref = unsharded_reference(T, cfg, init_params, ranks_tokens(cfg), 1)
+    argv = ["tpu_dra_torch.workloads.pipestep", "--device", "cuda:0",
+            "--backend", "gloo", "--model", "llama3-8b", "--layers",
+            str(cfg.n_layers), "--seq", str(TRAIN_SEQ), "--steps",
+            str(TRAIN_PIPELINE_STEPS)]
+    coordinator = f"127.0.0.1:{R.free_port()}"
+    t0 = time.perf_counter()
+    ranks = run_workloads(R, [argv, argv],
+                          [R.rank_env(r, 2, coordinator) for r in range(2)],
+                          timeout=TRAIN_PIPELINE_TIMEOUT_S)
+    launch_s = time.perf_counter() - t0
+    res = [json.loads(R.last_json(o)) for o, _, _ in ranks]
+    loss_ref = ref["fp32_reference_loss"]
+    gap = abs(res[0]["loss"] - loss_ref) / abs(loss_ref)
+    ratio = gap / max(ref["unsharded_gap"], TRAIN_SHARDED_GAP_FLOOR)
+    want = reckoned_pipeline_launches(cfg.n_layers, 2,
+                                      TRAIN_PIPELINE_MICROBATCHES)
+    out = {
+        "model": f"LLAMA3_8B widths cut to {cfg.n_layers} layers, one a "
+                 "stage, bf16, random weights; two gloo ranks on the one "
+                 "card",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "pp": 2,
+        "microbatches": TRAIN_PIPELINE_MICROBATCHES,
+        "steps": TRAIN_PIPELINE_STEPS, **ref,
+        "gap_floor": TRAIN_SHARDED_GAP_FLOOR,
+        "gap_ratio_bar": BF16_GAP_RATIO,
+        "losses_by_rank": [r["losses"] for r in res],
+        "gap_to_fp32": gap, "gap_ratio": ratio,
+        "unpipelined_loss_by_rank": [r["unpipelined_loss"] for r in res],
+        "stage_layers_by_rank": [r["stage_layers"] for r in res],
+        "layer_grads_nonzero_by_rank": [r["layer_grads_nonzero"]
+                                        for r in res],
+        "min_leaf_cosine_by_rank": [min(r["leaf_cosines"].values())
+                                    for r in res],
+        "leaf_cosines_by_rank": [r["leaf_cosines"] for r in res],
+        "step_ms_by_rank": [r["step_ms"] for r in res],
+        "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in res],
+        "launches_by_rank": [r["launches_per_step"] for r in res],
+        "reckoned_launches_per_step": want,
+        "collectives_by_rank": [r["collectives"] for r in res],
+        "ppermute_by_rank": [r["collectives"].get("ppermute:pp")
+                             for r in res],
+        "launch_seconds": launch_s,
+    }
+    bad = []
+    losses = out["losses_by_rank"]
+    if losses[0] != losses[1] or not np.isfinite(losses).all():
+        bad.append("losses differ across ranks or are not finite")
+    if ratio > BF16_GAP_RATIO:
+        bad.append(f"loss gap ratio {ratio} above {BF16_GAP_RATIO}")
+    for r, o in enumerate(res):
+        if (o["batch"], o["microbatches"]) != (
+                TRAIN_BATCH, TRAIN_PIPELINE_MICROBATCHES):
+            bad.append(f"rank {r}: batch {o['batch']} in "
+                       f"{o['microbatches']} microbatches")
+        if o["stage_layers"] != [f"layer_{r}"] or not all(
+                o["layer_grads_nonzero"].values()):
+            bad.append(f"rank {r}: stage layers {o['stage_layers']}, "
+                       f"nonzero {o['layer_grads_nonzero']}")
+        # Every leaf's gradient is the unpipelined one's direction: a
+        # relay backward that drops or misroutes a cotangent (the
+        # input's sum over pp, an inverse hand-off) leaves a leaf zero
+        # (cosine nan) or turned.
+        low = {n: c for n, c in o["leaf_cosines"].items()
+               if not c >= TRAIN_PIPELINE_COSINE}
+        if low:
+            bad.append(f"rank {r}: leaf cosines below "
+                       f"{TRAIN_PIPELINE_COSINE}: {low}")
+    replicated = [{n: c for n, c in o["leaf_cosines"].items()
+                   if not n.startswith("layer_")} for o in res]
+    if replicated[0] != replicated[1]:
+        bad.append(f"embed/final_norm/lm_head cosines differ across ranks: "
+                   f"{replicated}")
+    launches = collections.Counter()
+    for o in res:
+        for i, got in enumerate(o["launches_per_step"]):
+            if got != want:
+                bad.append(f"rank {o['rank']} step {i}: launches {got}, "
+                           f"want {want}")
+            launches.update(got)
+    if bad:
+        raise AssertionError(f"train_pipeline: {bad}: {out}")
     out["seconds"] = time.perf_counter() - t_phase
     return out, {k: launches[k] for k in FLASH_COUNTERS}
 
@@ -3912,28 +4072,36 @@ def main() -> int:
             "accepted": e.spec_accepted, "verify_passes": e.verify_passes}
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     spec8 = dataclasses.replace(ec, spec_k=4)
+    # The engine phase's first SPEC8_REQUESTS requests cut to
+    # SPEC8_NEW_TOKENS new tokens: the greedy run's tokens start theirs.
+    spec_reqs = [dataclasses.replace(r, max_new_tokens=min(
+        r.max_new_tokens, SPEC8_NEW_TOKENS)) for r in reqs[:SPEC8_REQUESTS]]
+    spec_want = {r.rid: types.SimpleNamespace(
+        tokens=greedy_done[r.rid].tokens[:r.max_new_tokens])
+        for r in spec_reqs}
     for label, draft in (("ngram", SD.NgramDraft(spec8.spec_lookup_order)),
-                         ("replay", ReplayDraft(reqs, greedy_done))):
+                         ("replay", ReplayDraft(spec_reqs, greedy_done))):
         e = E.Engine(cfg, params, spec8, draft_source=draft)
         kernels.reset_launches()
         t0 = time.perf_counter()
-        d = e.run(reqs)
+        d = e.run(spec_reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         pool_whole_and_zero(e, f"8B spec {label}")
         tokens = sum(len(c.tokens) - 1 for c in d.values())
         spec_out[label] = {
+            "requests": len(spec_reqs), "new_tokens": SPEC8_NEW_TOKENS,
             "proposed": e.spec_proposed, "accepted": e.spec_accepted,
             "acceptance": e.spec_accepted / max(e.spec_proposed, 1),
             "verify_passes": e.verify_passes,
             "decode_tok_s": tokens / e.decode_seconds,
             "non_spec_decode_tok_s": summary["decode_tok_s"],
             "wall_seconds": wall,
-            "token_agreement_with_non_spec": token_agreement(d,
-                                                             greedy_done),
+            "token_agreement_with_non_spec": token_agreement(d, spec_want),
             "launches": dict(kernels.LAUNCHES),
         }
-        if not all(len(d[r.rid].tokens) == r.max_new_tokens for r in reqs):
+        if not all(len(d[r.rid].tokens) == r.max_new_tokens
+                   for r in spec_reqs):
             raise AssertionError(f"8B spec {label}: token counts")
         del e
         torch.cuda.empty_cache()
@@ -4222,6 +4390,13 @@ def main() -> int:
         rank_launcher(), T, M)
     emit("train_moe_sharded", nvidia_smi=smi, **moe_train)
 
+    # --- 9e. the pipeline relay over pp: two gloo ranks on the card --------
+    pipe_train, pipe_train_launches = train_pipeline_phase(
+        rank_launcher(), T,
+        dataclasses.replace(LLAMA3_8B, n_layers=TRAIN_PIPELINE_LAYERS),
+        init_params)
+    emit("train_pipeline", nvidia_smi=smi, **pipe_train)
+
     # --- kernel list and result ----------------------------------------------
     rows = []
     for name, source, replaces, par, t, n_launch in (
@@ -4270,7 +4445,8 @@ def main() -> int:
          timing[name],
          train["launches"][counter] + mixtral["launches"][counter]
          + bench_launches.get(counter, 0)
-         + sharded_train_launches[counter] + moe_train_launches[counter])
+         + sharded_train_launches[counter] + moe_train_launches[counter]
+         + pipe_train_launches[counter])
         for name, source, counter, line, out in (
             ("flash_fwd", "flash_fwd_sm90.cu", "flash_fwd_sm90", 92, "out"),
             ("flash_bwd_dq", "flash_bwd_dq_sm90.cu", "flash_bwd_dq_sm90",

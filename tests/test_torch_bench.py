@@ -349,6 +349,32 @@ def test_attribute_kernels_charges_each_part_its_window():
     assert launches == {"a": 2, "b": 1, "end": 1}
 
 
+def test_attribute_by_gaps_reads_the_device_clock_alone():
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
+    # The device clock reads 10-20 µs behind the host's: on the host
+    # clock a's work starts before every span, b's kernel inside a's
+    # window and the pad inside b's, so the host windows lose a's work
+    # and charge each later part its predecessor's.
+    events = [
+        _Event("decodebench/a", cpu, 100.0),
+        _Event("gemm", cuda, 80.0, 5.0),
+        _Event("Memset", cuda, 86.0, 1.0),
+        _Event("decodebench/a", cuda, 80.0, 9.0),  # the span's annotation
+        _Event("decodebench/b", cpu, 200.0),
+        _Event("sample", cuda, 185.0, 2.0),
+        _Event("decodebench/end", cpu, 300.0),
+        _Event("pad", cuda, 290.0, 2.0),
+    ]
+    assert TD.attribute_kernels(events, TD.SPAN)[1] == {"a": 1, "b": 1}
+    us, launches, skews = TD.attribute_by_gaps(events, TD.SPAN, 50.0)
+    assert us == {"a": 6.0, "b": 2.0, "end": 2.0}
+    assert launches == {"a": 2, "b": 1, "end": 1}
+    assert skews == {"a": -20.0, "b": -15.0, "end": -10.0}
+    # A part's work split by a longer idle than the gap: no grouping.
+    assert TD.attribute_by_gaps(events, TD.SPAN, 0.5) is None
+
+
 def test_teacher_forced_agreement_is_one_against_itself(params):
     _, tp = params
     prompt = np.random.default_rng(4).integers(1, VOCAB, (3, 6)).astype(

@@ -7,6 +7,8 @@ graft_extent) held to the JAX ones on the CPU.
   zero-tail invariant, and both allocators' ledgers balance;
 - a shared page carried by id, ``attach`` increfing a destination page,
   the rollback on exhaustion, and the validation messages;
+- the kv-head blocks a sharded engine's export gathers and its import
+  cuts (``serialize_extent``'s ``gather``, ``head_block``);
 - across the frameworks: the same numpy-seeded pools serialized by JAX
   and by the port give the same slots and payload bytes, and an extent
   lifted by one grafts into the other's cache bit for bit
@@ -177,6 +179,44 @@ def test_kv_extent_graft_failure_releases_everything(kv):
         TP.graft_extent(cache, a, ext)
     assert a.refcount(spages[0]) == rc
     assert a.free_pages == free_before
+
+
+@pytest.mark.parametrize("kv,dtype", MODES)
+def test_head_blocks_of_an_extent_reassemble_and_graft(kv, dtype):
+    """What a sharded engine does across its model axis, in one process:
+    ``serialize_extent``'s ``gather`` sees each pool's stacked payload
+    [L, n, page, kvh, ...] before the host copy (a gather over the heads
+    is there), and ``head_block`` cuts a whole extent into kv-head
+    blocks that concatenate back to it bit for bit and graft into a
+    cache holding those heads alone; a payload of another head count is
+    refused."""
+    src = _cache(kv, dtype)
+    pages = [1, 3]
+    src = _fill_pages(src, pages, 7, seed=5)
+    seen = []
+
+    def gather(x):
+        seen.append(tuple(x.shape))
+        return x
+
+    whole = TP.serialize_extent(src, pages, 7, gather=gather)
+    kvh = CFG.n_kv_heads
+    assert [s[3] for s in seen] == [kvh] * len(src._pools())
+    blocks = [TP.head_block(whole, j, 1, kvh) for j in range(kvh)]
+    for name, layers in whole.payload.items():
+        for i, layer in enumerate(layers):
+            cat = torch.cat([b.payload[name][i] for b in blocks], dim=2)
+            assert np.array_equal(_bits(cat), _bits(layer)), name
+    half = dataclasses.replace(CFG, n_kv_heads=1, dtype=dtype)
+    dst = TP.init_paged_cache(half, 8, 4, kv_quant=kv, device="cpu")
+    _, dpages = TP.graft_extent(dst, TP.PageAllocator(8), blocks[1])
+    for name, pool in dst._pools():
+        for i, layer in enumerate(pool):
+            got = layer[torch.as_tensor(dpages)]
+            assert np.array_equal(_bits(got),
+                                  _bits(blocks[1].payload[name][i])), name
+    with pytest.raises(ValueError, match="want 4 kv heads on dim 2"):
+        TP.head_block(whole, 0, 1, 4)
 
 
 def test_kv_extent_validates_shape_and_mode():

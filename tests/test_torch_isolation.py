@@ -2,9 +2,8 @@
 mesh's parallel/ package included), and not chip_smoke.py, the ablation
 scripts that run beside it on the card (int8mm_ablation.py,
 decode_mlp_ablation.py, l2_flush_ablation.py) or the rank helpers of the
-gloo twins (tests/torch_{sharded,mesh,seqpar,train}_rank.py), imports
-jax, flax or anything of
-the JAX package (tpu_dra). The card's
+gloo twins (tests/torch_{sharded,mesh,seqpar,train,pipeline}_rank.py),
+imports jax, flax or anything of the JAX package (tpu_dra). The card's
 machine has no JAX, and the JAX package is the reference the port is
 held to, never a dependency of it."""
 
@@ -23,7 +22,7 @@ def _port_files():
               REPO / "decode_mlp_ablation.py", REPO / "l2_flush_ablation.py",
               REPO / "tests" / "torch_sharded_rank.py"]
     files += [REPO / "tests" / f"torch_{name}_rank.py"
-              for name in ("mesh", "seqpar", "train")]
+              for name in ("mesh", "seqpar", "train", "pipeline")]
     return files
 
 
@@ -42,6 +41,13 @@ def test_training_mesh_modules_are_scanned():
             "tpu_dra_torch/workloads/parallel/ulysses.py",
             "tests/torch_mesh_rank.py", "tests/torch_seqpar_rank.py",
             "tests/torch_train_rank.py"} <= names
+
+
+def test_pipeline_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"tpu_dra_torch/workloads/parallel/pipeline.py",
+            "tpu_dra_torch/workloads/pipestep.py",
+            "tests/torch_pipeline_rank.py"} <= names
 
 
 def _imported_roots(path: Path):

@@ -471,14 +471,12 @@ def test_trainer_three_steps_match_jax_trainer():
 
 
 def test_unported_paths_and_the_device_rule():
-    """pp still raises, naming item 11; ep and the other axes pass
-    ``check_mesh`` (the mesh then needs its world: the ranks are
-    tests/test_torch_train_moe.py's); experts, heads or widths the mesh
-    does not split raise ValueError."""
-    with pytest.raises(NotImplementedError,
-                       match=r"item 11 \(parallel training\)"):
-        TT.Trainer(TTINY, TT.MeshConfig(pp=2), device="cpu")
-    for mesh in (TT.MeshConfig(ep=2), TT.MeshConfig(ep=4, tp=2),
+    """pp, ep and the other axes pass ``check_mesh`` (the mesh then
+    needs its world: the ranks are tests/test_torch_train_moe.py's and,
+    for pp, tests/test_torch_pipeline.py's); experts, heads or widths the
+    mesh does not split raise ValueError."""
+    for mesh in (TT.MeshConfig(pp=2), TT.MeshConfig(pp=2, ep=2),
+                 TT.MeshConfig(ep=2), TT.MeshConfig(ep=4, tp=2),
                  TT.MeshConfig(dp=2, fsdp=2, sp=2, tp=2, ep=2)):
         TT.check_mesh(TTINY, mesh)
     for mesh, what in ((TT.MeshConfig(ep=3), "ep must split the 4 experts"),

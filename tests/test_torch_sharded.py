@@ -12,7 +12,16 @@ references are computed so the two overlap:
   seed 5), with a shared prefix, and with int8 weights and KV;
   ``greedy_generate``; a skewed fake clock a rank with staggered
   arrivals; the column-parallel leaves' local shapes; ``spec_k`` with
-  ``sharded`` refused; the cross-replica methods refused;
+  ``sharded`` refused;
+- world 2 again, launched once JAX's sharded engine has written its
+  exports: the cross-replica methods at fp32, bf16 and int8 KV —
+  ``export_sequence`` gives every rank the whole extent, bit for bit the
+  one a world-1 engine exports (and JAX's bookkeeping, its payload
+  within rounding: the frameworks' prefill K/V differ in the last bits);
+  imports from world 1 into world 2, from world 2 into world 1, from
+  JAX into world 2 and from world 2 into JAX resume token-identical to
+  the unmigrated run; ``evacuate`` under a skewed clock a rank gives the
+  same list on both ranks, and a world-1 engine's on rank 0's clock;
 - world 4, mesh (2, 2): the engine greedy with ``max_slots=4`` (the rows
   split over the batch axis) and 3 (they replicate); ``greedy_generate``
   with rows replicated; a mesh over ranks 0-2 (its (1, 2) prefix: the
@@ -37,6 +46,7 @@ import torch  # noqa: E402
 
 from tests import torch_sharded_rank as RK  # noqa: E402
 from tests.torch_ranks import free_port, last_json, rank_env, start, wait  # noqa: E402
+from torch_twin import to_jax, to_port  # noqa: E402
 from tpu_dra.computedomain.daemon.bootstrap import (  # noqa: E402
     render_bootstrap_env,
     write_bootstrap_files,
@@ -62,6 +72,9 @@ CASES = {
         "shapes", "spec_refused"],
     4: ["greedy", "slots4", "generate", "prefix_mesh", "shapes"],
 }
+#: The cross-replica cases, one world-2 launch started after JAX's
+#: exports are written.
+MIGRATE_CASES = [f"migrate_{m}" for m in RK.MIGRATE_MODES] + ["evacuate"]
 TIMEOUT_S = 150
 # The keys JAX's shardbench prints over its two devices.
 SHARDBENCH_KEYS = {"mesh_shapes", "greedy_parity_1x1", "greedy_seconds_1x1",
@@ -90,6 +103,36 @@ def _jax_engine(params, case: str) -> dict:
     return {rid: c.tokens.tolist() for rid, c in eng.run(reqs).items()}
 
 
+def _jax_migrate(jparams, mode: str, root) -> dict:
+    """JAX's sharded engine on the migrate trace: ``MIGRATE_RID``
+    exported once it decodes (written to ``root/jax_<mode>.npz`` for the
+    ranks), and the unmigrated run's tokens."""
+    dtype, kw = RK.MIGRATE_MODES[mode]
+    jcfg = dataclasses.replace(JCFG, dtype=getattr(jnp, dtype),
+                               param_dtype=getattr(jnp, dtype))
+    params = jax.tree_util.tree_map(lambda a: a.astype(jcfg.param_dtype),
+                                    jparams)
+
+    def engine():
+        return JE.Engine(jcfg, params, JE.EngineConfig(
+            **{**RK.EC, **kw, "sharded": True}))
+
+    def reqs():
+        return [JE.Request(rid=r, prompt=p, max_new_tokens=n)
+                for r, p, n, _ in RK.trace("migrate")]
+
+    eng = engine()
+    for r in reqs():
+        eng.add_request(r)
+    while RK.MIGRATE_RID not in eng.decoding_rids():
+        eng.step()
+    sx = eng.export_sequence(RK.MIGRATE_RID)
+    RK.save_extent(root / f"jax_{mode}.npz", to_port(sx))
+    return {"sx": sx, "engine": engine,
+            "unmigrated": {rid: c.tokens.tolist()
+                           for rid, c in engine().run(reqs()).items()}}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(JAX references, {world: [per-rank (rc, json or None, stderr)]})."""
@@ -109,9 +152,16 @@ def runs(tmp_path_factory):
             ["-m", "tpu_dra_torch.workloads.shardbench", "--device", "cpu",
              "--config-dir", d]
             for d in _rendered_dirs(weights.parent, 2)], [{}, {}])
-        refs = {case: _jax_engine(jparams, case)
+        refs = {"migrate": {m: _jax_migrate(jparams, m, weights.parent)
+                            for m in RK.MIGRATE_MODES}}
+        coord = f"127.0.0.1:{free_port()}"
+        started["migrate"] = start(
+            [["tests/torch_sharded_rank.py", str(weights),
+              *MIGRATE_CASES]] * 2,
+            [rank_env(r, 2, coord) for r in range(2)])
+        refs.update({case: _jax_engine(jparams, case)
                 for case in ("greedy", "sampled", "prefix", "w8kv8",
-                             "slots4")}
+                             "slots4")})
         # The skew trace is the mixed trace with arrivals: the same
         # requests, so the same tokens.
         refs["skew"] = refs["greedy"]
@@ -128,6 +178,7 @@ def runs(tmp_path_factory):
                 for rc, out, err, _ in res]
         for world, res in results.items()
     }
+    refs["root"] = weights.parent
     return refs, ranks
 
 
@@ -245,10 +296,104 @@ def test_skewed_clocks_make_the_same_decisions(runs):
 
 
 def test_spec_and_cross_replica_methods_refused_at_world_two(runs):
+    """``spec_k`` with ``sharded`` stays refused, as JAX refuses it; the
+    cross-replica methods run at world 2 (the cases below)."""
     for o in _ranks(runs, 2):
         assert "spec_k with sharded=True is not supported" in o["spec_refused"]
-        for case in ("greedy", "sampled"):
-            assert "item 8b" in o[case]["evacuate"]
+    for o in _ranks(runs, "migrate"):
+        assert set(MIGRATE_CASES) <= set(o)
+        assert o["world"] == 2
+
+
+def _port_extent(runs, mode: str, rank: int):
+    refs, _ = runs
+    return RK.load_extent(refs["root"] / f"port_{mode}_rank{rank}.npz")
+
+
+@pytest.mark.parametrize("mode", sorted(RK.MIGRATE_MODES))
+def test_world_two_export_is_the_whole_extent(runs, mode):
+    """Every rank exports the whole extent: bit for bit the extent a
+    world-1 engine exports for the same sequence, the same on both ranks,
+    and JAX's sharded export's slots, length and tokens, its payload
+    within rounding (the frameworks' prefill K/V differ in the last bits,
+    as tests/test_torch_migrate.py ``_same_extent`` holds them at fp32:
+    1e-5 here too, two bf16 ulps of a layer's largest value in bf16, one
+    int8 code and 1e-5 on the f32 scales at kv8)."""
+    refs, _ = runs
+    outs = [o[f"migrate_{mode}"] for o in _ranks(runs, "migrate")]
+    kvh = TCFG.n_kv_heads
+    for o in outs:
+        assert o["same_as_world1"]
+        assert o["pool_shapes"]["k"][2] == kvh  # whole heads, not 1 of 2
+    x0, x1 = _port_extent(runs, mode, 0), _port_extent(runs, mode, 1)
+    assert RK.extent_bits(x0.extent) == RK.extent_bits(x1.extent)
+    jsx = refs["migrate"][mode]["sx"]
+    assert (x0.kv_len, x0.emitted.tolist(), x0.sample_serial) == (
+        jsx.kv_len, jsx.emitted.tolist(), jsx.sample_serial)
+    assert x0.extent.slots == tuple(
+        (str(k), int(v)) for k, v in jsx.extent.slots)
+    assert x0.extent.quantized == (mode == "kv8")
+    jport = to_port(jsx).extent
+    assert sorted(jport.payload) == sorted(x0.extent.payload)
+    for name, layers in jport.payload.items():
+        for jl, tl in zip(layers, x0.extent.payload[name]):
+            assert jl.dtype == tl.dtype and jl.shape == tl.shape
+            if name in ("k", "v") and mode == "kv8":
+                # int8 codes: a rounding apart moves a code by one.
+                assert (jl.int() - tl.int()).abs().max() <= 1, name
+            elif mode == "bf16":
+                # Two bf16 ulps of the layer's largest value: a rounding
+                # apart in layer 0 moves layer 1's K/V by more than one.
+                np.testing.assert_allclose(
+                    tl.float().numpy(), jl.float().numpy(), rtol=8e-3,
+                    atol=2 * 2.0 ** -8 * float(jl.float().abs().max()),
+                    err_msg=name)
+            else:
+                np.testing.assert_allclose(
+                    tl.float().numpy(), jl.float().numpy(), rtol=1e-5,
+                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", sorted(RK.MIGRATE_MODES))
+def test_world_two_imports_resume_token_identical(runs, mode):
+    """World 1 -> world 2, world 2 -> world 1 and JAX -> world 2 on every
+    rank, and the port's world-2 export -> JAX's sharded engine: the
+    migrated sequence's emitted + resumed tokens are the unmigrated
+    run's (JAX's and the port's), the source's other requests finish as
+    unmigrated, and every allocator ends whole."""
+    refs, _ = runs
+    ref = refs["migrate"][mode]
+    want = ref["unmigrated"]
+    rid = RK.MIGRATE_RID
+    for o in _ranks(runs, "migrate"):
+        got = o[f"migrate_{mode}"]
+        assert got["unmigrated"] == want
+        assert got["w2_from_w1"] == got["w1_from_w2"] == got[
+            "w2_from_jax"] == want[rid]
+        for rest in got["rest"]:
+            assert rest == {r: t for r, t in want.items() if r != rid}
+        assert all(got["allocator_whole"])
+    port = _port_extent(runs, mode, 0)
+    eng = ref["engine"]()
+    assert eng.import_sequence(to_jax(port))
+    done = eng.run()
+    assert port.emitted.tolist() + done[rid].tokens.tolist() == want[rid]
+    a = eng.allocator
+    assert a.free_pages == a.num_pages - 1
+
+
+def test_world_two_evacuate_agrees_under_skewed_clocks(runs):
+    """Rank 1's clock runs 1000 s ahead at twice the rate: both ranks
+    drain at the agreed clock and hand back the same evacuees (rids,
+    emitted tokens, submit times), a world-1 engine's on rank 0's clock,
+    and leave the engine empty and its allocator whole."""
+    outs = [o["evacuate"] for o in _ranks(runs, "migrate")]
+    assert outs[0]["sharded"]["evacuees"] == outs[1]["sharded"]["evacuees"]
+    assert outs[0]["sharded"] == outs[0]["world1"]
+    assert outs[0]["sharded"]["evacuees"]  # something was in flight
+    assert any(e[1] for e in outs[0]["sharded"]["evacuees"])
+    for o in outs:
+        assert not o["sharded"]["busy"] and o["sharded"]["allocator_whole"]
 
 
 def test_mesh_over_a_prefix_of_the_ranks(runs):
@@ -290,6 +435,12 @@ def test_shardbench_two_ranks_from_rendered_dirs(runs):
         2 * TCFG.n_layers + 1)
     assert report["engine_greedy"]["decode_collectives_per_step"][
         "model"] == 2 * TCFG.n_layers + 1
+    # The port's live migration across the mesh: the whole extent, one
+    # gather a pool (k and v), bit for bit the unsharded export.
+    mig = report["migrate"]
+    assert mig["imported"] and mig["lossless"] and mig["same_sequence"]
+    assert mig["extent_bit_identical"]  # the CPU's matmuls round alike
+    assert mig["tokens_identical"] and mig["export_gathers"] == 2
 
 
 def test_shardbench_world_one_in_process(capsys, monkeypatch):
@@ -304,3 +455,6 @@ def test_shardbench_world_one_in_process(capsys, monkeypatch):
     assert report["engine_parity_greedy"] == report[
         "engine_parity_sampled"] == 6
     assert report["engine_greedy"]["collectives"] == {}
+    mig = report["migrate"]
+    assert mig["lossless"] and mig["extent_bit_identical"]
+    assert mig["tokens_identical"] and mig["export_gathers"] == 0

@@ -35,6 +35,17 @@ ENGINE_CASES = {
     "skew": ({}, "skew"),
 }
 
+#: mode -> (model dtype, EngineConfig overrides) of the migration cases
+#: (``migrate_<mode>``): export and import between world 1 and world 2.
+MIGRATE_MODES = {
+    "fp32": ("float32", {}),
+    "bf16": ("bfloat16", {}),
+    "kv8": ("float32", {"kv_quant": "int8"}),
+}
+MIGRATE_RID = "m0"
+#: Steps the ``evacuate`` case takes before it evacuates.
+EVACUATE_AFTER = 4
+
 
 def trace(name: str, vocab: int = 256) -> list:
     """(rid, prompt, max_new, extra Request fields) of a named trace."""
@@ -48,6 +59,9 @@ def trace(name: str, vocab: int = 256) -> list:
                 [shared, suffix.astype(np.int32)]), 8,
                 {"prefix_id": "sys", "prefix_len": PREFIX_LEN}))
         return out
+    if name == "migrate":
+        return [(f"m{i}", rng.integers(1, vocab, n).astype(np.int32), 9, {})
+                for i, n in enumerate((13, 6, 10))]
     out = []
     for i in range(6):
         prompt = rng.integers(1, vocab, int(rng.integers(2, 15)))
@@ -75,14 +89,14 @@ class SkewedClock:
         return self.offset + self.rate * 0.01 * self.reads
 
 
-def _load(path: str):
+def _load(path: str, dtype: str = "float32"):
     import torch
 
     from tpu_dra_torch.workloads.convert import params_from_numpy
     from tpu_dra_torch.workloads.models.llama import TINY_LLAMA
 
-    cfg = dataclasses.replace(TINY_LLAMA, dtype=torch.float32,
-                              param_dtype=torch.float32)
+    cfg = dataclasses.replace(TINY_LLAMA, dtype=getattr(torch, dtype),
+                              param_dtype=getattr(torch, dtype))
     tree: dict = {}
     with np.load(path) as flat:
         for key in flat.files:
@@ -92,6 +106,165 @@ def _load(path: str):
                 node = node.setdefault(p, {})
             node[leaf] = flat[key]
     return cfg, params_from_numpy(tree, cfg, device="cpu")
+
+
+def save_extent(path, sx) -> None:
+    """A port SequenceExtent to an .npz: its payload bit for bit (bf16
+    as its 16-bit pattern) and its bookkeeping as JSON."""
+    import torch
+
+    arrays, bf16 = {}, []
+    for name, layers in sx.extent.payload.items():
+        for i, t in enumerate(layers):
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+                bf16.append(name)
+            arrays[f"{name}/{i}"] = t.numpy()
+    e = sx.extent
+    meta = {"rid": sx.req.rid, "prompt": [int(x) for x in sx.req.prompt],
+            "max_new": int(sx.req.max_new_tokens),
+            "emitted": [int(x) for x in sx.emitted], "kv_len": int(sx.kv_len),
+            "t_submit": sx.t_submit, "t_first": sx.t_first,
+            "sample_seed": int(sx.sample_seed),
+            "sample_serial": int(sx.sample_serial),
+            "page_size": e.page_size, "length": e.length,
+            "quantized": e.quantized, "slots": [list(x) for x in e.slots],
+            "layers": {n: len(ls) for n, ls in e.payload.items()},
+            "bf16": sorted(set(bf16))}
+    np.savez(path, meta=np.array(json.dumps(meta)), **arrays)
+
+
+def load_extent(path):
+    """The port SequenceExtent :func:`save_extent` wrote."""
+    import torch
+
+    from tpu_dra_torch.workloads import engine as E
+    from tpu_dra_torch.workloads.paged_kv import KVExtent
+
+    with np.load(path) as f:
+        meta = json.loads(str(f["meta"]))
+        payload = {}
+        for name, n in meta["layers"].items():
+            layers = [torch.from_numpy(f[f"{name}/{i}"].copy())
+                      for i in range(n)]
+            if name in meta["bf16"]:
+                layers = [t.view(torch.bfloat16) for t in layers]
+            payload[name] = tuple(layers)
+    extent = KVExtent(page_size=meta["page_size"], length=meta["length"],
+                      quantized=meta["quantized"],
+                      slots=tuple((k, int(v)) for k, v in meta["slots"]),
+                      payload=payload)
+    req = E.Request(rid=meta["rid"], prompt=np.asarray(meta["prompt"],
+                                                       np.int32),
+                    max_new_tokens=meta["max_new"])
+    return E.SequenceExtent(
+        req=req, emitted=np.asarray(meta["emitted"], np.int32),
+        extent=extent, kv_len=meta["kv_len"], t_submit=meta["t_submit"],
+        t_first=meta["t_first"], sample_seed=meta["sample_seed"],
+        sample_serial=meta["sample_serial"])
+
+
+def extent_bits(extent) -> dict:
+    """pool name -> L-list of the payload's bytes: equal dicts are equal
+    extents bit for bit."""
+    import torch
+
+    return {name: [t.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes() for t in layers]
+        for name, layers in extent.payload.items()}
+
+
+def _migrate_case(E, weights: str, mode: str, rank: int) -> dict:
+    """Export ``MIGRATE_RID`` once it decodes, from an unsharded engine
+    (world 1) and from the sharded one (world 2), then import each into
+    an engine of the other world and JAX's export (``root/
+    jax_<mode>.npz``) into a sharded one, each run to the end."""
+    dtype, kw = MIGRATE_MODES[mode]
+    cfg, params = _load(weights, dtype)
+    root = Path(weights).parent
+
+    def engine(sharded: bool):
+        return E.Engine(cfg, params, E.EngineConfig(
+            **{**EC, **kw, "sharded": sharded}), device="cpu")
+
+    def requests():
+        return [E.Request(rid=r, prompt=p, max_new_tokens=n)
+                for r, p, n, _ in trace("migrate")]
+
+    def exported(sharded: bool):
+        eng = engine(sharded)
+        for r in requests():
+            eng.add_request(r)
+        steps = 0
+        while MIGRATE_RID not in eng.decoding_rids():
+            eng.step()
+            steps += 1
+        sx = eng.export_sequence(MIGRATE_RID)
+        rest = {rid: c.tokens.tolist() for rid, c in eng.run().items()}
+        return sx, rest, steps, _whole(eng)
+
+    def resumed(sharded: bool, sx):
+        eng = engine(sharded)
+        assert eng.import_sequence(sx)
+        done = eng.run()
+        return (sx.emitted.tolist() + done[sx.req.rid].tokens.tolist(),
+                _whole(eng))
+
+    x1, rest1, steps1, whole1 = exported(False)
+    x2, rest2, steps2, whole2 = exported(True)
+    unmigrated = {rid: c.tokens.tolist()
+                  for rid, c in engine(False).run(requests()).items()}
+    w2_from_w1, whole3 = resumed(True, x1)
+    w1_from_w2, whole4 = resumed(False, x2)
+    from_jax, whole5 = resumed(True, load_extent(root / f"jax_{mode}.npz"))
+    save_extent(root / f"port_{mode}_rank{rank}.npz", x2)
+    return {
+        "kv_len": x2.kv_len, "slots": [list(x) for x in x2.extent.slots],
+        "emitted": x2.emitted.tolist(), "steps": [steps1, steps2],
+        "pool_shapes": {n: list(ls[0].shape)
+                        for n, ls in x2.extent.payload.items()},
+        "same_as_world1": extent_bits(x1.extent) == extent_bits(x2.extent)
+        and (x1.kv_len, x1.emitted.tolist(), x1.extent.slots,
+             x1.sample_serial) == (x2.kv_len, x2.emitted.tolist(),
+                                   x2.extent.slots, x2.sample_serial),
+        "unmigrated": unmigrated, "rest": [rest1, rest2],
+        "w2_from_w1": w2_from_w1, "w1_from_w2": w1_from_w2,
+        "w2_from_jax": from_jax,
+        "allocator_whole": [whole1, whole2, whole3, whole4, whole5],
+    }
+
+
+def _whole(eng) -> bool:
+    a = eng.allocator
+    return a.free_pages == a.num_pages - 1 and a.reserved_pages == 0
+
+
+def _evacuate_case(E, cfg, params, rank: int) -> dict:
+    """The skew trace on a sharded engine, each rank on its own skewed
+    clock, evacuated after ``EVACUATE_AFTER`` steps; and on an unsharded
+    engine on rank 0's clock (the clock the mesh agrees on)."""
+    out = {}
+    for name, sharded, skew in (("sharded", True, rank), ("world1", False, 0)):
+        eng = E.Engine(cfg, params,
+                       E.EngineConfig(**{**EC, "sharded": sharded}),
+                       device="cpu",
+                       clock=SkewedClock(offset=1000.0 * skew,
+                                         rate=1.0 + skew))
+        for r, p, n, x in trace("skew"):
+            eng.add_request(E.Request(rid=r, prompt=p, max_new_tokens=n,
+                                      **x))
+        for _ in range(EVACUATE_AFTER):
+            eng.step()
+        evacuees = eng.evacuate()
+        out[name] = {
+            "evacuees": [[e.req.rid, e.emitted.tolist(), e.t_submit]
+                         for e in evacuees],
+            "busy": eng.busy, "allocator_whole": _whole(eng),
+            "completed": {rid: c.tokens.tolist()
+                          for rid, c in eng.completed.items()},
+        }
+    return out
 
 
 def _engine_case(E, cfg, params, case: str, rank: int) -> dict:
@@ -115,12 +288,6 @@ def _engine_case(E, cfg, params, case: str, rank: int) -> dict:
     if case == "skew":
         out["t_submit"] = {rid: c.t_submit for rid, c in done.items()}
         out["prefill_buckets"] = eng.prefill_buckets
-    if eng.mesh.size > 1:
-        try:
-            eng.evacuate()
-            out["evacuate"] = "returned"
-        except NotImplementedError as e:
-            out["evacuate"] = str(e)
     return out
 
 
@@ -201,6 +368,11 @@ def main(argv) -> int:
                     except ValueError as e:
                         res["refused"] = str(e)
                 out[case] = res
+            elif case.startswith("migrate_"):
+                out[case] = _migrate_case(E, weights, case[len("migrate_"):],
+                                          se.worker_id)
+            elif case == "evacuate":
+                out[case] = _evacuate_case(E, cfg, params, se.worker_id)
             elif case == "shapes":
                 out[case] = _shapes(M, cfg, params)
             elif case == "spec_refused":

@@ -1,5 +1,6 @@
 """One gloo rank of the sharded-training twins (tests/test_torch_train.py,
-tests/test_torch_train_sharded.py, tests/test_torch_train_moe.py).
+tests/test_torch_train_sharded.py, tests/test_torch_train_moe.py,
+tests/test_torch_pipeline.py).
 
 Run as ``python tests/torch_train_rank.py DIR CASE [CASE ...]`` in the env
 the slice daemon renders (tests/torch_ranks.py ``rank_env``): it joins
@@ -88,6 +89,14 @@ CASES = {
                         config=(("attention_impl", "ulysses"),)),
     # A dense Llama at ep=2: replicated over ep.
     "llama_ep2": Case(dict(ep=2), "fp32", "seed", tokens="r4"),
+    # JAX's Trainer at pp=2 runs its step replicated over pp: the same
+    # losses as the mesh without pp (tests/test_torch_pipeline.py).
+    "pp_dp_tp": Case(dict(pp=2, dp=2, tp=2), "fp32", "pp_fp32", steps=3),
+    "dp_tp": Case(dict(dp=2, tp=2), "fp32", "pp_fp32", steps=3),
+    "moe_pp_ep": Case(dict(pp=2, ep=2), "fp32", "moe_pp_fp32", tokens="r4",
+                      steps=3, model="mixtral"),
+    "moe_ep": Case(dict(ep=2), "fp32", "moe_pp_fp32", tokens="r4", steps=3,
+                   model="mixtral"),
 }
 
 

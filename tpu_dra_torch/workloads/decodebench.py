@@ -10,8 +10,9 @@ output projections, the MLP, embedding plus final norm, the logits head
 and the sampler, each timed on the host over ``reps`` calls that end in
 a synchronize, with the JAX module's keys. On the card each part also
 has its device time (``<part>_device_ms``: the device time of one call,
-kernels, copies and sets summed, from torch.profiler), ``step_launches``
-and ``busy_share`` (device over host time of the step): eager PyTorch
+kernels, copies and sets summed, from torch.profiler), ``step_launches``,
+``busy_share`` (device over host time of the step) and ``device_time``
+(how the profile was attributed, :func:`device_time`): eager PyTorch
 pays a host launch for every kernel, so a host time alone would measure
 the host.
 
@@ -79,6 +80,12 @@ END = "end"
 # Small kernels launched after the closing span: late in chip_smoke.py's
 # long process a short session's last device records came back missing.
 TAIL_PAD = 256
+# Host sleep at each end of a part's span, the device idle: the parts'
+# device work lies GUARD_S inside its span and 2 GUARD_S apart on the
+# device's own clock.
+GUARD_S = 0.02
+# Profiler sessions device_time tries before it raises.
+SESSIONS = 2
 
 
 def attribute_kernels(events, prefix: str) -> tuple:
@@ -90,55 +97,117 @@ def attribute_kernels(events, prefix: str) -> tuple:
     launched through ctypes outside any aten op is linked to no op in
     the profile (not to the span either), so the windows go by time,
     not by parentage."""
+    spans, acts = _spans_and_activities(events, prefix)
+    starts = [t for t, _ in spans]
+    us = collections.defaultdict(float)
+    launches = collections.defaultdict(int)
+    for start, length in acts:
+        i = bisect.bisect_right(starts, start) - 1
+        if i >= 0:
+            part = spans[i][1]
+            us[part] += length
+            launches[part] += 1
+    return dict(us), dict(launches)
+
+
+def attribute_by_gaps(events, prefix: str, gap_us: float):
+    """Like attribute_kernels, but on the device's clock alone: the
+    device activities, in device order, split wherever the device was
+    idle longer than ``gap_us``, and the k-th group goes to the k-th
+    span. The host and device clocks of a profile can part by more than
+    a short part's window, which then charges its work to a neighbour;
+    the groups do not compare the two clocks. Returns (us, launches,
+    skews) with skews[part] = the group's first device start less its
+    span's host start, in µs, or None where the groups are not one a
+    span."""
+    spans, acts = _spans_and_activities(events, prefix)
+    groups, end = [], None
+    for start, length in sorted(acts):
+        if end is None or start - end > gap_us:
+            groups.append([start, 0.0, 0])
+        groups[-1][1] += length
+        groups[-1][2] += 1
+        end = max(end or start, start + length)
+    if len(groups) != len(spans):
+        return None
+    us = {name: g[1] for (_, name), g in zip(spans, groups)}
+    launches = {name: g[2] for (_, name), g in zip(spans, groups)}
+    skews = {name: g[0] - t for (t, name), g in zip(spans, groups)}
+    return us, launches, skews
+
+
+def _spans_and_activities(events, prefix: str):
+    """The ``prefix`` spans as sorted (host start µs, part) and the
+    device activities, the spans' own device annotations left out, as
+    (device start µs, length µs)."""
     from torch.autograd import DeviceType
 
     spans = sorted(
         (ev.time_range.start, ev.name[len(prefix):]) for ev in events
         if ev.device_type == DeviceType.CPU and ev.name.startswith(prefix)
     )
-    starts = [t for t, _ in spans]
-    us = collections.defaultdict(float)
-    launches = collections.defaultdict(int)
-    for ev in events:
-        if ev.device_type != DeviceType.CUDA or ev.name.startswith(prefix):
-            continue
-        i = bisect.bisect_right(starts, ev.time_range.start) - 1
-        if i >= 0:
-            part = spans[i][1]
-            us[part] += ev.time_range.elapsed_us()
-            launches[part] += 1
-    return dict(us), dict(launches)
+    acts = [
+        (ev.time_range.start, ev.time_range.elapsed_us()) for ev in events
+        if ev.device_type == DeviceType.CUDA
+        and not ev.name.startswith(prefix)
+    ]
+    return spans, acts
 
 
-def device_time(calls: dict, reps: int = 3) -> dict:
-    """{name: (device ms, device activities)} of one call of each thunk
-    of ``calls`` on the card, from one torch.profiler session in which
-    each thunk runs ``reps`` times inside a span named after it, the
-    device synchronized after each (attribute_kernels); an END span and
-    TAIL_PAD small kernels close the session. Raises when a part's
-    window holds no device activity."""
+def device_time(calls: dict, reps: int = 3) -> tuple:
+    """({name: (device ms, device activities)}, info) of one call of
+    each thunk of ``calls`` on the card, from a torch.profiler session in
+    which each thunk runs ``reps`` times inside a span named after it,
+    the device synchronized after each and idle GUARD_S at each end of
+    the span; an END span and TAIL_PAD small kernels close the session.
+    The parts' device work is grouped on the device's clock
+    (attribute_by_gaps) where it falls into one group a span, else
+    charged by host windows (attribute_kernels). A session in which a
+    part has no device activity is made again, up to SESSIONS in all,
+    then this raises. ``info``: the attribution, the sessions taken and
+    ``start_offset_us``, the range over the parts of their first device
+    start less their span's host start and GUARD_S: at least the launch
+    latency where the two clocks agree, negative where the device's
+    reads behind."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     pad = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
-        for name in list(calls) + [END]:
-            with record_function(SPAN + name):
-                for _ in range(reps if name in calls else 0):
-                    calls[name]()
-            torch.cuda.synchronize()
-        for _ in range(TAIL_PAD):
-            pad.add_(1)
+    seen = []
+    for session in range(1, SESSIONS + 1):
         torch.cuda.synchronize()
-    us, launches = attribute_kernels(prof.events(), SPAN)
-    missing = [name for name in calls if not launches.get(name)]
-    if missing:
-        raise RuntimeError(
-            f"torch.profiler recorded no device time for {missing}")
-    return {name: (us[name] / reps / 1e3, launches[name] / reps)
-            for name in calls}
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as prof:
+            for name in list(calls) + [END]:
+                with record_function(SPAN + name):
+                    time.sleep(GUARD_S)
+                    for _ in range(reps if name in calls else 0):
+                        calls[name]()
+                    torch.cuda.synchronize()
+                    time.sleep(GUARD_S)
+            for _ in range(TAIL_PAD):
+                pad.add_(1)
+            torch.cuda.synchronize()
+        events = prof.events()
+        grouped = attribute_by_gaps(events, SPAN, GUARD_S * 1e6)
+        if grouped is not None:
+            us, launches, skews = grouped
+            lag = [skews[name] - GUARD_S * 1e6 for name in calls]
+            info = {"attribution": "device_gaps",
+                    "start_offset_us": [round(min(lag), 1),
+                                        round(max(lag), 1)]}
+        else:
+            us, launches = attribute_kernels(events, SPAN)
+            info = {"attribution": "host_windows", "start_offset_us": None}
+        missing = [name for name in calls if not launches.get(name)]
+        seen.append({"missing": missing, **info})
+        if not missing:
+            info["sessions"] = session
+            return ({name: (us[name] / reps / 1e3, launches[name] / reps)
+                     for name in calls}, info)
+    raise RuntimeError(
+        f"torch.profiler recorded no device time in {SESSIONS} sessions: "
+        f"{seen}")
 
 
 def measure_step_breakdown(
@@ -290,10 +359,11 @@ def measure_step_breakdown(
     for k, v in parts.items():
         out[k.replace("_ms", "_frac")] = round(v / max(step_ms, 1e-9), 3)
     if device.type == "cuda":
-        dev = device_time({
+        dev, info = device_time({
             name: functools.partial(fn, *args)
             for name, (fn, *args) in calls.items()
         })
+        out["device_time"] = info
         for name, (ms, _) in dev.items():
             out[f"{name}_device_ms"] = round(ms, 4)
         out["step_launches"] = dev["step"][1]

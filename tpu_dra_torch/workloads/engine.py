@@ -87,10 +87,16 @@ are agreed over the mesh (:meth:`.DecodeMesh.agree`: the first rank's
 clock, ready only when every gate is), so host scheduling is the same on
 every rank; the decode rows split over the batch axis when
 ``max_slots`` tiles it (``_put_row``), each step gathering the new K/V
-rows over it before the pool write and each chunk its tokens. The
-cross-replica methods refuse an engine over more than one rank (ROADMAP
-Queue A item 8b); over one rank the mesh is (1, 1), no collective is
-issued and the kernels run as unsharded.
+rows over it before the pool write and each chunk its tokens. Over one
+rank the mesh is (1, 1), no collective is issued and the kernels run as
+unsharded. The cross-replica methods give on every rank what JAX's
+sharded engine gives: ``export_sequence`` gathers the ranks' kv-head
+blocks of the extent over the model axis, so every rank holds the whole
+extent an unsharded engine exports for the sequence; ``import_sequence``
+grafts this rank's kv-head block of a whole extent (from a sharded
+engine, an unsharded one or JAX's); ``evacuate`` drains at the agreed
+clock. Their slot, page and rid decisions are host decisions on state
+that is the same on every rank.
 """
 
 from __future__ import annotations
@@ -637,17 +643,6 @@ class Engine:
             now, _ = self.mesh.agree(now)
         return now
 
-    def _single_rank(self, method: str) -> None:
-        """The cross-replica methods hand one replica's state to another;
-        an engine sharded over several ranks has no such path yet."""
-        if self._spans_ranks:
-            raise NotImplementedError(
-                f"{method} on an engine sharded over a "
-                f"{self.mesh.shape['batch']}x{self.mesh.shape['model']} "
-                f"mesh of ranks is not ported yet: ROADMAP Queue A item 8b "
-                f"(cross-replica methods at world > 1)"
-            )
-
     def evacuate(self) -> List[Evacuated]:
         """Drain every in-flight sequence to host state (pages freed,
         contexts folded), then hand the WHOLE live set — drained and
@@ -655,8 +650,7 @@ class Engine:
         empty: the autoscaler's scale-down primitive. The evacuees
         resume elsewhere by prefilling ``prompt + emitted``; rids are
         forgotten, so a sequence may later come back here."""
-        self._single_rank("evacuate")
-        self._drain(self.clock())
+        self._drain(self._now())
         out: List[Evacuated] = []
         while self._queue:
             seq = self._queue.popleft()
@@ -688,8 +682,9 @@ class Engine:
         block-table extent (every pool, int8 scales included), release
         its slot and pages (each page decref'd once — shared-prefix
         pages stay pinned by the registry and other tables), and forget
-        the rid so a fallback may resubmit here."""
-        self._single_rank("export_sequence")
+        the rid so a fallback may resubmit here. On a mesh every rank
+        calls it alike and gets the whole extent (its pools' kv-head
+        blocks gathered over the model axis)."""
         if self.ec.contiguous:
             raise ValueError(
                 "contiguous (oracle) engines do not export extents — "
@@ -708,8 +703,13 @@ class Engine:
         keep = -(-kv_len // self.ec.page_size)
         # Pages past the written extent are scan-chunk slack, entirely
         # zero: they stay behind and free with the slot.
+        gather = None
+        kvh = self.config.n_kv_heads
+        if meshlib.local_kv_heads(self.mesh, kvh) != kvh:
+            def gather(x):  # [L, n, page, kvh/m, ...]: heads on dim 3
+                return self.mesh.gather_model(x, 3)
         extent = paged_kv.serialize_extent(self.cache, seq.pages[:keep],
-                                           kv_len)
+                                           kv_len, gather=gather)
         sx = SequenceExtent(
             req=seq.req,
             emitted=np.asarray(seq.out, np.int32),
@@ -734,8 +734,9 @@ class Engine:
         a free slot or page headroom right now (the caller falls back to
         re-prefill); every mismatch raises. Leading full pages of a
         registered matching prefix attach by incref instead of copying,
-        and the imported prefix registers here for later sharers."""
-        self._single_rank("import_sequence")
+        and the imported prefix registers here for later sharers. On a
+        mesh every rank calls it alike with the whole extent and grafts
+        the kv-head block its pools hold."""
         if self.ec.contiguous:
             raise ValueError(
                 "contiguous (oracle) engines do not import extents"
@@ -756,6 +757,11 @@ class Engine:
                 f"extent page_size {sx.extent.page_size} != engine "
                 f"page_size {self.ec.page_size}"
             )
+        extent = sx.extent
+        lo, n = meshlib.kv_head_block(self.mesh, self.config.n_kv_heads)
+        if n != self.config.n_kv_heads:
+            extent = paged_kv.head_block(extent, lo, n,
+                                         self.config.n_kv_heads)
         if len(req.prompt) != sx.kv_len + 1 or req.max_new_tokens < 1:
             raise ValueError(
                 f"request {req.rid}: prompt must cover kv_len "
@@ -815,7 +821,7 @@ class Engine:
             return self.allocator.alloc()
 
         self.cache, pages = paged_kv.graft_extent(
-            self.cache, self.allocator, sx.extent,
+            self.cache, self.allocator, extent,
             alloc=_alloc, attach=attach,
         )
         if attach:

@@ -357,13 +357,16 @@ class KVExtent:
 
 
 def serialize_extent(
-    cache: PagedKVCache, pages, length: int, by_id=()
+    cache: PagedKVCache, pages, length: int, by_id=(), gather=None
 ) -> KVExtent:
     """Gather a sequence's block-table extent off ``cache`` into host
     memory. ``pages`` is the ordered page-id list covering ``length``
     written positions; ids in ``by_id`` are carried by reference, the
     rest as full-page payload — one gather per pool per layer and one
-    copy to the host per pool. The caller must have flushed any
+    copy to the host per pool. ``gather``, when given, maps each pool's
+    stacked payload ``[L, n_payload, page, kvh, ...]`` on the device
+    before the host copy: a sharded engine gathers its kv-head blocks
+    into the whole heads there. The caller must have flushed any
     deferred page zeroing first: a payload page is copied verbatim,
     zero tail and all."""
     pages = [int(p) for p in pages]
@@ -386,6 +389,8 @@ def serialize_extent(
     for name, pool in cache._pools():
         if rows:
             host = torch.stack([layer.index_select(0, ids) for layer in pool])
+            if gather is not None:
+                host = gather(host)
             payload[name] = tuple(host.cpu().unbind(0))
         else:
             payload[name] = ()
@@ -396,6 +401,23 @@ def serialize_extent(
         slots=tuple(slots),
         payload=payload,
     )
+
+
+def head_block(extent: KVExtent, lo: int, n: int,
+               kv_heads: int) -> KVExtent:
+    """The extent of kv heads ``[lo, lo + n)`` of a whole-heads extent
+    (every pool's payload cut along its head dim, 2): what a rank whose
+    pools hold those heads grafts. A payload that does not hold
+    ``kv_heads`` heads raises ValueError."""
+    payload = {}
+    for name, layers in extent.payload.items():
+        for layer in layers:
+            if layer.ndim < 3 or layer.shape[2] != kv_heads:
+                raise ValueError(
+                    f"extent payload {name!r} is {tuple(layer.shape)}: "
+                    f"want {kv_heads} kv heads on dim 2")
+        payload[name] = tuple(layer.narrow(2, lo, n) for layer in layers)
+    return dataclasses.replace(extent, payload=payload)
 
 
 def _check_payload(cache: PagedKVCache, extent: KVExtent) -> None:

@@ -995,6 +995,12 @@ def local_kv_heads(mesh: Optional[DecodeMesh], kv_heads: int) -> int:
     return kv_heads // mesh.shape["model"]
 
 
+def kv_head_block(mesh: Optional[DecodeMesh], kv_heads: int) -> Tuple[int, int]:
+    """(first, count) of the kv heads this rank's pools and caches hold."""
+    n = local_kv_heads(mesh, kv_heads)
+    return (0, kv_heads) if n == kv_heads else (mesh.coords[1] * n, n)
+
+
 def check_decode_config(config, mesh: Optional[DecodeMesh]) -> None:
     """Refuse a config whose heads do not split over the mesh's model
     axis by whole kv heads (the column shards of ``wk``/``wv`` must be

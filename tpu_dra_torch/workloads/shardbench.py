@@ -18,7 +18,16 @@ process a rank) and checks parity at the world it finds:
    and sampled (temperature 0.8, top-k 8, seed 5);
 4. the sharded params really are sharded: some leaf's spec names the
    model axis, and over a model axis of m the column-parallel leaves
-   hold 1/m of their columns.
+   hold 1/m of their columns;
+5. **live migration** (the port's, beside JAX's checks): the greedy
+   trace's first decoding sequence exported from the sharded engine
+   (every rank holds the whole extent, its own kv-head block of it its
+   pool pages bit for bit, and so are the pages an import into a fresh
+   sharded engine grafts) is the extent the unsharded engine exports at
+   the same step, bit for bit where the matmuls round alike (the CPU)
+   and within ``MIGRATE_FP32_REL`` of the largest value otherwise; the
+   imported sequence finishes token-identical to the unmigrated run
+   (``migrate``: the extent's MB, export and import ms).
 
 Each unsharded reference runs the config the sharded run ends up with
 (``sharded_safe_config``), so the comparison isolates the sharding. Over
@@ -168,6 +177,104 @@ def gather_copies(mesh, device) -> dict:
         e.name for e in prof.events() if e.name.startswith("Memcpy")))
 
 
+def _extent_bytes(extent) -> dict:
+    """pool name -> L-list of the payload's bytes."""
+    import torch
+
+    return {name: [t.contiguous().view(-1).view(torch.uint8).numpy()
+                   .tobytes() for t in layers]
+            for name, layers in extent.payload.items()}
+
+
+#: The sharded export against the unsharded one, where they are not
+#: bit for bit the same (on the card cuBLAS picks an fp32 kernel by
+#: shape, so a column block of ``wk``/``wv`` may round otherwise than
+#: the full product): the largest difference over the largest value.
+MIGRATE_FP32_REL = 1e-5
+
+
+def _written_extent(eng, rid: str):
+    """The extent of ``rid``'s written pages in ``eng``'s own pools (this
+    rank's kv heads), read without exporting."""
+    from tpu_dra_torch.workloads import paged_kv
+
+    seq = next(s for s in eng._slots if s is not None and s.req.rid == rid)
+    kv_len = int(eng._lengths[seq.slot])
+    return paged_kv.serialize_extent(
+        eng.cache, seq.pages[:-(-kv_len // eng.ec.page_size)], kv_len)
+
+
+def migrate_round_trip(cfg, params, device) -> dict:
+    """Export the greedy trace's first decoding sequence from a sharded
+    engine and from the unsharded one at the same step, then import the
+    sharded export into a fresh sharded engine and run it out.
+    ``lossless``: this rank's kv-head block of the exported extent is
+    its own pool pages bit for bit, and so are the pages the import
+    grafted."""
+    from tpu_dra_torch.workloads import paged_kv
+    from tpu_dra_torch.workloads.device import synchronize
+    from tpu_dra_torch.workloads.engine import Engine
+    from tpu_dra_torch.workloads.parallel import mesh as meshlib
+
+    def decoding(eng):
+        for r in _trace(cfg.vocab_size):
+            eng.add_request(r)
+        while not eng.decoding_rids():
+            eng.step()
+        return eng.decoding_rids()[0]
+
+    sharded = Engine(cfg, params, _engine_config(sharded=True),
+                     device=device)
+    single = Engine(sharded.config, params, _engine_config(), device=device)
+    rid = decoding(sharded)
+    same_rid = decoding(single) == rid
+    local = _extent_bytes(_written_extent(sharded, rid))
+    issued = sum(sharded.mesh.collectives.values())
+    synchronize(device)
+    t0 = time.perf_counter()
+    sx = sharded.export_sequence(rid)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    gathers = sum(sharded.mesh.collectives.values()) - issued
+    kvh = cfg.n_kv_heads
+    lo, n = meshlib.kv_head_block(sharded.mesh, kvh)
+    mine = sx.extent if n == kvh else paged_kv.head_block(sx.extent, lo, n,
+                                                          kvh)
+    lossless = _extent_bytes(mine) == local
+    ref = single.export_sequence(rid)
+    identical = same_rid and _extent_bytes(sx.extent) == _extent_bytes(
+        ref.extent) and (sx.kv_len, sx.emitted.tolist(), sx.extent.slots) \
+        == (ref.kv_len, ref.emitted.tolist(), ref.extent.slots)
+    diff = {name: max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(layers, ref.extent.payload[name]))
+            for name, layers in sx.extent.payload.items()}
+    rel = max(diff[name] / max(float(b.double().abs().max())
+                               for b in ref.extent.payload[name])
+              for name in diff)
+    dst = Engine(cfg, params, _engine_config(sharded=True), device=device)
+    t0 = time.perf_counter()
+    imported = dst.import_sequence(sx)
+    synchronize(device)
+    import_ms = (time.perf_counter() - t0) * 1e3
+    lossless = lossless and imported and local == _extent_bytes(
+        _written_extent(dst, rid))
+    resumed = sx.emitted.tolist() + dst.run()[rid].tokens.tolist()
+    unmigrated = Engine(sharded.config, params, _engine_config(),
+                        device=device).run(_trace(cfg.vocab_size))
+    return {
+        "rid": rid, "kv_len": sx.kv_len, "pages": sx.extent.n_pages,
+        "extent_mb": sx.extent.nbytes / 2**20, "export_ms": export_ms,
+        "import_ms": import_ms, "lossless": bool(lossless),
+        "extent_bit_identical": bool(identical),
+        "max_abs_diff_vs_unsharded": diff, "max_rel_diff_vs_unsharded": rel,
+        "same_sequence": same_rid and (sx.kv_len, sx.emitted.tolist(),
+                                       sx.extent.slots)
+        == (ref.kv_len, ref.emitted.tolist(), ref.extent.slots),
+        "imported": imported,
+        "tokens_identical": resumed == unmigrated[rid].tokens.tolist(),
+        "export_gathers": gathers,
+    }
+
+
 def _per_step(counter, steps: int, scale: float = 1.0) -> dict:
     """The engine's decode-phase entries of a mesh counter, per step."""
     return {k.split("/", 1)[1]: v / steps * scale
@@ -282,6 +389,14 @@ def _run(args, rank: int, world: int) -> tuple:
             "decode_gather_ms_per_step": _per_step(eng_mesh.gather_seconds,
                                                    steps, 1e3),
         }
+    # (5) live migration across the mesh.
+    mig = migrate_round_trip(cfg, params, device)
+    report["migrate"] = mig
+    check(mig["imported"] and mig["lossless"] and mig["same_sequence"]
+          and mig["max_rel_diff_vs_unsharded"] <= MIGRATE_FP32_REL,
+          f"the round trip lost bits, or the sharded export is not the "
+          f"unsharded one's within {MIGRATE_FP32_REL}: {mig}")
+    check(mig["tokens_identical"], f"the imported sequence diverged: {mig}")
     if mesh.shape["model"] > 1 and device.type == "cuda" and (
             dist.get_backend() == "gloo"):
         report["gather_copies"] = gather_copies(mesh, device)

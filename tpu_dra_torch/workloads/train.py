@@ -22,8 +22,11 @@ gradient is summed over the data axes its leaf is not sharded over, the
 clipping norm adds each leaf's squares over the axes it is sharded
 over, and AdamW updates the local blocks with no communication. A dense
 Llama at ``ep`` above 1 is replicated over ep, as JAX's rules name no
-ep dim for its leaves. ``pp`` is still ROADMAP Queue A item 11
-(parallel training).
+ep dim for its leaves. At ``pp`` above 1 the step runs replicated over
+pp, as JAX's Trainer does (it never pipelines: no rule names pp, so no
+gradient sums over it, the batch rows stay split over ``(dp, fsdp)``
+only and the clip norm takes nothing over it); the pipelined forward is
+:func:`.parallel.pipeline.pipelined_llama_forward`.
 
 The optimizer is optax's ``chain(clip_by_global_norm(grad_clip),
 adamw(lr, b1, b2, eps=1e-8, weight_decay, mu_dtype=float32))`` (optax
@@ -301,24 +304,23 @@ def loss_fn(model, params, tokens: torch.Tensor,
         )
     else:
         logits = model(tokens, params=params)  # [b, s, v] fp32
+    return next_token_loss(logits, tokens) + aux
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy of fp32 logits [b, s, vocab] over
+    [b, s] int tokens on one device."""
     targets = tokens[:, 1:].to(device=logits.device, dtype=torch.long)
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]
-    return -ll.mean() + aux
-
-
-ITEM_11 = "ROADMAP Queue A item 11 (parallel training)"
+    return -ll.mean()
 
 
 def check_mesh(model_config, mesh_config: MeshConfig) -> None:
-    """Refuse a mesh the port does not train on: pp above 1
-    (NotImplementedError naming item 11), and heads, kv heads, ffn or
+    """Refuse a mesh the port does not train on: heads, kv heads, ffn or
     vocab that tp does not split by whole blocks, a width fsdp does not,
-    or experts ep does not (ValueError)."""
-    if mesh_config.pp > 1:
-        raise NotImplementedError(
-            f"{mesh_config}: pipeline (pp) parallelism is not ported yet: "
-            f"{ITEM_11}")
+    or experts ep does not (ValueError). Any pp passes: the step is
+    replicated over it."""
     c, tp = model_config, mesh_config.tp
     if c.n_heads % tp or c.n_kv_heads % tp or c.ffn_dim % tp \
             or c.vocab_size % tp or c.dim % mesh_config.fsdp:
