@@ -186,10 +186,11 @@ exits non-zero without a result:
    non-spec engine and token agreement with the greedy run's first
    tokens (no identity gate: the verify pass runs the plain attention
    and MLP chain, the per-token step the kernels); w8kv8 with the
-   n-gram draft on all 8 requests, every verify-pass matmul (M = 40) on
-   the wgmma tile. The cut took the two 8B bf16 runs from 39.2 and 42.0
-   s (8 requests, 32-64 new tokens) to 13.5 and 12.1 s, the phase from
-   136.7 to 91.2 s (NVIDIA H100 80GB HBM3, 700.00 W).
+   n-gram draft on the same requests, every verify-pass matmul (M = 40)
+   on the wgmma tile. The cut took the two 8B bf16 runs from 39.2 and
+   42.0 s (8 requests, 32-64 new tokens) to 13.5 and 12.1 s, the phase
+   from 136.7 to 91.2 s (NVIDIA H100 80GB HBM3, 700.00 W); the w8kv8 run
+   took the same cut when the fabric phase (7f) came.
 7d. engine_prefix — the engine phase's config, 8 requests sharing a
    seeded 200-token prompt (12 full pages and a frozen boundary page)
    with 16-64-token suffixes and 32 new tokens, run shared
@@ -228,6 +229,31 @@ exits non-zero without a result:
    and sampled: the handoff, the whole batch and the evacuation
    token-identical to the unmigrated run. After every arm each engine's
    pool is whole and zero.
+7f. fabric — the port's serving tier (tpu_dra_torch/serving/) on the
+   card: its Router (one INTERACTIVE tenant, FABRIC_INFLIGHT sequences
+   a replica) over replica threads (Replica.start), each an Engine of
+   the engine phase's config on one shared 8B bf16 weight tree (32
+   layers), warmed before its thread starts; the engine phase's
+   FABRIC_REQUESTS requests with the shortest prompts cut to
+   FABRIC_NEW_TOKENS new tokens, in four arms (FABRIC_ARMS): colocated
+   (two "both" replicas), disaggregated (a "prefill" and a "decode"
+   replica: extents shipped through the Router's migration path), crash
+   and stall (inject_fault, armed on the first replica whose step leaves
+   a sequence mid-generation; the stall watchdog FABRIC_STALL_S).
+   Gates (fabric_arm): every request completes once with its token
+   count, no duplicate, the journal closed with each sequence
+   re-dispatched at most once; the Router's deaths equal the injected
+   faults, no replica has another error and none dies where nothing was
+   injected; the stall detected within the watchdog's deadline plus
+   FABRIC_STALL_MARGIN_S; paged-decode and MLP launches 32 a decode
+   step summed over the replicas (as engine_migrate reckons them); every
+   pool whole and zero. Reported: token agreement with the engine
+   phase's completions (first difference, top-2 gap), TTFT p50/p99,
+   decode tokens over the arm's wall beside the engine phase's, each
+   replica's decode steps and step seconds, the longest step, extents
+   shipped and their ms. At tiny fp32 on the card, greedy and sampled:
+   the four arms and a scale-down through the ClaimAutoscaler (a
+   FabricClaims store), each token-identical to one engine's run.
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
    new tokens, once in bf16 and once with int8 weights and KV: 32
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16,
@@ -386,6 +412,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -421,9 +448,25 @@ FP32_REL = 1e-5
 FP32_COSINE = 0.9999
 BF16_COSINE = 0.999
 BF16_GAP_RATIO = 1.5
-# engine_spec's two 8B bf16 runs (the n-gram draft, the greedy replay):
-# the engine phase's first 4 requests, at most 16 new tokens each.
+# engine_spec's 8B runs (bf16 with the n-gram draft and the greedy
+# replay, w8kv8 with the n-gram draft): the engine phase's first 4
+# requests, at most 16 new tokens each.
 SPEC8_REQUESTS, SPEC8_NEW_TOKENS = 4, 16
+# The fabric phase: the engine phase's 4 requests with the shortest
+# prompts (95-153 tokens; prefill is the fleet's costly, host-bound
+# part) cut to 24 new tokens, at most 2 in flight a replica; the control
+# loop's poll
+# interval (a busy poll would hold the interpreter from the replica
+# threads); each arm's deadline; the stall watchdog's deadline at 8B
+# (with two replica threads on the card a 128-token prefill step comes
+# near the Router's default 5 s: PERF.md, Fabric) and at tiny fp32, and
+# the stall drill's bound past it.
+FABRIC_REQUESTS, FABRIC_NEW_TOKENS = 4, 24
+FABRIC_INFLIGHT = 2
+FABRIC_POLL_S = 0.002
+FABRIC_ARM_TIMEOUT_S = 120.0
+FABRIC_STALL_S, FABRIC_TINY_STALL_S = 10.0, 1.0
+FABRIC_STALL_MARGIN_S = 2.0
 # Llama-3-8B: 7 int8 projections per layer (q, k, v, o, gate, up,
 # down) plus the lm_head.
 INT8MM_PER_LAYER = 7
@@ -2468,6 +2511,318 @@ def tiny_migrate(E, cfg, params, trace, ec) -> dict:
     return {arm: True for arm in arms}
 
 
+class FabricClaims:
+    """The claim store the fabric phase's ClaimAutoscaler calls
+    (``try_get``, ``create``, ``delete``): ``create`` marks the claim
+    allocated at once, standing in for the scheduler's packer."""
+
+    def __init__(self):
+        self.store, self.deleted = {}, []
+
+    def create(self, obj: dict) -> dict:
+        obj.setdefault("status", {})["allocation"] = {"devices": {
+            "results": [{"pool": "card-0", "device": "cuda:0"}]}}
+        self.store[obj["metadata"]["name"]] = obj
+        return obj
+
+    def try_get(self, name: str, namespace=None):
+        return self.store.get(name)
+
+    def delete(self, name: str, namespace=None) -> None:
+        self.deleted.append(name)
+        self.store.pop(name, None)
+
+
+def mid_generation(eng) -> bool:
+    """A sequence of ``eng`` has emitted tokens and still owes some."""
+    return any(s is not None and s.out and s.remaining > 0
+               for s in eng._slots)
+
+
+class StepWatch:
+    """Wraps each replica engine's ``step``: every step's host seconds,
+    and ``fault`` armed (``inject_fault``, once an arm) on the first
+    replica whose step leaves a sequence mid-generation. The wrapper runs
+    on the replica's own thread, so the fault lands between that step and
+    the next, with the sequence in flight."""
+
+    def __init__(self, reps, fault=None):
+        self.fault, self.victim, self.t_inject = fault, None, None
+        self.seconds = {rep.name: [] for rep in reps}
+        self._lock = threading.Lock()
+        self._reps = reps
+        for rep in reps:
+            rep.engine.step = functools.partial(self._step, rep,
+                                                rep.engine.step)
+
+    def _step(self, rep, step):
+        t0 = time.perf_counter()
+        busy = step()
+        self.seconds[rep.name].append(time.perf_counter() - t0)
+        if self.fault is not None and self.victim is None and (
+                mid_generation(rep.engine)):
+            with self._lock:
+                if self.victim is None:
+                    self.victim, self.t_inject = rep, time.monotonic()
+                    rep.inject_fault(self.fault)
+        return busy
+
+    def release(self) -> None:
+        for rep in self._reps:
+            del rep.engine.step
+
+
+def fabric_arm(E, SV, kernels, make_engine, reqs, roles, label, *,
+               fault=None, stall_s: float, autoscale=False,
+               inflight=FABRIC_INFLIGHT) -> tuple:
+    """Serve ``reqs`` through the port's Router (one INTERACTIVE tenant)
+    over one replica thread (``Replica.start``) a role in ``roles``, each
+    engine from ``make_engine`` and warmed first (its first steps build
+    the kernels and warm cuBLAS, which could outlast the stall
+    watchdog). ``fault`` ("crash" or "stall") is armed on the first
+    replica with a sequence mid-generation; ``autoscale`` scales down
+    through the ClaimAutoscaler (FabricClaims) once a sequence is
+    mid-generation. Raises unless every request completes once with its
+    token count; the Router's deaths equal the injected faults and no
+    replica has another error (Replica._loop would turn a CUDA error
+    into a quiet re-dispatch); a crash or stall is recovered with each
+    sequence re-dispatched at most once (a stall detected within
+    ``stall_s`` + FABRIC_STALL_MARGIN_S); the paged-decode and MLP
+    launches are L a decode step summed over the replicas, as
+    migrate_phase reckons them; every pool ends whole and zero.
+    Returns (completions, report, launches)."""
+    reps = []
+    for i, role in enumerate(roles):
+        eng = make_engine()
+        n = eng.ec.prefill_chunk + 1  # a full chunk and a 1-token one
+        eng.run([E.Request(rid="warm", prompt=np.arange(1, n + 1,
+                                                        dtype=np.int32),
+                           max_new_tokens=3)])
+        eng.completed.clear()
+        reps.append(SV.Replica(f"{role}{i}", eng, claim_name=f"claim-{i}",
+                               role=role))
+    cfg = reps[0].engine.config
+    base = {rep.name: (rep.engine.decode_steps,
+                       rep.engine.prefill_single_token_buckets,
+                       rep.engine.decode_seconds) for rep in reps}
+    router = SV.Router([SV.TenantSpec("t", SV.INTERACTIVE)], reps,
+                       SV.RouterConfig(max_inflight_per_replica=inflight,
+                                       stall_deadline_seconds=stall_s))
+    claims = scaler = None
+    if autoscale:
+        claims = FabricClaims()
+        for rep in reps:
+            claims.create({"metadata": {"name": rep.claim_name}})
+        # Any queued load is under the band: the first tick scales down.
+        scaler = SV.ClaimAutoscaler(
+            router, claims, make_claim=None, make_replica=None,
+            config=SV.AutoscalerConfig(min_replicas=1,
+                                       max_replicas=len(reps),
+                                       target_tokens_per_replica=1e9))
+    watch = StepWatch(reps, fault)
+    kernels.reset_launches()
+    for rep in reps:
+        rep.start()
+    t0 = time.monotonic()
+    try:
+        for r in reqs:
+            if not router.submit("t", r):
+                raise AssertionError(f"fabric {label}: {r.rid} rejected")
+        while len(router.completions) < len(reqs) or router.busy:
+            bad = [rep for rep in reps if rep.error is not None
+                   and not isinstance(rep.error, SV.faults.ReplicaFault)]
+            if bad:
+                raise AssertionError(
+                    f"fabric {label}: replica {bad[0].name} failed: "
+                    f"{bad[0].error!r}") from bad[0].error
+            if time.monotonic() - t0 > FABRIC_ARM_TIMEOUT_S:
+                raise AssertionError(
+                    f"fabric {label}: {len(router.completions)} of "
+                    f"{len(reqs)} done after {FABRIC_ARM_TIMEOUT_S} s")
+            router.poll()
+            if scaler is not None and (scaler.events or any(
+                    mid_generation(rep.engine) for rep in router.replicas)):
+                scaler.tick()
+            time.sleep(FABRIC_POLL_S)
+        wall = time.monotonic() - t0
+    finally:
+        for rep in reps:
+            rep.stop(timeout=30.0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    watch.release()
+    injected = 0 if fault is None else 1
+    if fault is not None and watch.victim is None:
+        raise AssertionError(f"fabric {label}: no sequence mid-generation "
+                             f"to inject {fault} on")
+    errors = [(rep.name, repr(rep.error)) for rep in reps
+              if rep.error is not None and not (
+                  fault == "crash" and rep is watch.victim
+                  and isinstance(rep.error, SV.faults.ReplicaFault))]
+    dead = [(rep.name, rep.death_reason) for rep in reps if rep.dead]
+    want_dead = ([] if fault is None
+                 else [(watch.victim.name, fault)])
+    if errors or router.deaths != injected or dead != want_dead:
+        raise AssertionError(
+            f"fabric {label}: errors {errors}, deaths {router.deaths} "
+            f"{router.death_log}, want {injected} ({want_dead})")
+    retries = [e.retries for e in router.journal.closed.values()]
+    if (router.journal.entries or router.duplicates_dropped
+            or max(retries) > 1 or sum(retries) != router.redispatched
+            or (fault is not None) != (router.redispatched > 0)):
+        raise AssertionError(
+            f"fabric {label}: open {list(router.journal.entries)}, "
+            f"duplicates {router.duplicates_dropped}, retries {retries}, "
+            f"re-dispatched {router.redispatched}")
+    for r in reqs:
+        got = router.completions[r.rid].tokens
+        if len(got) != r.max_new_tokens or not (
+                0 <= got.min() and got.max() < cfg.vocab_size):
+            raise AssertionError(f"fabric {label}: {r.rid} gave {got}")
+    detect_s = None
+    if fault == "stall":
+        detect_s = router.death_log[0][2] - watch.t_inject
+        if detect_s > stall_s + FABRIC_STALL_MARGIN_S:
+            raise AssertionError(
+                f"fabric {label}: stall detected after {detect_s:.2f} s "
+                f"(deadline {stall_s} s + {FABRIC_STALL_MARGIN_S} s)")
+    report = {"replicas": {}}
+    steps = ones = 0
+    for rep in reps:
+        eng = rep.engine
+        if eng.busy:  # a dead replica's engine still holds its sequences
+            eng.evacuate()
+        eng.run()
+        pool_whole_and_zero(eng, f"fabric {label} {rep.name}")
+        d_steps = eng.decode_steps - base[rep.name][0]
+        steps += d_steps
+        ones += eng.prefill_single_token_buckets - base[rep.name][1]
+        secs = watch.seconds[rep.name]
+        report["replicas"][rep.name] = {
+            "role": rep.role, "decode_steps": d_steps,
+            "decode_seconds": eng.decode_seconds - base[rep.name][2],
+            "steps": len(secs), "step_wall_s": sum(secs),
+            "longest_step_s": max(secs, default=0.0),
+            "dead": rep.death_reason or None}
+    attn = ("paged_decode_attention_int8" if reps[0].engine.ec.kv_quant
+            == "int8" else "paged_decode_attention")
+    want = {attn: cfg.n_layers * steps,
+            "decode_mlp": cfg.n_layers * (steps + ones)}
+    if cfg.dtype == torch.bfloat16:
+        want["decode_mlp_sm90"] = want["decode_mlp"]
+    if steps <= 0 or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"fabric {label}: launches {launches}, want "
+                             f"{want} ({steps} decode steps)")
+    if "prefill" in roles and not router.kv_migrations.get("shipped"):
+        raise AssertionError(f"fabric {label}: no extent shipped "
+                             f"{router.kv_migrations}")
+    if scaler is not None:
+        down = [e for e in scaler.events if e[0] == "down-complete"]
+        if (scaler.scaledowns != 1 or len(down) != 1
+                or not down[0][3]["engine_empty_at_delete"]
+                or claims.deleted != [down[0][1]]
+                or len(router.replicas) != len(reps) - 1):
+            raise AssertionError(f"fabric {label}: scale-down "
+                                 f"{scaler.events}, deleted {claims.deleted}")
+        report["scale_down"] = {"requeued": down[0][3]["requeued"],
+                                "drain_s": down[0][3]["drain_s"],
+                                "claim_deleted": claims.deleted[0]}
+    done = dict(router.completions)
+    ttft = [c.ttft_s for c in done.values()]
+    decode_tokens = sum(len(c.tokens) - 1 for c in done.values())
+    report.update(
+        wall_s=wall, decode_steps=steps, launches=launches,
+        ttft_p50_s=float(np.percentile(ttft, 50)),
+        ttft_p99_s=float(np.percentile(ttft, 99)),
+        decode_tokens=decode_tokens, decode_tok_s_over_wall=(
+            decode_tokens / wall),
+        longest_step_s=max(r["longest_step_s"]
+                           for r in report["replicas"].values()),
+        served_by={rid: c.replicas for rid, c in done.items()},
+        deaths=[list(d[:2]) for d in router.death_log],
+        redispatched=router.redispatched, stall_detect_s=detect_s,
+        kv_migrations=dict(router.kv_migrations),
+        kv_migrated_pages=router.kv_migrated_pages,
+        migration_ms_median=(statistics.median(router.migration_seconds)
+                             * 1e3 if router.migration_seconds else None))
+    return done, report, launches
+
+
+FABRIC_ARMS = (
+    # label, roles, injected fault
+    ("colocated", ("both", "both"), None),
+    ("disaggregated", ("prefill", "decode"), None),
+    ("crash", ("both", "both"), "crash"),
+    ("stall", ("both", "both"), "stall"),
+)
+
+
+def fabric_phase(E, G, SV, kernels, cfg, params, ec, reqs, want_8b,
+                 tiny, tparams, trace, tec, sampled) -> tuple:
+    """The port's serving tier on the card: FABRIC_ARMS at 8B widths
+    (``params``, one tree for every replica; the engine phase's
+    FABRIC_REQUESTS requests with the shortest prompts, in its order, cut
+    to FABRIC_NEW_TOKENS, each arm's tokens reported against
+    ``want_8b``, the engine phase's completions, first difference and
+    top-2 gap), then at tiny fp32, greedy and sampled,
+    FABRIC_ARMS and a scale-down through the ClaimAutoscaler, each
+    token-identical to one engine's run of the trace on the card.
+    Returns (report, launches summed over the arms)."""
+    launches = collections.Counter()
+    stall_s = FABRIC_STALL_S
+    short = {r.rid for r in sorted(reqs, key=lambda r: len(r.prompt))[
+        :FABRIC_REQUESTS]}
+    freqs = [E.Request(rid=r.rid, prompt=r.prompt, max_new_tokens=min(
+        r.max_new_tokens, FABRIC_NEW_TOKENS))
+        for r in reqs if r.rid in short]
+    ftrace = [(r.rid, r.prompt, r.max_new_tokens) for r in freqs]
+    want = {r.rid: types.SimpleNamespace(
+        tokens=want_8b[r.rid].tokens[:r.max_new_tokens]) for r in freqs}
+    out = {"watchdog": {"stall_deadline_seconds": stall_s,
+                        "tiny_stall_deadline_seconds": FABRIC_TINY_STALL_S,
+                        "margin_s": FABRIC_STALL_MARGIN_S},
+           "requests": len(freqs), "new_tokens": FABRIC_NEW_TOKENS,
+           "inflight_per_replica": FABRIC_INFLIGHT}
+    for label, roles, fault in FABRIC_ARMS:
+        done, rep, arm_launches = fabric_arm(
+            E, SV, kernels, lambda: E.Engine(cfg, params, ec), freqs, roles,
+            label, fault=fault, stall_s=stall_s)
+        launches.update(arm_launches)
+        rep["vs_engine"] = pair_report(G, cfg, params, ftrace, done, want)
+        out[label] = rep
+    out["watchdog"]["longest_step_s"] = max(
+        out[label]["longest_step_s"] for label, _, _ in FABRIC_ARMS)
+    treqs = [E.Request(rid=r, prompt=p, max_new_tokens=n)
+             for r, p, n in trace]
+    out["tiny_fp32"] = {}
+    for mode, kw in (("greedy", {}), ("sampled", sampled)):
+        tec_m = dataclasses.replace(tec, **kw)
+        eng = E.Engine(tiny, tparams, tec_m)
+        tiny_want = eng.run(treqs)
+        pool_whole_and_zero(eng, f"fabric tiny {mode}, one engine")
+        row = {}
+        for label, roles, fault, autoscale in (
+                tuple(arm + (False,) for arm in FABRIC_ARMS)
+                + (("scale_down", ("both", "both"), None, True),)):
+            done, rep, arm_launches = fabric_arm(
+                E, SV, kernels, lambda: E.Engine(tiny, tparams, tec_m),
+                treqs, roles, f"tiny {mode} {label}", fault=fault,
+                stall_s=FABRIC_TINY_STALL_S, autoscale=autoscale,
+                inflight=tec.max_slots)
+            launches.update(arm_launches)
+            where = first_difference(done, tiny_want)
+            if where is not None:
+                raise AssertionError(f"fabric tiny {mode} {label}: differs "
+                                     f"first at {where}")
+            row[label] = {"identical": True, "wall_s": rep["wall_s"],
+                          "redispatched": rep["redispatched"],
+                          "kv_migrations": rep["kv_migrations"],
+                          **({"scale_down": rep["scale_down"]}
+                             if autoscale else {})}
+        out["tiny_fp32"][mode] = row
+    return out, dict(launches)
+
+
 def copy_page_cost(P, cache) -> dict:
     """One copy-on-write fork (paged_kv.copy_page) on the engine's
     pools: its launches (the CUDA runtime's launch and copy calls) and
@@ -3369,6 +3724,7 @@ def main() -> int:
         return 1
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
+    import tpu_dra_torch.serving as SV
     from tpu_dra_torch import kernels
     from tpu_dra_torch.workloads import bootstrap as BS
     from tpu_dra_torch.workloads import decodebench as DB
@@ -4113,7 +4469,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.reset_launches()
     with RouteLog(I8) as spec_routes:
-        d = e.run(reqs)
+        d = e.run(spec_reqs)
     torch.cuda.synchronize()
     pool_whole_and_zero(e, "8B spec w8kv8")
     launches = dict(kernels.LAUNCHES)
@@ -4278,6 +4634,23 @@ def main() -> int:
          model="LLAMA3_8B widths, 32 layers, random weights; tiny fp32",
          nvidia_smi=smi, seconds=time.perf_counter() - t_migrate, **migrate)
 
+    # --- 7f. the serving tier: the port's Router over replica threads --------
+    t_fabric = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    fabric, fabric_launches = fabric_phase(
+        E, G, SV, kernels, cfg, params, ec, reqs, greedy_done, tiny, tparams,
+        trace, tec, sampled)
+    del params
+    torch.cuda.empty_cache()
+    emit("fabric", nvidia_smi=smi,
+         model="LLAMA3_8B widths, 32 layers, bf16, random weights; tiny fp32",
+         seconds=time.perf_counter() - t_fabric, launches=fabric_launches,
+         engine={"decode_tok_s": summary["decode_tok_s"],
+                 "decode_tok_s_over_wall": (summary["decode_tokens"]
+                                            / summary["wall_seconds"]),
+                 "ttft_p50_s": summary["ttft_p50_s"]},
+         **fabric)
+
     # --- 8. greedy_generate at Llama-3-8B widths -----------------------------
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     b, s, new = 8, 256, 32
@@ -4405,12 +4778,14 @@ def main() -> int:
          parity["paged_decode_attention"], timing["paged_decode_attention"],
          engine_launches["paged_decode_attention"]
          + sharded_launches["paged_decode_attention"]
+         + fabric_launches.get("paged_decode_attention", 0)
          + bench_launches.get("paged_decode_attention", 0)),
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
          timing["decode_mlp"], engine_launches["decode_mlp_sm90"]
          + sharded_launches["decode_mlp_sm90"]
          + gen_sharded_launches["decode_mlp_sm90"]
+         + fabric_launches.get("decode_mlp_sm90", 0)
          + bench_launches.get("decode_mlp_sm90", 0)
          + boot_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
@@ -4483,7 +4858,8 @@ def main() -> int:
         "source": "tpu_dra_torch/csrc/sample.cu",
         "replaces": "tpu_dra/workloads/generate.py:559",
         "launches": sampled_launches["sample_pick"]
-        + bench_launches.get("sample_pick", 0),
+        + bench_launches.get("sample_pick", 0)
+        + fabric_launches.get("sample_pick", 0),
         "max_abs_err": max(c["max_abs_err"] for c in pick_cases.values()),
         "ms": pick["ms"], "plain_ms": pick["plain_ms"],
         "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],

@@ -1,5 +1,6 @@
 """The port stands alone: no module under tpu_dra_torch/ (the decode
-mesh's parallel/ package included), and not chip_smoke.py, the ablation
+mesh's parallel/ package and the serving tier's serving/ and infra/
+included), and not chip_smoke.py, the ablation
 scripts that run beside it on the card (int8mm_ablation.py,
 decode_mlp_ablation.py, l2_flush_ablation.py) or the rank helpers of the
 gloo twins (tests/torch_{sharded,mesh,seqpar,train,pipeline}_rank.py),
@@ -48,6 +49,18 @@ def test_pipeline_modules_are_scanned():
     assert {"tpu_dra_torch/workloads/parallel/pipeline.py",
             "tpu_dra_torch/workloads/pipestep.py",
             "tests/torch_pipeline_rank.py"} <= names
+
+
+def test_serving_modules_are_scanned():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"tpu_dra_torch/serving/__init__.py",
+            "tpu_dra_torch/serving/router.py",
+            "tpu_dra_torch/serving/faults.py",
+            "tpu_dra_torch/serving/autoscaler.py",
+            "tpu_dra_torch/infra/__init__.py",
+            "tpu_dra_torch/infra/deadline.py",
+            "tpu_dra_torch/infra/trace.py",
+            "tpu_dra_torch/infra/lockdep.py"} <= names
 
 
 def _imported_roots(path: Path):

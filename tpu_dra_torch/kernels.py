@@ -10,8 +10,10 @@ reused. :func:`build` compiles every missing library at once, one
 ``nvcc`` process per source, all started together.
 
 ``LAUNCHES`` holds one counter per kernel wrapper: the wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that a
-path went through the kernels (``reset_launches`` before, read after).
+(:func:`count`) where it launches its kernel and nowhere else, so a run
+can show that a path went through the kernels (``reset_launches``
+before, read after). The counts are exact when several threads launch
+at once, as the serving fabric's replica threads do.
 """
 
 from __future__ import annotations
@@ -77,13 +79,24 @@ LAUNCHES = {
 }
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: dict = {}
 _FUNCS: dict = {}
 
 
+def count(*names: str) -> None:
+    """Add one to each named launch counter. A bare ``+= 1`` is a load,
+    an add and a store, so two threads launching at once could lose a
+    count; the lock keeps every count exact."""
+    with _COUNT_LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

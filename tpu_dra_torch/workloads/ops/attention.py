@@ -339,7 +339,7 @@ def _cuda_paged_decode_attention(
     )
     kernels.check(err, "paged_decode_attention")
     key = "paged_decode_attention_int8" if kv_int8 else "paged_decode_attention"
-    kernels.LAUNCHES[key] += 1
+    kernels.count(key)
     return out
 
 
@@ -756,7 +756,7 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(err, "decode_attention")
-    kernels.LAUNCHES["decode_attention"] += 1
+    kernels.count("decode_attention")
     return out
 
 
@@ -1156,8 +1156,8 @@ def _cuda_flash_fwd(q, k, v, causal: bool):
     )
     kernels.check(err, entry)
     if route == "sm90":
-        kernels.LAUNCHES["flash_fwd_sm90"] += 1
-    kernels.LAUNCHES["flash_fwd"] += 1
+        kernels.count("flash_fwd_sm90")
+    kernels.count("flash_fwd")
     return out, lse
 
 
@@ -1180,8 +1180,8 @@ def _cuda_flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
     )
     kernels.check(err, entry)
     if route == "sm90":
-        kernels.LAUNCHES["flash_bwd_dq_sm90"] += 1
-    kernels.LAUNCHES["flash_bwd_dq"] += 1
+        kernels.count("flash_bwd_dq_sm90")
+    kernels.count("flash_bwd_dq")
     return dq
 
 
@@ -1205,8 +1205,8 @@ def _cuda_flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
     )
     kernels.check(err, entry)
     if route == "sm90":
-        kernels.LAUNCHES["flash_bwd_dkv_sm90"] += 1
-    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+        kernels.count("flash_bwd_dkv_sm90")
+    kernels.count("flash_bwd_dkv")
     return dk, dv
 
 

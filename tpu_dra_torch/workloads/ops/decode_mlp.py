@@ -370,10 +370,10 @@ def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
         raise ValueError("impl='cuda' needs contiguous inputs")
     if _decode_mlp_route(x, (wg, wu, wd)) == "sm90":
         out = _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps)
-        kernels.LAUNCHES["decode_mlp_sm90"] += 1
+        kernels.count("decode_mlp_sm90")
     else:
         out = _simt_decode_mlp(x, norm_scale, wg, wu, wd, eps)
-    kernels.LAUNCHES["decode_mlp"] += 1
+    kernels.count("decode_mlp")
     return out
 
 

@@ -240,8 +240,7 @@ def _cuda_int8_matmul(x, w_q, scale):
         err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
                  out.data_ptr(), m, k, n, _sm90_rows(m, n, x.device), stream)
         kernels.check(err, "int8mm_sm90")
-        kernels.LAUNCHES["int8mm_sm90"] += 1
-        kernels.LAUNCHES["int8mm"] += 1
+        kernels.count("int8mm_sm90", "int8mm")
         return out
     if route == "gemv_sm90":
         plan = gemv_sm90_plan(m, k, n, _sm_count(x.device))
@@ -251,8 +250,7 @@ def _cuda_int8_matmul(x, w_q, scale):
                  out.data_ptr(), m, k, n, plan.warps_n, plan.cluster,
                  plan.cta_steps, stream)
         kernels.check(err, "int8mm_gemv_sm90")
-        kernels.LAUNCHES["int8mm_gemv_sm90"] += 1
-        kernels.LAUNCHES["int8mm"] += 1
+        kernels.count("int8mm_gemv_sm90", "int8mm")
         return out
     partial = None
     rows_tile = vec = splits = 1
@@ -273,9 +271,9 @@ def _cuda_int8_matmul(x, w_q, scale):
         stream,
     )
     kernels.check(err, "int8mm")
-    kernels.LAUNCHES["int8mm"] += 1
+    kernels.count("int8mm")
     if route == "gemv":
-        kernels.LAUNCHES["int8mm_gemv"] += 1
+        kernels.count("int8mm_gemv")
     return out
 
 

@@ -39,7 +39,7 @@ Keys (``sampling.py`` holds the plain functions):
 
 ``impl="auto"`` launches the kernel for CUDA tensors and takes the plain
 version (``"torch"``) for CPU tensors; a CUDA tensor never falls back.
-``kernels.LAUNCHES["sample_pick"]`` counts the launches.
+``kernels.count("sample_pick")`` counts the launches.
 """
 
 from __future__ import annotations
@@ -182,7 +182,7 @@ def _cuda_pick(logits, inv_t, top_k, mode, key, fold, seed, serials,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "sample_pick")
-    kernels.LAUNCHES["sample_pick"] += 1
+    kernels.count("sample_pick")
     return out, vals, idx
 
 
