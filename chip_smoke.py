@@ -252,8 +252,35 @@ exits non-zero without a result:
    decode tokens over the arm's wall beside the engine phase's, each
    replica's decode steps and step seconds, the longest step, extents
    shipped and their ms. At tiny fp32 on the card, greedy and sampled:
-   the four arms and a scale-down through the ClaimAutoscaler (a
-   FabricClaims store), each token-identical to one engine's run.
+   the four arms and a scale-down through the ClaimAutoscaler (over
+   tpu_dra_torch.serving.claims.ClaimStore), each token-identical to one
+   engine's run.
+7g. fabric_bench — the port's fabric benches (tpu_dra_torch/serving/
+   fabricbench.py, faultbench.py, disaggbench.py, repack.py) through
+   their own functions on the card, over the default ClaimStore, with no
+   timing bypass set. At tiny fp32: fabricbench.run_fairness_pair (the
+   quiet tenant's TTFT p99 within FAIRNESS_MAX_X of its hot-absent
+   baseline or under FAIRNESS_FLOOR_MS) and run_autoscale_drill;
+   faultbench.run_crash_drill greedy and sampled (the recovery p99 under
+   its 20 s bound) and run_crash_loop_drill; disaggbench.run_parity and
+   run_kill_drill, each with every gate of its own; and one
+   mid-generation migration through FabricRepackAdapter called in the
+   Repacker's order (begin_drain, drain_done, finish_drain, rebind),
+   token-identical to one engine's run, with begin_drain and abort on a
+   second replica that keeps serving. At Llama-3-8B widths, 32 layers,
+   bf16 (one weight tree): fabricbench.run_headline on the smoke's
+   tenant mix over 2 replicas (BENCH_8B_HEADLINE) and
+   disaggbench.run_measure, 2 colocated replicas against 1 prefill + 1
+   decode (BENCH_8B_DISAGG), the Router's watchdog at BENCH_8B_STALL_S:
+   every admitted request completes once;
+   reported: TTFT p50/p99 by tenant, ITL, disagg_vs_colocated_ttft and
+   _itl, token shares, peak concurrency, affinity hits, prefix pages
+   saved, and token agreement with one engine's run. Every arm runs
+   under a BenchWatch (no replica error but an injected ReplicaFault,
+   the Routers' deaths equal the faults injected, every engine's pool
+   whole and zero, each Router's stall watchdog beside the longest
+   replica step) and bench_launch_gate (paged-decode and MLP launches L
+   a decode step over every engine the benches built).
 8. generate — greedy_generate at the same widths, b=8, prompt 256, 32
    new tokens, once in bf16 and once with int8 weights and KV: 32
    contiguous-decode launches per decode step, and 32 fused-MLP (bf16,
@@ -419,6 +446,7 @@ import types
 import numpy as np
 import torch
 
+from tpu_dra_torch.serving.claims import ClaimStore
 from tpu_dra_torch.workloads.enginebench import (
     MetricsRecorder,
     first_difference,
@@ -2511,28 +2539,6 @@ def tiny_migrate(E, cfg, params, trace, ec) -> dict:
     return {arm: True for arm in arms}
 
 
-class FabricClaims:
-    """The claim store the fabric phase's ClaimAutoscaler calls
-    (``try_get``, ``create``, ``delete``): ``create`` marks the claim
-    allocated at once, standing in for the scheduler's packer."""
-
-    def __init__(self):
-        self.store, self.deleted = {}, []
-
-    def create(self, obj: dict) -> dict:
-        obj.setdefault("status", {})["allocation"] = {"devices": {
-            "results": [{"pool": "card-0", "device": "cuda:0"}]}}
-        self.store[obj["metadata"]["name"]] = obj
-        return obj
-
-    def try_get(self, name: str, namespace=None):
-        return self.store.get(name)
-
-    def delete(self, name: str, namespace=None) -> None:
-        self.deleted.append(name)
-        self.store.pop(name, None)
-
-
 def mid_generation(eng) -> bool:
     """A sequence of ``eng`` has emitted tokens and still owes some."""
     return any(s is not None and s.out and s.remaining > 0
@@ -2581,7 +2587,7 @@ def fabric_arm(E, SV, kernels, make_engine, reqs, roles, label, *,
     the kernels and warm cuBLAS, which could outlast the stall
     watchdog). ``fault`` ("crash" or "stall") is armed on the first
     replica with a sequence mid-generation; ``autoscale`` scales down
-    through the ClaimAutoscaler (FabricClaims) once a sequence is
+    through the ClaimAutoscaler (a ClaimStore) once a sequence is
     mid-generation. Raises unless every request completes once with its
     token count; the Router's deaths equal the injected faults and no
     replica has another error (Replica._loop would turn a CUDA error
@@ -2610,7 +2616,7 @@ def fabric_arm(E, SV, kernels, make_engine, reqs, roles, label, *,
                                        stall_deadline_seconds=stall_s))
     claims = scaler = None
     if autoscale:
-        claims = FabricClaims()
+        claims = ClaimStore(device="cuda:0")
         for rep in reps:
             claims.create({"metadata": {"name": rep.claim_name}})
         # Any queued load is under the band: the first tick scales down.
@@ -2823,6 +2829,352 @@ def fabric_phase(E, G, SV, kernels, cfg, params, ec, reqs, want_8b,
     return out, dict(launches)
 
 
+# --- 7g. the fabric benches: the port's own drills over its replicas --------
+
+# The tiny drills' seeds: the benches' own defaults (FABRIC_SEED,
+# FAULT_SEED, DISAGG_SEED).
+BENCH_FABRIC_SEED, BENCH_FAULT_SEED, BENCH_DISAGG_SEED = (
+    20260804, 20260807, 20260807)
+BENCH_NODES, BENCH_SLOTS, BENCH_TIMEOUT_S = 8, 4, 120.0
+BENCH_FAULT_REQUESTS = 36  # faultbench --smoke
+# The 8B arms, cut from the smokes' sizes (fabricbench: 60 requests at
+# 200 rps; disaggbench: 24 at 60 rps) to fit the phase's time.
+BENCH_8B_HEADLINE = (12, 200.0)  # requests, aggregate rps
+BENCH_8B_DISAGG = (8, 60.0)
+# The 8B arms' stall watchdog: the fabric phase's, not the Router's
+# default 5 s (on an H100 80GB HBM3 at 700 W a replica step of these
+# arms took up to 2.41 s, and one of the fabric phase 5.43 s).
+BENCH_8B_STALL_S = FABRIC_STALL_S
+
+
+class BenchWatch:
+    """Watches one call of a bench function (fabricbench, faultbench,
+    disaggbench) from outside: every Engine the benches build (they
+    construct them through their module's ``Engine``), with each step's
+    host seconds; every Fabric; every replica started; every fault
+    injected. On exit, raises unless no replica has an error but an
+    injected ReplicaFault, the Routers' deaths equal the faults
+    injected, and every engine's pool ends whole and zero."""
+
+    def __init__(self, E, SV, modules, label: str):
+        self.E, self.SV, self.modules, self.label = E, SV, modules, label
+        self.engines, self.fabrics, self.replicas = [], [], []
+        self.injected = 0
+        self._saved = []
+
+    def _patch(self, obj, name, value):
+        self._saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def __enter__(self):
+        watch = self
+
+        class Engine(self.E.Engine):
+            def __init__(eng, *a, **kw):
+                super().__init__(*a, **kw)
+                eng.step_seconds = []
+                watch.engines.append(eng)
+
+            def step(eng):
+                t0 = time.perf_counter()
+                busy = super().step()
+                eng.step_seconds.append(time.perf_counter() - t0)
+                return busy
+
+        def recorded(base):
+            class Fabric(base):
+                def __init__(fab, *a, **kw):
+                    super().__init__(*a, **kw)
+                    watch.fabrics.append(fab)
+            return Fabric
+
+        rep_cls = self.SV.router.Replica
+        start, inject = rep_cls.start, rep_cls.inject_fault
+
+        def start_recorded(rep):
+            watch.replicas.append(rep)
+            start(rep)
+
+        def inject_counted(rep, kind):
+            watch.injected += 1
+            inject(rep, kind)
+
+        for mod in self.modules:
+            self._patch(mod, "Engine", Engine)
+            for name in ("Fabric", "DisaggFabric"):
+                if name in vars(mod):
+                    self._patch(mod, name, recorded(getattr(mod, name)))
+        self._patch(rep_cls, "start", start_recorded)
+        self._patch(rep_cls, "inject_fault", inject_counted)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self._saved):
+            setattr(obj, name, value)
+        return False
+
+    def counters(self) -> dict:
+        """Decode steps and single-token prefill buckets over every
+        engine built, the replicas' longest step, and the Routers'
+        watchdog deadlines."""
+        served = [rep.engine for rep in self.replicas]
+        return {
+            "engines": len(self.engines), "replicas": len(self.replicas),
+            "decode_steps": sum(e.decode_steps for e in self.engines),
+            "single_token_buckets": sum(e.prefill_single_token_buckets
+                                        for e in self.engines),
+            "longest_replica_step_s": max(
+                (max(e.step_seconds, default=0.0) for e in served),
+                default=0.0),
+            "stall_deadline_seconds": sorted({
+                f.router.config.stall_deadline_seconds
+                for f in self.fabrics}),
+        }
+
+    def check(self) -> dict:
+        what = f"fabric_bench {self.label}"
+        errors = [(rep.name, repr(rep.error)) for rep in self.replicas
+                  if rep.error is not None and not isinstance(
+                      rep.error, self.SV.faults.ReplicaFault)]
+        deaths = sum(f.router.deaths for f in self.fabrics)
+        alive = [rep.name for rep in self.replicas
+                 if rep._thread is not None and rep._thread.is_alive()]
+        if errors or deaths != self.injected or alive:
+            raise AssertionError(
+                f"{what}: replica errors {errors}, deaths {deaths} "
+                f"({[f.router.death_log for f in self.fabrics]}), "
+                f"{self.injected} faults injected, threads alive {alive}")
+        for i, eng in enumerate(self.engines):
+            if eng.busy:  # a dead replica's engine still holds sequences
+                eng.evacuate()
+            eng.run()
+            pool_whole_and_zero(eng, f"{what} engine {i}")
+        return {"deaths": deaths, "faults_injected": self.injected}
+
+
+def bench_launch_gate(kernels, cfg, label: str, counts: dict) -> dict:
+    """The launches since the last reset against the reckoning: L
+    paged-decode launches a decode step and L decode-MLP launches a
+    decode step or single-token prefill bucket, summed over every engine
+    the bench built (bf16: every MLP call on the tensor-core route)."""
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    L, steps = cfg.n_layers, counts["decode_steps"]
+    want = {"paged_decode_attention": L * steps,
+            "decode_mlp": L * (steps + counts["single_token_buckets"])}
+    if cfg.dtype == torch.bfloat16:
+        want["decode_mlp_sm90"] = want["decode_mlp"]
+    if steps <= 0 or any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"fabric_bench {label}: launches {launches}, "
+                             f"want {want} ({steps} decode steps)")
+    return launches
+
+
+def bench_arm(E, SV, kernels, modules, cfg, label, call) -> tuple:
+    """Run ``call()`` (a bench function) under a BenchWatch with the
+    launch counts set to 0 first; returns (its report, the arm's record,
+    its launches, the watch)."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with BenchWatch(E, SV, modules, label) as watch:
+        report = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = watch.counters()
+    launches = bench_launch_gate(kernels, cfg, label, counts)
+    record = {"seconds": wall, **counts, **watch.check(),
+              "launches": launches}
+    return report, record, launches, watch
+
+
+def repack_drill(E, SV, FB, cfg, params, reqs) -> dict:
+    """One mid-generation migration through FabricRepackAdapter, called
+    in the Repacker's order (tpu_dra/scheduler/repacker.py:723-813:
+    begin_drain, drain_done, finish_drain, then rebind once the claim is
+    committed; the ClaimStore's claim stands for the committed one), on
+    a Fabric of two replicas; then begin_drain and abort on the other
+    replica, which must keep serving. Returns the fabric's completions
+    and the adapter's record."""
+    ec = FB._engine_config(BENCH_SLOTS, max_prompt=10, max_out=40)
+    FB.warm_jit(cfg, params, ec)
+    fab = FB.Fabric(
+        1, [SV.TenantSpec("gold", SV.INTERACTIVE)], cfg, params, ec,
+        SV.RouterConfig(backlog_cap_tokens=1e9,
+                        max_inflight_per_replica=BENCH_SLOTS),
+        SV.AutoscalerConfig(min_replicas=2, max_replicas=2))
+    adapter = SV.FabricRepackAdapter(fab.router, fab._make_replica)
+    state = {"step": "drain", "requeued": None, "moved": None,
+             "aborted": None}
+
+    def mid(rep):
+        return rep.inflight and mid_generation(rep.engine)
+
+    def tick():  # the control thread, as the Repacker's tick runs
+        if state["step"] == "drain":
+            rep = next((r for r in fab.router.replicas if mid(r)), None)
+            if rep is not None:
+                state["moved"] = rep
+                state["key"] = f"{FB.NS}/{rep.claim_name}"
+                adapter.begin_drain(state["key"])
+                state["step"] = "wait"
+        elif state["step"] == "wait" and adapter.drain_done(state["key"]):
+            state["requeued"] = adapter.finish_drain(state["key"])
+            claim = fab.claims.try_get(state["moved"].claim_name, FB.NS)
+            adapter.rebind(state["key"], claim)
+            state["step"] = "abort"
+        elif state["step"] == "abort":
+            rep = next((r for r in fab.router.replicas
+                        if r is not state["moved"] and not r.migrating
+                        and r.claim_name != state["moved"].claim_name
+                        and mid(r)), None)
+            if rep is not None:
+                key = f"{FB.NS}/{rep.claim_name}"
+                adapter.begin_drain(key)
+                adapter.abort(key)
+                state["aborted"] = rep
+                state["step"] = "done"
+
+    try:
+        fab.scale_to(2)
+        trace = [(0.0, "gold", r, f"s{i}") for i, r in enumerate(reqs)]
+        res = fab.drive(trace, timeout=BENCH_TIMEOUT_S, extra_tick=tick)
+        kept = state["aborted"]
+        if (state["step"] != "done" or not state["requeued"]
+                or adapter.rebinds != 1 or adapter.aborts != 1
+                or kept not in fab.router.live_replicas()
+                or kept.quiesced or kept.migrating
+                or state["moved"] in fab.router.replicas
+                or res["submitted"] != len(reqs)
+                or set(fab.router.completions) != {r.rid for r in reqs}
+                or fab.router.duplicates_dropped):
+            raise AssertionError(
+                f"fabric_bench repack: {state}, rebinds {adapter.rebinds}, "
+                f"aborts {adapter.aborts}, {res}, completed "
+                f"{len(fab.router.completions)}")
+        done = dict(fab.router.completions)
+    finally:
+        fab.stop()
+    return done, {"requeued": state["requeued"], "rebinds": adapter.rebinds,
+                  "aborts": adapter.aborts,
+                  "moved_claim": state["moved"].claim_name,
+                  "aborted_claim": state["aborted"].claim_name,
+                  "wall_s": res["wall_s"]}
+
+
+def fabric_bench_phase(E, G, SV, FB, FT, DB, kernels, cfg, params, tiny,
+                       tparams) -> tuple:
+    """The port's fabric benches on the card through their own functions,
+    over the default ClaimStore, with no timing bypass set. At tiny fp32:
+    fabricbench.run_fairness_pair (its gate: FB.fairness_holds) and
+    run_autoscale_drill; faultbench.run_crash_drill greedy and sampled and
+    run_crash_loop_drill; disaggbench.run_parity and run_kill_drill; one
+    migration and one abort through FabricRepackAdapter (repack_drill).
+    At 8B widths (``params``, one tree for every replica), bf16:
+    fabricbench.run_headline on the smoke's tenant mix and
+    disaggbench.run_measure, cut to BENCH_8B_HEADLINE and BENCH_8B_DISAGG,
+    each with token agreement against one engine's run. Every arm runs
+    under a BenchWatch and bench_launch_gate. Returns (report, launches
+    summed over the arms)."""
+    modules = (FB, FT, DB)
+    launches = collections.Counter()
+    out = {"tiny_fp32": {}, "llama3_8b_bf16": {}}
+
+    def arm(group, label, model, call):
+        report, record, arm_launches, watch = bench_arm(
+            E, SV, kernels, modules, model, label, call)
+        launches.update(arm_launches)
+        out[group][label] = {"report": report, **record}
+        return report, watch
+
+    def repack_call():
+        done, rec = repack_drill(E, SV, FB, t, tp, rreqs)
+        held["repack"] = done
+        return rec
+
+    t, tp, n = tiny, tparams, BENCH_NODES
+    fair, _ = arm("tiny_fp32", "fairness_pair", t, lambda: FB.run_fairness_pair(
+        t, tp, n, 2, BENCH_FABRIC_SEED, BENCH_SLOTS, BENCH_TIMEOUT_S))
+    out["tiny_fp32"]["fairness_pair"]["bound"] = {
+        "quiet_p99_x": fair["quiet_p99_x"], "max_x": FB.FAIRNESS_MAX_X,
+        "quiet_p99_ms": fair["quiet_p99_ms"],
+        "floor_ms": FB.FAIRNESS_FLOOR_MS}
+    if not FB.fairness_holds(fair):
+        raise AssertionError(f"fabric_bench fairness: {fair}")
+    arm("tiny_fp32", "autoscale", t, lambda: FB.run_autoscale_drill(
+        t, tp, n, BENCH_FABRIC_SEED, BENCH_TIMEOUT_S))
+    for label, seed, temp in (("crash_greedy", BENCH_FAULT_SEED, 0.0),
+                              ("crash_sampled", BENCH_FAULT_SEED + 1, 0.8)):
+        rep, _ = arm("tiny_fp32", label, t, lambda: FT.run_crash_drill(
+            t, tp, n, BENCH_FAULT_REQUESTS, seed, BENCH_TIMEOUT_S,
+            temperature=temp))
+        out["tiny_fp32"][label]["bound"] = {
+            "recovery_p99_ms": rep["recovery_p99_ms"],
+            "recovery_bound_ms": 20000.0}
+    arm("tiny_fp32", "crash_loop", t, lambda: FT.run_crash_loop_drill(
+        t, tp, n, BENCH_FAULT_SEED, BENCH_TIMEOUT_S))
+    arm("tiny_fp32", "disagg_parity", t, lambda: DB.run_parity(
+        t, tp, n, BENCH_SLOTS, BENCH_DISAGG_SEED, BENCH_TIMEOUT_S))
+    arm("tiny_fp32", "disagg_kill", t, lambda: DB.run_kill_drill(
+        t, tp, n, BENCH_SLOTS, BENCH_DISAGG_SEED, BENCH_TIMEOUT_S))
+    rng = np.random.default_rng(BENCH_FABRIC_SEED)
+    rreqs = [E.Request(rid=f"mv-{i:02d}", prompt=rng.integers(
+        1, t.vocab_size, 8).astype(np.int32), max_new_tokens=40)
+        for i in range(8)]
+    held = {}
+    arm("tiny_fp32", "repack", t, repack_call)
+    want = E.Engine(t, tp, FB._engine_config(BENCH_SLOTS, 10, 40)).run(
+        [dataclasses.replace(r) for r in rreqs])
+    where = first_difference(held["repack"], want)
+    if where is not None:
+        raise AssertionError(f"fabric_bench repack: differs first at {where}")
+    out["tiny_fp32"]["repack"]["identical"] = True
+
+    # Llama-3-8B widths, bf16: the headline and colocated vs disagg.
+    mix = FB.smoke_mix(*BENCH_8B_HEADLINE)
+    _, watch = arm("llama3_8b_bf16", "headline", cfg,
+                   lambda: FB.run_headline(
+                       cfg, params, n, 2, mix, BENCH_FABRIC_SEED, 1e5,
+                       BENCH_SLOTS, BENCH_TIMEOUT_S,
+                       stall_deadline_seconds=BENCH_8B_STALL_S))
+    trace = FB.make_fabric_trace(BENCH_FABRIC_SEED, mix, cfg.vocab_size)
+    got = dict(watch.fabrics[0].router.completions)
+    max_p = max(max(tt.prompt_lens) for tt in mix)
+    max_o = max(max(tt.output_lens) for tt in mix)
+    ref = E.Engine(cfg, params, FB._engine_config(BENCH_SLOTS, max_p, max_o)
+                   ).run([dataclasses.replace(r) for _, _, r, _ in trace])
+    out["llama3_8b_bf16"]["headline"]["vs_engine"] = pair_report(
+        G, cfg, params, [(r.rid, r.prompt, r.max_new_tokens)
+                         for _, _, r, _ in trace], got, ref)
+    nreq, rate = BENCH_8B_DISAGG
+    meas, watch = arm("llama3_8b_bf16", "measure", cfg,
+                      lambda: DB.run_measure(
+                          cfg, params, n, 2, 1, nreq, rate, BENCH_SLOTS,
+                          BENCH_DISAGG_SEED, BENCH_TIMEOUT_S,
+                          stall_deadline_seconds=BENCH_8B_STALL_S))
+    dtrace = DB.make_disagg_trace(
+        BENCH_DISAGG_SEED, requests=nreq, rate_rps=rate,
+        vocab=cfg.vocab_size, prompt_lens=[24, 32, 48],
+        output_lens=[8, 12, 16])
+    ref = E.Engine(cfg, params, FB._engine_config(BENCH_SLOTS, 48, 16)).run(
+        [dataclasses.replace(r) for _, _, r, _ in dtrace])
+    rows = [(r.rid, r.prompt, r.max_new_tokens) for _, _, r, _ in dtrace]
+    for side, fab in zip(("colocated", "disagg"), watch.fabrics):
+        out["llama3_8b_bf16"]["measure"][f"{side}_vs_engine"] = pair_report(
+            G, cfg, params, rows, dict(fab.router.completions), ref)
+    dis, col = meas["disagg"], meas["colocated"]
+    out["llama3_8b_bf16"]["measure"].update(
+        disagg_vs_colocated_ttft=dis["ttft_p99_ms"] / max(
+            col["ttft_p99_ms"], 1e-9),
+        disagg_vs_colocated_itl=dis["itl_p99_ms"] / max(
+            col["itl_p99_ms"], 1e-9))
+    out["llama3_8b_bf16"]["cuts"] = {
+        "headline": {"requests": BENCH_8B_HEADLINE[0],
+                     "rate_rps": BENCH_8B_HEADLINE[1],
+                     "smoke_requests": 60},
+        "measure": {"requests": nreq, "rate_rps": rate,
+                    "smoke_requests": 24}}
+    return out, dict(launches)
+
+
 def copy_page_cost(P, cache) -> dict:
     """One copy-on-write fork (paged_kv.copy_page) on the engine's
     pools: its launches (the CUDA runtime's launch and copy calls) and
@@ -2913,12 +3265,14 @@ def aliased_table_parity(A, P, Q, gen, int8: bool) -> dict:
 # The bench_serve phase: run_serve_bench at Llama-3-8B widths, SERVE_RUNS
 # times, over SERVE_ENV (the JAX defaults otherwise: rate 1000 rps,
 # prompts 16/64/128/256, outputs 8/32/96/192, page 16, chunk 8, T 0.8,
-# top-k 40, spec_k 6, a prefix fleet of 8). 8 requests, not 16, and two
-# runs, not three, to keep the phase near ~150 s: one 16-request run took
-# 72 s on an H100 80GB HBM3 at 700 W, an 8-request run 63-80 s. The spec
-# arm and its lookup baseline run a cut lookup trace: a verify pass is
-# plain PyTorch, ~25K launches at the full trace's contexts.
-SERVE_RUNS = 2
+# top-k 40, spec_k 6, a prefix fleet of 8). 8 requests, not 16, and one
+# run, not three: one 16-request run took 72 s on an H100 80GB HBM3 at
+# 700 W, an 8-request run 50-96 s, and the second run made room for the
+# fabric_bench phase (the spread of several runs is the first cell's to
+# measure). The spec arm and its lookup baseline run a cut lookup trace:
+# a verify pass is plain PyTorch, ~25K launches at the full trace's
+# contexts.
+SERVE_RUNS = 1
 SERVE_ENV = {
     "BENCH_SERVE_REQUESTS": "8", "BENCH_SERVE_BATCH": "8",
     "BENCH_SPEC_REQUESTS": "4", "BENCH_SPEC_PROMPTS": "16,64",
@@ -3726,6 +4080,9 @@ def main() -> int:
         sys.path.insert(0, REPO)
     import tpu_dra_torch.serving as SV
     from tpu_dra_torch import kernels
+    from tpu_dra_torch.serving import disaggbench as SDB
+    from tpu_dra_torch.serving import fabricbench as SFB
+    from tpu_dra_torch.serving import faultbench as SFT
     from tpu_dra_torch.workloads import bootstrap as BS
     from tpu_dra_torch.workloads import decodebench as DB
     from tpu_dra_torch.workloads import engine as E
@@ -4651,6 +5008,20 @@ def main() -> int:
                  "ttft_p50_s": summary["ttft_p50_s"]},
          **fabric)
 
+    # --- 7g. the fabric benches: the port's drills over its replicas --------
+    t_bench = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    fbench, fbench_launches = fabric_bench_phase(
+        E, G, SV, SFB, SFT, SDB, kernels, cfg, params, tiny, tparams)
+    del params
+    torch.cuda.empty_cache()
+    emit("fabric_bench", nvidia_smi=smi,
+         model="tiny fp32 (the drills); LLAMA3_8B widths, 32 layers, bf16, "
+               "random weights (the headline and colocated vs disagg)",
+         claim_layer="tpu_dra_torch.serving.claims.ClaimStore",
+         seconds=time.perf_counter() - t_bench, launches=fbench_launches,
+         **fbench)
+
     # --- 8. greedy_generate at Llama-3-8B widths -----------------------------
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     b, s, new = 8, 256, 32
@@ -4779,6 +5150,7 @@ def main() -> int:
          engine_launches["paged_decode_attention"]
          + sharded_launches["paged_decode_attention"]
          + fabric_launches.get("paged_decode_attention", 0)
+         + fbench_launches.get("paged_decode_attention", 0)
          + bench_launches.get("paged_decode_attention", 0)),
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
@@ -4786,6 +5158,7 @@ def main() -> int:
          + sharded_launches["decode_mlp_sm90"]
          + gen_sharded_launches["decode_mlp_sm90"]
          + fabric_launches.get("decode_mlp_sm90", 0)
+         + fbench_launches.get("decode_mlp_sm90", 0)
          + bench_launches.get("decode_mlp_sm90", 0)
          + boot_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
@@ -4859,7 +5232,8 @@ def main() -> int:
         "replaces": "tpu_dra/workloads/generate.py:559",
         "launches": sampled_launches["sample_pick"]
         + bench_launches.get("sample_pick", 0)
-        + fabric_launches.get("sample_pick", 0),
+        + fabric_launches.get("sample_pick", 0)
+        + fbench_launches.get("sample_pick", 0),
         "max_abs_err": max(c["max_abs_err"] for c in pick_cases.values()),
         "ms": pick["ms"], "plain_ms": pick["plain_ms"],
         "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],

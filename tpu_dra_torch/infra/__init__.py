@@ -2,6 +2,9 @@
 
 Copies of parts of ``tpu_dra/infra/`` (the port imports nothing of the
 JAX package): :mod:`.deadline` (the budgets behind the Router's stall
-watchdog), :mod:`.trace` (the request spans and the flight recorder)
-and :mod:`.lockdep` (the single-owner role check).
+watchdog), :mod:`.trace` (the request spans and the flight recorder),
+:mod:`.lockdep` (the single-owner role check), :mod:`.metrics` (the
+registry the fabric benches give the Router, the autoscaler and the
+replicas) and :mod:`.chaos` (the fault schedules the fault drills
+replay).
 """

@@ -14,7 +14,18 @@ through the calls the JAX tier makes of its engine.
   the re-dispatch backoff;
 - :mod:`tpu_dra_torch.serving.autoscaler` — claim-driven autoscaling:
   the replica set grows by CREATING ResourceClaims and shrinks by
-  evacuating an engine BEFORE its ResourceClaim is deleted.
+  evacuating an engine BEFORE its ResourceClaim is deleted;
+- :mod:`tpu_dra_torch.serving.claims` — the claim layer the fabric runs
+  on by default (:class:`ClaimStore`, which allocates every claim at
+  once) and :func:`make_claim`;
+- :mod:`tpu_dra_torch.serving.repack` — the serving half of a repacker
+  migration (:class:`FabricRepackAdapter`);
+- :mod:`tpu_dra_torch.serving.fabricbench`,
+  :mod:`~tpu_dra_torch.serving.faultbench` and
+  :mod:`~tpu_dra_torch.serving.disaggbench` — the tier's benches and
+  drills: TTFT per tenant, WFQ fairness, claim-driven scale-up and
+  lossless scale-down; crash, stall and crash-loop recovery; the
+  prefill→decode handoff and colocated against disaggregated latency.
 """
 
 from tpu_dra_torch.serving.router import (  # noqa: F401
@@ -31,4 +42,12 @@ from tpu_dra_torch.serving.router import (  # noqa: F401
 from tpu_dra_torch.serving.autoscaler import (  # noqa: F401
     AutoscalerConfig,
     ClaimAutoscaler,
+)
+from tpu_dra_torch.serving.claims import (  # noqa: F401
+    ClaimStore,
+    make_claim,
+)
+from tpu_dra_torch.serving.repack import (  # noqa: F401
+    FabricRepackAdapter,
+    ServingAdapter,
 )
