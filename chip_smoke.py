@@ -96,7 +96,14 @@ exits non-zero without a result:
    kernel it replaced on this route) on the same inputs, each pass's
    device time from torch.profiler, and as the library yardstick a chain
    of PyTorch library calls for the same block (rms_norm, three cuBLAS
-   GEMMs, silu, mul, add: a chain, not one call). The flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
+   GEMMs, silu, mul, add: a chain, not one call). The MLP's two halves
+   on a model shard (mlp_halves: 3 rows, one of 2 column blocks, fp32 on
+   decode_mlp.cu and bf16 on decode_mlp_sm90.cu, as engine_sharded's
+   world-2 ranks run them), each held against its plain half, the
+   gate/up half's act against the same columns of the whole gate/up
+   half and the down half against the fused kernel bit for bit, with
+   its plain half's time and, for the down half, torch.addmm's (the one
+   library call for x + act · w_down). The flash kernels at b=2, s=2048, causal, bf16, with SDPA's forward and
    its backward (the dQ + dK/dV pair) as the library yardsticks, each
    with achieved TFLOP/s and share of the bound; each flash row also
    times the WMMA kernel it replaced, on the same inputs, and the dK/dV
@@ -302,11 +309,24 @@ exits non-zero without a result:
    Llama-3-8B widths cut to 2 layers, fp32, weights from one seeded
    CUDA generator: the (1, 2) mesh's greedy_generate and engine (greedy
    and sampled) tokens identical to the unsharded runs of the same
-   plain config on both ranks, else the first decode step's logits at
-   cosine >= 0.9999998 (SHARDED_FP32_COSINE), recorded; the gathers a
-   decode step, their host ms, the decode ms a step, the logit cosine
-   and whether a column block of an fp32 product equals those columns
-   of the full product bit for bit. In the same launch, live migration
+   config on both ranks, else the first decode step's logits at
+   cosine >= 0.9999998 (SHARDED_FP32_COSINE), recorded; the config is
+   kept on a shard, so each rank runs the kernels: the paged or
+   contiguous decode attention on its heads (planned as the unsharded
+   heads') and the fused MLP as its two halves around the gather of
+   silu(gate)·up (decode_mlp.cu's in fp32), each engine arm's launches
+   at their reckoned counts (a layer of a decode step: one attention
+   call, one gate/up and one down launch) and 0 plain calls of a
+   kernel-capable op on the card, gathered from both ranks into the
+   kernel line; each rank's heads and act columns of the kernels bit
+   for bit the unsharded calls' and the down half the fused kernel's
+   output (shardbench kernel_shard_check, fp32 and bf16); a bf16 engine
+   arm (the tensor-core halves) whose first decode step's logits reach
+   BF16_COSINE against the unsharded bf16 engine's (its tokens
+   reported); the gathers a decode step, their host ms, the decode ms a
+   step, the logit cosine and whether a column block of an fp32 product
+   equals those columns of the full product bit for bit. In the same
+   launch, live migration
    at world 2 (shardbench's ``migrate``): the first decoding sequence
    exported from the (1, 2) engine, its pools' kv-head blocks gathered
    over the model axis (2 gathers: k and v), holds each rank's pool
@@ -1474,6 +1494,94 @@ def mlp_pass_profile(call, flush, reps: int = 20) -> dict:
             out[f"{name}_us"] = dev_us / ev.count
             out[f"{name}_launches_per_call"] = ev.count / reps
     return out or {"profile": "not measured: no device time recorded"}
+
+
+# The MLP's halves as engine_sharded's world-2 ranks run them: the
+# engine's slots and a model axis of 2.
+MLP_HALF_ROWS, MLP_HALF_SHARDS = 3, 2
+
+
+def mlp_halves(DM, gen, rates, flush) -> dict:
+    """The decode MLP's two halves on a model shard (ops/decode_mlp.py
+    ``mlp_gate_up`` / ``mlp_down``) at Llama-3-8B widths, MLP_HALF_ROWS
+    rows, one of MLP_HALF_SHARDS column blocks, in fp32 (decode_mlp.cu)
+    and bf16 (decode_mlp_sm90.cu): each against its plain half on the
+    same inputs (fp32 at FP32_REL, bf16 at the bf16 bar); the gate/up
+    half's act against the same columns of the whole gate/up half and
+    the down half against the fused kernel, bit for bit; then each
+    kernel's time, its plain half's, a library call's where one computes
+    the same function (down: ``torch.addmm``), and its bound. Returns
+    {counter name: row}."""
+    out = {}
+    for dtype, prefix, route in ((torch.float32, "decode_mlp", "simt"),
+                                 (torch.bfloat16, "decode_mlp_sm90", "sm90")):
+        x, scale, tree = mlp_inputs(gen, MLP_HALF_ROWS)
+        x, scale = x.to(dtype), scale.to(dtype)
+        tree = {k: {"kernel": v["kernel"].to(dtype)} for k, v in tree.items()}
+        b, d = x.shape
+        ffn = tree["w_gate"]["kernel"].shape[1]
+        cols = ffn // MLP_HALF_SHARDS
+        shard = dict(tree, **{n: {"kernel": tree[n]["kernel"][:, :cols]
+                                  .contiguous()}
+                              for n in ("w_gate", "w_up")})
+        wd = tree["w_down"]["kernel"]
+        whole = DM.mlp_gate_up(x, scale, tree, 1e-5, impl="cuda")
+        routes = (DM._gate_up_route(x, shard["w_gate"]["kernel"],
+                                    shard["w_up"]["kernel"], ffn),
+                  DM._down_route(x, whole, wd))
+        if routes != (route, route):
+            raise AssertionError(f"{prefix} halves: routes {routes}, want "
+                                 f"{route}")
+        act = DM.mlp_gate_up(x, scale, shard, 1e-5, ffn=ffn, impl="cuda")
+        plain_act = DM.mlp_gate_up(x, scale, shard, 1e-5, impl="torch")
+        got = DM.mlp_down(x, whole, tree, impl="cuda")
+        plain = DM.mlp_down(x, whole, tree, impl="torch")
+        fused = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
+        torch.cuda.synchronize()
+        held = compare_fp32 if dtype == torch.float32 else compare
+        es = x.element_size()
+        ops_rates = (rates[0], rates[2]) if dtype == torch.float32 else rates
+        for half, call, plain_call, library, nbytes, flops, par in (
+            ("gate_up",
+             functools.partial(DM.mlp_gate_up, x, scale, shard, 1e-5,
+                               ffn=ffn, impl="cuda"),
+             lambda: DM.mlp_gate_up(x, scale, shard, 1e-5, impl="torch"),
+             None, (2 * d * cols + b * d + d + b * cols) * es,
+             2 * 2 * b * d * cols,
+             {"vs_plain": held(f"{prefix}_gate_up vs plain", act, plain_act),
+              "columns_bit_identical": bool(torch.equal(
+                  act, whole[:, :cols]))}),
+            ("down",
+             functools.partial(DM.mlp_down, x, whole, tree, impl="cuda"),
+             lambda: DM.mlp_down(x, whole, tree, impl="torch"),
+             lambda: torch.addmm(x, whole, wd),
+             (ffn * d + b * ffn + 2 * b * d) * es, 2 * b * ffn * d,
+             {"vs_plain": held(f"{prefix}_down vs plain", got, plain),
+              "fused_bit_identical": bool(torch.equal(got, fused))}),
+        ):
+            if not all(v for k, v in par.items() if k.endswith("identical")):
+                raise AssertionError(f"{prefix}_{half}: not the unsharded "
+                                     f"kernel's bits: {par}")
+            ms = time_ms(call, flush)
+            lib = None if library is None else yardstick_ms(library, flush)
+            row = {
+                "shape": f"B={b}, d={d}, ffn={ffn}, a shard of {cols} "
+                         f"columns, {str(dtype).split('.')[-1]}",
+                "route": route, "parity": par, "ms": ms,
+                "ms_with_host": time_ms(call, flush, shield=False),
+                "plain_ms": time_ms(plain_call, flush),
+                "library_ms": lib if isinstance(lib, float) else None,
+                **bound(nbytes, flops, ops_rates),
+            }
+            if half == "gate_up":
+                row["library_note"] = (
+                    "no one PyTorch call: rms_norm, two GEMMs, silu and mul")
+            elif not isinstance(lib, float):
+                row["library_note"] = lib
+            row["share_of_bound"] = row["bound_ms"] / ms
+            out[f"{prefix}_{half}"] = row
+        del x, scale, tree, shard, whole, act, plain_act, got, plain, fused
+    return out
 
 
 def sm90_build(kernels, report) -> dict:
@@ -3717,14 +3825,22 @@ def sharded_world1_generate(BS, G, MS, kernels, cfg, params, prompt, new,
     return rep, launches
 
 
-def sharded_world2_card(R) -> dict:
+#: The world-2 ranks' sharded engine arms (fp32 greedy and sampled, the
+#: bf16 arm) whose decode kernel launches shardbench reckons.
+SHARDED_ENGINE_ARMS = ("engine_greedy", "engine_sampled", "engine_bf16")
+
+
+def sharded_world2_card(R) -> tuple:
     """shardbench as two ranks sharing the card over gloo (NCCL puts no
     two ranks on one GPU), from rendered config dirs, at Llama-3-8B
     widths cut to 2 layers in fp32: the world's (1, 2) mesh against the
     unsharded runs of the same config, greedy_generate and the engine
-    (greedy and sampled). gloo takes the CUDA tensors of the gathers;
-    ``host_staged`` records whether a profiler trace of one gather shows
-    it copying them through host memory (None: the trace saw no copy)."""
+    (greedy and sampled), the kernels running on each rank's shard; the
+    bf16 engine arm; the kernels' shards against the unsharded calls.
+    gloo takes the CUDA tensors of the gathers; ``host_staged`` records
+    whether a profiler trace of one gather shows it copying them through
+    host memory (None: the trace saw no copy). Returns (report, the
+    launches of both ranks' sharded runs, summed by counter)."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as root:
@@ -3752,7 +3868,30 @@ def sharded_world2_card(R) -> dict:
     if not (mig["imported"] and mig["lossless"] and mig["same_sequence"]
             and mig["tokens_identical"] and mig["export_gathers"] == 2):
         raise AssertionError(f"engine_sharded world 2 migration: {mig}")
-    return rep
+    # Each rank's arms: the decode kernels at their reckoned counts and
+    # no plain call on the card (shardbench exits nonzero otherwise);
+    # the kernels' shards bit for bit the unsharded calls'.
+    launches = collections.Counter()
+    by_rank = rep["launches_by_rank"]
+    for rank, runs in enumerate(by_rank):
+        for arm, run in runs.items():
+            launches.update(run["launches"])
+            if run["plain_on_card"] or (arm in SHARDED_ENGINE_ARMS and not (
+                    run.get("reckoned_launches")
+                    and all(run["launches"].get(k) == v
+                            for k, v in run["reckoned_launches"].items()))):
+                raise AssertionError(f"engine_sharded world 2 rank {rank} "
+                                     f"{arm}: {run}")
+    if len(by_rank) != 2 or not all(set(SHARDED_ENGINE_ARMS) <= set(runs)
+                                    for runs in by_rank):
+        raise AssertionError(f"engine_sharded world 2 arms: {by_rank}")
+    ks = rep["kernel_shard_check"]
+    bf16 = rep["engine_bf16"]
+    if not (all(ks["bit_identical"].values())
+            and bf16["first_step_logit_cosine"] >= BF16_COSINE):
+        raise AssertionError(f"engine_sharded world 2 kernels: {ks}, bf16 "
+                             f"arm {bf16}")
+    return rep, launches
 
 
 # --- train_sharded: sharded Llama training on the one card --------------------
@@ -4354,6 +4493,7 @@ def main() -> int:
     row["replaced_over_kernel"] = old_ms / ms
     row["plain_over_kernel"] = plain_ms / ms
     del x, scale, tree, ws
+    timing.update(mlp_halves(DM, gen, rates, flush))
     # The tensor-core GEMV at every decode shape (M = 8 slots): gate and
     # up, the lm_head, wq and wo, wk and wv, down; int8mm.cu's GEMV, the
     # kernel it replaced on this route, on the same inputs.
@@ -5088,7 +5228,7 @@ def main() -> int:
 
     # --- 8a. sharded decode: world 1 above, world 2 on the one card --------
     t0 = time.perf_counter()
-    sharded["world2_gloo"] = sharded_world2_card(rank_launcher())
+    sharded["world2_gloo"], w2_launches = sharded_world2_card(rank_launcher())
     sharded["world2_seconds"] = time.perf_counter() - t0
     w2 = sharded["world2_gloo"]
     if not w2["tokens_identical"]:
@@ -5149,6 +5289,7 @@ def main() -> int:
          parity["paged_decode_attention"], timing["paged_decode_attention"],
          engine_launches["paged_decode_attention"]
          + sharded_launches["paged_decode_attention"]
+         + w2_launches["paged_decode_attention"]
          + fabric_launches.get("paged_decode_attention", 0)
          + fbench_launches.get("paged_decode_attention", 0)
          + bench_launches.get("paged_decode_attention", 0)),
@@ -5178,6 +5319,7 @@ def main() -> int:
          timing["decode_attention"],
          sum(v["decode_attention"] for v in gen_launches.values())
          + gen_sharded_launches["decode_attention"]
+         + w2_launches["decode_attention"]
          + bench_launches.get("decode_attention", 0)
          + boot_launches["decode_attention"]),
         ("paged_decode_attention_int8", "tpu_dra_torch/csrc/paged_decode.cu",
@@ -5186,6 +5328,16 @@ def main() -> int:
          timing["paged_decode_attention_int8"],
          w8_launches["paged_decode_attention_int8"]
          + bench_launches.get("paged_decode_attention_int8", 0)),
+    ) + tuple(
+        # The fused MLP's halves on a model shard: the world-2 ranks'.
+        (name, f"tpu_dra_torch/csrc/{source}",
+         "tpu_dra/workloads/ops/decode_mlp.py:102", timing[name]["parity"],
+         timing[name], w2_launches[name])
+        for name, source in (
+            ("decode_mlp_gate_up", "decode_mlp.cu"),
+            ("decode_mlp_down", "decode_mlp.cu"),
+            ("decode_mlp_sm90_gate_up", "decode_mlp_sm90.cu"),
+            ("decode_mlp_sm90_down", "decode_mlp_sm90.cu"))
     ) + tuple(
         (name, f"tpu_dra_torch/csrc/{source}",
          f"tpu_dra/workloads/ops/attention.py:{line}",
@@ -5217,6 +5369,8 @@ def main() -> int:
             rows[-1].update(counter="decode_mlp_sm90",
                             replaced_kernel_ms=t["replaced_kernel_ms"],
                             library_note=t["library_note"])
+        if "library_note" in t and name.startswith("decode_mlp_"):
+            rows[-1]["library_note"] = t["library_note"]
         if name.startswith("int8mm"):
             rows[-1]["serves"] = {
                 "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 16 (decode steps, "

@@ -128,20 +128,22 @@ def test_decode_param_shardings_tree_of_converted_weights(jax_params):
 
 
 def test_sharded_safe_config_identity_at_1x1_and_plain_beyond():
+    """The port keeps its config over (1, 1) and (1, 2), so each op's
+    "auto" picks the kernel on a CUDA tensor and the plain version on
+    the CPU; JAX keeps it at (1, 1) and forces XLA on the same four
+    fields over (1, 2) (a Pallas call has no partitioning rule) — a
+    deliberate divergence."""
     mesh1 = _port_mesh(1, 1)
     assert TM.sharded_safe_config(TINY_LLAMA, mesh1) is TINY_LLAMA
     assert JM.sharded_safe_config(JAX_TINY, _jax_mesh(1, 1)) is JAX_TINY
-    safe = TM.sharded_safe_config(TINY_LLAMA, _port_mesh(1, 2))
+    assert TM.sharded_safe_config(TINY_LLAMA, _port_mesh(1, 2)) is TINY_LLAMA
     jsafe = JM.sharded_safe_config(JAX_TINY, _jax_mesh(1, 2))
-    changed = {f.name for f in dataclasses.fields(safe)
-               if getattr(safe, f.name) != getattr(TINY_LLAMA, f.name)}
     jchanged = {f.name for f in dataclasses.fields(jsafe)
                 if getattr(jsafe, f.name) != getattr(JAX_TINY, f.name)}
-    assert changed == jchanged == {"attention_impl", "decode_impl",
-                                   "decode_mlp_impl", "paged_decode_impl"}
-    # JAX's XLA path is the port's plain PyTorch one.
+    assert jchanged == {"attention_impl", "decode_impl", "decode_mlp_impl",
+                        "paged_decode_impl"}
     assert all(getattr(jsafe, f) == "xla" for f in jchanged)
-    assert all(getattr(safe, f) == "torch" for f in changed)
+    assert all(getattr(TINY_LLAMA, f) == "auto" for f in jchanged)
 
 
 @pytest.mark.parametrize("shape", MESH_SHAPES,
@@ -238,14 +240,139 @@ def test_shard_cuts_contiguous_column_blocks_and_int8_scales():
         "layer_0"]["mlp"]["w_up"]["kernel_q"].data_ptr()
 
 
+class _ShardPair:
+    """A (1, 2) mesh seen from coordinate 0 whose model gather appends
+    coordinate 1's act, computed by the plain gate/up half over its own
+    column block: the split route without a process group."""
+
+    shape = {"batch": 1, "model": 2}
+
+    def __init__(self, x, scale, other, eps):
+        self.other = TDM._torch_gate_up(x, scale, other, eps)
+        self.gathered = []
+
+    def gather_model(self, act, dim=-1):
+        self.gathered.append(act)
+        return torch.cat([act, self.other], dim=dim)
+
+
+def _column_blocks(mlp, m):
+    n = mlp["w_gate"]["kernel"].shape[1] // m
+    return [dict(mlp, **{k: {"kernel": mlp[k]["kernel"][:, j * n:(j + 1) * n]
+                             .contiguous()} for k in ("w_gate", "w_up")})
+            for j in range(m)]
+
+
 def test_decode_mlp_takes_only_the_plain_chain_on_a_model_shard():
-    mesh = _port_mesh(1, 2)
-    x = torch.ones(2, 4)
-    mlp = {n: {"kernel": torch.ones(4, 4)} for n in ("w_gate", "w_up",
-                                                     "w_down")}
-    for impl in ("auto", "cuda", "reference"):
-        with pytest.raises(ValueError, match="model shard"):
-            TDM.decode_mlp(x, torch.ones(4), mlp, 1e-5, impl=impl, mesh=mesh)
+    """On a model shard ``decode_mlp`` takes the split route: on the CPU
+    ("auto" and "torch") the plain gate/up half, the model gather, then
+    the plain down half — the unsharded chain's output; "cuda" on a CPU
+    tensor raises as at world 1; "reference" (no gather) raises."""
+    g = torch.Generator().manual_seed(3)
+    x, scale = torch.randn(3, 8, generator=g), 1 + torch.randn(8, generator=g)
+    mlp = {"w_gate": {"kernel": torch.randn(8, 12, generator=g)},
+           "w_up": {"kernel": torch.randn(8, 12, generator=g)},
+           "w_down": {"kernel": torch.randn(12, 8, generator=g)}}
+    whole = TDM.decode_mlp(x, scale, mlp, 1e-5, impl="torch")
+    mine, other = _column_blocks(mlp, 2)
+    for impl in ("auto", "torch"):
+        mesh = _ShardPair(x, scale, other, 1e-5)
+        got = TDM.decode_mlp(x, scale, mine, 1e-5, impl=impl, mesh=mesh)
+        assert TDM._LAST_DECODE_MLP_IMPL == "torch"
+        assert [tuple(a.shape) for a in mesh.gathered] == [(3, 6)]
+        torch.testing.assert_close(got, whole, rtol=1e-6, atol=1e-6)
+    mesh = _ShardPair(x, scale, other, 1e-5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        TDM.decode_mlp(x, scale, mine, 1e-5, impl="cuda", mesh=mesh)
+    with pytest.raises(ValueError, match="CUDA device"):
+        TDM.decode_mlp(x, scale, mlp, 1e-5, impl="cuda")  # world 1 alike
+    with pytest.raises(ValueError, match="model shard"):
+        TDM.decode_mlp(x, scale, mine, 1e-5, impl="reference", mesh=mesh)
+    assert not mesh.gathered
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_plain_halves_over_column_blocks_match_jax_decode_mlp(jax_params, m):
+    """The two plain halves, the gate/up half over each of m column
+    blocks of layer 0's MLP and the down half over their concatenation,
+    are JAX's ``decode_mlp(impl="xla")`` at fp32 within 1e-5."""
+    from tpu_dra.workloads.ops.decode_mlp import decode_mlp as jax_decode_mlp
+
+    port = params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params),
+                             TCFG, device="cpu").tree()
+    layer = port["layer_0"]
+    mlp, scale = layer["mlp"], layer["mlp_norm"]["scale"]
+    x = np.random.default_rng(5).standard_normal(
+        (3, TCFG.dim)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    act = torch.cat([TDM.mlp_gate_up(xt, scale, blk, TCFG.norm_eps)
+                     for blk in _column_blocks(mlp, m)], dim=-1)
+    got = TDM.mlp_down(xt, act, mlp)
+    # Layer 0 of the JAX tree (stacked over layers), as converted.
+    jmlp = {k: {"kernel": jnp.asarray(v["kernel"].numpy())}
+            for k, v in mlp.items()}
+    want = np.asarray(jax_decode_mlp(
+        jnp.asarray(x), jnp.asarray(scale.numpy()), jmlp, JCFG.norm_eps,
+        impl="xla"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 16])
+@pytest.mark.parametrize("m", [2, 4])
+def test_shard_gate_up_plan_keeps_the_unsharded_k_split(b, m):
+    """The sm90 gate/up half of a shard of ffn / m columns at Llama-3-8B
+    widths on an H100's 132 SMs is the unsharded pass (its width, K
+    split and ring) over a grid of the shard's columns, where the
+    shard's own plan would sum in another order."""
+    d, ffn, sms = LLAMA3_8B.dim, LLAMA3_8B.ffn_dim, 132
+    whole = TDM.mlp_sm90_plan(b, d, ffn, sms).gate_up
+    plan = TDM.shard_gate_up_plan(b, d, ffn // m, ffn, sms)
+    assert plan._replace(col_ctas=whole.col_ctas) == whole
+    assert plan.col_ctas == -(-(ffn // m) // plan.width)
+    own = TDM.mlp_sm90_plan(b, d, ffn // m, sms).gate_up
+    assert (own.width, own.warps_k, own.cluster, own.cta_steps) != (
+        plan.width, plan.warps_k, plan.cluster, plan.cta_steps)
+
+
+@pytest.mark.parametrize("b,key_range", [(1, 40), (3, 640), (8, 1024),
+                                         (8, 8192)])
+@pytest.mark.parametrize("m", [2, 4])
+def test_shard_decode_split_plan_is_the_unsharded_one(b, key_range, m):
+    """A rank of a model axis of m holds kvh / m kv heads; planned with
+    the unsharded count (``plan_kv_heads``, as the engine and
+    greedy_generate pass it) its split plan is the unsharded call's on
+    an H100's 132 SMs, so its heads combine their splits alike."""
+    from tpu_dra_torch.workloads.ops import attention as TA
+
+    kvh, sms = LLAMA3_8B.n_kv_heads, 132
+    planned = TA._plan_kv_heads(kvh, kvh // m)
+    assert TA.split_plan(b, planned, key_range, sms) == TA.split_plan(
+        b, kvh, key_range, sms)
+    assert TA._plan_kv_heads(None, kvh // m) == kvh // m
+    if (b, key_range) == (8, 8192):  # where the shard's own count differs
+        assert TA.split_plan(b, kvh // m, key_range, sms) != TA.split_plan(
+            b, kvh, key_range, sms)
+
+
+def test_plan_kv_heads_must_be_a_multiple_of_the_heads_given():
+    from tpu_dra_torch.workloads.ops import attention as TA
+
+    q = torch.zeros(1, 4, 8)
+    pools = torch.zeros(3, 2, 2, 8)
+    tables = torch.ones(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    cache = torch.zeros(1, 4, 2, 8)
+    for bad in (3, 1, True, 2.0):
+        with pytest.raises(ValueError, match="plan_kv_heads"):
+            TA.paged_decode_attention(q, pools, pools, tables, lens,
+                                      plan_kv_heads=bad)
+        with pytest.raises(ValueError, match="plan_kv_heads"):
+            TA.decode_attention(q, cache, cache, 1, plan_kv_heads=bad)
+    # On the CPU the plain versions take the planning count and ignore it.
+    assert torch.equal(
+        TA.paged_decode_attention(q, pools, pools, tables, lens,
+                                  plan_kv_heads=8),
+        TA.paged_decode_attention(q, pools, pools, tables, lens))
 
 
 def test_sharded_engine_world_one_is_the_unsharded_engine(jax_params):

@@ -39,7 +39,9 @@ import torch
 jax = pytest.importorskip("jax")
 
 from torch_fabric_twin import (  # noqa: E402
+    TIMED_FIELDS,
     PackerLayer,
+    assert_snapshots_match,
     drain_before_delete,
     run_drill,
     snapshot,
@@ -356,9 +358,7 @@ def test_fabric_drill_matches_jax(params, name, layer):
     report, built = run_drill(name, True, TCFG, params[1], layer=layer)
     got = [snapshot(f) for f in built]
     assert all(drain_before_delete(f) for f in built)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g == w
+    assert_snapshots_match(got, want, TIMED_FIELDS.get(name, ()))
     if name == "autoscale":
         for key in ("scaleups", "scaledowns", "evacuated_requeued",
                     "flaps"):
@@ -371,8 +371,15 @@ def test_fabric_drill_matches_jax(params, name, layer):
         assert report == want_report
     else:
         assert report["killed"] and want_report["killed"]
-        assert report["journal_recovered"] == (
-            want_report["journal_recovered"])
+        # How many sequences the kill catches in flight on the decode
+        # replica is set by thread timing: the JAX bench's own runs
+        # recovered 1 on an idle machine and 4 under the suite's load.
+        # The drill fixes that at least one was (it kills the decode
+        # replica only while it holds in-flight work) and that every
+        # sequence completed.
+        assert report["completed"] == want_report["completed"]
+        for r in (report, want_report):
+            assert 1 <= r["journal_recovered"] <= r["completed"], r
 
 
 # --- the repack adapter under the driver's Repacker -------------------------

@@ -10,7 +10,11 @@ the port's over its default ClaimStore. Every gate inside the drills
 holds in each run; across the runs the test compares the completions
 token for token, the lost and duplicated sequences, the autoscaler's
 events as (kind, claim name), the claims created and deleted in order,
-the deaths by reason and the open breaker keys.
+the deaths by reason and by replica and the open breaker keys. Which
+replica a crash drill's kill hits is set by thread timing (two JAX runs
+differ there under load), so for those drills the events are compared
+as a multiset of kinds, each rebind naming a replica that died in the
+same run (tests/torch_fabric_twin.py TIMED_FIELDS).
 """
 
 import pytest
@@ -18,7 +22,12 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from torch_fabric_twin import run_drill, snapshot  # noqa: E402
+from torch_fabric_twin import (  # noqa: E402
+    TIMED_FIELDS,
+    assert_snapshots_match,
+    run_drill,
+    snapshot,
+)
 from torch_twin import JCFG, TCFG, make_params  # noqa: E402
 
 DRILLS = ("crash_greedy", "crash_sampled", "crash_loop")
@@ -62,14 +71,8 @@ def test_fault_drill_matches_jax(params, name, layer):
     want_report, want = _jax_run(name, params)
     report, built = run_drill(name, True, TCFG, params[1], layer=layer)
     got = [snapshot(f) for f in built]
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g["tokens"] == w["tokens"]
-        assert g["events"] == w["events"]
-        assert g["claims"] == w["claims"]
-        assert g["open_breakers"] == w["open_breakers"]
-        assert g["deaths"] == w["deaths"]
-        assert g["duplicates_dropped"] == w["duplicates_dropped"] == 0
+    assert_snapshots_match(got, want, TIMED_FIELDS.get(name, ()))
+    assert all(g["duplicates_dropped"] == 0 for g in got)
     if name == "crash_loop":
         for key in ("circuit_opens", "quarantined", "claims_replaced",
                     "rebinds", "deaths"):

@@ -225,6 +225,129 @@ def test_decode_mlp_kernel_bf16_8b_shape(cuda_device, b):
     assert kernels.LAUNCHES["decode_mlp"] == 2
 
 
+def _column_block(tree, j, m):
+    n = tree["w_gate"]["kernel"].shape[1] // m
+    return dict(tree, **{k: {"kernel": tree[k]["kernel"][:, j * n:(j + 1) * n]
+                             .contiguous()} for k in ("w_gate", "w_up")})
+
+
+@pytest.mark.parametrize("b,d,ffn,m,dtype,route", [
+    (3, 4096, 14336, 2, torch.float32, "simt"),
+    (3, 4096, 14336, 2, torch.bfloat16, "sm90"),
+    (8, 4096, 14336, 4, torch.bfloat16, "sm90"),
+    (16, 4096, 14336, 2, torch.bfloat16, "sm90"),
+    (13, 256, 512, 2, torch.float32, "simt"),
+    (17, 256, 512, 2, torch.bfloat16, "simt"),
+])
+def test_decode_mlp_halves_on_a_model_shard(cuda_device, b, d, ffn, m, dtype,
+                                            route):
+    """The MLP's two halves on a model shard of m: each against its
+    plain half (fp32 within 1e-5, bf16 at the per-row bar); the gate/up
+    half's act of every column block is those columns of the whole
+    gate/up half bit for bit, and the down half over the blocks'
+    concatenation is the fused kernel's output bit for bit. Each half
+    counts one launch under its own kernel's name."""
+    x, scale, tree = _mlp(b + d + m, b, d, ffn, dtype, cuda_device)
+    blocks = [_column_block(tree, j, m) for j in range(m)]
+    assert TDM._gate_up_route(x, blocks[0]["w_gate"]["kernel"],
+                              blocks[0]["w_up"]["kernel"], ffn) == route
+    whole = TDM.mlp_gate_up(x, scale, tree, 1e-5, impl="cuda")
+    kernels.reset_launches()
+    acts = [TDM.mlp_gate_up(x, scale, blk, 1e-5, ffn=ffn, impl="cuda")
+            for blk in blocks]
+    act = torch.cat(acts, dim=-1)
+    assert TDM._down_route(x, act, tree["w_down"]["kernel"]) == route
+    got = TDM.mlp_down(x, act, tree, impl="cuda")
+    prefix = "decode_mlp_sm90" if route == "sm90" else "decode_mlp"
+    assert kernels.LAUNCHES[f"{prefix}_gate_up"] == m
+    assert kernels.LAUNCHES[f"{prefix}_down"] == 1
+    assert kernels.LAUNCHES["decode_mlp"] == kernels.LAUNCHES[
+        "decode_mlp_sm90"] == 0
+    fused = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(act, whole), "act columns differ from the whole half"
+    assert torch.equal(got, fused), "down half differs from the fused kernel"
+    plain_acts = [TDM.mlp_gate_up(x, scale, blk, 1e-5, impl="torch")
+                  for blk in blocks]
+    plain = TDM.mlp_down(x, act, tree, impl="torch")
+    for a, p in zip(acts, plain_acts):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, p, atol=1e-5, rtol=1e-5)
+        else:
+            _assert_bf16_close(a, p)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
+    else:
+        _assert_bf16_close(got, plain)
+
+
+def test_decode_mlp_halves_refuse_what_they_do_not_take(cuda_device):
+    x, scale, tree = _mlp(5, 3, 64, 128, torch.float32, cuda_device)
+    blk = _column_block(tree, 0, 2)
+    with pytest.raises(ValueError, match="does not divide"):
+        TDM.mlp_gate_up(x, scale, blk, 1e-5, ffn=100, impl="cuda")
+    with pytest.raises(ValueError, match="one dtype"):
+        TDM.mlp_gate_up(x.to(torch.bfloat16), scale, blk, 1e-5, impl="cuda")
+    with pytest.raises(ValueError, match="mlp_down shapes"):
+        TDM.mlp_down(x, torch.zeros(3, 64, device=cuda_device), tree,
+                     impl="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        TDM.mlp_down(x, torch.zeros(128, 3, device=cuda_device).t(), tree,
+                     impl="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        TDM.mlp_down(x, torch.zeros(3, 128), tree, impl="cuda")
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("m", [2, 4])
+def test_decode_attention_heads_of_a_shard_are_the_unsharded_heads(
+        cuda_device, m, int8):
+    """A rank's block of heads (h / m query heads over kvh / m kv
+    heads), planned with the unsharded kv heads, comes out of the paged
+    and the contiguous decode kernels bit for bit as those heads of the
+    unsharded call, at a shape (8 slots of 8192 keys) where the shard's
+    own head count would plan other splits."""
+    b, h, kvh, hd, page, cap = 8, 32, 8, 128, 16, 8192
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert TA.split_plan(b, kvh // m, cap, sms) != TA.split_plan(
+        b, kvh, cap, sms)
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(bf)
+
+    q = rnd(b, h, hd)
+    per = cap // page
+    kp, vp = rnd(b * per + 1, page, kvh, hd), rnd(b * per + 1, page, kvh, hd)
+    sc = {}
+    if int8:
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        sc = {"k_scale": ks, "v_scale": vs}
+    tables = (torch.randperm(b * per, generator=g, device=cuda_device)
+              + 1).reshape(b, per).to(torch.int32)
+    lens = torch.randint(1, cap + 1, (b,), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    full = TA.paged_decode_attention(q, kp, vp, tables, lens, **sc,
+                                     impl="cuda")
+    k, v = rnd(b, cap, kvh, hd), rnd(b, cap, kvh, hd)
+    cfull = TA.decode_attention(q, k, v, cap - 5, impl="cuda")
+    for j in range(m):
+        hs = slice(j * h // m, (j + 1) * h // m)
+        ks_ = slice(j * kvh // m, (j + 1) * kvh // m)
+        cut = {n: t[:, :, ks_].contiguous() for n, t in sc.items()}
+        got = TA.paged_decode_attention(
+            q[:, hs].contiguous(), kp[:, :, ks_].contiguous(),
+            vp[:, :, ks_].contiguous(), tables, lens, **cut, impl="cuda",
+            plan_kv_heads=kvh)
+        assert torch.equal(got, full[:, hs]), j
+        got = TA.decode_attention(
+            q[:, hs].contiguous(), k[:, :, ks_].contiguous(),
+            v[:, :, ks_].contiguous(), cap - 5, impl="cuda",
+            plan_kv_heads=kvh)
+        assert torch.equal(got, cfull[:, hs]), j
+
+
 @pytest.mark.parametrize("b,d,ffn,dtype", [
     (8, 256, 512, torch.float32), (16, 4096, 1024, torch.float32),
     (17, 256, 512, torch.bfloat16), (32, 4096, 1024, torch.bfloat16),
@@ -293,7 +416,9 @@ def test_launch_counters_count_launches(cuda_device):
     TSP.sample_pick(logits, 0.9, 5, key=key, impl="torch")
     assert kernels.LAUNCHES == {
         "paged_decode_attention": 1, "paged_decode_attention_int8": 1,
-        "decode_mlp": 2, "decode_mlp_sm90": 0, "int8mm": 1,
+        "decode_mlp": 2, "decode_mlp_sm90": 0, "decode_mlp_gate_up": 0,
+        "decode_mlp_down": 0, "decode_mlp_sm90_gate_up": 0,
+        "decode_mlp_sm90_down": 0, "int8mm": 1,
         "int8mm_sm90": 0,
         "int8mm_gemv_sm90": 0, "int8mm_gemv": 1,
         "decode_attention": 1,

@@ -443,6 +443,27 @@ def test_shardbench_two_ranks_from_rendered_dirs(runs):
     assert mig["tokens_identical"] and mig["export_gathers"] == 2
 
 
+def test_shardbench_reports_both_ranks_launches(runs):
+    """Rank 0 reports every rank's sharded runs (the kept config: the
+    kernels on the card, the plain versions on the CPU): on the CPU no
+    kernel launches, no plain call counts as one on the card, and each
+    engine arm's decode steps are the same on both ranks."""
+    _, ranks = runs
+    report = ranks["shardbench"][0][1]
+    by_rank = report["launches_by_rank"]
+    assert len(by_rank) == 2
+    for rank_runs in by_rank:
+        assert set(rank_runs) == {"greedy_1x1", "greedy_1x2",
+                                  "engine_greedy", "engine_sampled"}
+        for run in rank_runs.values():
+            assert run["launches"] == {} and run["plain_on_card"] == {}
+        assert rank_runs["engine_greedy"]["decode_steps"] == report[
+            "engine_greedy"]["decode_steps"]
+        assert "reckoned_launches" not in rank_runs["engine_greedy"]
+    assert "kernel_shard_check" not in report  # the card's only
+    assert "engine_bf16" not in report
+
+
 def test_shardbench_world_one_in_process(capsys, monkeypatch):
     for k in ("TPU_WORKER_ID", "JAX_PROCESS_ID", "JAX_NUM_PROCESSES",
               "JAX_COORDINATOR_ADDRESS", "CD_CONFIG_DIR"):

@@ -28,6 +28,10 @@
 //   2. down: one CTA per (slab of 32*VEC output columns, split of ffn),
 //      same structure over w_down, writing fp32 partials [splits, B, d].
 //   3. residual: out = T(x + sum over splits of the partials).
+// On a decode mesh's model shard (w_gate/w_up column blocks, w_down
+// whole) the two halves are entry points of their own, run on either
+// side of the gather of act: tpu_decode_mlp_gate_up is launch 1 over the
+// shard's columns, tpu_decode_mlp_down launches 2 and 3.
 // With the [in, out] weight layout adjacent threads read adjacent
 // columns of one weight row, so every warp load is coalesced, and each
 // weight byte is read once. No float atomics anywhere: all reductions
@@ -218,20 +222,29 @@ __global__ void residual_kernel(const T* __restrict__ x,
   out[i] = from_f32<T>(to_f32(x[i]) + acc);
 }
 
+// Which kernels a launch runs: the fused block, or one half of it on a
+// model shard (ops/decode_mlp.py): gate/up writes act for the shard's
+// ffn columns; down takes the act gathered over every column.
+enum Part { kFused = 0, kGateUp = 1, kDown = 2 };
+
 template <typename T, int RT, int VEC>
-cudaError_t launch(const void* x, const void* scale, const void* w_gate,
-                   const void* w_up, const void* w_down, void* act,
-                   void* partial, void* out, int batch, int d, int ffn,
-                   int splits, float eps, cudaStream_t stream) {
+cudaError_t launch(int part, const void* x, const void* scale,
+                   const void* w_gate, const void* w_up, const void* w_down,
+                   void* act, void* partial, void* out, int batch, int d,
+                   int ffn, int splits, float eps, cudaStream_t stream) {
   constexpr int kCols = 32 * VEC;
   const int row_tiles = (batch + RT - 1) / RT;
-  gate_up_kernel<T, RT, VEC>
-      <<<dim3((ffn + kCols - 1) / kCols, row_tiles), kThreads, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(scale),
-          static_cast<const T*>(w_gate), static_cast<const T*>(w_up),
-          static_cast<T*>(act), batch, d, ffn, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
+  if (part != kDown) {
+    gate_up_kernel<T, RT, VEC>
+        <<<dim3((ffn + kCols - 1) / kCols, row_tiles), kThreads, 0,
+            stream>>>(static_cast<const T*>(x), static_cast<const T*>(scale),
+                      static_cast<const T*>(w_gate),
+                      static_cast<const T*>(w_up), static_cast<T*>(act),
+                      batch, d, ffn, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || part == kGateUp) return err;
+  }
   const int split_rows = (ffn + splits - 1) / splits;
   down_kernel<T, RT, VEC><<<dim3((d + kCols - 1) / kCols, splits, row_tiles),
                             kThreads, 0, stream>>>(
@@ -247,36 +260,59 @@ cudaError_t launch(const void* x, const void* scale, const void* w_gate,
 }
 
 template <typename T, int VEC>
-cudaError_t by_rows(const void* x, const void* scale, const void* w_gate,
-                    const void* w_up, const void* w_down, void* act,
-                    void* partial, void* out, int batch, int d, int ffn,
-                    int splits, float eps, cudaStream_t stream) {
+cudaError_t by_rows(int part, const void* x, const void* scale,
+                    const void* w_gate, const void* w_up, const void* w_down,
+                    void* act, void* partial, void* out, int batch, int d,
+                    int ffn, int splits, float eps, cudaStream_t stream) {
   // Smallest row tile that covers the batch (8 rows a tile above 8).
   if (batch <= 1)
-    return launch<T, 1, VEC>(x, scale, w_gate, w_up, w_down, act, partial,
-                             out, batch, d, ffn, splits, eps, stream);
+    return launch<T, 1, VEC>(part, x, scale, w_gate, w_up, w_down, act,
+                             partial, out, batch, d, ffn, splits, eps, stream);
   if (batch <= 2)
-    return launch<T, 2, VEC>(x, scale, w_gate, w_up, w_down, act, partial,
-                             out, batch, d, ffn, splits, eps, stream);
+    return launch<T, 2, VEC>(part, x, scale, w_gate, w_up, w_down, act,
+                             partial, out, batch, d, ffn, splits, eps, stream);
   if (batch <= 4)
-    return launch<T, 4, VEC>(x, scale, w_gate, w_up, w_down, act, partial,
-                             out, batch, d, ffn, splits, eps, stream);
-  return launch<T, 8, VEC>(x, scale, w_gate, w_up, w_down, act, partial, out,
-                           batch, d, ffn, splits, eps, stream);
+    return launch<T, 4, VEC>(part, x, scale, w_gate, w_up, w_down, act,
+                             partial, out, batch, d, ffn, splits, eps, stream);
+  return launch<T, 8, VEC>(part, x, scale, w_gate, w_up, w_down, act,
+                           partial, out, batch, d, ffn, splits, eps, stream);
 }
 
 template <typename T>
-cudaError_t by_vec(int vec, const void* x, const void* scale,
+cudaError_t by_vec(int part, int vec, const void* x, const void* scale,
                    const void* w_gate, const void* w_up, const void* w_down,
                    void* act, void* partial, void* out, int batch, int d,
                    int ffn, int splits, float eps, cudaStream_t stream) {
   if (vec == 2)
-    return by_rows<T, 2>(x, scale, w_gate, w_up, w_down, act, partial, out,
-                         batch, d, ffn, splits, eps, stream);
+    return by_rows<T, 2>(part, x, scale, w_gate, w_up, w_down, act, partial,
+                         out, batch, d, ffn, splits, eps, stream);
   if (vec == 1)
-    return by_rows<T, 1>(x, scale, w_gate, w_up, w_down, act, partial, out,
-                         batch, d, ffn, splits, eps, stream);
+    return by_rows<T, 1>(part, x, scale, w_gate, w_up, w_down, act, partial,
+                         out, batch, d, ffn, splits, eps, stream);
   return cudaErrorInvalidValue;
+}
+
+cudaError_t by_dtype(int part, int dtype, int vec, const void* x,
+                     const void* scale, const void* w_gate, const void* w_up,
+                     const void* w_down, void* act, void* partial, void* out,
+                     int batch, int d, int ffn, int splits, float eps,
+                     void* stream) {
+  if (batch == 0) return cudaSuccess;
+  if (batch < 0 || batch > 64 || d < 1 || ffn < 1 || splits < 1 ||
+      splits > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return by_vec<float>(part, vec, x, scale, w_gate, w_up, w_down, act,
+                           partial, out, batch, d, ffn, splits, eps, s);
+    case kBFloat16:
+      return by_vec<__nv_bfloat16>(part, vec, x, scale, w_gate, w_up, w_down,
+                                   act, partial, out, batch, d, ffn, splits,
+                                   eps, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -291,21 +327,36 @@ extern "C" int tpu_decode_mlp(const void* x, const void* scale,
                               const void* w_down, void* act, void* partial,
                               void* out, int dtype, int batch, int d, int ffn,
                               int splits, int vec, float eps, void* stream) {
-  using namespace tpu_dra;
-  if (batch == 0) return cudaSuccess;
-  if (batch < 0 || batch > 64 || d < 1 || ffn < 1 || splits < 1 ||
-      splits > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return by_vec<float>(vec, x, scale, w_gate, w_up, w_down, act, partial,
-                           out, batch, d, ffn, splits, eps, s);
-    case kBFloat16:
-      return by_vec<__nv_bfloat16>(vec, x, scale, w_gate, w_up, w_down, act,
-                                   partial, out, batch, d, ffn, splits, eps,
-                                   s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return tpu_dra::by_dtype(tpu_dra::kFused, dtype, vec, x, scale, w_gate,
+                           w_up, w_down, act, partial, out, batch, d, ffn,
+                           splits, eps, stream);
+}
+
+// The gate/up half on a model shard: act [batch, cols] = silu(xn .
+// w_gate) * (xn . w_up) for the shard's columns, w_gate/w_up [d, cols].
+// Each act element is the fused kernel's for the same column (the
+// kernel does not split d), whatever the shard. vec = 2 needs even d and
+// cols and 2-element-aligned weight pointers.
+extern "C" int tpu_decode_mlp_gate_up(const void* x, const void* scale,
+                                      const void* w_gate, const void* w_up,
+                                      void* act, int dtype, int batch, int d,
+                                      int cols, int vec, float eps,
+                                      void* stream) {
+  return tpu_dra::by_dtype(tpu_dra::kGateUp, dtype, vec, x, scale, w_gate,
+                           w_up, nullptr, act, nullptr, nullptr, batch, d,
+                           cols, 1, eps, stream);
+}
+
+// The down half: out [batch, d] = x + act . w_down over the act gathered
+// from every shard, act [batch, ffn], w_down [ffn, d], fp32 partials
+// [splits, batch, d]: the fused kernel's down and residual launches, so
+// at the same splits and vec its out bit for bit.
+extern "C" int tpu_decode_mlp_down(const void* x, const void* act,
+                                   const void* w_down, void* partial,
+                                   void* out, int dtype, int batch, int d,
+                                   int ffn, int splits, int vec,
+                                   void* stream) {
+  return tpu_dra::by_dtype(tpu_dra::kDown, dtype, vec, x, nullptr, nullptr,
+                           nullptr, w_down, const_cast<void*>(act), partial,
+                           out, batch, d, ffn, splits, 0.0f, stream);
 }

@@ -58,6 +58,11 @@
 //     reruns give identical bits.
 // The plans (width, cluster, K ranges, ring depth) come from
 // ops/decode_mlp.py `mlp_sm90_plan`, from (B, d, ffn, SM count) alone.
+// On a decode mesh's model shard the passes are entry points of their
+// own, on either side of the gather of act: tpu_decode_mlp_sm90_gate_up
+// over the shard's columns with the whole ffn's gate/up plan (so its act
+// columns are the fused kernel's bit for bit), and
+// tpu_decode_mlp_sm90_down with no programmatic dependence.
 
 #include <cooperative_groups.h>
 
@@ -488,9 +493,11 @@ size_t smem_bytes(int planes, bool gate_up, int width, int cta_steps,
 }
 
 // The launch configuration of a pass, less the stream: the cluster
-// attribute, and at down the programmatic dependence on gate/up.
+// attribute, and at down with `pdl` the programmatic dependence on
+// gate/up (the fused block; a down half launched on its own after the
+// gather of act takes none).
 cudaLaunchConfig_t config(const Pass& p, int planes, bool gate_up,
-                          int cluster, cudaLaunchAttribute* attr) {
+                          int cluster, bool pdl, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, (p.N + p.width - 1) / p.width, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -503,18 +510,19 @@ cudaLaunchConfig_t config(const Pass& p, int planes, bool gate_up,
   attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = gate_up ? 1 : 2;
+  cfg.numAttrs = gate_up || !pdl ? 1 : 2;
   return cfg;
 }
 
 template <int PLANES, bool GATE_UP>
-cudaError_t launch_pass(const Pass& p, int cluster, cudaStream_t stream) {
+cudaError_t launch_pass(const Pass& p, int cluster, bool pdl,
+                        cudaStream_t stream) {
   const auto kernel = mlp_sm90_kernel<PLANES, GATE_UP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[2];
-  cudaLaunchConfig_t cfg = config(p, PLANES, GATE_UP, cluster, attr);
+  cudaLaunchConfig_t cfg = config(p, PLANES, GATE_UP, cluster, pdl, attr);
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return err;
@@ -524,9 +532,16 @@ cudaError_t launch_pass(const Pass& p, int cluster, cudaStream_t stream) {
 template <int PLANES>
 cudaError_t launch(const Pass& gu, int gu_cluster, const Pass& dn,
                    int dn_cluster, cudaStream_t stream) {
-  cudaError_t err = launch_pass<PLANES, true>(gu, gu_cluster, stream);
+  cudaError_t err = launch_pass<PLANES, true>(gu, gu_cluster, false, stream);
   if (err != cudaSuccess) return err;
-  return launch_pass<PLANES, false>(dn, dn_cluster, stream);
+  return launch_pass<PLANES, false>(dn, dn_cluster, true, stream);
+}
+
+// One pass alone: the gate/up or the down half of the block.
+template <bool GATE_UP>
+cudaError_t launch_half(const Pass& p, int cluster, cudaStream_t stream) {
+  if (p.M <= 8) return launch_pass<1, GATE_UP>(p, cluster, false, stream);
+  return launch_pass<2, GATE_UP>(p, cluster, false, stream);
 }
 
 bool aligned16(const void* p) {
@@ -592,6 +607,60 @@ extern "C" int tpu_decode_mlp_sm90(
   return launch<2>(gu, gu_cluster, dn, dn_cluster, s);
 }
 
+// The gate/up half on a decode mesh's model shard: act [batch, cols] =
+// silu(xn . w_gate) * (xn . w_up) for the shard's columns, w_gate / w_up
+// [d, cols] contiguous. The plan is gate/up's (width, cluster,
+// cta_steps, slots); planned as the unsharded ffn's (the caller passes
+// mlp_sm90_plan(batch, d, ffn) with ffn the whole width), every act
+// element is the fused kernel's bit for bit: a column's sum depends on
+// the K split and the width alone, not on how many columns there are.
+// Same conditions as tpu_decode_mlp_sm90 with cols for ffn.
+extern "C" int tpu_decode_mlp_sm90_gate_up(
+    const void* x, const void* scale, const void* w_gate, const void* w_up,
+    void* act, int batch, int d, int cols, int width, int cluster,
+    int cta_steps, int slots, float eps, void* stream) {
+  using namespace tpu_dra;
+  if (batch == 0) return cudaSuccess;
+  const int planes = batch <= 8 ? 1 : 2;
+  const bool ok =
+      batch > 0 && batch <= 16 && d > 0 && d % 8 == 0 && cols > 0 &&
+      cols % 8 == 0 && aligned16(x) && aligned16(scale) &&
+      aligned16(w_gate) && aligned16(w_up) && aligned16(act) &&
+      plan_ok(planes, true, d, cols, width, cluster, cta_steps, slots);
+  if (!ok) return cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  const Pass gu = {static_cast<const T*>(x), static_cast<const T*>(scale),
+                   static_cast<const T*>(w_gate), static_cast<const T*>(w_up),
+                   nullptr, static_cast<T*>(act), batch, d, cols, width,
+                   cta_steps, slots, eps};
+  return launch_half<true>(gu, cluster, static_cast<cudaStream_t>(stream));
+}
+
+// The down half: out [batch, d] = x + act . w_down over the act
+// gathered from every shard, act [batch, ffn], w_down [ffn, d]. With the
+// fused kernel's down plan it is that kernel's down launch, so its out
+// bit for bit; it waits on the stream's earlier work as any launch does.
+extern "C" int tpu_decode_mlp_sm90_down(
+    const void* x, const void* act, const void* w_down, void* out,
+    int batch, int d, int ffn, int width, int cluster, int cta_steps,
+    int slots, void* stream) {
+  using namespace tpu_dra;
+  if (batch == 0) return cudaSuccess;
+  const int planes = batch <= 8 ? 1 : 2;
+  const bool ok =
+      batch > 0 && batch <= 16 && d > 0 && d % 8 == 0 && ffn > 0 &&
+      ffn % 8 == 0 && aligned16(x) && aligned16(act) && aligned16(w_down) &&
+      aligned16(out) &&
+      plan_ok(planes, false, ffn, d, width, cluster, cta_steps, slots);
+  if (!ok) return cudaErrorInvalidValue;
+  using T = __nv_bfloat16;
+  const Pass dn = {static_cast<const T*>(x), nullptr,
+                   static_cast<const T*>(w_down), nullptr,
+                   static_cast<const T*>(act), static_cast<T*>(out), batch,
+                   ffn, d, width, cta_steps, slots, 0.0f};
+  return launch_half<false>(dn, cluster, static_cast<cudaStream_t>(stream));
+}
+
 // How many clusters of `cluster` CTAs of a pass's plan the device holds
 // at once (cudaOccupancyMaxActiveClusters), or -1 when the query fails
 // or the plan is not one the kernel takes: what the plan's cap on
@@ -611,7 +680,7 @@ extern "C" int tpu_decode_mlp_sm90_max_clusters(int planes, int gate_up,
   p.slots = slots;
   cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
-      config(p, planes, gate_up != 0, cluster, attr);
+      config(p, planes, gate_up != 0, cluster, true, attr);
   int n = -1;
   cudaError_t err = cudaErrorInvalidValue;
   const void* kernels[2][2] = {

@@ -59,11 +59,19 @@ NVCC_FLAGS = (
 # "int8mm_gemv" those of int8mm.cu's weight-streaming GEMV (fp32 and
 # the shapes int8mm_gemv_sm90.cu does not take, M <= 16);
 # "sample_pick" counts the fused temperature / top-k pick (sample.cu).
+# The decode MLP's halves on a model shard count by source, one counter
+# a kernel: "decode_mlp_gate_up" and "decode_mlp_down" (decode_mlp.cu),
+# "decode_mlp_sm90_gate_up" and "decode_mlp_sm90_down"
+# (decode_mlp_sm90.cu); a fused call counts none of them.
 LAUNCHES = {
     "paged_decode_attention": 0,
     "paged_decode_attention_int8": 0,
     "decode_mlp": 0,
     "decode_mlp_sm90": 0,
+    "decode_mlp_gate_up": 0,
+    "decode_mlp_down": 0,
+    "decode_mlp_sm90_gate_up": 0,
+    "decode_mlp_sm90_down": 0,
     "int8mm": 0,
     "int8mm_sm90": 0,
     "int8mm_gemv_sm90": 0,

@@ -79,8 +79,10 @@ Router hands in the JAX package's ``Request`` objects.
 Mesh-sharded decode (``sharded=True``), as in the JAX engine: a
 (batch x model) decode mesh over the ranks of the default process group
 (``parallel/mesh.py`` ``build_decode_mesh``; (1, 1) without a group),
-the config through ``sharded_safe_config``, this rank's column shard of
-the weights (``shard_decode_params``) and its kv heads of the pools.
+the config kept (the kernels run on this rank's heads and ffn columns,
+as at one rank; JAX's ``sharded_safe_config`` forces XLA there), this
+rank's column shard of the weights (``shard_decode_params``) and its kv
+heads of the pools.
 Every rank runs the same engine on the same requests: the clock reading
 and the gate state each ``step()`` (and each ``add_request``) acts on
 are agreed over the mesh (:meth:`.DecodeMesh.agree`: the first rank's
@@ -463,10 +465,6 @@ class Engine:
         self._rows = None
         if self.ec.sharded:
             self.mesh = meshlib.build_decode_mesh(config, device=self.device)
-            # Over more than one device every op takes its plain version
-            # (mesh.sharded_safe_config); the config is re-bound.
-            self.config = config = meshlib.sharded_safe_config(
-                config, self.mesh)
             meshlib.check_decode_config(config, self.mesh)
             params = meshlib.shard_decode_params(self.mesh, params)
             B = self.ec.max_slots
@@ -1568,7 +1566,7 @@ def _decode_step(c, params, cache, tables, lengths, tokens, active, *,
         scales = _write_kv(cache, layer, pids, offs, k, v)
         out = paged_decode_attention(
             q[:, 0], cache.k[layer], cache.v[layer], tables, len_eff,
-            *scales, impl=c.paged_decode_impl,
+            *scales, impl=c.paged_decode_impl, plan_kv_heads=c.n_kv_heads,
         )[:, None].to(c.dtype)
         x = _finish_block(c, lp, x, out, B, 1, mesh)
     x = _rms(x, params["final_norm"]["scale"], c.norm_eps)

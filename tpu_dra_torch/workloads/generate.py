@@ -25,9 +25,11 @@ cache the two differ, and this port matches the **unrolled** one.
 Over a decode mesh (``parallel/mesh.py`` ``shard_decode_params``, as
 JAX's ``greedy_generate`` over decode-sharded params): the tree carries
 its mesh, the layers run on this rank's heads and ffn columns with the
-plain impls (``sharded_safe_config``), the cache holds its kv heads, and
-the attention output, ``silu(gate)·up`` and the logits are gathered over
-the model axis; rows stay whole (replicated over the batch axis).
+config kept (the decode kernels take a shard, the attention planned as
+the unsharded heads'; JAX's ``sharded_safe_config`` forces XLA there),
+the cache holds its kv heads, and the attention output, ``silu(gate)·up``
+(between the MLP's two halves) and the logits are gathered over the
+model axis; rows stay whole (replicated over the batch axis).
 
 ``DecodeCache.pos`` is a host int: positions, cache slices and the
 decode kernel's length are known on the host, so the decode loop needs
@@ -74,7 +76,6 @@ from tpu_dra_torch.workloads.parallel.mesh import (
     gather_model,
     local_kv_heads,
     params_mesh,
-    sharded_safe_config,
     with_mesh,
 )
 from tpu_dra_torch.workloads.quantize import quantize_kv, quantize_params
@@ -270,6 +271,7 @@ def _block_inplace(c, lp, x, ck, cv, ks, vs, pos: int, mask, cos, sin,
         out = decode_attention(
             q[:, 0], ck, cv, pos + 1, k_scale=ks, v_scale=vs,
             impl=c.decode_impl, block_k=c.decode_block_k,
+            plan_kv_heads=c.n_kv_heads,
         )[:, None].to(c.dtype)
     else:
         n_rep = c.n_heads // c.n_kv_heads
@@ -293,8 +295,8 @@ def forward_chunk(
     ``cache.pos`` and return fp32 logits [b, s, vocab]. Prefill is a
     long chunk; a decode step is s=1 and runs ``decode_attention``.
     Over a tree from ``shard_decode_params`` (its mesh on the tree, the
-    cache of this rank's kv heads, a config from ``sharded_safe_config``)
-    the logits are gathered over the model axis."""
+    cache of this rank's kv heads) the logits are gathered over the model
+    axis."""
     c = config
     mesh = params_mesh(params)
     if "layers" in params:
@@ -343,12 +345,11 @@ def _generate(
     """Prefill + a loop of s=1 steps; ``pick(logits [b, vocab], i)``
     chooses the token of step i. The tokens stay on the device and are
     copied to the host once, at the end. A tree from
-    ``shard_decode_params`` runs sharded over its mesh, under
-    ``sharded_safe_config`` of ``config``."""
+    ``shard_decode_params`` runs sharded over its mesh, on ``config``
+    itself (the kernels on the rank's shard)."""
     device = resolve_device(device)
     mesh = params_mesh(params)
     if mesh is not None:
-        config = sharded_safe_config(config, mesh)
         check_decode_config(config, mesh)
     tree = unroll_params(as_tree(params, device))
     tree = with_mesh(_maybe_quantize_params(tree, weight_quant), mesh)

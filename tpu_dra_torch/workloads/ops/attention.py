@@ -282,7 +282,7 @@ def _check_kv_dtypes(q, k, v, k_scale, v_scale) -> int:
 
 
 def _cuda_paged_decode_attention(
-    q, k_pages, v_pages, tables, lengths, k_scale, v_scale
+    q, k_pages, v_pages, tables, lengths, k_scale, v_scale, plan_kv_heads
 ):
     """Launch csrc/paged_decode.cu on q's stream. Takes bf16 or fp32 q
     with pools of q's dtype, or int8 pools with f32 scale pools
@@ -320,7 +320,7 @@ def _cuda_paged_decode_attention(
     _check_kv_layout(q, k_pages, v_pages)
     max_pages = tables.shape[1]
     splits, chunk = split_plan(
-        b, kvh, max_pages * page, _sm_count(q.device.index)
+        b, plan_kv_heads, max_pages * page, _sm_count(q.device.index)
     )
     out = torch.empty_like(q)
     partial = _split_workspace(q, splits)
@@ -345,7 +345,7 @@ def _cuda_paged_decode_attention(
 
 def paged_decode_attention(
     q, k_pages, v_pages, tables, lengths, k_scale=None, v_scale=None,
-    impl: str = "auto", split_keys=None,
+    impl: str = "auto", split_keys=None, plan_kv_heads=None,
 ):
     """Single-query GQA attention over a paged KV pool.
 
@@ -358,8 +358,11 @@ def paged_decode_attention(
     dead (a 0 length gives exact zeros). impl: "auto" | "cuda" |
     "torch" | "reference". split_keys: with "torch", the kernel's
     split-and-merge form over splits of that many positions (the CUDA
-    kernel plans its own splits, :func:`split_plan`). Returns [b, h, hd]
-    in q's dtype.
+    kernel plans its own splits, :func:`split_plan`). plan_kv_heads: the
+    kv heads the CUDA kernel plans its splits for (default: the pools');
+    a decode mesh's rank holding a block of the heads passes the
+    unsharded count, so its heads come out bit for bit as the same heads
+    of the unsharded call. Returns [b, h, hd] in q's dtype.
     """
     b, h, hd = q.shape
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != hd:
@@ -379,6 +382,7 @@ def paged_decode_attention(
             f"tables {tuple(tables.shape)} / lengths "
             f"{tuple(lengths.shape)} do not match batch {b}"
         )
+    plan_kv_heads = _plan_kv_heads(plan_kv_heads, kvh)
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "torch"
     _check_split_keys(split_keys, impl)
@@ -386,7 +390,8 @@ def paged_decode_attention(
     _LAST_PAGED_IMPL = impl
     if impl == "cuda":
         return _cuda_paged_decode_attention(
-            q, k_pages, v_pages, tables, lengths, k_scale, v_scale
+            q, k_pages, v_pages, tables, lengths, k_scale, v_scale,
+            plan_kv_heads,
         )
     if impl == "torch":
         return _torch_paged_decode_attention(
@@ -398,6 +403,20 @@ def paged_decode_attention(
             q, k_pages, v_pages, tables, lengths, k_scale, v_scale
         )
     raise ValueError(f"unknown paged decode attention impl: {impl!r}")
+
+
+def _plan_kv_heads(plan_kv_heads, kvh: int) -> int:
+    """The kv heads a decode kernel plans for: ``kvh`` by default, else
+    a whole multiple of it (the unsharded count of a head shard)."""
+    if plan_kv_heads is None:
+        return kvh
+    if isinstance(plan_kv_heads, bool) or not isinstance(
+            plan_kv_heads, int) or plan_kv_heads < kvh or plan_kv_heads % kvh:
+        raise ValueError(
+            f"plan_kv_heads must be a whole multiple of the {kvh} kv heads "
+            f"given, got {plan_kv_heads!r}"
+        )
+    return plan_kv_heads
 
 
 def _check_split_keys(split_keys, impl: str) -> None:
@@ -713,7 +732,8 @@ _DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
 ]
 
 
-def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale):
+def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale,
+                           plan_kv_heads: int):
     """Launch csrc/decode.cu on q's stream. Takes bf16 or fp32 q with a
     cache of q's dtype, or an int8 cache with f32 scales [b, max_seq,
     kvh]; hd in {64, 128}, n_rep in {1, 2, 4, 8}; 0 <= length <=
@@ -742,7 +762,8 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("impl='cuda' needs contiguous inputs")
     _check_kv_layout(q, k, v)
-    splits, chunk = split_plan(b, kvh, length, _sm_count(q.device.index))
+    splits, chunk = split_plan(b, plan_kv_heads, length,
+                               _sm_count(q.device.index))
     out = torch.empty_like(q)
     partial = _split_workspace(q, splits)
     fn = kernels.function("decode.cu", "tpu_decode_attention", _DECODE_ARGTYPES)
@@ -763,6 +784,7 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale):
 def decode_attention(
     q, k, v, length: int, k_scale=None, v_scale=None, extra_k=None,
     extra_v=None, impl: str = "auto", block_k: int = 256, split_keys=None,
+    plan_kv_heads=None,
 ):
     """Single-query GQA attention over a contiguous KV cache.
 
@@ -777,7 +799,8 @@ def decode_attention(
     block_k; the kernel takes no block size); split_keys: with "torch",
     the kernel's split-and-merge form over splits of that many positions
     instead of the block loop (the CUDA kernel plans its own splits,
-    :func:`split_plan`). Returns [b, h, hd] in q's dtype.
+    :func:`split_plan`); plan_kv_heads: as :func:`paged_decode_attention`.
+    Returns [b, h, hd] in q's dtype.
     """
     b, h, hd = q.shape
     if k.shape[0] != b or v.shape != k.shape or k.shape[3] != hd:
@@ -799,6 +822,7 @@ def decode_attention(
         raise ValueError(
             f"length {length} outside the cache (max_seq {k.shape[1]})"
         )
+    plan_kv_heads = _plan_kv_heads(plan_kv_heads, kvh)
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "torch"
     _check_split_keys(split_keys, impl)
@@ -811,7 +835,8 @@ def decode_attention(
                 "write the newest K/V into the cache first (the unrolled "
                 "layout does) or use impl='torch'"
             )
-        return _cuda_decode_attention(q, k, v, length, k_scale, v_scale)
+        return _cuda_decode_attention(q, k, v, length, k_scale, v_scale,
+                                      plan_kv_heads)
     if impl == "torch":
         return _torch_decode_attention(
             q, k, v, length, k_scale, v_scale, extra_k, extra_v,

@@ -25,6 +25,17 @@ Counterpart of ``tpu_dra/workloads/ops/decode_mlp.py``:
 - **reference**: the twin of the naive fp32 oracle
   ``reference_decode_mlp``.
 
+On a decode mesh's model shard (``mesh`` with a model axis above 1:
+``w_gate``/``w_up`` hold the rank's ffn columns, ``w_down`` all of them)
+the block splits at the gather of ``silu(gate)·up``: the gate/up half
+(:func:`mlp_gate_up`) writes the rank's act columns, ``gather_model``
+joins them, and the down half (:func:`mlp_down`) adds ``act · w_down``
+to x. Each half is a C entry point of both sources: the sm90 gate/up
+half is planned as the whole ffn's (``mlp_sm90_plan`` at the unsharded
+width), so a rank's act columns are the fused kernel's bit for bit, and
+the down half is the fused kernel's down launch, so the output is the
+fused kernel's bit for bit too. The plain chain splits alike.
+
 ``impl="auto"`` launches the kernel for CUDA tensors and takes
 ``"torch"`` for CPU tensors; a CUDA tensor never falls back. An int8
 weight-only tree takes the plain chain under ``"auto"`` on every device,
@@ -97,19 +108,28 @@ def _dense(w: dict) -> torch.Tensor:
     return w["kernel"].to(torch.float32)
 
 
+def _torch_gate_up(x, norm_scale, mlp, eps):
+    """The plain gate/up half: ``silu(rms(x) · w_gate) * (rms(x) ·
+    w_up)`` over the columns ``mlp`` holds."""
+    h = _rms(x, norm_scale, eps)
+    return F.silu(_mm(h, mlp["w_gate"])) * _mm(h, mlp["w_up"])
+
+
+def _torch_down(x, act, mlp):
+    """The plain down half: ``x + act · w_down``."""
+    return x + _mm(act, mlp["w_down"])
+
+
 def _torch_decode_mlp(x, norm_scale, mlp, eps, mesh=None):
     """The residual norm+MLP chain as plain ops, on rows of any leading
     shape: the twin of ``_xla_decode_mlp`` and of the s>1 branch of the
     JAX ``generate._finish_block``. On a decode mesh (parallel/mesh.py)
     ``w_gate``/``w_up`` are this rank's column shards: ``silu(gate)·up``
     is gathered over the model axis before the replicated ``w_down``."""
-    h = _rms(x, norm_scale, eps)
-    gate = _mm(h, mlp["w_gate"])
-    up = _mm(h, mlp["w_up"])
-    act = F.silu(gate) * up
+    act = _torch_gate_up(x, norm_scale, mlp, eps)
     if mesh is not None:
         act = mesh.gather_model(act)
-    return x + _mm(act, mlp["w_down"])
+    return _torch_down(x, act, mlp)
 
 
 def reference_decode_mlp(x, norm_scale, mlp, eps):
@@ -147,6 +167,18 @@ _MLP_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
 ]
 _MLP_SM90_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p,
+]
+_GATE_UP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_void_p,
+]
+_DOWN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p,
+]
+_SM90_GATE_UP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p,
+]
+_SM90_DOWN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p,
 ]
 
 # The tensor-core kernel (csrc/decode_mlp_sm90.cu): CTAs of 8 warps, a
@@ -263,19 +295,25 @@ def mlp_sm90_plan(b: int, d: int, ffn: int, sm_count: int) -> MlpPlan:
     return MlpPlan(planes=planes, gate_up=gate_up, down=down)
 
 
-def _decode_mlp_route(x, ws) -> str:
-    """The kernel that serves x [B, d] with (w_gate, w_up, w_down) on
-    the card: "sm90" (bf16 throughout, 1 <= B <= 16, d % 8 == 0,
-    ffn % 8 == 0, x and the weights contiguous and 16-byte aligned, and
-    xn's rows fit shared memory under some K split) or "simt" (anything
-    else)."""
-    wg, wu, wd = ws
-    b, d = x.shape
-    ffn = wg.shape[1]
-    tensors = (x, wg, wu, wd)
+def shard_gate_up_plan(b: int, d: int, cols: int, ffn: int,
+                       sm_count: int) -> MlpPassPlan:
+    """The tensor-core gate/up pass over a shard of ``cols`` of ``ffn``
+    columns: the whole ffn's pass (its width, K split and ring) over a
+    grid of the shard's columns, so every act column sums its products
+    in the unsharded kernel's order. Raises ValueError as
+    :func:`mlp_sm90_plan`."""
+    gu = mlp_sm90_plan(b, d, ffn, sm_count).gate_up
+    return gu._replace(col_ctas=-(-cols // gu.width))
+
+
+def _sm90_route(b: int, d: int, ffn: int, tensors) -> str:
+    """"sm90" when the tensor-core kernel takes x [b, d] against an ffn
+    of ``ffn`` columns with ``tensors`` (x first, then the weights and
+    act it reads): bf16 throughout, 1 <= b <= 16, d % 8 == 0,
+    ffn % 8 == 0, every tensor contiguous and 16-byte aligned, and xn's
+    rows fit shared memory under some K split; else "simt"."""
     if not (
-        x.dtype == torch.bfloat16
-        and all(t.dtype == torch.bfloat16 for t in ws)
+        all(t.dtype == torch.bfloat16 for t in tensors)
         and 1 <= b <= _SM90_MAX_ROWS and d % 8 == 0 and ffn % 8 == 0
         and all(t.is_contiguous() and t.data_ptr() % 16 == 0
                 for t in tensors)
@@ -286,6 +324,31 @@ def _decode_mlp_route(x, ws) -> str:
         _mlp_pass(planes, d, ffn, True, width, _SM90_MAX_CLUSTER)
         is not None for width in _SM90_WIDTHS)
     return "sm90" if fits else "simt"
+
+
+def _decode_mlp_route(x, ws) -> str:
+    """The kernel that serves x [B, d] with (w_gate, w_up, w_down) on
+    the card: "sm90" (:func:`_sm90_route`) or "simt" (anything else)."""
+    b, d = x.shape
+    return _sm90_route(b, d, ws[0].shape[1], (x, *ws))
+
+
+def _gate_up_route(x, wg, wu, ffn: int) -> str:
+    """The kernel that serves the gate/up half over a shard of
+    ``wg.shape[1]`` of ``ffn`` columns: the route the fused block takes
+    at the whole ffn, and "simt" where the shard's columns are not
+    multiples of 8."""
+    b, d = x.shape
+    if wg.shape[1] % 8:
+        return "simt"
+    return _sm90_route(b, d, ffn, (x, wg, wu))
+
+
+def _down_route(x, act, wd) -> str:
+    """The kernel that serves the down half: the route the fused block
+    takes for x [B, d] and an ffn of ``act.shape[1]``."""
+    b, d = x.shape
+    return _sm90_route(b, d, act.shape[1], (x, act, wd))
 
 
 def _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps):
@@ -318,11 +381,7 @@ def _simt_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     the inputs."""
     b, d = x.shape
     ffn = wg.shape[1]
-    pair = 2 * x.element_size()
-    vec = 2 if (
-        d % 2 == 0 and ffn % 2 == 0
-        and all(t.data_ptr() % pair == 0 for t in (wg, wu, wd))
-    ) else 1
+    vec = _simt_vec(x, d, ffn, (wg, wu, wd))
     splits = _splits(x.device, d, ffn, vec)
     act = torch.empty((b, ffn), dtype=x.dtype, device=x.device)
     partial = torch.empty((splits, b, d), dtype=torch.float32, device=x.device)
@@ -338,6 +397,148 @@ def _simt_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     return out
 
 
+def _simt_vec(x, d: int, n: int, ws) -> int:
+    """2 when d and n are even and every weight 2-element aligned (the
+    kernels then load column pairs), else 1."""
+    pair = 2 * x.element_size()
+    return 2 if (d % 2 == 0 and n % 2 == 0
+                 and all(t.data_ptr() % pair == 0 for t in ws)) else 1
+
+
+def _check_cuda(x, tensors, what: str) -> None:
+    """Every tensor on x's CUDA device, bf16 or fp32 of x's dtype,
+    contiguous, and 1 <= B <= 64 rows; raises on anything else."""
+    if not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError(f"{what} needs every input on one CUDA device")
+    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(
+            f"{what} takes bf16 or fp32 inputs of one dtype, got "
+            f"{[t.dtype for t in tensors]}"
+        )
+    if not 1 <= x.shape[0] <= 64:
+        raise ValueError(f"{what} takes 1 <= B <= 64 rows, got {x.shape[0]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous inputs")
+
+
+def _cuda_gate_up(x, norm_scale, wg, wu, eps, ffn: int):
+    """Launch the gate/up half on x's stream: act [B, cols] for the
+    shard's columns wg/wu [d, cols] of a block ``ffn`` columns wide.
+    The sm90 route is planned as the whole ffn's
+    (``mlp_sm90_plan(B, d, ffn)``), so each act column is the fused
+    kernel's; raises on inputs the kernels do not take."""
+    b, d = x.shape
+    cols = wg.shape[1]
+    _check_cuda(x, (x, norm_scale, wg, wu), "mlp_gate_up")
+    if (tuple(norm_scale.shape) != (d,) or tuple(wg.shape) != (d, cols)
+            or tuple(wu.shape) != (d, cols)):
+        raise ValueError(
+            f"mlp_gate_up shapes: x {tuple(x.shape)}, scale "
+            f"{tuple(norm_scale.shape)}, w_gate {tuple(wg.shape)}, w_up "
+            f"{tuple(wu.shape)}"
+        )
+    if ffn < cols or ffn % cols:
+        raise ValueError(f"mlp_gate_up: a shard of {cols} columns does not "
+                         f"divide ffn {ffn}")
+    act = torch.empty((b, cols), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if _gate_up_route(x, wg, wu, ffn) == "sm90":
+        if norm_scale.data_ptr() % 16:
+            norm_scale = norm_scale.clone()
+        gu = shard_gate_up_plan(b, d, cols, ffn, _sm_count(x.device))
+        fn = kernels.function("decode_mlp_sm90.cu",
+                              "tpu_decode_mlp_sm90_gate_up",
+                              _SM90_GATE_UP_ARGTYPES)
+        err = fn(x.data_ptr(), norm_scale.data_ptr(), wg.data_ptr(),
+                 wu.data_ptr(), act.data_ptr(), b, d, cols, gu.width,
+                 gu.cluster, gu.cta_steps, gu.slots, float(eps), stream)
+        kernels.check(err, "decode_mlp_sm90_gate_up")
+        kernels.count("decode_mlp_sm90_gate_up")
+        return act
+    fn = kernels.function("decode_mlp.cu", "tpu_decode_mlp_gate_up",
+                          _GATE_UP_ARGTYPES)
+    err = fn(x.data_ptr(), norm_scale.data_ptr(), wg.data_ptr(),
+             wu.data_ptr(), act.data_ptr(), _DTYPE_CODES[x.dtype], b, d, cols,
+             _simt_vec(x, d, cols, (wg, wu)), float(eps), stream)
+    kernels.check(err, "decode_mlp_gate_up")
+    kernels.count("decode_mlp_gate_up")
+    return act
+
+
+def _cuda_down(x, act, wd):
+    """Launch the down half on x's stream: x + act · wd over the
+    gathered act [B, ffn], with the fused kernel's plan (sm90) or splits
+    (simt), so its output is the fused kernel's; raises on inputs the
+    kernels do not take."""
+    b, d = x.shape
+    ffn = act.shape[1]
+    _check_cuda(x, (x, act, wd), "mlp_down")
+    if tuple(act.shape) != (b, ffn) or tuple(wd.shape) != (ffn, d):
+        raise ValueError(
+            f"mlp_down shapes: x {tuple(x.shape)}, act {tuple(act.shape)}, "
+            f"w_down {tuple(wd.shape)}"
+        )
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if _down_route(x, act, wd) == "sm90":
+        dn = mlp_sm90_plan(b, d, ffn, _sm_count(x.device)).down
+        fn = kernels.function("decode_mlp_sm90.cu", "tpu_decode_mlp_sm90_down",
+                              _SM90_DOWN_ARGTYPES)
+        err = fn(x.data_ptr(), act.data_ptr(), wd.data_ptr(), out.data_ptr(),
+                 b, d, ffn, dn.width, dn.cluster, dn.cta_steps, dn.slots,
+                 stream)
+        kernels.check(err, "decode_mlp_sm90_down")
+        kernels.count("decode_mlp_sm90_down")
+        return out
+    vec = _simt_vec(x, d, ffn, (wd,))
+    splits = _splits(x.device, d, ffn, vec)
+    partial = torch.empty((splits, b, d), dtype=torch.float32, device=x.device)
+    fn = kernels.function("decode_mlp.cu", "tpu_decode_mlp_down",
+                          _DOWN_ARGTYPES)
+    err = fn(x.data_ptr(), act.data_ptr(), wd.data_ptr(), partial.data_ptr(),
+             out.data_ptr(), _DTYPE_CODES[x.dtype], b, d, ffn, splits, vec,
+             stream)
+    kernels.check(err, "decode_mlp_down")
+    kernels.count("decode_mlp_down")
+    return out
+
+
+def mlp_gate_up(x, norm_scale, mlp: dict, eps: float, ffn: int = None,
+                impl: str = "auto"):
+    """The gate/up half of the block: act [b, cols] = ``silu(rms(x) ·
+    w_gate) * (rms(x) · w_up)`` for the columns ``mlp``'s ``w_gate`` and
+    ``w_up`` hold, a shard of a block ``ffn`` columns wide (default: the
+    shard is the whole). impl: "auto" (the kernel on a CUDA tensor, the
+    plain half on the CPU) | "cuda" | "torch"."""
+    if impl == "auto":
+        impl = "cuda" if x.is_cuda else "torch"
+    if impl == "torch":
+        return _torch_gate_up(x, norm_scale, mlp, eps)
+    if impl != "cuda":
+        raise ValueError(f"unknown mlp_gate_up impl: {impl!r}")
+    ws = _kernels(mlp)
+    if ws is None:
+        raise ValueError("the CUDA gate/up half needs plain 2D kernels")
+    return _cuda_gate_up(x, norm_scale, ws[0], ws[1], eps,
+                         ws[0].shape[1] if ffn is None else ffn)
+
+
+def mlp_down(x, act, mlp: dict, impl: str = "auto"):
+    """The down half of the block: ``x + act · w_down`` over the whole
+    act [b, ffn]. impl: "auto" | "cuda" | "torch", as
+    :func:`mlp_gate_up`."""
+    if impl == "auto":
+        impl = "cuda" if x.is_cuda else "torch"
+    if impl == "torch":
+        return _torch_down(x, act, mlp)
+    if impl != "cuda":
+        raise ValueError(f"unknown mlp_down impl: {impl!r}")
+    ws = _kernels(mlp)
+    if ws is None:
+        raise ValueError("the CUDA down half needs plain 2D kernels")
+    return _cuda_down(x, act, ws[2])
+
+
 def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     """Launch the route's kernel (csrc/decode_mlp_sm90.cu for "sm90",
     csrc/decode_mlp.cu for "simt") on x's stream. Takes bf16 or fp32
@@ -345,14 +546,7 @@ def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     anything else."""
     b, d = x.shape
     ffn = wg.shape[1]
-    tensors = (x, norm_scale, wg, wu, wd)
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError("impl='cuda' needs every input on one CUDA device")
-    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in tensors):
-        raise ValueError(
-            f"impl='cuda' takes bf16 or fp32 inputs of one dtype, got "
-            f"{[t.dtype for t in tensors]}"
-        )
+    _check_cuda(x, (x, norm_scale, wg, wu, wd), "impl='cuda'")
     if (
         tuple(norm_scale.shape) != (d,)
         or tuple(wg.shape) != (d, ffn)
@@ -364,10 +558,6 @@ def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
             f"{tuple(norm_scale.shape)}, w_gate {tuple(wg.shape)}, w_up "
             f"{tuple(wu.shape)}, w_down {tuple(wd.shape)}"
         )
-    if not 1 <= b <= 64:
-        raise ValueError(f"impl='cuda' takes 1 <= B <= 64 rows, got {b}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("impl='cuda' needs contiguous inputs")
     if _decode_mlp_route(x, (wg, wu, wd)) == "sm90":
         out = _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps)
         kernels.count("decode_mlp_sm90")
@@ -386,17 +576,20 @@ def decode_mlp(x, norm_scale, mlp: dict, eps: float, impl: str = "auto",
     "reference". The CUDA kernels size their own tiles: the JAX op's
     ``block_f`` (its VMEM tile width) has no counterpart here. ``mesh``:
     the decode mesh whose model axis shards ``w_gate``/``w_up``; over
-    more than one model coordinate only the plain chain takes a shard,
-    and any other impl raises.
+    more than one model coordinate the block splits at the gather of
+    ``silu(gate)·up``: "cuda" runs the kernels' gate/up half, the
+    gather and their down half, "torch" the plain halves, and
+    "reference" (no gather) raises.
     """
     if x.ndim != 2:
         raise ValueError(
             f"decode_mlp expects [b, d] tokens, got {tuple(x.shape)}"
         )
-    if mesh is not None and mesh.shape["model"] > 1 and impl != "torch":
+    shard = mesh is not None and mesh.shape["model"] > 1
+    if shard and impl == "reference":
         raise ValueError(
-            f"decode_mlp impl={impl!r} on a model shard: only the plain "
-            f"chain ('torch') gathers between gate/up and down"
+            "decode_mlp impl='reference' on a model shard: the oracle "
+            "holds the whole ffn and does not gather"
         )
     if impl == "auto":
         impl = "cuda" if x.is_cuda and _kernels(mlp) is not None else "torch"
@@ -409,6 +602,11 @@ def decode_mlp(x, norm_scale, mlp: dict, eps: float, impl: str = "auto",
                 "the CUDA decode MLP kernel needs plain 2D kernels "
                 "(int8 weight-only trees take impl='torch' or 'auto')"
             )
+        if shard:
+            ffn = ws[0].shape[1] * mesh.shape["model"]
+            act = mesh.gather_model(
+                _cuda_gate_up(x, norm_scale, ws[0], ws[1], eps, ffn))
+            return _cuda_down(x, act, ws[2])
         return _cuda_decode_mlp(x, norm_scale, *ws, eps=eps)
     if impl == "torch":
         return _torch_decode_mlp(x, norm_scale, mlp, eps, mesh)

@@ -656,14 +656,6 @@ DECODE_PARAM_RULES: List[Tuple[str, tuple]] = [
     # exactness contract above).
 ]
 
-#: The impls ``sharded_safe_config`` forces on a mesh of more than one
-#: device: the plain PyTorch version of every kernel-capable op.
-PLAIN_IMPLS = dict(
-    attention_impl="torch", decode_impl="torch", decode_mlp_impl="torch",
-    paged_decode_impl="torch",
-)
-
-
 def _flatten_path(path) -> str:
     parts = []
     for p in path:
@@ -865,16 +857,15 @@ def build_decode_mesh(config=None, ranks: Optional[Sequence[int]] = None,
 
 
 def sharded_safe_config(config, mesh: DecodeMesh):
-    """The config for decode on ``mesh``: over more than one device,
-    every kernel-capable op (``attention_impl``, ``decode_impl``,
-    ``decode_mlp_impl``, ``paged_decode_impl``) takes its plain PyTorch
-    version, as JAX takes XLA's (its Pallas calls have no partitioning
-    rule; here the fused MLP kernel cannot run between a column-parallel
-    ``up`` and a replicated ``down``). On a (1, 1) mesh the config itself
-    comes back, so a single card keeps its kernels."""
-    if mesh.size <= 1:
-        return config
-    return dataclasses.replace(config, **PLAIN_IMPLS)
+    """The config for decode on ``mesh``: ``config`` itself, over any
+    mesh. JAX forces XLA on a mesh of more than one device, since a
+    Pallas call has no GSPMD partitioning rule; here every rank runs its
+    own ops on its own shard, so each kernel-capable op keeps its impl
+    ("auto": the kernel on a CUDA tensor, the plain version on the CPU).
+    The decode attention kernels take the rank's heads as they are
+    (planned as the unsharded heads', ``plan_kv_heads``), and the fused
+    MLP splits at the gather of ``silu(gate)·up`` (ops/decode_mlp.py)."""
+    return config
 
 
 def decode_param_spec(path: str, value=None) -> tuple:

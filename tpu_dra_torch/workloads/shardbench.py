@@ -29,8 +29,9 @@ process a rank) and checks parity at the world it finds:
    imported sequence finishes token-identical to the unmigrated run
    (``migrate``: the extent's MB, export and import ms).
 
-Each unsharded reference runs the config the sharded run ends up with
-(``sharded_safe_config``), so the comparison isolates the sharding. Over
+Each unsharded reference runs the sharded run's config (kept over any
+mesh: the kernels on a CUDA tensor, the plain versions on the CPU), so
+the comparison isolates the sharding. Over
 several ranks every rank also checks that all ranks' tokens agree, and
 reports the cosine of the sharded against the unsharded logits of the
 prefill and first decode step (``greedy_logit_cosine_<b>x<m>``) and
@@ -39,6 +40,19 @@ columns of the full product (``column_slice_bit_identical``).
 Over gloo with CUDA tensors it also reports the device copies one
 model-axis gather makes, from a ``torch.profiler`` trace
 (``gather_copies``: gloo stages the tensors through host memory).
+
+On the card the decode kernels run on each rank's shard (the config is
+kept): each sharded run reports its kernel launches a decode step,
+held to a reckoning (a layer of a decode step is one paged or
+contiguous decode attention call and one MLP call, the MLP's two halves
+around the gather of ``silu(gate)·up``), and the calls its
+kernel-capable ops made of their plain versions on a CUDA tensor
+(``plain_on_card``, held at 0). Over a model axis above 1 it also runs
+``kernel_shard_check`` (this rank's heads and act columns against the
+unsharded kernel calls, bit for bit, in fp32 and bf16) and a bf16
+engine arm, whose first decode step's logits are held to the unsharded
+bf16 engine's at ``BF16_COSINE`` (its tokens are reported: bf16
+column blocks of the cuBLAS projections round otherwise).
 Rank 0 prints one JSON line; every rank exits nonzero on any violation.
 ``--fallback-cosine`` admits a ``greedy_generate`` token difference when
 that call's prefill and first decode step logits agree to that cosine
@@ -54,6 +68,8 @@ engine's tokens must be identical either way.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -62,8 +78,18 @@ import time
 
 import numpy as np
 
+from tpu_dra_torch import kernels
+
 SAMPLED = {"temperature": 0.8, "top_k": 8, "sample_seed": 5}
 NEW_TOKENS = 12  # greedy_generate's, as JAX's shardbench
+#: The bf16 engine arm's first decode step logits against the unsharded
+#: bf16 engine's (the bar chip_smoke.py holds bf16 step logits to).
+BF16_COSINE = 0.999
+#: The kernel-capable ops' plain versions, as their dispatchers reach
+#: them: (module, function) under ops/.
+PLAIN_VERSIONS = (("attention", "_torch_paged_decode_attention"),
+                  ("attention", "_torch_decode_attention"),
+                  ("decode_mlp", "_torch_decode_mlp"))
 
 
 def _trace(vocab: int, seed: int = 3, n: int = 6):
@@ -119,14 +145,12 @@ def first_step_cosine(cfg, params, sharded, prompt, device) -> float:
     from tpu_dra_torch.workloads.parallel import mesh as meshlib
 
     mesh = meshlib.params_mesh(sharded)
-    safe = meshlib.sharded_safe_config(cfg, mesh)
     out = []
     for tree, m in ((G.unroll_params(as_tree(params)), None), (sharded, mesh)):
-        cache = G.init_cache(safe, prompt.shape[0], 64, device=device,
-                             mesh=m)
-        first = G.forward_chunk(safe, tree, cache, prompt)[:, -1]
+        cache = G.init_cache(cfg, prompt.shape[0], 64, device=device, mesh=m)
+        first = G.forward_chunk(cfg, tree, cache, prompt)[:, -1]
         tok = torch.argmax(first, dim=-1).to(prompt.dtype)[:, None]
-        out.append((first, G.forward_chunk(safe, tree, cache, tok)[:, -1]))
+        out.append((first, G.forward_chunk(cfg, tree, cache, tok)[:, -1]))
     return min(_cosine(a, b) for a, b in zip(*out))
 
 
@@ -175,6 +199,191 @@ def gather_copies(mesh, device) -> dict:
         torch.cuda.synchronize(device)
     return dict(collections.Counter(
         e.name for e in prof.events() if e.name.startswith("Memcpy")))
+
+
+@contextlib.contextmanager
+def _spy(module, name: str, on_call):
+    """Stand in for ``module.name`` while the body runs: each call is
+    forwarded, then ``on_call(args, result)`` sees it."""
+    fn = getattr(module, name)
+
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        on_call(args, out)
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Count, by function, the calls of a kernel-capable op's plain
+    version (PLAIN_VERSIONS) on a CUDA tensor while the body runs."""
+    import importlib
+
+    counts = collections.Counter()
+
+    def counter(name):
+        def on_call(args, _):
+            if args[0].is_cuda:
+                counts[name] += 1
+        return on_call
+
+    with contextlib.ExitStack() as stack:
+        for mod_name, name in PLAIN_VERSIONS:
+            mod = importlib.import_module(
+                f"tpu_dra_torch.workloads.ops.{mod_name}")
+            stack.enter_context(_spy(mod, name, counter(name)))
+        yield counts
+
+
+@contextlib.contextmanager
+def first_decode_logits():
+    """Keep the fp32 logits [B, vocab] of the first engine decode step
+    the body runs, with its active rows [B]: the list holds (logits,
+    active) once a step has run."""
+    from tpu_dra_torch.workloads import engine as E
+
+    seen = []
+
+    def on_call(args, out):
+        if not seen:
+            seen.append((out[2].detach().clone(), args[6].clone()))
+
+    with _spy(E, "_decode_step", on_call):
+        yield seen
+
+
+@contextlib.contextmanager
+def single_token_prefills():
+    """Count the engine's prefill passes one token wide while the body
+    runs: such a pass runs the decode MLP (s = 1) as a decode step
+    does. The list holds the count."""
+    from tpu_dra_torch.workloads import engine as E
+
+    seen = [0]
+
+    def on_call(args, _):
+        seen[0] += int(args[5].shape[1] == 1)
+
+    with _spy(E, "_prefill_batch", on_call):
+        yield seen
+
+
+def mlp_half_names(dtype) -> tuple:
+    """The launch counters of the MLP's gate/up and down halves at the
+    engine's slot count on this dtype: the tensor-core kernel's for bf16,
+    decode_mlp.cu's for fp32."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return "decode_mlp_sm90_gate_up", "decode_mlp_sm90_down"
+    return "decode_mlp_gate_up", "decode_mlp_down"
+
+
+def reckoned_decode_launches(cfg, mesh, steps: int,
+                             single_prefills: int = 0) -> dict:
+    """An engine run's decode kernel launches on one rank of ``mesh``:
+    each layer of a decode step one paged decode attention call and one
+    MLP call, and each layer of a one-token prefill pass one more MLP
+    call. An MLP call is the fused block on a model axis of 1 (counted
+    once as "decode_mlp", twice as "decode_mlp_sm90" for bf16: the
+    tensor-core kernel's two launches) or, on a model shard, its two
+    halves, one launch each."""
+    import torch
+
+    n = cfg.n_layers
+    mlp = n * (steps + single_prefills)
+    want = {"paged_decode_attention": n * steps}
+    if mesh.shape["model"] > 1:
+        want.update(dict.fromkeys(mlp_half_names(cfg.dtype), mlp))
+    else:
+        want["decode_mlp"] = mlp
+        if cfg.dtype == torch.bfloat16:
+            want["decode_mlp_sm90"] = 2 * mlp
+    return want
+
+
+def kernel_shard_check(mesh, device) -> dict:
+    """This rank's shard of each decode kernel against the unsharded
+    call, at Llama-3-8B widths (h 32, kvh 8, hd 128, d 4096, ffn 14336)
+    in fp32 and bf16, from inputs seeded alike on every rank: its heads
+    of the paged (8 slots of 8192 keys) and the contiguous (8 rows, 8187
+    of 8192 keys) decode attention, planned as the unsharded heads', are
+    those heads of the unsharded call bit for bit; its act columns of
+    the MLP's gate/up half (3 rows, the engine's slots) are those
+    columns of the unsharded half's; and the down half over the act
+    gathered over the model axis is the fused kernel's output bit for
+    bit. Returns {case: bool}, the halves' routes and the largest
+    difference of each case."""
+    import torch
+
+    from tpu_dra_torch.workloads.ops import attention as A
+    from tpu_dra_torch.workloads.ops import decode_mlp as DM
+
+    m, j = mesh.shape["model"], mesh.coords[1]
+    h, kvh, hd, d, ffn = 32, 8, 128, 4096, 14336
+    b, page, cap, rows, eps = 8, 16, 8192, 3, 1e-5
+    heads = slice(j * h // m, (j + 1) * h // m)
+    kv = slice(j * kvh // m, (j + 1) * kvh // m)
+    cols = slice(j * ffn // m, (j + 1) * ffn // m)
+    gen = torch.Generator(device=device).manual_seed(11)
+    out, diff, routes = {}, {}, {}
+
+    def held(case, got, want):
+        out[case] = bool(torch.equal(got, want))
+        diff[case] = float((got.float() - want.float()).abs().max())
+
+    for dt, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        def rnd(*shape, std=1.0):
+            return (std * torch.randn(*shape, generator=gen,
+                                      device=device)).to(dt)
+
+        q = rnd(b, h, hd)
+        qm = q[:, heads].contiguous()
+        per = cap // page
+        kp, vp = rnd(b * per + 1, page, kvh, hd), rnd(b * per + 1, page, kvh,
+                                                      hd)
+        tables = (torch.randperm(b * per, generator=gen, device=device)
+                  + 1).reshape(b, per).to(torch.int32)
+        lens = torch.randint(1, cap + 1, (b,), generator=gen, device=device,
+                             dtype=torch.int32)
+        full = A.paged_decode_attention(q, kp, vp, tables, lens, impl="cuda")
+        held(f"paged_{tag}", A.paged_decode_attention(
+            qm, kp[:, :, kv].contiguous(), vp[:, :, kv].contiguous(), tables,
+            lens, impl="cuda", plan_kv_heads=kvh), full[:, heads])
+        del kp, vp
+        k, v = rnd(b, cap, kvh, hd), rnd(b, cap, kvh, hd)
+        full = A.decode_attention(q, k, v, cap - 5, impl="cuda")
+        held(f"contiguous_{tag}", A.decode_attention(
+            qm, k[:, :, kv].contiguous(), v[:, :, kv].contiguous(), cap - 5,
+            impl="cuda", plan_kv_heads=kvh), full[:, heads])
+        del k, v
+        x = rnd(rows, d)
+        scale = (1 + 0.1 * torch.randn(d, generator=gen,
+                                       device=device)).to(dt)
+        tree = {"w_gate": {"kernel": rnd(d, ffn, std=0.02)},
+                "w_up": {"kernel": rnd(d, ffn, std=0.02)},
+                "w_down": {"kernel": rnd(ffn, d, std=0.02)}}
+        shard = dict(tree, **{n: {"kernel": tree[n]["kernel"][:, cols]
+                                  .contiguous()}
+                              for n in ("w_gate", "w_up")})
+        act = DM.mlp_gate_up(x, scale, shard, eps, ffn=ffn, impl="cuda")
+        held(f"gate_up_{tag}", act, DM.mlp_gate_up(
+            x, scale, tree, eps, impl="cuda")[:, cols])
+        whole = mesh.gather_model(act)
+        held(f"down_{tag}", DM.mlp_down(x, whole, tree, impl="cuda"),
+             DM.decode_mlp(x, scale, tree, eps, impl="cuda"))
+        routes[tag] = {
+            "gate_up": DM._gate_up_route(x, shard["w_gate"]["kernel"],
+                                         shard["w_up"]["kernel"], ffn),
+            "down": DM._down_route(x, whole, tree["w_down"]["kernel"])}
+        del x, tree, shard, act, whole
+    return {"bit_identical": out, "max_abs_diff": diff, "routes": routes}
 
 
 def _extent_bytes(extent) -> dict:
@@ -281,6 +490,84 @@ def _per_step(counter, steps: int, scale: float = 1.0) -> dict:
             for k, v in counter.items() if k.startswith("decode/")}
 
 
+def _launches() -> dict:
+    return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+
+#: The launch counters of the decode kernels (every other counter is
+#: reported, not reckoned).
+DECODE_KERNELS = ("paged_decode_attention", "decode_attention", "decode_mlp",
+                  "decode_mlp_sm90", "decode_mlp_gate_up", "decode_mlp_down",
+                  "decode_mlp_sm90_gate_up", "decode_mlp_sm90_down")
+
+
+def _launch_reckoning(cfg, mesh, steps: int, single_prefills: int,
+                      launches: dict, plain_calls, device, check,
+                      what: str) -> dict:
+    """A sharded engine run's decode kernel launches against
+    :func:`reckoned_decode_launches` (on the card), and its plain calls
+    on the card at 0. Returns the report's keys: every counter a decode
+    step, and the reckoning."""
+    out = {"decode_steps": steps, "single_token_prefills": single_prefills,
+           "launches_per_decode_step": {
+               k: v / max(steps, 1) for k, v in launches.items()}}
+    if device.type != "cuda":
+        return out
+    want = reckoned_decode_launches(cfg, mesh, steps, single_prefills)
+    out["reckoned_launches"] = want
+    got = {k: launches[k] for k in DECODE_KERNELS if k in launches}
+    check(got == want and not plain_calls,
+          f"{what}: decode kernel launches {got}, want {want}; plain calls "
+          f"on the card {dict(plain_calls)}")
+    return out
+
+
+def bf16_engine_arm(cfg, device, check) -> tuple:
+    """The greedy trace through a bf16 engine sharded over the world's
+    mesh (the tensor-core MLP halves) and unsharded: the first decode
+    step's logits at cosine >= BF16_COSINE, the launches as reckoned,
+    no plain call on the card; the tokens' agreement reported. Returns
+    (report, the sharded run's launches)."""
+    import torch
+
+    from tpu_dra_torch.workloads.engine import Engine
+    from tpu_dra_torch.workloads.models.llama import init_params
+
+    bcfg = dataclasses.replace(cfg, dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)
+    params = init_params(
+        bcfg, torch.Generator(device=device).manual_seed(7), device=device)
+    with first_decode_logits() as ref:
+        want = Engine(bcfg, params, _engine_config(), device=device).run(
+            _trace(bcfg.vocab_size))
+    eng = Engine(bcfg, params, _engine_config(sharded=True), device=device)
+    kernels.reset_launches()
+    with first_decode_logits() as mine, plain_on_card() as plain_calls, \
+            single_token_prefills() as s1:
+        done = eng.run(_trace(bcfg.vocab_size))
+    launches = _launches()
+    run = {"launches": launches, "plain_on_card": dict(plain_calls)}
+    run.update(_launch_reckoning(bcfg, eng.mesh, eng.decode_steps, s1[0],
+                                 launches, plain_calls, device, check,
+                                 "sharded bf16 engine"))
+    (a, act_a), (b, act_b) = ref[0], mine[0]
+    cos = _cosine(a[act_a], b[act_b]) if torch.equal(act_a, act_b) else -1.0
+    check(cos >= BF16_COSINE, f"bf16 sharded engine: first decode step "
+          f"logit cosine {cos} below {BF16_COSINE}")
+    pairs = [(np.asarray(want[r].tokens), np.asarray(done[r].tokens))
+             for r in want if r in done]
+    total = sum(len(c.tokens) for c in want.values())
+    same = sum(int(np.sum(a[:len(b)] == b[:len(a)])) for a, b in pairs)
+    steps = max(eng.decode_steps, 1)
+    return {"first_step_logit_cosine": cos, "token_agreement": same / total,
+            "decode_steps": eng.decode_steps,
+            "decode_ms_per_step": eng.decode_seconds / steps * 1e3,
+            "decode_collectives_per_step": _per_step(eng.mesh.collectives,
+                                                     steps),
+            "decode_gather_ms_per_step": _per_step(
+                eng.mesh.gather_seconds, steps, 1e3)}, run
+
+
 def _run(args, rank: int, world: int) -> tuple:
     """(report, violations) for this rank."""
     import torch
@@ -335,17 +622,37 @@ def _run(args, rank: int, world: int) -> tuple:
     # (2) greedy path parity on this rank's (1, 1) mesh and the world's.
     prompt = torch.tile(torch.arange(8, dtype=torch.int32)[None], (2, 1))
     tokens = []
+    # This rank's sharded runs: their kernel launches (the path's) and
+    # plain calls on the card, gathered over the world below.
+    runs = {}
     for mm in (single, mesh):
         label = f"{mm.shape['batch']}x{mm.shape['model']}"
-        safe = meshlib.sharded_safe_config(cfg, mm)
-        base = greedy_generate(safe, params, prompt, NEW_TOKENS,
+        kernels.reset_launches()
+        base = greedy_generate(cfg, params, prompt, NEW_TOKENS,
                                device=device)
+        base_launches = _launches()
         sp = meshlib.shard_decode_params(mm, params)
         synchronize(device)
+        kernels.reset_launches()
         t0 = time.perf_counter()
-        out = greedy_generate(cfg, sp, prompt, NEW_TOKENS, device=device)
+        with plain_on_card() as plain_calls:
+            out = greedy_generate(cfg, sp, prompt, NEW_TOKENS, device=device)
         report[f"greedy_seconds_{label}"] = round(
             time.perf_counter() - t0, 3)
+        launches = _launches()
+        runs[f"greedy_{label}"] = {"launches": launches,
+                                   "plain_on_card": dict(plain_calls)}
+        if device.type == "cuda":
+            # The unsharded run's decode steps, each layer's MLP call as
+            # its two halves on a model shard.
+            want = dict(base_launches)
+            if mm.shape["model"] > 1:
+                calls = want.pop("decode_mlp", 0)
+                want.pop("decode_mlp_sm90", None)
+                want.update(dict.fromkeys(mlp_half_names(cfg.dtype), calls))
+            check(launches == want and not plain_calls,
+                  f"greedy_generate {label}: launches {launches}, want "
+                  f"{want}; plain calls on the card {dict(plain_calls)}")
         same = bool(torch.equal(base, out))
         report[f"greedy_parity_{label}"] = same
         if mm.size > 1 or not same:
@@ -364,7 +671,10 @@ def _run(args, rank: int, world: int) -> tuple:
                              device=device)
         plain = Engine(sharded_eng.config, params, _engine_config(**kw),
                        device=device).run(_trace(cfg.vocab_size))
-        done = sharded_eng.run(_trace(cfg.vocab_size))
+        kernels.reset_launches()
+        with plain_on_card() as plain_calls, single_token_prefills() as s1:
+            done = sharded_eng.run(_trace(cfg.vocab_size))
+        launches = _launches()
         check(set(plain) == set(done), f"{name}: completions differ")
         diverged = [rid for rid in plain
                     if not np.array_equal(plain[rid].tokens, done[rid].tokens)]
@@ -389,6 +699,20 @@ def _run(args, rank: int, world: int) -> tuple:
             "decode_gather_ms_per_step": _per_step(eng_mesh.gather_seconds,
                                                    steps, 1e3),
         }
+        runs[f"engine_{name}"] = {"launches": launches,
+                                  "plain_on_card": dict(plain_calls)}
+        runs[f"engine_{name}"].update(_launch_reckoning(
+            cfg, eng_mesh, sharded_eng.decode_steps, s1[0], launches,
+            plain_calls, device, check, f"sharded {name} engine"))
+    if mesh.shape["model"] > 1 and device.type == "cuda":
+        report["kernel_shard_check"] = ks = kernel_shard_check(mesh, device)
+        check(all(ks["bit_identical"].values()),
+              f"a kernel's shard differs from the unsharded call: {ks}")
+        check(ks["routes"] == {"fp32": {"gate_up": "simt", "down": "simt"},
+                               "bf16": {"gate_up": "sm90", "down": "sm90"}},
+              f"MLP halves' routes {ks['routes']}")
+        report["engine_bf16"], runs["engine_bf16"] = bf16_engine_arm(
+            cfg, device, check)
     # (5) live migration across the mesh.
     mig = migrate_round_trip(cfg, params, device)
     report["migrate"] = mig
@@ -400,6 +724,13 @@ def _run(args, rank: int, world: int) -> tuple:
     if mesh.shape["model"] > 1 and device.type == "cuda" and (
             dist.get_backend() == "gloo"):
         report["gather_copies"] = gather_copies(mesh, device)
+    if world > 1:
+        # Every rank's runs, reported by rank 0.
+        by_rank = [None] * world
+        dist.all_gather_object(by_rank, runs)
+        report["launches_by_rank"] = by_rank
+    else:
+        report["launches_by_rank"] = [runs]
     if world > 1:
         # Every rank's tokens, the same everywhere: one all_gather of a
         # digest over the world.
