@@ -17,8 +17,8 @@ exits non-zero without a result:
    bodies (decode_split_kernel, decode_combine_kernel in paged_decode.cu
    and decode.cu), of the tensor-core int8 GEMV
    (int8mm_gemv_sm90.cu, both planes) and of the tensor-core decode MLP
-   (decode_mlp_sm90.cu: gate/up and down, both planes) must spill 0
-   bytes.
+   (decode_mlp_sm90.cu: gate/up and down at 1, 2, 4 and 8 planes) must
+   spill 0 bytes.
 2b. bootstrap — the slice bootstrap and collective smokes
    (tpu_dra_torch/workloads/{bootstrap,smoke,icibandwidth,
    rendezvous_smoke}.py), at most about 60 s: matmul_smoke (bf16
@@ -47,11 +47,15 @@ exits non-zero without a result:
    1024], then one slot of 8192 keys, with bf16 pools and with int8
    pools, and a block table whose 8 slots alias the same 12 leading
    pages (a shared prefix) against one where each slot reads private
-   copies of them (paged_kv.copy_page): bit-identical; decode MLP with B in {1, 8, 13, 16}, each on the tensor-core
-   route (sm90, decode_mlp_sm90.cu, with its plan; reruns
-   bit-identical), and decode_mlp.cu (the simt route: fp32 and B > 16)
-   launched directly at fp32 B = 8 and bf16 B = 32, against the plain
-   version on the same inputs; the int8 matmul at
+   copies of them (paged_kv.copy_page): bit-identical; decode MLP with
+   B in {1, 8, 13, 16, 17, 24, 32, 48, 64} (1, 2, 4 and 8 planes of 8
+   rows), each on the tensor-core route (sm90, decode_mlp_sm90.cu, with
+   its plan; reruns bit-identical), and at B in {65, 128} through the
+   wrapper's blocks of 64 rows (each block's plan), and decode_mlp.cu
+   (the simt route: fp32) launched directly at fp32 B = 8 and bf16
+   B = 32 (whose route is now sm90: the row holds the kernel it
+   replaced there) and through the wrapper at fp32 B = 128, against the
+   plain version on the same inputs; the int8 matmul at
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
    (4096, 1024), (4096, 128256)}, at M in {17, 129, 2048} for
    4096 x 14336, wq/wo's 4096 x 4096 at M in {1024, 2048}, the
@@ -92,8 +96,9 @@ exits non-zero without a result:
    the card could take (bytes over the memory rate vs operations over
    the bf16 peak, whichever is larger). Each kernel also has
    ``ms_with_host``, timed with the wrapper's host time included. The
-   decode MLP at B = 8 on the tensor-core kernel, with decode_mlp.cu (the
-   kernel it replaced on this route) on the same inputs, each pass's
+   decode MLP at B = 8, 32 and 64 (MLP_TIMING_ROWS) on the tensor-core
+   kernel, with decode_mlp.cu (the kernel it replaced on this route) on
+   the same inputs, each pass's
    device time from torch.profiler, and as the library yardstick a chain
    of PyTorch library calls for the same block (rms_norm, three cuBLAS
    GEMMs, silu, mul, add: a chain, not one call). The MLP's two halves
@@ -115,7 +120,9 @@ exits non-zero without a result:
    int8mm.cu's GEMV on the same inputs (old_gemv_ms), and its wgmma tile
    at each prefill shape (INT8MM_PREFILL_TIMING:
    every projection at the engine bucket's M = 1024, the lm_head at the
-   generate prefill's M = 2048), each row asserted to take the wgmma
+   generate prefill's M = 2048, and gate/up's 4096 x 14336 at M = 32 and
+   64, which a w8 engine of 17-64 slots decodes through), each row
+   asserted to take the wgmma
    tile, with the WMMA tile it replaced on the same inputs (its output
    held against the plain version), a bf16 matmul on a dequantized copy
    as the yardstick,
@@ -295,6 +302,23 @@ exits non-zero without a result:
    step; the w8kv8 prefill's
    225 (M = 2048, the lm_head over every position) all on the wgmma
    tile, the decode steps' all on the tensor-core GEMV.
+8c. generate_wide, engine_wide (run right after phase 8, on its
+   weights) — greedy_generate in bf16 at b = 128 (WIDE_GEN: prompt 32,
+   4 new tokens), past the 64 rows of one launch: it runs, and each
+   decode step launches the decode attention 32 times and the
+   tensor-core MLP 64 times (two blocks of 64 rows a layer); token
+   agreement with the plain bf16 run reported. Then the paged engine at
+   32 slots (JAX's serve bench at its default batch of 16:
+   EngineConfig(page_size=16, max_slots=32, max_pages_per_seq=16,
+   scan_chunk=8, prefill_chunk=128)), 32 seeded requests with prompts
+   of 16, 64 or 128 tokens and 16-32 new tokens: every request
+   completes, the allocator ends whole, paged decode L a decode step,
+   the MLP L a decode step and a single-token prefill bucket, all on the
+   tensor-core kernel (4 planes), decode_mlp.cu and the halves never;
+   decode tok/s, TTFT p50 and the steady step's MLP device ms and share
+   (profile_decode); the decode step from one state with all 32 slots
+   live, each STEP_VARIANTS variant, in bf16, fp32 and bf16 cut to 2
+   layers, held by step_gates (decode_step_wide).
 8a. engine_sharded — mesh-sharded decode (tpu_dra_torch/workloads/
    parallel/mesh.py). World 1, inside a world-1 NCCL group built by
    bootstrap.rendezvous: the engine phase's requests through
@@ -774,6 +798,9 @@ INT8MM_PREFILL_TIMING = (
     ("int8mm_prefill_wk", 1024, 4096, 1024),  # wk, wv
     ("int8mm_prefill_down", 1024, 14336, 4096),
     ("int8mm_prefill_lm_head", 2048, 4096, 128256),
+    # A w8 engine's decode projections at 17-64 slots take the same tile.
+    ("int8mm_m32", 32, 4096, 14336),
+    ("int8mm_m64", 64, 4096, 14336),
 )
 # Kernel names of the int8 matmul, both sources.
 INT8MM_KERNELS = ("int8_matmul_sm90_kernel", "int8_gemv_sm90_kernel",
@@ -1180,6 +1207,127 @@ def serve_summary(eng, done, launches, wall) -> dict:
     }
 
 
+# engine_wide: JAX's serve bench at its default batch of 16 makes an
+# engine of 2 x 16 = 32 slots (tpu_dra/workloads/enginebench.py
+# equal_memory_engine_config); WIDE_REQUESTS requests, prompts of
+# WIDE_PROMPTS tokens, 16-32 new tokens each. generate_wide: a fixed
+# batch past the 64 rows of one launch.
+WIDE_SLOTS = 32
+WIDE_REQUESTS = 32
+WIDE_PROMPTS = (16, 64, 128)
+WIDE_GEN = (128, 32, 4)  # batch, prompt, new tokens
+
+
+def engine_wide(E, I8, kernels, cfg, params) -> tuple:
+    """The engine at WIDE_SLOTS slots (bf16, the decode MLP at 17-64
+    rows on the tensor-core kernel's 4 planes): every request completes
+    with its token count, the allocator ends whole; a decode step's
+    paged attention L launches and its MLP L launches of the tensor-core
+    kernel (every prefill bucket of single-token rows too), decode_mlp.cu
+    and the halves none; a profile of steady decode (two launches of
+    mlp_sm90_kernel and one of its rms_kernel a layer, nothing else of
+    the MLP); then the decode
+    step from one state with every slot live, once per STEP_VARIANTS.
+    Returns (report, launches, bf16 step comparison, config, the
+    prompts the step comparison admitted)."""
+    L = cfg.n_layers
+    ec = E.EngineConfig(page_size=16, max_slots=WIDE_SLOTS,
+                        max_pages_per_seq=16, scan_chunk=8,
+                        prefill_chunk=128)
+    rng = np.random.default_rng(25)
+    reqs = [
+        E.Request(
+            rid=f"w{i}",
+            prompt=rng.integers(1, cfg.vocab_size, int(rng.choice(
+                WIDE_PROMPTS))).astype(np.int32),
+            max_new_tokens=int(rng.integers(16, 33)),
+        )
+        for i in range(WIDE_REQUESTS)
+    ]
+    eng, done, launches, wall = serve(E, kernels, cfg, params, ec, reqs)
+    steps = eng.decode_steps
+    want_mlp = L * (steps + eng.prefill_single_token_buckets)
+    simt = {k: launches[k] for k in ("decode_mlp_gate_up", "decode_mlp_down",
+                                     "decode_mlp_sm90_gate_up",
+                                     "decode_mlp_sm90_down")}
+    if not (launches["paged_decode_attention"] == L * steps > 0
+            and launches["decode_mlp"] == launches["decode_mlp_sm90"]
+            == want_mlp > 0 and not any(simt.values())):
+        raise AssertionError(
+            f"engine_wide: launches {launches}, want {L * steps} paged "
+            f"decode and {want_mlp} tensor-core MLP launches, no other")
+    summary = serve_summary(eng, done, launches, wall)
+    profile = profile_decode(E, eng, [np.resize(r.prompt, 128)
+                                      for r in reqs])
+    if "mlp_kernels" in profile:
+        per_step = {k: v["launches_per_step"]
+                    for k, v in profile["mlp_kernels"].items()}
+        sm90 = sum(v for k, v in per_step.items() if MLP_SM90_KERNEL in k)
+        rms = sum(v for k, v in per_step.items() if MLP_RMS_KERNEL in k)
+        if (sm90 != 2 * L or rms != L
+                or profile["mlp_launches_per_step"] != 3 * L):
+            raise AssertionError(
+                f"engine_wide profile: decode MLP kernels a step "
+                f"{per_step}, want {2 * L} {MLP_SM90_KERNEL} and {L} "
+                f"{MLP_RMS_KERNEL} launches")
+    prompts = [r.prompt for r in reqs]
+    step = step_logits(E, I8, cfg, eng, prompts, STEP_VARIANTS)
+    report = {
+        "slots": WIDE_SLOTS, **summary,
+        "launches_per_decode_step": {
+            k: launches[k] / steps for k in (
+                "paged_decode_attention", "decode_mlp", "decode_mlp_sm90")},
+        "profile": {k: profile.get(k) for k in (
+            "mlp_device_ms_per_step", "mlp_share_of_device_time",
+            "mlp_kernels", "device_ms_per_step", "step_ms",
+            "device_busy_share", "kernel_launches_per_step",
+            "decode_steps", "top_kernels", "reason")},
+    }
+    return report, launches, step, ec, prompts
+
+
+def generate_wide(G, kernels, cfg, params) -> tuple:
+    """greedy_generate at WIDE_GEN (b = 128 > 64 rows, bf16): it runs,
+    its output has the prompt and ids in range, every decode step
+    launches the decode attention L times and the tensor-core MLP L
+    times a block of 64 rows (2 L a step); token agreement with the
+    plain bf16 run (the plain attention and MLP) is reported, not
+    gated. Returns (report, launches)."""
+    b, s, new = WIDE_GEN
+    L = cfg.n_layers
+    prompt = torch.from_numpy(
+        np.random.default_rng(25).integers(1, cfg.vocab_size, (b, s))
+        .astype(np.int32))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = G.greedy_generate(cfg, params, prompt, new)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = new - 1
+    blocks = -(-b // 64)
+    want = {"decode_attention": L * steps,
+            "decode_mlp": L * blocks * steps,
+            "decode_mlp_sm90": L * blocks * steps}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"generate_wide: launches {launches}, want "
+                             f"{want}")
+    if not (out.shape == (b, s + new) and torch.equal(out[:, :s], prompt)
+            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size):
+        raise AssertionError(f"generate_wide: bad output {out.shape}")
+    plain = G.greedy_generate(dataclasses.replace(
+        cfg, decode_impl="torch", decode_mlp_impl="torch"), params, prompt,
+        new)
+    return {
+        "batch": b, "prompt": s, "new_tokens": new, "wall_seconds": wall,
+        "launches": launches,
+        "launches_per_decode_step": {k: v / steps for k, v in want.items()},
+        "row_blocks": blocks,
+        "token_agreement_with_plain": float(
+            (out[:, s:] == plain[:, s:]).float().mean()),
+    }, launches
+
+
 # The decode attention body (csrc/decode_attention.cuh): the kernels of
 # its two launches, and the sources that instantiate it.
 DECODE_BODY_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
@@ -1437,19 +1585,21 @@ def gemv_sm90_build(kernels, report) -> dict:
 
 
 # The tensor-core decode MLP's source and kernel: instantiations for
-# (1 or 2 planes of 8 rows) x (gate/up, down).
+# (1, 2, 4 or 8 planes of 8 rows) x (gate/up, down).
 MLP_SM90_SOURCE = "decode_mlp_sm90.cu"
 MLP_SM90_KERNEL = "mlp_sm90_kernel"
 # The decode MLP's kernels by name: the tensor-core kernel's two passes
-# and decode_mlp.cu's three kernels.
-MLP_KERNELS = (MLP_SM90_KERNEL, "gate_up_kernel", "down_kernel",
-               "residual_kernel")
+# and, at 17-64 rows, its RMS-norm launch; decode_mlp.cu's three
+# kernels.
+MLP_RMS_KERNEL = "rms_kernel"
+MLP_KERNELS = (MLP_SM90_KERNEL, MLP_RMS_KERNEL, "gate_up_kernel",
+               "down_kernel", "residual_kernel")
 
 
 def mlp_sm90_build(kernels, report) -> dict:
     """Registers, static shared memory and spill bytes of each
     instantiation of the tensor-core decode MLP; raises unless ptxas
-    reported all four and none spills."""
+    reported all eight and none spills."""
     out = {
         short_name(fn): {"registers": p["registers"],
                          "spill_store_bytes": p["spill_stores"],
@@ -1457,7 +1607,7 @@ def mlp_sm90_build(kernels, report) -> dict:
         for fn, p in kernels.ptxas_report(
             report[MLP_SM90_SOURCE]["log"]).items()
     }
-    if sum(MLP_SM90_KERNEL in k for k in out) != 4:
+    if sum(MLP_SM90_KERNEL in k for k in out) != 8:
         raise AssertionError(f"{MLP_SM90_SOURCE}: no ptxas report for "
                              f"every instantiation: {sorted(out)}")
     spills = {k: v for k, v in out.items() if v["spill_store_bytes"]}
@@ -1489,11 +1639,72 @@ def mlp_pass_profile(call, flush, reps: int = 20) -> dict:
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-        if MLP_SM90_KERNEL in ev.key and dev_us > 0:
-            name = "gate_up" if "true>" in ev.key else "down"
+        if dev_us > 0 and (MLP_SM90_KERNEL in ev.key
+                           or MLP_RMS_KERNEL in ev.key):
+            name = ("rms" if MLP_RMS_KERNEL in ev.key
+                    else "gate_up" if "true>" in ev.key else "down")
             out[f"{name}_us"] = dev_us / ev.count
             out[f"{name}_launches_per_call"] = ev.count / reps
     return out or {"profile": "not measured: no device time recorded"}
+
+
+# The decode MLP's parity rows: every plane count of the tensor-core
+# kernel (1, 2, 4, 8 planes of 8 rows), then two blocks of 64 rows (65
+# and 128); and its timing rows: the engine phase's 8 slots, and the 32
+# and 64 rows of wider engines (engine_wide runs 32 slots).
+MLP_PARITY_ROWS = (1, 8, 13, 16, 17, 24, 32, 48, 64, 65, 128)
+MLP_TIMING_ROWS = (8, 32, 64)
+
+
+def mlp_timing(DM, gen, b, sms, rates, flush) -> dict:
+    """The fused decode MLP at B = b, d = 4096, ffn = 14336, bf16, on
+    the tensor-core route: kernel ms (L2 evicted; with and without the
+    host's enqueue), decode_mlp.cu on the same inputs (the kernel the
+    tensor-core route replaced at every B up to 64), the plain version, the library chain, each pass's device µs and the
+    bound (bytes against the bf16 peak's operations)."""
+    x, scale, tree = mlp_inputs(gen, b)
+    ws = mlp_weights(tree)
+    d, ffn = x.shape[1], tree["w_gate"]["kernel"].shape[1]
+    route = DM._decode_mlp_route(x, ws)
+    if route != "sm90":
+        raise AssertionError(f"decode_mlp timing b={b}: route {route}, "
+                             f"want sm90")
+    nbytes = 3 * d * ffn * 2 + d * 2 + 2 * x.numel() * 2
+    flops = 2 * b * d * ffn * 3
+    call = functools.partial(DM.decode_mlp, x, scale, tree, 1e-5,
+                             impl="cuda")
+    ms = time_ms(call, flush)
+    host_ms = time_ms(call, flush, shield=False)
+    old_ms = time_ms(lambda: DM._simt_decode_mlp(x, scale, *ws, 1e-5),
+                     flush)
+    plain_ms = time_ms(
+        lambda: DM.decode_mlp(x, scale, tree, 1e-5, impl="torch"), flush)
+    library_ms = yardstick_ms(lambda: mlp_library_chain(x, scale, tree),
+                              flush)
+    row = {
+        "shape": f"B={b}, d={d}, ffn={ffn}, bf16",
+        "route": route,
+        "plan": mlp_plan_dict(DM.mlp_sm90_plan(b, d, ffn, sms)),
+        "ms": ms, "ms_with_host": host_ms, "replaced_kernel_ms": old_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms if isinstance(library_ms, float) else None,
+        "library_note": "a chain of library calls (rms_norm, three cuBLAS "
+                        "GEMMs, silu, mul, add), not one call"
+                        + ("" if isinstance(library_ms, float)
+                           else f"; {library_ms}"),
+        "passes": mlp_pass_profile(call, flush),
+        **bound(nbytes, flops, rates),
+    }
+    row["share_of_bound"] = row["bound_ms"] / ms
+    row["replaced_over_kernel"] = old_ms / ms
+    row["plain_over_kernel"] = plain_ms / ms
+    if isinstance(library_ms, float):
+        row["library_over_kernel"] = library_ms / ms
+    passes = row["passes"]
+    if "gate_up_us" in passes and "down_us" in passes:
+        row["pass_us"] = {"gate_up": passes["gate_up_us"],
+                          "down": passes["down_us"]}
+    return row
 
 
 # The MLP's halves as engine_sharded's world-2 ranks run them: the
@@ -4266,6 +4477,7 @@ def main() -> int:
     # --- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     report = kernels.build()
+    mlp_build = mlp_sm90_build(kernels, report)
     emit("build", seconds=time.perf_counter() - t0,
          per_source={k: v["seconds"] for k, v in report.items()},
          ptxas={src: {short_name(fn): [p["registers"], p["smem_bytes"],
@@ -4276,7 +4488,7 @@ def main() -> int:
          sm90=sm90_build(kernels, report),
          decode_body=decode_body_build(kernels, report),
          gemv_sm90=gemv_sm90_build(kernels, report),
-         mlp_sm90=mlp_sm90_build(kernels, report))
+         mlp_sm90=mlp_build)
 
     # --- 2b. the slice bootstrap and the collective smokes -------------------
     boot, boot_launches = bootstrap_phase(kernels, BS, SM, IB, G, A,
@@ -4309,7 +4521,7 @@ def main() -> int:
         parity[name]["aliased_table"] = aliased_table_parity(A, P, Q, gen,
                                                              int8)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b in (1, 8, 13, 16):
+    for b in MLP_PARITY_ROWS:
         x, scale, tree = mlp_inputs(gen, b)
         route = DM._decode_mlp_route(x, mlp_weights(tree))
         if route != "sm90":
@@ -4320,26 +4532,40 @@ def main() -> int:
         ref = DM.decode_mlp(x, scale, tree, 1e-5, impl="reference")
         again = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
         torch.cuda.synchronize()
+        blocks = DM.row_blocks(b)
+        plans = [mlp_plan_dict(DM.mlp_sm90_plan(hi - lo, 4096, 14336, sms))
+                 for lo, hi in blocks]
         parity[f"decode_mlp_b{b}"] = {
             "route": route,
-            "plan": mlp_plan_dict(DM.mlp_sm90_plan(b, 4096, 14336, sms)),
+            **({"plan": plans[0]} if len(plans) == 1 else
+               {"row_blocks": blocks, "plans": plans}),
             "vs_plain": compare(f"mlp b={b} vs plain", got, plain),
             "vs_reference": compare(f"mlp b={b} vs reference", got, ref),
             "rerun_bit_identical": bool(torch.equal(got, again)),
         }
         if not parity[f"decode_mlp_b{b}"]["rerun_bit_identical"]:
             raise AssertionError("decode_mlp reruns must give identical bits")
-    # decode_mlp.cu, which serves the simt route (fp32, B > 16), launched
-    # directly (not counted): fp32 at B = 8, bf16 at B = 32.
-    for label, b, dtype in (("fp32_b8", 8, torch.float32),
-                            ("bf16_b32", 32, torch.bfloat16)):
+        del x, scale, tree, got, plain, ref, again
+    # decode_mlp.cu, which serves the simt route (fp32), launched
+    # directly (not counted) at fp32 B = 8 and at bf16 B = 32 (the
+    # batches it served in bf16 before the tensor-core kernel took
+    # 17-64 rows), and at fp32 B = 128 through the wrapper (two blocks
+    # of 64 rows on the simt route).
+    for label, b, dtype, want in (
+            ("fp32_b8", 8, torch.float32, "simt"),
+            ("bf16_b32", 32, torch.bfloat16, "sm90"),
+            ("fp32_b128", 128, torch.float32, "simt")):
         x, scale, tree = mlp_inputs(gen, b)
         x, scale = x.to(dtype), scale.to(dtype)
         tree = {k: {"kernel": v["kernel"].to(dtype)} for k, v in tree.items()}
         ws = mlp_weights(tree)
         route = DM._decode_mlp_route(x, ws)
-        old = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
-        old_again = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
+        if b <= DM.ROW_BLOCK:
+            old = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
+            old_again = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
+        else:
+            old = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
+            old_again = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
         plain = DM.decode_mlp(x, scale, tree, 1e-5, impl="torch")
         ref = DM.decode_mlp(x, scale, tree, 1e-5, impl="reference")
         torch.cuda.synchronize()
@@ -4354,8 +4580,9 @@ def main() -> int:
                                                plain)
             parity[name]["vs_reference"] = compare(f"{name} vs reference",
                                                    old, ref)
-        if route != "simt" or not parity[name]["rerun_bit_identical"]:
-            raise AssertionError(f"{name}: {parity[name]}")
+        if route != want or not parity[name]["rerun_bit_identical"]:
+            raise AssertionError(f"{name}: route {route}, want {want}: "
+                                 f"{parity[name]}")
         del old, old_again, plain, ref
     del x, scale, tree, ws
     for m, k, n in INT8MM_PARITY:
@@ -4456,43 +4683,9 @@ def main() -> int:
             timing[name + label] = paged_timing(
                 A, q, k_, v_, sc, tables, lens, lengths, rates, flush)
         del q, kp, vp, tables, lens, pools, k_, v_, sc
-    x, scale, tree = mlp_inputs(gen, 8)
-    ws = mlp_weights(tree)
-    d, ffn = x.shape[1], tree["w_gate"]["kernel"].shape[1]
-    route = DM._decode_mlp_route(x, ws)
-    if route != "sm90":
-        raise AssertionError(f"decode_mlp timing: route {route}, want sm90")
-    nbytes = 3 * d * ffn * 2 + d * 2 + 2 * x.numel() * 2
-    flops = 2 * x.shape[0] * d * ffn * 3
-    call = functools.partial(DM.decode_mlp, x, scale, tree, 1e-5,
-                             impl="cuda")
-    ms = time_ms(call, flush)
-    host_ms = time_ms(call, flush, shield=False)
-    old_ms = time_ms(lambda: DM._simt_decode_mlp(x, scale, *ws, 1e-5),
-                     flush)
-    plain_ms = time_ms(
-        lambda: DM.decode_mlp(x, scale, tree, 1e-5, impl="torch"), flush)
-    library_ms = yardstick_ms(lambda: mlp_library_chain(x, scale, tree),
-                              flush)
-    timing["decode_mlp"] = {
-        "shape": "B=8, d=4096, ffn=14336, bf16",
-        "route": route,
-        "plan": mlp_plan_dict(DM.mlp_sm90_plan(8, d, ffn, sms)),
-        "ms": ms, "ms_with_host": host_ms, "replaced_kernel_ms": old_ms,
-        "plain_ms": plain_ms,
-        "library_ms": library_ms if isinstance(library_ms, float) else None,
-        "library_note": "a chain of library calls (rms_norm, three cuBLAS "
-                        "GEMMs, silu, mul, add), not one call"
-                        + ("" if isinstance(library_ms, float)
-                           else f"; {library_ms}"),
-        "passes": mlp_pass_profile(call, flush),
-        **bound(nbytes, flops, rates),
-    }
-    row = timing["decode_mlp"]
-    row["share_of_bound"] = row["bound_ms"] / ms
-    row["replaced_over_kernel"] = old_ms / ms
-    row["plain_over_kernel"] = plain_ms / ms
-    del x, scale, tree, ws
+    for b in MLP_TIMING_ROWS:
+        timing["decode_mlp" if b == 8 else f"decode_mlp_b{b}"] = mlp_timing(
+            DM, gen, b, sms, rates, flush)
     timing.update(mlp_halves(DM, gen, rates, flush))
     # The tensor-core GEMV at every decode shape (M = 8 slots): gate and
     # up, the lm_head, wq and wo, wk and wv, down; int8mm.cu's GEMV, the
@@ -5219,12 +5412,38 @@ def main() -> int:
                                                  == "int8" else 0)) / steps,
             },
         }
-    del params
-    torch.cuda.empty_cache()
     emit("generate", model="LLAMA3_8B widths, 32 layers, random weights",
          batch=b, prompt=s, new_tokens=new, **gen_out,
          w8kv8_vs_bf16_token_agreement=float(
              (tokens["bf16"] == tokens["w8kv8"]).float().mean()))
+
+    # --- 8c. wide decode batches: 128 rows, and a 32-slot engine ---------
+    t0 = time.perf_counter()
+    wide_gen, wide_gen_launches = generate_wide(G, kernels, cfg, params)
+    emit("generate_wide", nvidia_smi=smi,
+         model="LLAMA3_8B widths, 32 layers, bf16, random weights",
+         seconds=time.perf_counter() - t0, **wide_gen)
+    t0 = time.perf_counter()
+    wide, wide_launches, wide_step, wide_ec, wide_prompts = engine_wide(
+        E, I8, kernels, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    wide_cmp = {"bf16": wide_step}
+    for name, c in (
+        ("fp32", dataclasses.replace(
+            cfg, dtype=torch.float32, param_dtype=torch.float32)),
+        ("bf16_2_layers", dataclasses.replace(cfg, n_layers=2)),
+    ):
+        e = E.Engine(c, init_params(
+            c, torch.Generator(device="cuda").manual_seed(0)), wide_ec)
+        wide_cmp[name] = step_logits(E, I8, c, e, wide_prompts,
+                                     STEP_VARIANTS)
+        del e
+        torch.cuda.empty_cache()
+    emit("engine_wide", nvidia_smi=smi,
+         model="LLAMA3_8B widths, 32 layers, bf16, random weights",
+         seconds=time.perf_counter() - t0, **wide)
+    emit("decode_step_wide", **wide_cmp, gates=step_gates(wide_cmp))
 
     # --- 8a. sharded decode: world 1 above, world 2 on the one card --------
     t0 = time.perf_counter()
@@ -5301,7 +5520,9 @@ def main() -> int:
          + fabric_launches.get("decode_mlp_sm90", 0)
          + fbench_launches.get("decode_mlp_sm90", 0)
          + bench_launches.get("decode_mlp_sm90", 0)
-         + boot_launches["decode_mlp_sm90"]),
+         + boot_launches["decode_mlp_sm90"]
+         + wide_launches["decode_mlp_sm90"]
+         + wide_gen_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
         # for M <= 16 (decode) and the wgmma tile for M > 16 (prefill).
         ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
@@ -5366,9 +5587,20 @@ def main() -> int:
         if name == "int8mm_gemv_sm90":
             rows[-1]["replaced_kernel_ms"] = t["old_gemv_ms"]
         if name == "decode_mlp":
-            rows[-1].update(counter="decode_mlp_sm90",
-                            replaced_kernel_ms=t["replaced_kernel_ms"],
-                            library_note=t["library_note"])
+            rows[-1].update(
+                counter="decode_mlp_sm90",
+                replaced_kernel_ms=t["replaced_kernel_ms"],
+                library_note=t["library_note"],
+                instantiations=mlp_build,
+                wide_batches={
+                    f"b{b}": {k: timing[f"decode_mlp_b{b}"][k] for k in (
+                        "ms", "ms_with_host", "replaced_kernel_ms",
+                        "plain_ms", "library_ms", "bound_ms", "bound_by",
+                        "share_of_bound", "passes")}
+                    for b in MLP_TIMING_ROWS if b != 8},
+                launches_at_wide_batches={
+                    "engine_wide": wide_launches["decode_mlp_sm90"],
+                    "generate_wide": wide_gen_launches["decode_mlp_sm90"]})
         if "library_note" in t and name.startswith("decode_mlp_"):
             rows[-1]["library_note"] = t["library_note"]
         if name.startswith("int8mm"):

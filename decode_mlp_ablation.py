@@ -2,7 +2,7 @@
 """Where the tensor-core decode MLP (tpu_dra_torch/csrc/decode_mlp_sm90.cu)
 spends its time, on one NVIDIA GPU.
 
-    python3 decode_mlp_ablation.py [variants] [plans] [generate]
+    python3 decode_mlp_ablation.py [variants] [plans] [wide] [generate]
 
 (no argument runs every phase). Phases, one JSON line each after the
 card's nvidia-smi line, all at Llama-3-8B widths (d = 4096, ffn =
@@ -25,7 +25,14 @@ card's nvidia-smi line, all at Llama-3-8B widths (d = 4096, ffn =
    the same way, B = 8 and B = 16; and how many clusters of each
    configuration the card holds at once (cudaOccupancyMaxActiveClusters,
    through the source's entry).
-3. generate — greedy_generate (32 layers, random weights, b = 8,
+3. wide — the same at B = 32 and B = 64 (4 and 8 planes of rows) under
+   the wrapper's plan and WIDE_PLANS (gate/up at every K split that
+   fits shared memory, down at other widths and splits), beside
+   decode_mlp.cu (the kernel the route replaced at these batches) and
+   the library chain on the same inputs, and how many clusters of each
+   gate/up configuration the card holds at once; then phase 1's
+   variants at B = 32 and B = 64.
+4. generate — greedy_generate (32 layers, random weights, b = 8,
    prompt 256, 32 new tokens, bf16) with the decode MLP on the
    tensor-core route ("sm90") or forced onto decode_mlp.cu ("simt", the
    route before it), in turns sm90, simt, simt, sm90 after one untimed
@@ -45,23 +52,34 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "decode_mlp_sm90.cu"
 ENTRY = "tpu_decode_mlp_sm90"
-PDL = "  cfg.numAttrs = gate_up ? 1 : 2;\n"
+PDL = "  cfg.numAttrs = pdl ? 2 : 1;\n"
 W_COPY = "      cp_async16(stage + w_dst[j], ok ? w_src[j] : a.w0, ok);\n"
-PROLOGUE = "  if (GATE_UP) {\n    // Each row's sum of x^2"
+PROLOGUE = "  if constexpr (!kStream) {\n    // Each row's sum of x^2"
 TRIGGER = "    if (n_stages < slots) grid_dependents_launch();\n"
 TRIGGER_LOOP = ("    if (GATE_UP && s == n_stages - slots) "
                 "grid_dependents_launch();\n")
 KERNEL_TOP = "  constexpr int kRed = kMats * kRows * 16;  // a warp's sums\n"
+WG_PRODUCTS = ("        for (int m = 0; m < kMats; ++m)\n"
+               "          wgmma_w_x(")
+LOOP_END = ("  __syncthreads();  // every warp is done with the ring: it holds "
+            "the sums\n")
 # name: (old, new) replacements of decode_mlp_sm90.cu.
 VARIANTS = {
     "as_is": [],
     "no_pdl": [(PDL, "  cfg.numAttrs = 1;\n")],
     "trigger_early": [(TRIGGER, "    grid_dependents_launch();\n"),
                       (TRIGGER_LOOP, "")],
-    "no_norm": [(PROLOGUE, "  if (GATE_UP && a.M < 0) {\n"
+    "no_norm": [(PROLOGUE, "  if (!kStream && a.M < 0) {\n"
                            "    // Each row's sum of x^2")],
     "no_w_copy": [(W_COPY, "      (void)ok;\n")],
     "launch_only": [(KERNEL_TOP, KERNEL_TOP + "  if (a.M > 0) return;\n")],
+}
+# At 4 and 8 planes (the wgmma body) also: no products (the ring, the
+# norm and the epilogue run on, the sums are zero), and no epilogue
+# (every CTA leaves after its walk).
+WIDE_VARIANTS = {
+    "no_products": [(WG_PRODUCTS, WG_PRODUCTS.replace("kMats;", "0;"))],
+    "no_epilogue": [(LOOP_END, "  if (a.M > 0) return;\n" + LOOP_END)],
 }
 # pass: ((width, cluster, slots or None for the wrapper's), ...).
 PLANS = {
@@ -70,17 +88,24 @@ PLANS = {
     "down": ((128, 3, None), (128, 4, None), (64, 1, None), (128, 2, None),
              (64, 4, None), (64, 2, 3), (64, 2, 4)),
 }
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
+# The same for B = 32 and 64: xn's rows need a K split at gate/up.
+WIDE_PLANS = {
+    "gate_up": tuple((128, c, None) for c in range(2, 9))
+    + ((64, 2, None), (64, 4, None)),
+    "down": ((64, 1, None), (128, 2, None), (128, 1, None), (64, 4, None),
+             (128, 4, None)),
+}
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
-def build_variants(kernels) -> dict:
+def build_variants(kernels, variants=None) -> dict:
     """Each variant's C entry, built into build/decode_mlp_ablation/."""
     out_dir = os.path.join(REPO, "build", "decode_mlp_ablation")
     os.makedirs(out_dir, exist_ok=True)
     src = open(os.path.join(kernels.CSRC, SOURCE)).read()
     procs = {}
-    for name, reps in VARIANTS.items():
+    for name, reps in (variants or VARIANTS).items():
         text = src
         for old, new in reps:
             if old not in text:
@@ -119,6 +144,7 @@ class Call:
         self.act = torch.empty(self.b, self.ffn, dtype=torch.bfloat16,
                                device="cuda")
         self.out = torch.empty_like(self.x)
+        self.xn = torch.empty_like(self.x)  # the wgmma gate/up's scratch
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.plan = DM.mlp_sm90_plan(self.b, self.d, self.ffn, self.sms)
 
@@ -127,7 +153,8 @@ class Call:
         self.kernels.check(fn(
             self.x.data_ptr(), self.scale.data_ptr(),
             *(w.data_ptr() for w in self.ws), self.act.data_ptr(),
-            self.out.data_ptr(), self.b, self.d, self.ffn, gu.width,
+            self.xn.data_ptr(), self.out.data_ptr(), self.b, self.d,
+            self.ffn, gu.width,
             gu.cluster, gu.cta_steps, gu.slots, dn.width, dn.cluster,
             dn.cta_steps, dn.slots, 1e-5,
             torch.cuda.current_stream().cuda_stream), "decode_mlp variant")
@@ -148,11 +175,11 @@ class Call:
         return self.plan._replace(**{which: p})
 
 
-def variants_phase(C, DM, kernels, rates) -> dict:
-    fns = build_variants(kernels)
+def variants_phase(C, DM, kernels, rates, b: int = 8, fns=None) -> dict:
+    fns = fns or build_variants(kernels)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    call = Call(C, DM, kernels, gen, 8)
+    call = Call(C, DM, kernels, gen, b)
     ms = {name: [] for name in fns}
     for _ in range(2):
         for name, fn in fns.items():
@@ -161,25 +188,34 @@ def variants_phase(C, DM, kernels, rates) -> dict:
               for name, fn in fns.items()}
     d, ffn = call.d, call.ffn
     return {
-        "shape": f"B=8, d={d}, ffn={ffn}, bf16",
+        "shape": f"B={b}, d={d}, ffn={ffn}, bf16",
         "plan": C.mlp_plan_dict(call.plan), "ms": ms, "passes_us": passes,
         **C.bound(3 * d * ffn * 2 + d * 2 + 2 * call.x.numel() * 2,
-                  6 * 8 * d * ffn, rates),
+                  6 * b * d * ffn, rates),
     }
 
 
-def plans_phase(C, DM, kernels) -> dict:
+def plans_phase(C, DM, kernels, batches=(8, 16), plans=None,
+                yardsticks=False) -> dict:
     fn = kernels.function(SOURCE, ENTRY, ARGTYPES)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     out = {}
-    for b in (8, 16):
+    for b in batches:
         call = Call(C, DM, kernels, gen, b)
         row = {"plan": C.mlp_plan_dict(call.plan),
                "wrapper_plan_ms": C.time_ms(lambda: call(fn), flush),
                "wrapper_plan_passes": C.mlp_pass_profile(
                    lambda: call(fn), flush)}
-        for which, options in PLANS.items():
+        if yardsticks:
+            tree = {n: {"kernel": w} for n, w in zip(
+                ("w_gate", "w_up", "w_down"), call.ws)}
+            row["decode_mlp_cu_ms"] = C.time_ms(
+                lambda: DM._simt_decode_mlp(call.x, call.scale, *call.ws,
+                                            1e-5), flush)
+            row["library_chain_ms"] = C.yardstick_ms(
+                lambda: C.mlp_library_chain(call.x, call.scale, tree), flush)
+        for which, options in (plans or PLANS).items():
             for width, cluster, slots in options:
                 plan = call.other(which, width, cluster, slots)
                 key = f"{which}_w{width}_c{cluster}_s{slots or 'max'}"
@@ -196,16 +232,19 @@ def plans_phase(C, DM, kernels) -> dict:
     query = kernels.function(SOURCE, "tpu_decode_mlp_sm90_max_clusters",
                              [ctypes.c_int] * 6)
     occupancy = {}
-    for gate_up, width in ((True, 128), (True, 64), (False, 128),
-                           (False, 64)):
-        k, n = (4096, 14336) if gate_up else (14336, 4096)
-        row = {}
-        for cluster in range(1, 9):
-            p = DM._mlp_pass(1, k, n, gate_up, width, cluster)
-            if p is not None:
-                row[cluster] = query(1, int(gate_up), width, p.cluster,
-                                     p.cta_steps, p.slots)
-        occupancy[f"{'gate_up' if gate_up else 'down'}_w{width}_b8"] = row
+    for b in batches:
+        planes = DM.planes_of(b)
+        for gate_up, width in ((True, 128), (True, 64), (False, 128),
+                               (False, 64)):
+            k, n = (4096, 14336) if gate_up else (14336, 4096)
+            row = {}
+            for cluster in range(1, 9):
+                p = DM._mlp_pass(planes, k, n, gate_up, width, cluster)
+                if p is not None:
+                    row[cluster] = query(planes, int(gate_up), width,
+                                         p.cluster, p.cta_steps, p.slots)
+            occupancy[f"{'gate_up' if gate_up else 'down'}_w{width}_b{b}"] = (
+                row)
     out["max_active_clusters"] = occupancy
     return out
 
@@ -273,8 +312,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     rates = C.peaks(torch.cuda.get_device_name(0))
-    phases = sys.argv[1:] or ["variants", "plans", "generate"]
-    unknown = set(phases) - {"variants", "plans", "generate"}
+    phases = sys.argv[1:] or ["variants", "plans", "wide", "generate"]
+    unknown = set(phases) - {"variants", "plans", "wide", "generate"}
     if unknown:
         print(f"decode_mlp_ablation: unknown phases {sorted(unknown)}",
               file=sys.stderr)
@@ -284,6 +323,13 @@ def main() -> int:
         C.emit("variants", **variants_phase(C, DM, kernels, rates))
     if "plans" in phases:
         C.emit("plans", **plans_phase(C, DM, kernels))
+    if "wide" in phases:
+        C.emit("wide", **plans_phase(C, DM, kernels, (32, 64), WIDE_PLANS,
+                                     yardsticks=True))
+        fns = build_variants(kernels, {**VARIANTS, **WIDE_VARIANTS})
+        for b in (32, 64):
+            C.emit(f"variants_b{b}", **variants_phase(C, DM, kernels, rates,
+                                                      b, fns))
     if "generate" in phases:
         cfg = LLAMA3_8B
         params = init_params(cfg,

@@ -2,18 +2,21 @@
 
 ``torch`` (the twin of ``_xla_decode_mlp``) and ``reference`` (the twin
 of the fp32 oracle) against JAX's xla, reference and Pallas-interpret
-paths at d=256, ffn=512, B in {4, 1, 8, 13, 16}, fp32 and bf16, on the
-same numpy-seeded inputs. The fp32 bar is the one
+paths at d=256, ffn=512, B in {4, 1, 8, 13, 16, 32, 64, 128} (128: two
+row blocks of the card's launches), fp32 and bf16, on the same
+numpy-seeded inputs. The fp32 bar is the one
 tests/test_workloads.py holds the Pallas kernel to: relative error
 below 1e-5. The bf16 bar is 2e-2 of the largest |output|: the plain
 chain rounds gate and up to bf16 before silu, the Pallas body keeps
 them in fp32.
 
 The tensor-core kernel (csrc/decode_mlp_sm90.cu) runs only on the card;
-here its plan (``mlp_sm90_plan``), its route (``_decode_mlp_route``) and
-a numpy model of its data movement (copies into the swizzled ring,
-ldmatrix.trans and B-fragment lane maps, the m16n8k16 product, the
-warp and cluster reductions) are held to x @ W and to the Pallas body.
+here its plan (``mlp_sm90_plan``), its route (``_decode_mlp_route``), the
+row blocks a call launches (``row_blocks``) and a numpy model of its
+data movement (copies into the swizzled ring, ldmatrix.trans and
+B-fragment lane maps over 1, 2, 4 or 8 planes of rows, the m16n8k16
+product, the warp and cluster reductions) are held to x @ W and to the
+Pallas body.
 """
 
 import numpy as np
@@ -83,10 +86,11 @@ def _twin_case(seed, b, dtype):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_decode_mlp_matches_jax(monkeypatch, seed):
-    """At B = 4 and at the tensor-core kernel's row counts 1, 8, 13 and
-    16, fp32 and bf16."""
+    """At B = 4, at the tensor-core kernel's row counts 1, 8, 13, 16,
+    32 and 64, and at 128 (two row blocks on the card), fp32 and
+    bf16."""
     monkeypatch.setattr(JA, "_INTERPRET", True)
-    for b in (4, 1, 8, 13, 16):
+    for b in (4, 1, 8, 13, 16, 32, 64, 128):
         for dtype in ("fp32", "bf16"):
             _twin_case(seed, b, dtype)
 
@@ -136,8 +140,9 @@ def test_decode_mlp_bf16_torch_rounds_like_the_op_chain():
 # --- the tensor-core kernel (csrc/decode_mlp_sm90.cu): plan, route and a
 # model of its data movement ------------------------------------------
 
-PLAN_SHAPES = [(b, d, f) for b in (1, 8, 13, 16)
+PLAN_SHAPES = [(b, d, f) for b in (1, 8, 13, 16, 17, 32, 64)
                for d, f in ((4096, 14336), (64, 128))]
+PLANES = {1: 1, 8: 1, 13: 2, 16: 2, 17: 4, 32: 4, 64: 8}
 
 
 def _rank_steps(pp, steps):
@@ -163,9 +168,10 @@ def test_mlp_sm90_plan_covers_every_column_and_k_once(b, d, ffn):
     """Each pass: every 16-column tile of N belongs to one warp of one
     CTA column, the ranks' K ranges tile [0, ceil(K / 16)) k16 steps in
     rank order and each warp slot takes its share of every stage once;
-    the ring and xn's rows fit shared memory; a cluster is portable."""
+    the ring and xn's rows fit shared memory, and so do the warps' sums
+    that overlay them; a cluster is portable."""
     plan = TDM.mlp_sm90_plan(b, d, ffn, 132)
-    assert plan.planes == (1 if b <= 8 else 2)
+    assert plan.planes == PLANES[b] == TDM.planes_of(b)
     for pp, k, n, gate_up in ((plan.gate_up, d, ffn, True),
                               (plan.down, ffn, d, False)):
         assert pp.width in (64, 128) and pp.warps_n == pp.width // 16
@@ -174,6 +180,7 @@ def test_mlp_sm90_plan_covers_every_column_and_k_once(b, d, ffn):
         assert (pp.rows // 16) % pp.warps_k == 0
         assert 1 <= pp.cluster <= 8 and 3 <= pp.slots <= 8
         assert pp.smem <= 232448 - 1024
+        assert pp.smem >= 8 * (2 if gate_up else 1) * 8 * plan.planes * 64
         tiles = [y * pp.width + 16 * sn for y in range(pp.col_ctas)
                  for sn in range(pp.warps_n)]
         assert [c for c in tiles if c < n] == list(range(0, n, 16))
@@ -195,6 +202,14 @@ def test_mlp_sm90_plan_fills_one_wave(b):
         assert pp.ctas <= (132 if pp.cluster <= 2 else 99), pp
     assert plan.gate_up.ctas == 112 and plan.gate_up.cluster == 1
     assert plan.down.ctas == 128 and plan.down.cluster == 2
+
+
+def test_mlp_sm90_plan_refuses_more_rows_than_a_launch_takes():
+    """A plan is one launch's: 1..64 rows; larger batches are planned a
+    row block at a time."""
+    for b in (0, 65, 128):
+        with pytest.raises(ValueError, match="rows"):
+            TDM.mlp_sm90_plan(b, 4096, 14336, 132)
 
 
 def test_mlp_sm90_plan_reads_only_its_arguments(monkeypatch):
@@ -223,10 +238,13 @@ ROUTE_CASES = [
     ("bf16_b1", dict(b=1, d=256, ffn=512), "sm90"),
     ("bf16_b16", dict(b=16, d=256, ffn=512), "sm90"),
     ("bf16_tiny_llama", dict(b=3, d=64, ffn=128), "sm90"),
-    ("bf16_b17", dict(b=17, d=256, ffn=512), "simt"),
-    ("bf16_b32", dict(b=32, d=256, ffn=512), "simt"),
+    ("bf16_b17", dict(b=17, d=256, ffn=512), "sm90"),
+    ("bf16_b32", dict(b=32, d=256, ffn=512), "sm90"),
+    ("bf16_b64", dict(b=64, d=256, ffn=512), "sm90"),
+    ("bf16_b128_row_blocks", dict(b=128, d=256, ffn=512), "sm90"),
     ("fp32_b8", dict(b=8, d=256, ffn=512, dtype=torch.float32), "simt"),
     ("fp32_b16", dict(b=16, d=256, ffn=512, dtype=torch.float32), "simt"),
+    ("fp32_b32", dict(b=32, d=256, ffn=512, dtype=torch.float32), "simt"),
     ("x_unaligned", dict(b=8, d=256, ffn=512, offset=1), "simt"),
     ("x_8_bytes_off", dict(b=8, d=256, ffn=512, offset=4), "simt"),
     ("x_16_bytes_off", dict(b=8, d=256, ffn=512, offset=8), "sm90"),
@@ -238,8 +256,9 @@ ROUTE_CASES = [
 @pytest.mark.parametrize("dims,want", [c[1:] for c in ROUTE_CASES],
                          ids=[c[0] for c in ROUTE_CASES])
 def test_decode_mlp_route(dims, want):
-    """sm90 for bf16 with 1 <= B <= 16, d and ffn multiples of 8, x and
-    the weights 16-byte aligned; simt for fp32, B > 16 and the rest."""
+    """sm90 for bf16 at any B (in blocks of 64 rows), d and ffn
+    multiples of 8, x and the weights 16-byte aligned; simt for fp32
+    and the rest."""
     x, ws = _route_tensors(**dims)
     assert TDM._decode_mlp_route(x, ws) == want
 
@@ -255,6 +274,81 @@ def test_decode_mlp_route_needs_contiguous_bf16_weights():
     assert TDM._decode_mlp_route(x, ws) == "simt"
 
 
+ROW_BLOCK_CASES = {1: [(0, 1)], 64: [(0, 64)], 65: [(0, 64), (64, 65)],
+                   128: [(0, 64), (64, 128)],
+                   200: [(0, 64), (64, 128), (128, 192), (192, 200)]}
+# C entry: argument positions of (x, the output, the batch) and, at the
+# down half, of act.
+_ENTRY_ARGS = {
+    "tpu_decode_mlp_sm90": (0, 7, 8, None),
+    "tpu_decode_mlp": (0, 7, 9, None),
+    "tpu_decode_mlp_sm90_gate_up": (0, 4, 6, None),
+    "tpu_decode_mlp_gate_up": (0, 4, 6, None),
+    "tpu_decode_mlp_sm90_down": (0, 3, 4, 1),
+    "tpu_decode_mlp_down": (0, 4, 6, 1),
+}
+
+
+def _row_of(ptr, t):
+    """The row of the [rows, cols] tensor t that ``ptr`` points at."""
+    off = ptr - t.data_ptr()
+    assert off % (t.stride(0) * t.element_size()) == 0, off
+    return off // (t.stride(0) * t.element_size())
+
+
+@pytest.mark.parametrize("b", sorted(ROW_BLOCK_CASES))
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"),
+                                         (torch.float32, "simt")])
+def test_decode_mlp_runs_row_blocks_of_64(monkeypatch, b, dtype, route):
+    """A call over B rows launches its route's C entry once a block of
+    at most 64 consecutive rows: x, the output and (down half) act at
+    the block's first row, the block's rows as the batch, one launch
+    counted a block. So do the fused block and both halves on a model
+    shard (gate/up writes act block by block, down reads it so). The C
+    entries are stood in for by a recorder on CPU tensors."""
+    assert TDM.row_blocks(b) == ROW_BLOCK_CASES[b]
+    x, scale, ws = _inputs(40 + b, b=b, d=64, f=128)
+    conv = lambda a: torch.from_numpy(a).to(dtype)  # noqa: E731
+    tx, ts, tt = conv(x), conv(scale), _tree(ws, conv)
+    wg, wu, wd = (tt[n]["kernel"] for n in ("w_gate", "w_up", "w_down"))
+    calls = []
+
+    def function(source, entry, argtypes):
+        assert len(argtypes) > max(i for i in _ENTRY_ARGS[entry] if i)
+
+        def fn(*args):
+            calls.append((entry, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(TDM, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(TDM, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(TDM.kernels, "function", function)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    assert TDM._decode_mlp_route(tx, (wg, wu, wd)) == route
+    blocks = ROW_BLOCK_CASES[b]
+    TDM.kernels.reset_launches()
+    out = TDM._cuda_decode_mlp(tx, ts, wg, wu, wd, EPS)
+    act = TDM._cuda_gate_up(tx, ts, wg, wu, EPS, wg.shape[1])
+    half = TDM._cuda_down(tx, act, wd)
+    prefix = "decode_mlp_sm90" if route == "sm90" else "decode_mlp"
+    entries = [f"tpu_{prefix}", f"tpu_{prefix}_gate_up", f"tpu_{prefix}_down"]
+    assert [e for e, _ in calls] == [e for e in entries for _ in blocks]
+    for i, (entry, args) in enumerate(calls):
+        lo, hi = blocks[i % len(blocks)]
+        xi, oi, bi, ai = _ENTRY_ARGS[entry]
+        dest = (out, act, half)[i // len(blocks)]
+        assert (_row_of(args[xi], tx), _row_of(args[oi], dest),
+                args[bi]) == (lo, lo, hi - lo), (entry, i)
+        if ai is not None:
+            assert _row_of(args[ai], act) == lo
+    n = len(blocks)
+    want = {"decode_mlp": n, "decode_mlp_sm90": n if route == "sm90" else 0,
+            f"{prefix}_gate_up": n, f"{prefix}_down": n}
+    assert {k: TDM.kernels.LAUNCHES[k] for k in want} == want
+
+
 def _bf16(a):
     """float32 values rounded to bf16 (round to nearest even)."""
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
@@ -265,45 +359,67 @@ _LANES = np.arange(32)
 _G, _T = _LANES // 4, _LANES % 4
 
 
+def _b_chunk(wg, rows_pad, row_bytes, r, c):
+    """Byte offset of 16-byte chunk c (8 k) of row r of a B operand
+    (csrc/decode_mlp_sm90.cu b_chunk): rows of row_bytes at mma.sync, at
+    wgmma K-major 128-byte-swizzled blocks of 64 k."""
+    if wg:
+        return (c // 8) * (rows_pad * 128) + r * 128 + (((c % 8) ^ (r % 8))
+                                                        << 4)
+    return r * row_bytes + 16 * c
+
+
 def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
     """One pass of csrc/decode_mlp_sm90.cu, CTA by CTA and lane by lane:
     returns the finished sums [m_rows, n] of each matrix in ``mats``
     (W [k, n]) against ``operand`` [m_rows, k] (xn at gate/up, act at
     down). Shared memory is modelled as one value per bf16 slot of each
     stage's byte image: the copies place 16-byte chunks where the
-    kernel's threads do (swizzled), the warps read A by the
-    ldmatrix.x4.trans lane map and B by their (g, t) loads, the products
-    follow PTX m16n8k16, and the sums meet warps, then ranks, in
-    order."""
+    kernel's threads do (swizzled), and the sums meet warps, then ranks,
+    in order. At 1 and 2 planes the warps read A by the
+    ldmatrix.x4.trans lane map and B by the ldmatrix.x4 (.x2) lane map,
+    the products follow PTX m16n8k16; at 4 and 8 planes the operand's
+    piece of each stage (xn's too, streamed as act's) is copied in
+    K-major swizzled rows, each warpgroup reads A and B through its
+    wgmma descriptors (A: the MN-major W block, transpose-A; B: the
+    piece), and its m64nNk16 accumulator fragment lands in each warp's
+    slot of the sums."""
     gate_up = len(mats) == 2
+    wg = planes >= 4
     rows_pad = 8 * planes
     rows = pp.rows
     sps = rows // 16
     steps = -(-k // 16)
     w_bytes = 16384
-    p_row = 2 * rows + 16
+    p_row = -(-rows // 64) * 128 if wg else 2 * rows + 16
     cpr = pp.width // 8
     r_step = 256 // cpr
     tid = np.arange(256)
     ch, r0 = tid % cpr, tid // cpr
     q, rr = _LANES // 8, _LANES % 8
+    wg_n = pp.width // 64
     out = np.zeros((len(mats), m_rows, n), dtype=np.float64)
     for y in range(pp.col_ctas):
         col0 = y * pp.width
-        red = {}  # rank -> [warp, mat, row, 16]
+        red = {}  # rank -> [warp slot, mat, row, 16]
         for rank in range(pp.cluster):
             begin = rank * pp.cta_steps
             end = min(steps, begin + pp.cta_steps)
             k_begin, k_end = 16 * begin, min(k, 16 * end)
             n_stages = -(-(end - begin) // sps) if end > begin else 0
-            xs_row = n_stages * rows * 2 + 16
-            xs = np.zeros(rows_pad * xs_row // 2)
-            if gate_up:  # the prologue's xn rows
+            kc = n_stages * rows // 8
+            xs_row = 16 * kc + 16
+            xs = np.zeros((-(-kc // 8) * rows_pad * 128 if wg
+                           else rows_pad * xs_row) // 2)
+            if gate_up and not wg:  # the prologue's xn rows, by chunk
                 for r in range(m_rows):
-                    kk = np.arange(k_begin, min(k_end, k_begin + n_stages
-                                                * rows))
-                    xs[(r * xs_row) // 2 + kk - k_begin] = operand[r, kk]
+                    for c in range(kc):
+                        kk = k_begin + 8 * c
+                        if kk < k_end:
+                            dst = _b_chunk(wg, rows_pad, xs_row, r, c) // 2
+                            xs[dst:dst + 8] = operand[r, kk:kk + 8]
             acc = np.zeros((8, len(mats), planes, 16, 8), dtype=acc_dtype)
+            dw = np.zeros((2, len(mats), 64, rows_pad), dtype=acc_dtype)
             for s in range(n_stages):
                 img = np.zeros((w_bytes + rows_pad * p_row) // 2)
                 for j in range(4):  # a thread's W chunks
@@ -318,34 +434,83 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
                         img[dst // 2 + e] = np.where(
                             ok, mats[mat][np.minimum(row, k - 1),
                                           np.minimum(col, n - 1)], 0.0)
-                if not gate_up:  # act's piece of the stage
+                if not gate_up or wg:  # act's (xn's) piece of the stage
+                    # thread tid: chunk tid % p_cpr of rows tid / p_cpr
+                    # + j * 256 / p_cpr, j < ceil(rows_pad * 16 / 256)
                     p_cpr = rows // 8
-                    for i in range(rows_pad * p_cpr):
-                        pr, c = i // p_cpr, i % p_cpr
-                        kk = k_begin + s * rows + 8 * c
-                        if pr < m_rows and kk < k_end:
-                            dst = (w_bytes + pr * p_row + 16 * c) // 2
-                            img[dst:dst + 8] = operand[pr, kk:kk + 8]
+                    written = set()
+                    for tid_ in range(256):
+                        for j in range(-(-rows_pad * 16 // 256)):
+                            pr = tid_ // p_cpr + j * (256 // p_cpr)
+                            c = tid_ % p_cpr
+                            if pr >= rows_pad:
+                                continue
+                            assert (pr, c) not in written
+                            written.add((pr, c))
+                            kk = k_begin + s * rows + 8 * c
+                            dst = (w_bytes + _b_chunk(wg, rows_pad, p_row,
+                                                      pr, c)) // 2
+                            img[dst:dst + 8] = (
+                                operand[pr, kk:kk + 8]
+                                if pr < m_rows and kk < k_end else 0.0)
+                    assert len(written) == rows_pad * p_cpr
+                if wg:  # each warpgroup's wgmma products
+                    for wgi in range(2):
+                        cb, kh = wgi % wg_n, wgi // wg_n
+                        for i in range(4 // len(mats)):
+                            jj = kh + pp.warps_k * i
+                            kq = np.arange(16)
+                            kr = 16 * jj + kq  # the stage's k rows
+                            src, b0 = img, w_bytes  # the stage's piece
+                            kk = 16 * jj + kq
+                            nr = np.arange(rows_pad)
+                            b_addr = (b0 + (kk[:, None] // 64)
+                                      * (rows_pad * 128) + nr[None, :] * 128
+                                      + ((((kk[:, None] % 64) // 8)
+                                          ^ (nr[None, :] % 8)) << 4)
+                                      + (kk[:, None] % 8) * 2) // 2
+                            bmat = src[b_addr]  # 16 x rows_pad
+                            mc = np.arange(64)
+                            for mat in range(len(mats)):
+                                a_addr = (mat * rows * pp.width * 2
+                                          + cb * rows * 128
+                                          + kr[None, :] * 128
+                                          + (((mc[:, None] // 8)
+                                              ^ (kr[None, :] % 8)) << 4)
+                                          + (mc[:, None] % 8) * 2) // 2
+                                amat = img[a_addr]  # 64 x 16
+                                dw[wgi, mat] = (dw[wgi, mat] + amat @ bmat
+                                                ).astype(acc_dtype)
+                    continue
                 for warp in range(8):
                     sn, wk = warp // pp.warps_k, warp % pp.warps_k
                     a_lane = ((sn // 4) * rows * 128 + (rr + 8 * (q // 2))
                               * 128 + (((2 * (sn % 4) + q % 2) ^ rr) << 4))
                     for i in range(4 // len(mats)):
                         jj = wk + pp.warps_k * i
+                        # ldmatrix.x4 (x2 at one plane): lane l addresses
+                        # row 8 (p + q / 2) + l % 8 at k chunk q % 2; lane
+                        # (g, t) gets elements 2t, 2t + 1 of the row lane
+                        # 8 q' + g gave, for each matrix q'.
                         bmat = np.zeros((planes, 16, 8))
-                        for p in range(planes):
+                        for p in range(0, planes, 2):
+                            mats_ = 2 if planes == 1 else 4
+                            lrow = 8 * (p + q // 2) + rr
                             if gate_up:
-                                addr = ((g_row := 8 * p + _G) * xs_row + 4 * _T
+                                addr = (xs_row * lrow + 16 * (q % 2)
                                         + 2 * (s * rows + 16 * jj)) // 2
                                 src = xs
                             else:
-                                g_row = 8 * p + _G
-                                addr = (w_bytes + g_row * p_row + 4 * _T
+                                addr = (w_bytes + lrow * p_row + 16 * (q % 2)
                                         + 32 * jj) // 2
                                 src = img
-                            for h in range(2):
-                                bmat[p, 2 * _T + h, _G] = src[addr + h]
-                                bmat[p, 2 * _T + 8 + h, _G] = src[addr + 8 + h]
+                            for mq in range(mats_):
+                                ld = src[addr[8 * mq + _G][:, None]
+                                         + np.arange(8)]  # lane rows
+                                for h in range(2):
+                                    bmat[p + mq // 2, 2 * _T + h + 8 * (
+                                        mq % 2), _G] = ld[np.arange(32),
+                                                          2 * _T + h]
                         for mat in range(len(mats)):
                             addr = (mat * rows * pp.width * 2 + jj * 2048
                                     + a_lane) // 2
@@ -362,9 +527,19 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
                                     acc[warp, mat, p] + a @ bmat[p]
                                 ).astype(acc_dtype)
             # The epilogue's stores: lane (g, t) c0..c3 at red[w][mat][row]
-            # [column], then the warps of a tile in order.
+            # [column] (at wgmma, warp w of warpgroup (cb, kh) holds rows
+            # 16 w .. 16 w + 15 of its m64 product: the tile 4 cb + w's
+            # columns, slot (4 cb + w) warps_k + kh), then the warps of a
+            # tile in order.
             rd = np.zeros((8, len(mats), rows_pad, 16), dtype=acc_dtype)
             for warp in range(8):
+                if wg:
+                    wgi, w = warp // 4, warp % 4
+                    cb, kh = wgi % wg_n, wgi // wg_n
+                    slot = (4 * cb + w) * pp.warps_k + kh
+                    rd[slot] = dw[wgi][:, 16 * w:16 * w + 16, :].transpose(
+                        0, 2, 1)
+                    continue
                 for mat in range(len(mats)):
                     for p in range(planes):
                         d_ = acc[warp, mat, p]
@@ -394,7 +569,9 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
 
 
 MODEL_CASES = [(1, 64, 128, 132), (8, 48, 96, 132), (16, 32, 64, 132),
-               (13, 80, 40, 132), (8, 256, 512, 8), (13, 256, 512, 8)]
+               (13, 80, 40, 132), (8, 256, 512, 8), (13, 256, 512, 8),
+               (17, 80, 40, 132), (32, 48, 96, 132), (64, 80, 40, 132),
+               (64, 208, 72, 132)]
 
 
 @pytest.mark.parametrize("m,k,n,sms", MODEL_CASES,
@@ -403,7 +580,8 @@ MODEL_CASES = [(1, 64, 128, 132), (8, 48, 96, 132), (16, 32, 64, 132),
 def test_mlp_sm90_fragment_maps_compute_x_times_w(m, k, n, sms):
     """Both passes' lane/register maps, run in float64 on random integer
     tiles under the wrapper's plan (one stage or several, clusters, K
-    ragged at 40 and 80 columns, N ragged at 40), give x @ W exactly."""
+    ragged at 40, 80 and 208 columns, N ragged at 40 and 72; 1, 2, 4
+    and 8 planes of rows), give x @ W exactly."""
     rng = np.random.default_rng(m * 1000 + k + sms)
     x = rng.integers(-8, 9, (m, k)).astype(np.float64)
     w0 = rng.integers(-64, 65, (k, n)).astype(np.float64)
@@ -439,7 +617,7 @@ def _kernel_mlp_model(x, scale, wg, wu, wd, eps, plan):
     return _bf16(x32 + s)
 
 
-@pytest.mark.parametrize("b", [1, 8, 13, 16])
+@pytest.mark.parametrize("b", [1, 8, 13, 16, 32, 64])
 def test_mlp_sm90_model_reproduces_the_pallas_body_at_bf16(monkeypatch, b):
     """The kernel's model at bf16 (d = 256, ffn = 512, the wrapper's
     plan on 132 SMs) against the JAX Pallas body in interpret mode

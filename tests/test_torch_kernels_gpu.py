@@ -206,12 +206,14 @@ def _mlp_weights(tree):
     return tuple(tree[n]["kernel"] for n in ("w_gate", "w_up", "w_down"))
 
 
-@pytest.mark.parametrize("b", [1, 8, 13, 16])
+@pytest.mark.parametrize("b", [1, 8, 13, 16, 17, 32, 64, 65, 128])
 def test_decode_mlp_kernel_bf16_8b_shape(cuda_device, b):
     """bf16 at 8B widths takes the tensor-core kernel
-    (decode_mlp_sm90.cu) at every decode row count."""
+    (decode_mlp_sm90.cu) at every decode row count: 1, 2, 4 or 8 planes
+    of rows up to 64, then blocks of 64 rows, one launch a block."""
     x, scale, tree = _mlp(b, b, 4096, 14336, torch.bfloat16, cuda_device)
     assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "sm90"
+    blocks = -(-b // 64)
     kernels.reset_launches()
     got = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda").float()
     ref = TDM.decode_mlp(x, scale, tree, 1e-5, impl="reference").float()
@@ -221,8 +223,8 @@ def test_decode_mlp_kernel_bf16_8b_shape(cuda_device, b):
     _assert_bf16_close(got, plain)
     again = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda").float()
     assert torch.equal(got, again), "reruns must give identical bits"
-    assert kernels.LAUNCHES["decode_mlp_sm90"] == 2
-    assert kernels.LAUNCHES["decode_mlp"] == 2
+    assert kernels.LAUNCHES["decode_mlp_sm90"] == 2 * blocks
+    assert kernels.LAUNCHES["decode_mlp"] == 2 * blocks
 
 
 def _column_block(tree, j, m):
@@ -236,8 +238,11 @@ def _column_block(tree, j, m):
     (3, 4096, 14336, 2, torch.bfloat16, "sm90"),
     (8, 4096, 14336, 4, torch.bfloat16, "sm90"),
     (16, 4096, 14336, 2, torch.bfloat16, "sm90"),
+    (32, 4096, 14336, 2, torch.bfloat16, "sm90"),
     (13, 256, 512, 2, torch.float32, "simt"),
-    (17, 256, 512, 2, torch.bfloat16, "simt"),
+    (17, 256, 512, 2, torch.bfloat16, "sm90"),
+    (65, 256, 512, 2, torch.bfloat16, "sm90"),
+    (65, 256, 512, 2, torch.float32, "simt"),
 ])
 def test_decode_mlp_halves_on_a_model_shard(cuda_device, b, d, ffn, m, dtype,
                                             route):
@@ -246,7 +251,8 @@ def test_decode_mlp_halves_on_a_model_shard(cuda_device, b, d, ffn, m, dtype,
     half's act of every column block is those columns of the whole
     gate/up half bit for bit, and the down half over the blocks'
     concatenation is the fused kernel's output bit for bit. Each half
-    counts one launch under its own kernel's name."""
+    counts one launch a block of 64 rows under its own kernel's
+    name."""
     x, scale, tree = _mlp(b + d + m, b, d, ffn, dtype, cuda_device)
     blocks = [_column_block(tree, j, m) for j in range(m)]
     assert TDM._gate_up_route(x, blocks[0]["w_gate"]["kernel"],
@@ -259,8 +265,9 @@ def test_decode_mlp_halves_on_a_model_shard(cuda_device, b, d, ffn, m, dtype,
     assert TDM._down_route(x, act, tree["w_down"]["kernel"]) == route
     got = TDM.mlp_down(x, act, tree, impl="cuda")
     prefix = "decode_mlp_sm90" if route == "sm90" else "decode_mlp"
-    assert kernels.LAUNCHES[f"{prefix}_gate_up"] == m
-    assert kernels.LAUNCHES[f"{prefix}_down"] == 1
+    n_rows = -(-b // 64)  # blocks of 64 rows
+    assert kernels.LAUNCHES[f"{prefix}_gate_up"] == m * n_rows
+    assert kernels.LAUNCHES[f"{prefix}_down"] == n_rows
     assert kernels.LAUNCHES["decode_mlp"] == kernels.LAUNCHES[
         "decode_mlp_sm90"] == 0
     fused = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
@@ -348,16 +355,20 @@ def test_decode_attention_heads_of_a_shard_are_the_unsharded_heads(
         assert torch.equal(got, cfull[:, hs]), j
 
 
-@pytest.mark.parametrize("b,d,ffn,dtype", [
-    (8, 256, 512, torch.float32), (16, 4096, 1024, torch.float32),
-    (17, 256, 512, torch.bfloat16), (32, 4096, 1024, torch.bfloat16),
+@pytest.mark.parametrize("b,d,ffn,dtype,route", [
+    (17, 256, 512, torch.float32, "simt"),
+    (32, 4096, 1024, torch.float32, "simt"),
+    (128, 256, 512, torch.float32, "simt"),
+    (17, 256, 512, torch.bfloat16, "sm90"),
+    (32, 4096, 1024, torch.bfloat16, "sm90"),
 ])
 def test_decode_mlp_simt_route_serves_fp32_and_wide_batches(
-        cuda_device, b, d, ffn, dtype):
-    """fp32 and B = 17 / 32 take decode_mlp.cu (CUDA cores): the
-    tensor-core kernel launches never."""
+        cuda_device, b, d, ffn, dtype, route):
+    """fp32 at B = 17 / 32 / 128 takes decode_mlp.cu (CUDA cores; 128
+    as two blocks of 64 rows), the tensor-core kernel never; bf16 at
+    B = 17 / 32 takes the tensor-core kernel (4 planes of rows)."""
     x, scale, tree = _mlp(b + d, b, d, ffn, dtype, cuda_device)
-    assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "simt"
+    assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == route
     kernels.reset_launches()
     got = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
     ref = TDM.decode_mlp(x, scale, tree, 1e-5, impl="reference")
@@ -366,8 +377,10 @@ def test_decode_mlp_simt_route_serves_fp32_and_wide_batches(
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     else:
         _assert_bf16_close(got, ref)
-    assert kernels.LAUNCHES["decode_mlp"] == 1
-    assert kernels.LAUNCHES["decode_mlp_sm90"] == 0
+    blocks = -(-b // 64)
+    assert kernels.LAUNCHES["decode_mlp"] == blocks
+    assert kernels.LAUNCHES["decode_mlp_sm90"] == (
+        blocks if route == "sm90" else 0)
 
 
 @pytest.mark.parametrize("b,d,ffn", [(3, 64, 128), (13, 256, 512),
@@ -450,14 +463,28 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                                         device=cuda_device), impl="cuda",
     )
     assert torch.isfinite(over[0]).all() and torch.isnan(over[1]).all()
+    # The wrapper takes 65 rows as two blocks; each C entry refuses more
+    # than 64 rows in one call.
     x, scale, tree = _mlp(4, 65, 64, 96, torch.float32, cuda_device)
-    with pytest.raises(ValueError, match="B <= 64"):
-        TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
+    kernels.reset_launches()
+    TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
+    assert kernels.LAUNCHES["decode_mlp"] == 2
+    simt = kernels.function("decode_mlp.cu", "tpu_decode_mlp",
+                            TDM._MLP_ARGTYPES)
+    scratch = torch.empty(65, 96, device=cuda_device)
+    partial = torch.empty(1, 65, 64, device=cuda_device)
+    wg, wu, wd = _mlp_weights(tree)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kernels.check(simt(
+            x.data_ptr(), scale.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
+            torch.empty_like(x).data_ptr(), 0, 65, 64, 96, 1, 1, 1e-5,
+            torch.cuda.current_stream().cuda_stream), "decode_mlp")
     with pytest.raises(ValueError, match="dtype"):
         TDM.decode_mlp(x[:4].half(), scale, tree, 1e-5, impl="cuda")
     # The tensor-core route: bf16 operands of another shape or dtype are
     # refused before any launch, and its C entry refuses a plan it does
-    # not take (a cluster of 9) or an unaligned pointer.
+    # not take (a cluster of 9), an unaligned pointer or 65 rows.
     x, scale, tree = _mlp(5, 8, 256, 512, torch.bfloat16, cuda_device)
     assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "sm90"
     kernels.reset_launches()
@@ -475,12 +502,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     plan = TDM.mlp_sm90_plan(8, 256, 512, 132)
     gu, dn = plan.gate_up, plan.down
     args = [x.data_ptr(), scale.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-            wd.data_ptr(), act.data_ptr(), out.data_ptr(), 8, 256, 512,
+            wd.data_ptr(), act.data_ptr(), 0, out.data_ptr(), 8, 256, 512,
             gu.width, gu.cluster, gu.cta_steps, gu.slots, dn.width,
             dn.cluster, dn.cta_steps, dn.slots, 1e-5,
             torch.cuda.current_stream().cuda_stream]
     assert fn(*args) == 0
-    for i, v in ((11, 9), (10, 96), (13, 9), (0, x.data_ptr() + 2)):
+    for i, v in ((12, 9), (11, 96), (14, 9), (0, x.data_ptr() + 2),
+                 (8, 65)):
         wrong = list(args)
         wrong[i] = v
         with pytest.raises(RuntimeError, match="cudaError"):

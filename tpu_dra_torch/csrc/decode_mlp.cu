@@ -1,9 +1,12 @@
 // Fused decode MLP block for Hopper (sm_90a), on CUDA cores:
 //   out = x + down(silu(gate(rms(x))) * up(rms(x)))   for x [B, d], B <= 64.
 //
-// The route ops/decode_mlp.py `_decode_mlp_route` calls "simt": fp32,
-// 17 <= B <= 64, and the bf16 shapes decode_mlp_sm90.cu (the tensor-core
-// kernel, which serves bf16 decode at B <= 16) does not take.
+// The route ops/decode_mlp.py `_decode_mlp_route` calls "simt": fp32
+// (the tensor cores take no fp32 operands, and TF32 would miss the fp32
+// parity bars; fp32 is the parity dtype, not a serving one) and the
+// bf16 shapes decode_mlp_sm90.cu (the tensor-core kernel, which serves
+// bf16 decode at every B) does not take. A launch takes at most 64 rows;
+// the wrapper runs larger batches as blocks of 64.
 //
 // Replaces: tpu_dra/workloads/ops/decode_mlp.py `_decode_mlp_kernel`
 // (wrapper `_pallas_decode_mlp`, pallas_call at :176). Numerics follow

@@ -7,19 +7,27 @@ Counterpart of ``tpu_dra/workloads/ops/decode_mlp.py``:
   ``_decode_mlp_kernel``. ``_decode_mlp_route`` picks it before the
   launch, from the dtypes, shapes and alignment alone:
 
-  - ``"sm90"``, bf16 with 1 <= B <= 16, d and ffn multiples of 8, x and
-    the weights contiguous and 16-byte aligned (every bf16 decode step
-    at Llama-3-8B widths): the tensor-core kernel of
+  - ``"sm90"``, bf16 with d and ffn multiples of 8, x and the weights
+    contiguous and 16-byte aligned (every bf16 decode step at
+    Llama-3-8B widths): the tensor-core kernel of
     ``csrc/decode_mlp_sm90.cu``, planned by :func:`mlp_sm90_plan` —
     two launches (gate/up with the norm and silu·up, down with the
     residual), weights streamed through an mbarrier ring, the K split
-    reduced on chip;
-  - ``"simt"``, everything else (fp32, 17 <= B <= 64, other shapes):
+    reduced on chip, 1, 2, 4 or 8 planes of 8 rows: mma.sync at 1 and 2
+    (xn resident in gate/up), wgmma at 4 and 8 (an RMS-norm launch
+    first, whose xn gate/up streams stage by stage as down streams
+    act);
+  - ``"simt"``, everything else (fp32, other shapes):
     ``csrc/decode_mlp.cu`` on CUDA cores — gate/up/act in one launch,
     down as fp32 split partials in a second, the residual reduction in
-    a third.
+    a third. fp32 stays here: the tensor cores take no fp32 operands,
+    and TF32 would miss the fp32 parity bars the twins hold the port
+    to; fp32 is the parity dtype, not a serving one.
 
-  Each weight byte is read once, no float atomics;
+  A launch of either kernel takes at most 64 rows (``ROW_BLOCK``): a
+  larger batch runs as consecutive blocks of 64 rows (:func:`row_blocks`),
+  one launch a block, each a full pass over the weights. Within a
+  launch each weight byte is read once, no float atomics;
 - **torch**: the twin of ``_xla_decode_mlp``, the op chain the decode
   step runs off the card (so CPU parity with the JAX engine holds);
 - **reference**: the twin of the naive fp32 oracle
@@ -165,7 +173,7 @@ def _splits(device, d: int, ffn: int, vec: int) -> int:
 _MLP_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p,
 ]
-_MLP_SM90_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
+_MLP_SM90_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p,
 ]
 _GATE_UP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
@@ -174,7 +182,7 @@ _GATE_UP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 _DOWN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p,
 ]
-_SM90_GATE_UP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+_SM90_GATE_UP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p,
 ]
 _SM90_DOWN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
@@ -185,7 +193,6 @@ _SM90_DOWN_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
 # warp a 16-column tile, stages of 16 KB of weights, rings of at most 8
 # stages, clusters of at most 8 CTAs (the portable size), at most 227 KB
 # less 1 KB of dynamic shared memory a CTA.
-_SM90_MAX_ROWS = 16
 _SM90_W_BYTES = 16384
 _SM90_WIDTHS = (64, 128)
 _SM90_MIN_SLOTS = 3
@@ -220,34 +227,63 @@ class MlpPlan(NamedTuple):
     """The tensor-core kernel's two launches: gate/up (K = d, N = ffn)
     and down (K = ffn, N = d)."""
 
-    planes: int  # 8-row planes of x: 1 for B <= 8, else 2
+    planes: int  # 8-row planes of x: 1, 2, 4, 8 for B <= 8, 16, 32, 64
     gate_up: MlpPassPlan
     down: MlpPassPlan
+
+
+# The most rows a launch of either kernel takes; larger batches run in
+# blocks of this many rows.
+ROW_BLOCK = 64
+
+
+def row_blocks(b: int) -> list:
+    """The row blocks ``[(lo, hi), ...]`` a call over ``b`` rows
+    launches the kernel on: consecutive, at most ``ROW_BLOCK`` rows
+    each, ``ceil(b / ROW_BLOCK)`` of them."""
+    return [(lo, min(b, lo + ROW_BLOCK)) for lo in range(0, b, ROW_BLOCK)]
+
+
+def planes_of(b: int) -> int:
+    """8-row planes of the tensor-core kernel's B operand for b <= 64
+    rows: ceil(b / 8) rounded up to 1, 2, 4 or 8 (csrc/decode_mlp_sm90.cu
+    planes_of)."""
+    return 1 if b <= 8 else 2 if b <= 16 else 4 if b <= 32 else 8
 
 
 def _mlp_pass(planes: int, k: int, n: int, gate_up: bool, width: int,
               cluster: int) -> "MlpPassPlan | None":
     """The pass at (width, cluster) with the deepest ring that fits
     (csrc/decode_mlp_sm90.cu smem_bytes), or None when not even
-    _SM90_MIN_SLOTS stages fit."""
+    _SM90_MIN_SLOTS stages fit. The warps' sums overlay the ring and
+    xn after the loop, so the CTA asks for at least their bytes."""
     rows_pad = 8 * planes
+    # 4 and 8 planes run wgmma: the B operand streamed in every stage
+    # (xn at gate/up too), its rows in swizzled blocks of 64 k (128 bytes
+    # a row a block), and 1024 bytes more to align the base.
+    wg = planes >= 4
+    align = 1024 if wg else 0
     rows = _SM90_W_BYTES // ((2 if gate_up else 1) * width * 2)
     steps = -(-k // 16)
     cta_steps = -(-steps // cluster)
     cluster = -(-steps // cta_steps)  # no rank without steps
     stages = -(-cta_steps // (rows // 16))
-    stage = _SM90_W_BYTES + (0 if gate_up else rows_pad * (2 * rows + 16))
-    # gate/up: xn's rows, then the scale, over the rank's columns
+    resident_xn = gate_up and not wg
+    piece_row = -(-rows // 64) * 128 if wg else 2 * rows + 16
+    stage = _SM90_W_BYTES + (0 if resident_xn else rows_pad * piece_row)
+    # mma.sync gate/up: xn's rows, then the scale, over the rank's columns
     cols = stages * rows
-    resident = rows_pad * (2 * cols + 16) + 2 * cols if gate_up else 0
-    slots = min(_SM90_MAX_SLOTS, (_SM90_MAX_SMEM - resident) // stage)
+    resident = rows_pad * (2 * cols + 16) + 2 * cols if resident_xn else 0
+    slots = min(_SM90_MAX_SLOTS,
+                (_SM90_MAX_SMEM - align - resident) // stage)
     if slots < _SM90_MIN_SLOTS:
         return None
+    sums = 8 * (2 if gate_up else 1) * rows_pad * 16 * 4
     return MlpPassPlan(
         width=width, warps_n=width // 16, warps_k=8 // (width // 16),
         cluster=cluster, col_ctas=-(-n // width), cta_steps=cta_steps,
         rows=rows, stages=stages, slots=slots,
-        smem=slots * stage + resident,
+        smem=max(slots * stage + resident, sums) + align,
     )
 
 
@@ -283,10 +319,14 @@ def _mlp_pass_plan(planes: int, k: int, n: int, gate_up: bool,
 
 @functools.lru_cache(maxsize=None)
 def mlp_sm90_plan(b: int, d: int, ffn: int, sm_count: int) -> MlpPlan:
-    """The tensor-core kernel's plan for x [b, d] and ffn hidden
-    columns, from the shapes and the SM count alone (no device value is
-    read). Raises ValueError for a shape it does not take."""
-    planes = 1 if b <= 8 else 2
+    """The tensor-core kernel's plan for one launch over x [b, d]
+    (1 <= b <= 64) and ffn hidden columns, from the shapes and the SM
+    count alone (no device value is read). Raises ValueError for a shape
+    it does not take."""
+    if not 1 <= b <= ROW_BLOCK:
+        raise ValueError(f"a launch takes 1 <= b <= {ROW_BLOCK} rows, "
+                         f"got {b}")
+    planes = planes_of(b)
     gate_up = _mlp_pass_plan(planes, d, ffn, True, sm_count)
     down = _mlp_pass_plan(planes, ffn, d, False, sm_count)
     if gate_up is None or down is None:
@@ -309,17 +349,19 @@ def shard_gate_up_plan(b: int, d: int, cols: int, ffn: int,
 def _sm90_route(b: int, d: int, ffn: int, tensors) -> str:
     """"sm90" when the tensor-core kernel takes x [b, d] against an ffn
     of ``ffn`` columns with ``tensors`` (x first, then the weights and
-    act it reads): bf16 throughout, 1 <= b <= 16, d % 8 == 0,
-    ffn % 8 == 0, every tensor contiguous and 16-byte aligned, and xn's
-    rows fit shared memory under some K split; else "simt"."""
+    act it reads), in blocks of at most 64 rows: bf16 throughout,
+    b >= 1, d % 8 == 0, ffn % 8 == 0, every tensor contiguous and
+    16-byte aligned (so is every row block, d being a multiple of 8),
+    and a block's xn rows fit shared memory under some K split; else
+    "simt"."""
     if not (
         all(t.dtype == torch.bfloat16 for t in tensors)
-        and 1 <= b <= _SM90_MAX_ROWS and d % 8 == 0 and ffn % 8 == 0
+        and b >= 1 and d % 8 == 0 and ffn % 8 == 0
         and all(t.is_contiguous() and t.data_ptr() % 16 == 0
                 for t in tensors)
     ):
         return "simt"
-    planes = 1 if b <= 8 else 2
+    planes = planes_of(min(b, ROW_BLOCK))
     fits = any(
         _mlp_pass(planes, d, ffn, True, width, _SM90_MAX_CLUSTER)
         is not None for width in _SM90_WIDTHS)
@@ -351,22 +393,26 @@ def _down_route(x, act, wd) -> str:
     return _sm90_route(b, d, act.shape[1], (x, act, wd))
 
 
-def _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps):
-    """Launch csrc/decode_mlp_sm90.cu's two passes on x's stream, with
-    :func:`mlp_sm90_plan`'s plan; the caller has checked the route."""
+def _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps, out=None):
+    """Launch csrc/decode_mlp_sm90.cu's two passes on x's stream over
+    x [b <= 64, d], with :func:`mlp_sm90_plan`'s plan, into ``out``
+    (a new tensor by default); the caller has checked the route."""
     b, d = x.shape
     ffn = wg.shape[1]
     if norm_scale.data_ptr() % 16:  # the kernel copies it 16 bytes at a time
         norm_scale = norm_scale.clone()
     plan = mlp_sm90_plan(b, d, ffn, _sm_count(x.device))
     act = torch.empty((b, ffn), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
+    xn = _xn_scratch(x, plan.planes)  # held until the launch
+    if out is None:
+        out = torch.empty_like(x)
     fn = kernels.function("decode_mlp_sm90.cu", "tpu_decode_mlp_sm90",
                           _MLP_SM90_ARGTYPES)
     gu, dn = plan.gate_up, plan.down
     err = fn(
         x.data_ptr(), norm_scale.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        wd.data_ptr(), act.data_ptr(), out.data_ptr(), b, d, ffn, gu.width,
+        wd.data_ptr(), act.data_ptr(), _ptr(xn), out.data_ptr(), b, d, ffn,
+        gu.width,
         gu.cluster, gu.cta_steps, gu.slots, dn.width, dn.cluster,
         dn.cta_steps, dn.slots, float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -375,17 +421,28 @@ def _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     return out
 
 
-def _simt_decode_mlp(x, norm_scale, wg, wu, wd, eps):
+def _xn_scratch(x, planes: int):
+    """A new xn [b, d] for the wgmma gate/up pass (4 and 8 planes:
+    rms_kernel writes it, gate/up streams it), else None."""
+    return torch.empty_like(x) if planes >= 4 else None
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _simt_decode_mlp(x, norm_scale, wg, wu, wd, eps, out=None):
     """Launch csrc/decode_mlp.cu's three kernels on x's stream (any
-    dtype, d and ffn it takes, 1 <= B <= 64); the caller has checked
-    the inputs."""
+    dtype, d and ffn it takes, 1 <= B <= 64) into ``out`` (a new tensor
+    by default); the caller has checked the inputs."""
     b, d = x.shape
     ffn = wg.shape[1]
     vec = _simt_vec(x, d, ffn, (wg, wu, wd))
     splits = _splits(x.device, d, ffn, vec)
     act = torch.empty((b, ffn), dtype=x.dtype, device=x.device)
     partial = torch.empty((splits, b, d), dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
     fn = kernels.function("decode_mlp.cu", "tpu_decode_mlp", _MLP_ARGTYPES)
     err = fn(
         x.data_ptr(), norm_scale.data_ptr(), wg.data_ptr(), wu.data_ptr(),
@@ -407,7 +464,8 @@ def _simt_vec(x, d: int, n: int, ws) -> int:
 
 def _check_cuda(x, tensors, what: str) -> None:
     """Every tensor on x's CUDA device, bf16 or fp32 of x's dtype,
-    contiguous, and 1 <= B <= 64 rows; raises on anything else."""
+    contiguous, and B >= 1 rows (any B: the wrappers launch blocks of
+    at most 64); raises on anything else."""
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError(f"{what} needs every input on one CUDA device")
     if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in tensors):
@@ -415,17 +473,18 @@ def _check_cuda(x, tensors, what: str) -> None:
             f"{what} takes bf16 or fp32 inputs of one dtype, got "
             f"{[t.dtype for t in tensors]}"
         )
-    if not 1 <= x.shape[0] <= 64:
-        raise ValueError(f"{what} takes 1 <= B <= 64 rows, got {x.shape[0]}")
+    if x.shape[0] < 1:
+        raise ValueError(f"{what} takes B >= 1 rows, got {x.shape[0]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} needs contiguous inputs")
 
 
 def _cuda_gate_up(x, norm_scale, wg, wu, eps, ffn: int):
     """Launch the gate/up half on x's stream: act [B, cols] for the
-    shard's columns wg/wu [d, cols] of a block ``ffn`` columns wide.
-    The sm90 route is planned as the whole ffn's
-    (``mlp_sm90_plan(B, d, ffn)``), so each act column is the fused
+    shard's columns wg/wu [d, cols] of a block ``ffn`` columns wide,
+    one launch a row block (:func:`row_blocks`), each writing its rows
+    of act. The sm90 route is planned as the whole ffn's
+    (``mlp_sm90_plan(rows, d, ffn)``), so each act column is the fused
     kernel's; raises on inputs the kernels do not take."""
     b, d = x.shape
     cols = wg.shape[1]
@@ -445,31 +504,38 @@ def _cuda_gate_up(x, norm_scale, wg, wu, eps, ffn: int):
     if _gate_up_route(x, wg, wu, ffn) == "sm90":
         if norm_scale.data_ptr() % 16:
             norm_scale = norm_scale.clone()
-        gu = shard_gate_up_plan(b, d, cols, ffn, _sm_count(x.device))
         fn = kernels.function("decode_mlp_sm90.cu",
                               "tpu_decode_mlp_sm90_gate_up",
                               _SM90_GATE_UP_ARGTYPES)
-        err = fn(x.data_ptr(), norm_scale.data_ptr(), wg.data_ptr(),
-                 wu.data_ptr(), act.data_ptr(), b, d, cols, gu.width,
-                 gu.cluster, gu.cta_steps, gu.slots, float(eps), stream)
-        kernels.check(err, "decode_mlp_sm90_gate_up")
-        kernels.count("decode_mlp_sm90_gate_up")
+        for lo, hi in row_blocks(b):
+            gu = shard_gate_up_plan(hi - lo, d, cols, ffn,
+                                    _sm_count(x.device))
+            xn = _xn_scratch(x[lo:hi], planes_of(hi - lo))
+            err = fn(x[lo:hi].data_ptr(), norm_scale.data_ptr(),
+                     wg.data_ptr(), wu.data_ptr(), act[lo:hi].data_ptr(),
+                     _ptr(xn), hi - lo, d, cols, gu.width, gu.cluster,
+                     gu.cta_steps, gu.slots, float(eps), stream)
+            kernels.check(err, "decode_mlp_sm90_gate_up")
+            kernels.count("decode_mlp_sm90_gate_up")
         return act
     fn = kernels.function("decode_mlp.cu", "tpu_decode_mlp_gate_up",
                           _GATE_UP_ARGTYPES)
-    err = fn(x.data_ptr(), norm_scale.data_ptr(), wg.data_ptr(),
-             wu.data_ptr(), act.data_ptr(), _DTYPE_CODES[x.dtype], b, d, cols,
-             _simt_vec(x, d, cols, (wg, wu)), float(eps), stream)
-    kernels.check(err, "decode_mlp_gate_up")
-    kernels.count("decode_mlp_gate_up")
+    vec = _simt_vec(x, d, cols, (wg, wu))
+    for lo, hi in row_blocks(b):
+        err = fn(x[lo:hi].data_ptr(), norm_scale.data_ptr(), wg.data_ptr(),
+                 wu.data_ptr(), act[lo:hi].data_ptr(), _DTYPE_CODES[x.dtype],
+                 hi - lo, d, cols, vec, float(eps), stream)
+        kernels.check(err, "decode_mlp_gate_up")
+        kernels.count("decode_mlp_gate_up")
     return act
 
 
 def _cuda_down(x, act, wd):
     """Launch the down half on x's stream: x + act · wd over the
-    gathered act [B, ffn], with the fused kernel's plan (sm90) or splits
-    (simt), so its output is the fused kernel's; raises on inputs the
-    kernels do not take."""
+    gathered act [B, ffn], one launch a row block (:func:`row_blocks`)
+    reading its rows of act, with the fused kernel's plan (sm90) or
+    splits (simt), so its output is the fused kernel's; raises on inputs
+    the kernels do not take."""
     b, d = x.shape
     ffn = act.shape[1]
     _check_cuda(x, (x, act, wd), "mlp_down")
@@ -481,25 +547,28 @@ def _cuda_down(x, act, wd):
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if _down_route(x, act, wd) == "sm90":
-        dn = mlp_sm90_plan(b, d, ffn, _sm_count(x.device)).down
         fn = kernels.function("decode_mlp_sm90.cu", "tpu_decode_mlp_sm90_down",
                               _SM90_DOWN_ARGTYPES)
-        err = fn(x.data_ptr(), act.data_ptr(), wd.data_ptr(), out.data_ptr(),
-                 b, d, ffn, dn.width, dn.cluster, dn.cta_steps, dn.slots,
-                 stream)
-        kernels.check(err, "decode_mlp_sm90_down")
-        kernels.count("decode_mlp_sm90_down")
+        for lo, hi in row_blocks(b):
+            dn = mlp_sm90_plan(hi - lo, d, ffn, _sm_count(x.device)).down
+            err = fn(x[lo:hi].data_ptr(), act[lo:hi].data_ptr(),
+                     wd.data_ptr(), out[lo:hi].data_ptr(), hi - lo, d, ffn,
+                     dn.width, dn.cluster, dn.cta_steps, dn.slots, stream)
+            kernels.check(err, "decode_mlp_sm90_down")
+            kernels.count("decode_mlp_sm90_down")
         return out
     vec = _simt_vec(x, d, ffn, (wd,))
     splits = _splits(x.device, d, ffn, vec)
-    partial = torch.empty((splits, b, d), dtype=torch.float32, device=x.device)
+    partial = torch.empty((splits, min(b, ROW_BLOCK), d), dtype=torch.float32,
+                          device=x.device)
     fn = kernels.function("decode_mlp.cu", "tpu_decode_mlp_down",
                           _DOWN_ARGTYPES)
-    err = fn(x.data_ptr(), act.data_ptr(), wd.data_ptr(), partial.data_ptr(),
-             out.data_ptr(), _DTYPE_CODES[x.dtype], b, d, ffn, splits, vec,
-             stream)
-    kernels.check(err, "decode_mlp_down")
-    kernels.count("decode_mlp_down")
+    for lo, hi in row_blocks(b):
+        err = fn(x[lo:hi].data_ptr(), act[lo:hi].data_ptr(), wd.data_ptr(),
+                 partial.data_ptr(), out[lo:hi].data_ptr(),
+                 _DTYPE_CODES[x.dtype], hi - lo, d, ffn, splits, vec, stream)
+        kernels.check(err, "decode_mlp_down")
+        kernels.count("decode_mlp_down")
     return out
 
 
@@ -541,9 +610,10 @@ def mlp_down(x, act, mlp: dict, impl: str = "auto"):
 
 def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     """Launch the route's kernel (csrc/decode_mlp_sm90.cu for "sm90",
-    csrc/decode_mlp.cu for "simt") on x's stream. Takes bf16 or fp32
-    tensors of one dtype, any d and ffn, 1 <= B <= 64; raises on
-    anything else."""
+    csrc/decode_mlp.cu for "simt") on x's stream, once a row block
+    (:func:`row_blocks`), each block writing its rows of one output.
+    Takes bf16 or fp32 tensors of one dtype, any d and ffn, any B >= 1;
+    raises on anything else."""
     b, d = x.shape
     ffn = wg.shape[1]
     _check_cuda(x, (x, norm_scale, wg, wu, wd), "impl='cuda'")
@@ -558,12 +628,14 @@ def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
             f"{tuple(norm_scale.shape)}, w_gate {tuple(wg.shape)}, w_up "
             f"{tuple(wu.shape)}, w_down {tuple(wd.shape)}"
         )
-    if _decode_mlp_route(x, (wg, wu, wd)) == "sm90":
-        out = _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps)
-        kernels.count("decode_mlp_sm90")
-    else:
-        out = _simt_decode_mlp(x, norm_scale, wg, wu, wd, eps)
-    kernels.count("decode_mlp")
+    sm90 = _decode_mlp_route(x, (wg, wu, wd)) == "sm90"
+    launch = _sm90_decode_mlp if sm90 else _simt_decode_mlp
+    out = torch.empty_like(x)
+    for lo, hi in row_blocks(b):
+        launch(x[lo:hi], norm_scale, wg, wu, wd, eps, out=out[lo:hi])
+        if sm90:
+            kernels.count("decode_mlp_sm90")
+        kernels.count("decode_mlp")
     return out
 
 
