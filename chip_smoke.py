@@ -73,7 +73,11 @@ exits non-zero without a result:
    {1, 63, 64, 65, 129, 255, 256, 257, 1000}, and b=1 with 8192 keys
    (the decode kernels split the keys over CTAs: at fp32 each is held
    to the plain split form with the kernel's split plan, and reruns
-   are bit-identical); the three flash kernels (forward, dQ,
+   are bit-identical); both decode kernels past that shape, held the
+   same way (decode_grid: hd in GRID_HDS, 16 to 256, x n_rep in
+   GRID_REPS, 1 to 32, at kvh 2, bf16 and int8 caches, paged with a
+   dead slot and a slot at the table's capacity, contiguous at lengths
+   0, 1, 333 and 1024); the three flash kernels (forward, dQ,
    dK/dV) at b=2, h=32, kvh=8, hd=128 for s=2048 causal and non-causal,
    ragged s=1000 causal and suffix queries sq=512 over skv=2048 (with a
    non-zero lse cotangent folded into delta), and the ring's chunk pairs
@@ -127,9 +131,12 @@ exits non-zero without a result:
    held against the plain version), a bf16 matmul on a dequantized copy
    as the yardstick,
    TFLOP/s and share of the bound. The
-   decode rows print their split plan (splits, CTAs), and two long
-   rows time one 8192-key sequence (decode_attention_long,
-   paged_decode_attention_long), each with its SDPA yardstick.
+   decode rows print their split plan (splits, row groups, CTAs), two
+   long rows time one 8192-key sequence (decode_attention_long,
+   paged_decode_attention_long), and three rows past Llama-3-8B's
+   heads: paged bf16 at Llama-3.2-3B's (kvh 8, n_rep 3, hd 128) and at
+   hd 256 (kvh 8, n_rep 2), contiguous bf16 at hd 256, each with its
+   SDPA yardstick.
 4b. sampling — the fused pick (csrc/sample.cu) at [8, 128256] fp32,
    seeded logits and a copy rounded through bf16 (ties at the top),
    for (temperature, top_k) in PICK_CASES and both key layouts (the
@@ -140,7 +147,8 @@ exits non-zero without a result:
    Threefry bits and uniforms on the card as on the CPU and Gumbel
    values within 2 ulps of max(|g|, 1); topk_exact agrees; the pick's
    time beside its bound, the plain pick and argmax.
-5. tiny    — fp32 TINY_LLAMA on the card (kernels) and on the CPU
+5. tiny    — fp32 TINY_LLAMA at its own width (dim 64, hd 16) on the
+   card (kernels) and on the CPU
    (plain versions): the bf16-config engine agrees on >= 0.97 of the
    tokens; the w8+kv8 engine and greedy_generate in all four
    (kv_quant, weight_quant) combinations give identical tokens; the
@@ -168,6 +176,19 @@ exits non-zero without a result:
    weights every pair's logits agree above cosine 0.9999; in bf16 see
    step_gates. The same step with the depth cut to 2 layers, in bf16,
    holds every pair above 0.999.
+6b. decode_shapes — (a) Llama-3.2-3B's widths (LLAMA32_3B: hd 128,
+   n_rep 3), 28 layers, bf16, random weights from a seeded CUDA
+   generator: the engine phase's requests (decode tok/s, TTFT p50; 28
+   paged-attention launches a decode step, as reckoned), the one-state
+   decode step of every STEP_VARIANTS variant under step_gates (bf16 at
+   28 layers, fp32, bf16 at 2 layers), greedy_generate at b=8, prompt
+   256, 32 new tokens (28 contiguous-decode launches a step), and the
+   routes the decode MLP and the int8 matmul take at its shapes; (b)
+   each SHAPE_GRID (hd, heads, kv heads) at 2 layers, fp32: the engine
+   with the kernels gives the tokens of the engine with the plain paged
+   attention and MLP, with and without kv_quant int8, the kernels'
+   launches as reckoned and no plain version called on a CUDA tensor.
+   The phase prints its seconds.
 7. engine_w8kv8 — the same requests with weight_quant="int8" and
    kv_quant="int8": every request completes, the allocator ends
    leak-free with every pool (scales included) zero; per decode step
@@ -1355,15 +1376,19 @@ def decode_body_build(kernels, report) -> dict:
     return out
 
 
-def plan_of(A, b: int, kvh: int, key_range: int, live: list) -> dict:
+def plan_of(A, b: int, kvh: int, key_range: int, live: list,
+            n_rep: int = 1) -> dict:
     """The decode kernels' split plan for a call, with the CTAs it
-    launches and those whose range starts below their row's length."""
+    launches (a kv head's row groups each take a CTA a split) and those
+    whose range starts below their row's length."""
+    rows, groups = A.decode_groups(n_rep)
     splits, chunk = A.split_plan(
-        b, kvh, key_range, torch.cuda.get_device_properties(0)
+        b, kvh * groups, key_range, torch.cuda.get_device_properties(0)
         .multi_processor_count)
-    return {"splits": splits, "chunk": chunk, "ctas": splits * kvh * b,
-            "live_ctas": kvh * sum(min(-(-n // chunk), splits)
-                                   for n in live),
+    return {"splits": splits, "chunk": chunk, "rows": rows,
+            "groups": groups, "ctas": splits * kvh * groups * b,
+            "live_ctas": kvh * groups * sum(min(-(-n // chunk), splits)
+                                            for n in live),
             "combine": splits > 1}
 
 
@@ -1433,7 +1458,8 @@ def paged_timing(A, q, k_, v_, sc, tables, lens, lengths, rates,
         "shape": f"B={b} x {n} tokens, page {page}, {tables.shape[1]} "
                  f"pages a slot, h={h} kvh={kvh} hd={hd}, bf16 q, "
                  f"{'int8' if sc else 'bf16'} pools",
-        "split_plan": plan_of(A, b, kvh, tables.shape[1] * page, lengths),
+        "split_plan": plan_of(A, b, kvh, tables.shape[1] * page, lengths,
+                              h // kvh),
         "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
         "library_ms": None, "sdpa_contiguous_ms": sdpa_ms,
         **bound(nbytes, 4 * live * h * hd, rates),
@@ -1460,7 +1486,7 @@ def contiguous_timing(A, q, k_, v_, sc, L, rates, flush) -> dict:
     row = {
         "shape": f"b={b}, length {L} of max_seq {max_seq}, h={h} kvh={kvh} "
                  f"hd={hd}, bf16 q, {'int8' if int8 else 'bf16'} cache",
-        "split_plan": plan_of(A, b, kvh, L, [L] * b),
+        "split_plan": plan_of(A, b, kvh, L, [L] * b, h // kvh),
         "ms": ms, "ms_with_host": host_ms, "plain_ms": plain_ms,
         "library_ms": None,
         **bound(nbytes, 4 * b * L * h * hd, rates),
@@ -1501,7 +1527,7 @@ def paged_parity(A, name, q, k_, v_, sc, tables, lens) -> dict:
            tables, lens)
     lengths = lens.tolist()
     plan = plan_of(A, q.shape[0], k_.shape[2], tables.shape[1] * k_.shape[1],
-                   lengths)
+                   lengths, q.shape[1] // k_.shape[2])
     torch.cuda.synchronize()
     out = {
         "split_plan": plan,
@@ -1529,7 +1555,8 @@ def contiguous_parity(A, name, q, k_, v_, sc, length) -> dict:
     plain = A.decode_attention(q, k_, v_, length, **sc, impl="torch")
     ref = A.decode_attention(q, k_, v_, length, **sc, impl="reference")
     f32 = (q.float(), k_ if sc else k_.float(), v_ if sc else v_.float())
-    plan = plan_of(A, q.shape[0], k_.shape[2], length, [length] * q.shape[0])
+    plan = plan_of(A, q.shape[0], k_.shape[2], length, [length] * q.shape[0],
+                   q.shape[1] // k_.shape[2])
     torch.cuda.synchronize()
     out = {
         "split_plan": plan,
@@ -1544,6 +1571,244 @@ def contiguous_parity(A, name, q, k_, v_, sc, length) -> dict:
     if not out["rerun_bit_identical"]:
         raise AssertionError(f"{name}: reruns must give identical bits")
     return out
+
+
+# The decode kernels' shapes past Llama-3-8B's (phase parity): head dims
+# padded into their bucket (16, 32, 48 in 64; 96 in 128; 192 in 256) and
+# the 256 bucket itself, and n_rep in one row group (1, 3, 5) and in
+# several (16, 32).
+GRID_HDS = (16, 32, 48, 96, 192, 256)
+GRID_REPS = (1, 3, 5, 16, 32)
+GRID_LENGTHS = (0, 1, 77, 300, 1024)  # paged: 64 pages of 16 a slot
+GRID_CONTIG = (0, 1, 333, 1024)       # contiguous: max_seq 1024
+
+
+def grid_parity(A, Q, gen) -> dict:
+    """paged_parity and contiguous_parity at GRID_HDS x GRID_REPS, kvh 2,
+    with bf16 pools and int8 pools (each kernel against its plain
+    version and the fp32 reference at the bf16 bar, and at fp32 against
+    the plain split form with its plan; reruns bit-identical): paged
+    with a dead slot and a slot at the table's full capacity
+    (GRID_LENGTHS), contiguous at GRID_CONTIG (length 0 exact zeros).
+    Raises on a miss; returns the count of checks and the worst figure
+    of each bar."""
+    worst = {"fp32": 0.0, "bf16": 0.0}
+    checks = 0
+
+    def note(res):
+        nonlocal checks
+        checks += 1
+        worst["fp32"] = max(worst["fp32"],
+                            res["fp32_vs_split"]["max_err_over_max_ref"])
+        worst["bf16"] = max(worst["bf16"], *(
+            res[k]["worst_err_over_limit"]
+            for k in ("vs_plain", "vs_reference")))
+
+    for hd in GRID_HDS:
+        for n_rep in GRID_REPS:
+            tag = f"hd={hd} n_rep={n_rep}"
+            q, kp, vp, tables, lens = paged_inputs(
+                gen, list(GRID_LENGTHS), num_pages=1 + 64 * len(
+                    GRID_LENGTHS), kvh=2, n_rep=n_rep, hd=hd)
+            for name, (k_, v_, sc) in (
+                    ("paged_decode_attention", (kp, vp, {})),
+                    ("paged_decode_attention_int8", int8_pools(Q, kp, vp))):
+                note(paged_parity(A, f"{name} {tag}", q, k_, v_, sc, tables,
+                                  lens))
+            for int8 in (False, True):
+                q, k_, v_, sc = contiguous_inputs(
+                    Q, gen, b=3, max_seq=1024, kvh=2, n_rep=n_rep, hd=hd,
+                    int8=int8)
+                name = f"decode_attention{'_int8' if int8 else ''} {tag}"
+                for length in GRID_CONTIG:
+                    if length:
+                        note(contiguous_parity(A, name, q, k_, v_, sc,
+                                               length))
+                    elif not bool(torch.all(A.decode_attention(
+                            q, k_, v_, 0, **sc, impl="cuda") == 0)):
+                        raise AssertionError(f"{name}: length 0 must give "
+                                             f"exact zeros")
+            del q, kp, vp, tables, lens, k_, v_, sc
+    return {"checks": checks, "fp32_bar": FP32_REL, "bf16_rtol": BF16_RTOL,
+            "worst_fp32": worst["fp32"], "worst_bf16_over_limit": worst["bf16"]}
+
+
+# decode_shapes (a): Llama-3.2-3B's widths (its published config.json:
+# hidden 3072, 28 layers, 24 heads, 8 kv heads, intermediate 8192, vocab
+# 128256, rope theta 500000): head dim 128, n_rep 3. LlamaConfig has no
+# rope scaling and no tied embeddings, so these are the model's shapes,
+# not the model. (b): (hd, n_heads, n_kv_heads) at 2 layers, fp32, dim
+# hd x n_heads, ffn twice the dim: a padded bucket at each size, the 256
+# bucket with groups of 2, and n_rep 16 and 32 (MQA).
+LLAMA32_3B = {"dim": 3072, "n_layers": 28, "n_heads": 24, "n_kv_heads": 8,
+              "ffn_dim": 8192, "vocab_size": 128256, "rope_theta": 500000.0}
+SHAPE_GRID = ((32, 8, 8), (96, 32, 32), (192, 16, 16), (256, 16, 8),
+              (128, 32, 2), (64, 32, 1))
+SHAPE_GRID_VOCAB = 1024
+
+
+def shapes_routes(DM, I8, cfg, m_prefill: int) -> dict:
+    """The routes the decode MLP (bf16, 8 slots) and the int8 matmul
+    (bf16 x at 8 rows and at the prefill's rows) take at ``cfg``'s
+    widths: route functions on empty tensors of those shapes, nothing
+    launched."""
+    d, f, v = cfg.dim, cfg.ffn_dim, cfg.vocab_size
+    hd, kvh = d // cfg.n_heads, cfg.n_kv_heads
+    bf = torch.bfloat16
+    x = torch.empty(8, d, dtype=bf, device="cuda")
+    ws = (torch.empty(d, f, dtype=bf, device="cuda"),
+          torch.empty(d, f, dtype=bf, device="cuda"),
+          torch.empty(f, d, dtype=bf, device="cuda"))
+    out = {"decode_mlp_b8": DM._decode_mlp_route(x, ws)}
+    for label, k, n in (("wq_wo", d, d), ("wk_wv", d, kvh * hd),
+                        ("gate_up", d, f), ("down", f, d), ("lm_head", d, v)):
+        w = torch.empty(k, n, dtype=torch.int8, device="cuda")
+        out[f"int8mm_{label}"] = {
+            f"m{m}": I8._int8mm_route(torch.empty(m, k, dtype=bf,
+                                                  device="cuda"), w)
+            for m in (8, m_prefill)}
+    return out
+
+
+def llama32_3b_arm(E, G, I8, DM, kernels, init_params, base, ec,
+                   reqs) -> tuple:
+    """decode_shapes (a): LLAMA32_3B's widths at full depth, bf16, random
+    weights from a seeded CUDA generator. The engine phase's requests
+    through the engine (every decode step L paged-attention launches and
+    L tensor-core MLP launches, nothing on the int8 branch), the one
+    decode step of every STEP_VARIANTS variant compared under
+    step_gates (bf16 at 28 layers, fp32, bf16 at 2 layers), and
+    greedy_generate at b=8, prompt 256, 32 new tokens (L contiguous
+    decode launches a step). Returns (report, the runs' launches)."""
+    cfg = dataclasses.replace(base, **LLAMA32_3B)
+    L = cfg.n_layers
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng, done, launches, wall = serve(E, kernels, cfg, params, ec, reqs)
+    steps = eng.decode_steps
+    mlp_want = L * (steps + eng.prefill_single_token_buckets)
+    if not (launches["paged_decode_attention"] == L * steps > 0
+            and launches["decode_mlp"] == launches["decode_mlp_sm90"]
+            == mlp_want and launches["paged_decode_attention_int8"] == 0):
+        raise AssertionError(f"decode_shapes 3B engine: launches {launches}, "
+                             f"want {L} a decode step ({steps} steps)")
+    engine = serve_summary(eng, done, launches, wall)
+    engine["launches"] = {k: v for k, v in launches.items() if v}
+    engine["launches_per_decode_step"] = {
+        k: v / steps for k, v in launches.items() if v}
+    engine["paged_attention_launches_per_step_reckoned"] = L
+    prompts = [r.prompt for r in reqs]
+    cmp = {"bf16": step_logits(E, I8, cfg, eng, prompts, STEP_VARIANTS)}
+    del eng
+    b, s, new = 8, 256, 32
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (b, s)).astype(np.int32))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = G.greedy_generate(cfg, params, prompt, new)
+    gen_wall = time.perf_counter() - t0
+    gen_launches = dict(kernels.LAUNCHES)
+    want = {k: L * (new - 1) for k in (
+        "decode_attention", "decode_mlp", "decode_mlp_sm90")}
+    if any(gen_launches[k] != v for k, v in want.items()) or not (
+            out.shape == (b, s + new) and torch.equal(out[:, :s], prompt)
+            and 0 <= int(out.min()) and int(out.max()) < cfg.vocab_size):
+        raise AssertionError(f"decode_shapes 3B generate: launches "
+                             f"{gen_launches}, want {want}; {out.shape}")
+    del params, out
+    torch.cuda.empty_cache()
+    for name, c in (
+            ("fp32", dataclasses.replace(cfg, dtype=torch.float32,
+                                         param_dtype=torch.float32)),
+            ("bf16_2_layers", dataclasses.replace(cfg, n_layers=2))):
+        e = E.Engine(c, init_params(
+            c, torch.Generator(device="cuda").manual_seed(0)), ec)
+        cmp[name] = step_logits(E, I8, c, e, prompts, STEP_VARIANTS)
+        del e
+        torch.cuda.empty_cache()
+    total = collections.Counter(launches)
+    total.update(gen_launches)
+    return {
+        "model": "Llama-3.2-3B widths (hd 128, n_rep 3), 28 layers, bf16, "
+                 "random weights",
+        "routes": shapes_routes(DM, I8, cfg, b * s),
+        "engine": engine,
+        "generate": {"batch": b, "prompt": s, "new_tokens": new,
+                     "wall_seconds": gen_wall, "tok_s": b * new / gen_wall,
+                     "launches": {k: v for k, v in gen_launches.items() if v},
+                     "launches_per_decode_step": {
+                         k: v / (new - 1) for k, v in want.items()}},
+        "decode_step": cmp, "gates": step_gates(cmp),
+    }, dict(total)
+
+
+def shape_grid_engines(E, SB, A, kernels, init_params, base) -> tuple:
+    """decode_shapes (b): each SHAPE_GRID config at 2 layers, fp32, on
+    the card, an engine run with the kernels (launches counted, plain
+    versions' calls on a CUDA tensor counted and held at 0) against the
+    same run with the plain paged attention and MLP, with the cache of
+    the model dtype and with kv_quant int8: tokens identical. Returns
+    (report, the kernel runs' launches)."""
+    rng = np.random.default_rng(26)
+    trace = [(f"g{i}", rng.integers(1, SHAPE_GRID_VOCAB, int(n)).astype(
+        np.int32), 8) for i, n in enumerate((5, 17, 33, 48))]
+    out, total = {}, collections.Counter()
+    for hd, nh, nkv in SHAPE_GRID:
+        cfg = dataclasses.replace(
+            base, dim=hd * nh, n_heads=nh, n_kv_heads=nkv, n_layers=2,
+            ffn_dim=2 * hd * nh, vocab_size=SHAPE_GRID_VOCAB,
+            dtype=torch.float32, param_dtype=torch.float32)
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(hd))
+        cell = {}
+        for quant in ("none", "int8"):
+            ec = E.EngineConfig(page_size=16, max_slots=4, max_pages_per_seq=4,
+                                scan_chunk=4, prefill_chunk=32,
+                                kv_quant=quant)
+            runs = {}
+            for arm, c in (("kernels", cfg), ("plain", dataclasses.replace(
+                    cfg, paged_decode_impl="torch", decode_mlp_impl="torch"))):
+                eng = E.Engine(c, params, ec)
+                kernels.reset_launches()
+                with SB.plain_on_card() as plain_calls:
+                    runs[arm] = eng.run([E.Request(rid=r, prompt=p,
+                                                   max_new_tokens=n)
+                                         for r, p, n in trace])
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                if arm == "kernels":
+                    key = "paged_decode_attention" + (
+                        "_int8" if quant == "int8" else "")
+                    want = cfg.n_layers * eng.decode_steps
+                    mlp = cfg.n_layers * (eng.decode_steps
+                                          + eng.prefill_single_token_buckets)
+                    if (launches.get(key) != want or dict(plain_calls)
+                            or launches.get("decode_mlp") != mlp):
+                        raise AssertionError(
+                            f"decode_shapes hd={hd} {quant}: launches "
+                            f"{launches} (want {want} of {key}, {mlp} of "
+                            f"decode_mlp), plain calls {dict(plain_calls)}")
+                    total.update(launches)
+                    kernel_launches, kernel_plain = launches, dict(
+                        plain_calls)
+                elif launches:
+                    raise AssertionError(f"decode_shapes hd={hd} plain arm "
+                                         f"launched {launches}")
+            same = all(np.array_equal(runs["kernels"][r].tokens,
+                                      runs["plain"][r].tokens)
+                       for r, _, _ in trace)
+            cell[f"kv_{quant}"] = {"tokens_identical": same,
+                                   "launches": kernel_launches,
+                                   "plain_calls_on_card": kernel_plain}
+            if not same:
+                raise AssertionError(f"decode_shapes hd={hd} nh={nh} "
+                                     f"nkv={nkv} kv {quant}: kernel tokens "
+                                     f"differ from the plain versions'")
+        out[f"hd{hd}_h{nh}_kvh{nkv}"] = {
+            "n_rep": nh // nkv,
+            "rows_groups": list(A.decode_groups(nh // nkv)), **cell}
+        del params
+    return out, dict(total)
 
 
 # The wgmma kernels' sources, the C entries that give the dynamic shared
@@ -4667,6 +4932,7 @@ def main() -> int:
                 raise AssertionError(f"{name}: length 0 must give exact "
                                      f"zeros")
             del q, k_, v_, sc
+    parity["decode_grid"] = grid_parity(A, Q, gen)
     parity.update(flash_parity(A, gen))
     emit("parity", **parity)
 
@@ -4683,6 +4949,15 @@ def main() -> int:
             timing[name + label] = paged_timing(
                 A, q, k_, v_, sc, tables, lens, lengths, rates, flush)
         del q, kp, vp, tables, lens, pools, k_, v_, sc
+    # Past Llama-3-8B's shape: Llama-3.2-3B's heads (n_rep 3 in a group of
+    # 4) and head dim 256 (the tensor-core body on warp pairs).
+    for label, kvh, n_rep, hd in (("_3b", 8, 3, 128), ("_hd256", 8, 2, 256)):
+        lengths = [512] * 8
+        q, kp, vp, tables, lens = paged_inputs(gen, lengths, kvh=kvh,
+                                               n_rep=n_rep, hd=hd)
+        timing["paged_decode_attention" + label] = paged_timing(
+            A, q, kp, vp, {}, tables, lens, lengths, rates, flush)
+        del q, kp, vp, tables, lens
     for b in MLP_TIMING_ROWS:
         timing["decode_mlp" if b == 8 else f"decode_mlp_b{b}"] = mlp_timing(
             DM, gen, b, sms, rates, flush)
@@ -4727,13 +5002,14 @@ def main() -> int:
             row["dequantized_over_kernel"] = dense_ms / ms
         del x, w_q, w_s, w_bf
     timing.update(int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush))
-    for label, int8, b, max_seq, length in (
-        ("decode_attention", False, 8, 1024, 512),
-        ("decode_attention_int8", True, 8, 1024, 512),
-        ("decode_attention_long", False, 1, 8192, 8192),
+    for label, int8, b, max_seq, length, n_rep, hd in (
+        ("decode_attention", False, 8, 1024, 512, 4, 128),
+        ("decode_attention_int8", True, 8, 1024, 512, 4, 128),
+        ("decode_attention_long", False, 1, 8192, 8192, 4, 128),
+        ("decode_attention_hd256", False, 8, 1024, 512, 2, 256),
     ):
         q, k_, v_, sc = contiguous_inputs(Q, gen, b=b, max_seq=max_seq,
-                                          int8=int8)
+                                          n_rep=n_rep, hd=hd, int8=int8)
         timing[label] = contiguous_timing(A, q, k_, v_, sc, length, rates,
                                           flush)
         del q, k_, v_, sc
@@ -4747,7 +5023,7 @@ def main() -> int:
 
     # --- 5. small model: the card vs the CPU -----------------------------------
     tiny = dataclasses.replace(
-        TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32, dim=256,
+        TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32,
     )
     tparams = init_params(tiny, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(5)
@@ -4784,7 +5060,8 @@ def main() -> int:
             ]
             tiny_out[f"generate_kv_{kvq}_w_{wq}_identical"] = bool(
                 np.array_equal(*outs))
-    twin = dataclasses.replace(tiny, ffn_dim=512)  # tests/test_torch_train.py
+    twin = dataclasses.replace(tiny, dim=256,  # tests/test_torch_train.py
+                               ffn_dim=512)
     twin_tokens = np.random.default_rng(8).integers(
         0, twin.vocab_size, (2, 64)).astype(np.int32)
     twin_losses = {}
@@ -4925,6 +5202,19 @@ def main() -> int:
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
     emit("decode_step", **steps_cmp, gates=step_gates(steps_cmp))
+
+    # --- 6b. decode_shapes: the decode kernels past Llama-3-8B's shape ----
+    from tpu_dra_torch.workloads import shardbench as SB
+
+    t_shapes = time.perf_counter()
+    shapes, shapes_launches = llama32_3b_arm(E, G, I8, DM, kernels,
+                                             init_params, cfg, ec, reqs)
+    shapes["grid"], grid_launches = shape_grid_engines(
+        E, SB, A, kernels, init_params, cfg)
+    shapes_launches = collections.Counter(shapes_launches)
+    shapes_launches.update(grid_launches)
+    emit("decode_shapes", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_shapes, **shapes)
 
     # --- 7. engine at Llama-3-8B widths, int8 weights and KV ---------------
     torch.cuda.reset_peak_memory_stats()
@@ -5511,7 +5801,8 @@ def main() -> int:
          + w2_launches["paged_decode_attention"]
          + fabric_launches.get("paged_decode_attention", 0)
          + fbench_launches.get("paged_decode_attention", 0)
-         + bench_launches.get("paged_decode_attention", 0)),
+         + bench_launches.get("paged_decode_attention", 0)
+         + shapes_launches["paged_decode_attention"]),
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
          timing["decode_mlp"], engine_launches["decode_mlp_sm90"]
@@ -5522,7 +5813,8 @@ def main() -> int:
          + bench_launches.get("decode_mlp_sm90", 0)
          + boot_launches["decode_mlp_sm90"]
          + wide_launches["decode_mlp_sm90"]
-         + wide_gen_launches["decode_mlp_sm90"]),
+         + wide_gen_launches["decode_mlp_sm90"]
+         + shapes_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
         # for M <= 16 (decode) and the wgmma tile for M > 16 (prefill).
         ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
@@ -5542,13 +5834,15 @@ def main() -> int:
          + gen_sharded_launches["decode_attention"]
          + w2_launches["decode_attention"]
          + bench_launches.get("decode_attention", 0)
-         + boot_launches["decode_attention"]),
+         + boot_launches["decode_attention"]
+         + shapes_launches["decode_attention"]),
         ("paged_decode_attention_int8", "tpu_dra_torch/csrc/paged_decode.cu",
          "tpu_dra/workloads/ops/attention.py:1128",
          parity["paged_decode_attention_int8"],
          timing["paged_decode_attention_int8"],
          w8_launches["paged_decode_attention_int8"]
-         + bench_launches.get("paged_decode_attention_int8", 0)),
+         + bench_launches.get("paged_decode_attention_int8", 0)
+         + shapes_launches["paged_decode_attention_int8"]),
     ) + tuple(
         # The fused MLP's halves on a model shard: the world-2 ranks'.
         (name, f"tpu_dra_torch/csrc/{source}",
@@ -5603,6 +5897,17 @@ def main() -> int:
                     "generate_wide": wide_gen_launches["decode_mlp_sm90"]})
         if "library_note" in t and name.startswith("decode_mlp_"):
             rows[-1]["library_note"] = t["library_note"]
+        if name in ("paged_decode_attention", "decode_attention"):
+            rows[-1]["new_shapes"] = {
+                k: {f: timing[k][f] for f in (
+                    "shape", "ms", "ms_with_host", "plain_ms", "bound_ms",
+                    "bound_by", "share_of_bound")} | {
+                    "sdpa_ms": timing[k].get(
+                        "sdpa_contiguous_ms", timing[k]["library_ms"])}
+                for k in (name + "_3b", name + "_hd256") if k in timing}
+            rows[-1]["grid_parity"] = {
+                k: parity["decode_grid"][k] for k in (
+                    "checks", "worst_fp32", "worst_bf16_over_limit")}
         if name.startswith("int8mm"):
             rows[-1]["serves"] = {
                 "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 16 (decode steps, "

@@ -2,7 +2,8 @@
 mesh's parallel/ package and the serving tier's serving/ and infra/
 included), and not chip_smoke.py, the ablation
 scripts that run beside it on the card (int8mm_ablation.py,
-decode_mlp_ablation.py, l2_flush_ablation.py) or the rank helpers of the
+decode_mlp_ablation.py, decode_attention_ablation.py,
+l2_flush_ablation.py) or the rank helpers of the
 gloo twins (tests/torch_{sharded,mesh,seqpar,train,pipeline}_rank.py),
 imports jax, flax or anything of the JAX package (tpu_dra). The card's
 machine has no JAX, and the JAX package is the reference the port is
@@ -21,6 +22,7 @@ def _port_files():
     files = sorted((REPO / "tpu_dra_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "int8mm_ablation.py",
               REPO / "decode_mlp_ablation.py", REPO / "l2_flush_ablation.py",
+              REPO / "decode_attention_ablation.py",
               REPO / "tests" / "torch_sharded_rank.py"]
     files += [REPO / "tests" / f"torch_{name}_rank.py"
               for name in ("mesh", "seqpar", "train", "pipeline")]

@@ -87,28 +87,41 @@ def _paged(seed, b, page, kvh, n_rep, hd, lengths, dtype, device,
     return (args, extra) if int8 else args
 
 
-def _chunk(b, kvh, key_range):
-    """The keys a split of the decode kernels' plan holds."""
-    return TA.split_plan(b, kvh, key_range, TA._sm_count(0))[1]
+def _chunk(b, kvh, key_range, n_rep=1):
+    """The keys a split of the decode kernels' plan holds (a kv head's
+    row groups count as its CTAs)."""
+    groups = TA.decode_groups(n_rep)[1]
+    return TA.split_plan(b, kvh * groups, key_range, TA._sm_count(0))[1]
 
 
 def _paged_split(args, scales=None):
     """The paged plain split form with the kernel's plan."""
     q, kp, _, tables = args[:4]
-    chunk = _chunk(q.shape[0], kp.shape[2], tables.shape[1] * kp.shape[1])
+    chunk = _chunk(q.shape[0], kp.shape[2], tables.shape[1] * kp.shape[1],
+                   q.shape[1] // kp.shape[2])
     return TA.paged_decode_attention(*args, **(scales or {}), impl="torch",
                                      split_keys=chunk)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+# The decode kernels' grid: every head-dim bucket (64, 128, 256) at its
+# own size and padded (16, 32, 48; 96; 192), and n_rep in one row group
+# (1-8: 3 and 5 run in groups of 4 and 8 with rows masked) and in several
+# (16, 32: MQA at kvh 1 is 32 query heads on one kv head).
+DECODE_HDS = [16, 32, 48, 64, 96, 128, 192, 256]
+DECODE_REPS = [1, 2, 3, 4, 5, 8, 16, 32]
+
+
+@pytest.mark.parametrize("hd", DECODE_HDS)
+@pytest.mark.parametrize("n_rep", DECODE_REPS)
 @pytest.mark.parametrize("page", [1, 4, 16, 48])
 def test_paged_decode_kernel_fp32_matches_plain(cuda_device, hd, n_rep, page):
     lengths = [0, 1, page, page + 1, 3 * page - 1, 77, 255, 512, 1000]
     args = _paged(hd + n_rep + page, len(lengths), page, 2, n_rep, hd,
                   lengths,
                   torch.float32, cuda_device)
+    kernels.reset_launches()
     got = TA.paged_decode_attention(*args, impl="cuda")
+    assert kernels.LAUNCHES["paged_decode_attention"] == 1
     want = TA.paged_decode_attention(*args, impl="torch")
     split = _paged_split(args)
     torch.cuda.synchronize()
@@ -445,10 +458,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     q, kp, vp, tables, lens = _paged(
         3, 2, 4, 2, 2, 64, [3, 9], torch.float32, cuda_device
     )
-    with pytest.raises(ValueError, match="head_dim"):
+    # hd 40 is not a multiple of 16: outside the decode kernels' contract.
+    with pytest.raises(ValueError, match="head dim 40"):
         TA.paged_decode_attention(
-            q[..., :32].contiguous(), kp[..., :32].contiguous(),
-            vp[..., :32].contiguous(), tables, lens, impl="cuda",
+            q[..., :40].contiguous(), kp[..., :40].contiguous(),
+            vp[..., :40].contiguous(), tables, lens, impl="cuda",
         )
     with pytest.raises(ValueError, match="int32"):
         TA.paged_decode_attention(q, kp, vp, tables.long(), lens, impl="cuda")
@@ -525,7 +539,6 @@ def test_tiny_engine_on_the_card_matches_the_cpu_engine(cuda_device):
 
     cfg = dataclasses.replace(
         TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32,
-        n_heads=4, n_kv_heads=2, dim=256,
     )
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(5)
@@ -561,15 +574,17 @@ def test_tiny_engine_on_the_card_matches_the_cpu_engine(cuda_device):
 # --- int8 paged branch, int8 matmul, contiguous decode ------------------
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("hd", DECODE_HDS)
+@pytest.mark.parametrize("n_rep", [1, 3, 4, 8, 16, 32])
 @pytest.mark.parametrize("page", [1, 16])
 def test_paged_decode_int8_kernel_fp32_matches_plain(cuda_device, hd, n_rep,
                                                      page):
     lengths = [0, 1, page, page + 1, 3 * page - 1, 77, 255, 512, 1000]
     args, scales = _paged(hd + n_rep + page, len(lengths), page, 2, n_rep,
                           hd, lengths, torch.float32, cuda_device, int8=True)
+    kernels.reset_launches()
     got = TA.paged_decode_attention(*args, **scales, impl="cuda")
+    assert kernels.LAUNCHES["paged_decode_attention_int8"] == 1
     want = TA.paged_decode_attention(*args, **scales, impl="torch")
     split = _paged_split(args, scales)
     torch.cuda.synchronize()
@@ -831,23 +846,55 @@ def _contig(seed, b, max_seq, kvh, n_rep, hd, dtype, device, int8=False):
     return q.to(device=device, dtype=dtype), k.to(device), v.to(device), scales
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("hd", DECODE_HDS)
+@pytest.mark.parametrize("n_rep", [1, 3, 4, 5, 16, 32])
 @pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
 def test_decode_kernel_fp32_matches_plain(cuda_device, hd, n_rep, int8):
     max_seq = 1024
     q, k, v, scales = _contig(hd + n_rep, 3, max_seq, 2, n_rep, hd,
                               torch.float32, cuda_device, int8=int8)
     for length in (0, 1, 255, 256, 257, 1000, max_seq):
+        kernels.reset_launches()
         got = TA.decode_attention(q, k, v, length, **scales, impl="cuda")
+        assert kernels.LAUNCHES["decode_attention"] == 1
         want = TA.decode_attention(q, k, v, length, **scales, impl="torch")
         split = TA.decode_attention(q, k, v, length, **scales, impl="torch",
-                                    split_keys=_chunk(3, 2, length))
+                                    split_keys=_chunk(3, 2, length, n_rep))
         torch.cuda.synchronize()
         torch.testing.assert_close(got, split, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
         if length == 0:
             assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("hd", [16, 48, 96, 192, 256])
+@pytest.mark.parametrize("n_rep", [3, 16, 32])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_decode_kernels_bf16_at_new_shapes(cuda_device, hd, n_rep, int8,
+                                           paged):
+    """bf16 q (bf16 or int8 cache) past Llama-3-8B's shape: the tensor-core
+    body at every head-dim bucket (HD 256 on warp pairs) and the int8
+    CUDA-core body, within the per-row bf16 bar of the fp32 reference;
+    a row of length 0 exact zeros; a paged row at the table's capacity."""
+    if paged:
+        lengths = [0, 1, 77, 300, 1024]
+        out = _paged(hd + n_rep, len(lengths), 16, 2, n_rep, hd, lengths,
+                     torch.bfloat16, cuda_device, int8=int8)
+        args, scales = out if int8 else (out, {})
+        call = functools.partial(TA.paged_decode_attention, *args, **scales)
+        got = call(impl="cuda")
+        _assert_bf16_close(got[1:], call(impl="reference")[1:])
+        assert torch.all(got[0] == 0)
+        return
+    q, k, v, scales = _contig(hd + n_rep, 3, 1024, 2, n_rep, hd,
+                              torch.bfloat16, cuda_device, int8=int8)
+    assert torch.all(TA.decode_attention(q, k, v, 0, **scales,
+                                         impl="cuda") == 0)
+    for length in (1, 333, 1024):
+        got = TA.decode_attention(q, k, v, length, **scales, impl="cuda")
+        _assert_bf16_close(got, TA.decode_attention(
+            q, k, v, length, **scales, impl="reference"))
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
@@ -984,7 +1031,7 @@ def test_tiny_int8_paths_on_the_card_match_the_cpu(cuda_device):
     from tpu_dra_torch.workloads.models.llama import TINY_LLAMA, init_params
 
     cfg = dataclasses.replace(
-        TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32, dim=256,
+        TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32,
     )
     params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     rng = np.random.default_rng(6)

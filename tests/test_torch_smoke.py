@@ -68,7 +68,7 @@ def test_matmul_smoke_matches_jax():
 @pytest.mark.parametrize("dim", [64, 256], ids=["tiny", "smoke_widths"])
 def test_decode_smoke_tokens_identical_to_jax(dim):
     """JAX's decode_smoke weights (PRNGKey(0)) at fp32; dim 64 is
-    TINY_LLAMA itself, dim 256 the port's SMOKE_LLAMA widths."""
+    TINY_LLAMA itself (the port's SMOKE_LLAMA), dim 256 a wider twin."""
     jcfg = dataclasses.replace(JL.TINY_LLAMA, dim=dim, dtype=jnp.float32,
                                param_dtype=jnp.float32)
     tcfg = dataclasses.replace(TS.SMOKE_LLAMA, dim=dim, dtype=torch.float32,
@@ -96,4 +96,4 @@ def test_decode_smoke_default_has_jax_keys():
     assert set(got) == set(want)
     assert got["ok"] and want["ok"]
     assert got["shape"] == want["shape"] == [2, 12]
-    assert TS.SMOKE_LLAMA.head_dim == 64  # a head dim the decode kernels take
+    assert TS.SMOKE_LLAMA == TL.TINY_LLAMA  # JAX's decode_smoke model

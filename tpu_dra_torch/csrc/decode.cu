@@ -24,17 +24,18 @@
 
 #include "decode_attention.cuh"
 
-// q [batch, kvh*n_rep, head_dim]; k/v [batch, max_seq, kvh, head_dim]
-// of q's type (kv_int8 = 0) or int8 (kv_int8 = 1, with k_scale/v_scale
-// [batch, max_seq, kvh] f32); 0 <= length <= max_seq; out like q;
-// partial: fp32 workspace [batch, kvh*n_rep, splits, head_dim + 2]
-// when splits > 1 (splits * chunk must cover length). Returns the
-// cudaError_t of the launches.
+// q [batch, kvh*n_rep, head_dim]; k/v [batch, max_seq, kvh, head_dim] of
+// q's type (kv_int8 = 0) or int8 (kv_int8 = 1, with k_scale/v_scale
+// [batch, max_seq, kvh] f32); head_dim a multiple of 16 from 16 to 256;
+// any n_rep, `rows` (2, 4 or 8: ops/attention.py `decode_groups`) query
+// rows a CTA; 0 <= length <= max_seq; out like q; partial: fp32 workspace
+// [batch, kvh*n_rep, splits, head_dim + 2] when splits > 1 (splits *
+// chunk must cover length). Returns the cudaError_t of the launches.
 extern "C" int tpu_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, void* out, void* partial, int dtype, int kv_int8,
-    int batch, int kvh, int n_rep, int head_dim, int max_seq, int length,
-    int splits, int chunk, float scale, void* stream) {
+    int batch, int kvh, int n_rep, int rows, int head_dim, int max_seq,
+    int length, int splits, int chunk, float scale, void* stream) {
   using namespace tpu_dra::attention;
   if (max_seq < 1 || length < 0 || length > max_seq)
     return cudaErrorInvalidValue;
@@ -43,7 +44,7 @@ extern "C" int tpu_decode_attention(
                                static_cast<const float*>(k_scale),
                                static_cast<const float*>(v_scale), keys, out,
                                static_cast<float*>(partial), batch, kvh,
-                               splits, chunk, scale,
+                               0, 0, 0, splits, chunk, scale,
                                static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, kv_int8, head_dim, n_rep, length, a);
+  return dispatch(dtype, kv_int8, head_dim, n_rep, rows, length, a);
 }

@@ -34,18 +34,19 @@
 #include "decode_attention.cuh"
 
 // q [batch, kvh*n_rep, head_dim]; k/v pools [P, page, kvh, head_dim] of
-// q's type (kv_int8 = 0) or int8 (kv_int8 = 1, with k_scale/v_scale
-// pools [P, page, kvh] f32); tables [batch, max_pages] int32; lengths
-// [batch] int32; out [batch, kvh*n_rep, head_dim]; partial: fp32
-// workspace [batch, kvh*n_rep, splits, head_dim + 2] when splits > 1
-// (splits * chunk must cover max_pages * page). Returns the
-// cudaError_t of the launches.
+// q's type (kv_int8 = 0) or int8 (kv_int8 = 1, with k_scale/v_scale pools
+// [P, page, kvh] f32); head_dim a multiple of 16 from 16 to 256; any
+// n_rep, `rows` (2, 4 or 8: ops/attention.py `decode_groups`) query rows
+// a CTA; tables [batch, max_pages] int32; lengths [batch] int32; out
+// [batch, kvh*n_rep, head_dim]; partial: fp32 workspace [batch,
+// kvh*n_rep, splits, head_dim + 2] when splits > 1 (splits * chunk must
+// cover max_pages * page). Returns the cudaError_t of the launches.
 extern "C" int tpu_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* tables,
     const void* lengths, void* out, void* partial, int dtype, int kv_int8,
-    int batch, int kvh, int n_rep, int head_dim, int page, int max_pages,
-    int splits, int chunk, float scale, void* stream) {
+    int batch, int kvh, int n_rep, int rows, int head_dim, int page,
+    int max_pages, int splits, int chunk, float scale, void* stream) {
   using namespace tpu_dra::attention;
   if (page < 1 || max_pages < 1) return cudaErrorInvalidValue;
   int shift = -1;
@@ -59,8 +60,9 @@ extern "C" int tpu_paged_decode_attention(
   const Args<PagedKeys> a{q, k_pages, v_pages,
                           static_cast<const float*>(k_scale),
                           static_cast<const float*>(v_scale), keys, out,
-                          static_cast<float*>(partial), batch, kvh, splits,
-                          chunk, scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, kv_int8, head_dim, n_rep,
+                          static_cast<float*>(partial), batch, kvh, 0, 0,
+                          0, splits, chunk, scale,
+                          static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, kv_int8, head_dim, n_rep, rows,
                   static_cast<long long>(max_pages) * page, a);
 }

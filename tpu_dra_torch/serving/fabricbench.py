@@ -106,9 +106,8 @@ def _device_name(device) -> str:
 
 
 def _model(device=None):
-    """TINY_LLAMA at fp32, widened to dim 256 (head dim 64, which the
-    card's decode kernels take; TINY's 16 they refuse), random weights
-    from a seeded generator, the same on every device."""
+    """TINY_LLAMA at fp32 (dim 64, as JAX's fabricbench runs it), random
+    weights from a seeded generator, the same on every device."""
     from tpu_dra_torch.workloads.enginebench import _smoke_config
 
     return _smoke_config(resolve_device(device))

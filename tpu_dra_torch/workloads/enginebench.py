@@ -693,14 +693,13 @@ def run_serve_bench(config, params, env, device=None, exact: bool = True,
 
 
 def _smoke_config(device):
-    """The smokes' model: TINY_LLAMA at fp32 widened to dim 256 (head
-    dim 64, which the card's decode kernels take; TINY's 16 they
-    refuse), random weights drawn on the CPU from seed 7, so every
-    device holds the same weights."""
+    """The smokes' model: TINY_LLAMA at fp32 (dim 64, head dim 16, as
+    JAX's smokes run it), random weights drawn on the CPU from seed 7,
+    so every device holds the same weights."""
     from tpu_dra_torch.workloads.models.llama import TINY_LLAMA, init_params
 
     cfg = dataclasses.replace(
-        TINY_LLAMA, dim=256, dtype=torch.float32, param_dtype=torch.float32
+        TINY_LLAMA, dtype=torch.float32, param_dtype=torch.float32
     )
     params = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
     return cfg, as_tree(params, device)

@@ -15,7 +15,10 @@ the probabilities).
   the twin of the JAX page walk ``_xla_paged_decode_attention``;
   ``"reference"`` the twin of its fp32 oracle. ``"auto"`` launches the
   kernel for CUDA tensors and takes ``"torch"`` for CPU tensors; a CUDA
-  tensor never falls back. The kernel splits each slot's keys over CTAs
+  tensor never falls back. The decode kernels take every head dim that
+  is a multiple of 16 from 16 to 256 and any n_rep
+  (:func:`_validate_decode_shapes`, :func:`decode_groups`). The kernel
+  splits each slot's keys over CTAs
   and merges the splits in a fixed order (:func:`split_plan`);
   ``"torch"`` with ``split_keys`` computes the same split-and-merge in
   plain PyTorch.
@@ -92,19 +95,56 @@ def reference_paged_decode_attention(
 
 
 # The split plan of csrc/decode_attention.cuh (flash-decoding): the keys
-# of each (row, kv head) are cut into `splits` chunks of `chunk`
-# positions, one CTA each, aiming at SPLIT_CTAS_PER_SM CTAs an SM.
-# A chunk is whole tiles of the kernel's ring (kTile keys); SPLIT_MAX is
-# its kMaxSplits (the combine holds one split's values a register).
+# of each (row, kv head, row group) are cut into `splits` chunks of
+# `chunk` positions, one CTA each, aiming at SPLIT_CTAS_PER_SM CTAs an
+# SM. A chunk is whole tiles of the kernel's ring (kTile keys); SPLIT_MAX
+# is its kMaxSplits (the combine holds one split's values a register).
 SPLIT_TILE = 32
 SPLIT_MIN_KEYS = 64
 SPLIT_MAX = 32
 SPLIT_CTAS_PER_SM = 8
+# The shapes the decode kernels take: head dims that are a multiple of
+# DECODE_HD_STEP up to DECODE_MAX_HD (each runs in the instantiation of
+# its bucket, 64, 128 or 256: csrc/decode_attention.cuh ``by_hd``), any
+# n_rep in groups of at most DECODE_MAX_ROWS query rows a CTA.
+DECODE_HD_STEP = 16
+DECODE_MAX_HD = 256
+DECODE_MAX_ROWS = 8
+
+
+def decode_groups(n_rep: int) -> tuple:
+    """(rows, groups) of the decode kernels for ``n_rep`` query heads a
+    kv head: a CTA holds ``rows`` of them, the next power of two from 2
+    up to DECODE_MAX_ROWS (n_rep 1 runs in a group of 2: a masked row
+    costs the kernels little, an instantiation costs build time), and a
+    kv head's heads take ``groups`` = ceil(n_rep / rows) CTAs (the last
+    group's rows past n_rep masked)."""
+    rows = 2
+    while rows < min(int(n_rep), DECODE_MAX_ROWS):
+        rows *= 2
+    return rows, -(-int(n_rep) // rows)
+
+
+def _validate_decode_shapes(q) -> None:
+    """The decode kernels' contract on q [b, h, hd], checked before any
+    device check so that ``impl="cuda"`` raises on every device: hd a
+    multiple of 16 from 16 to 256 (any n_rep; the callers check h %
+    kvh). JAX takes XLA for the head dims its Pallas kernels refuse; the
+    port raises (ROADMAP, Queue C)."""
+    hd = q.shape[-1]
+    if hd % DECODE_HD_STEP or not DECODE_HD_STEP <= hd <= DECODE_MAX_HD:
+        raise ValueError(
+            f"impl='cuda' takes a head dim that is a multiple of "
+            f"{DECODE_HD_STEP} from {DECODE_HD_STEP} to {DECODE_MAX_HD}, "
+            f"got q {tuple(q.shape)} (head dim {hd}; use impl='torch')"
+        )
 
 
 def split_plan(batch: int, kvh: int, key_range: int, sm_count: int) -> tuple:
     """(splits, chunk) for the decode kernels: ``chunk`` positions a
-    split, ``splits * chunk >= key_range``. Host-known values only (the
+    split, ``splits * chunk >= key_range``. ``kvh`` is the CTAs a split
+    of one row: the kv heads times their row groups
+    (:func:`decode_groups`). Host-known values only (the
     paged kernel's key range is the table's capacity), so planning never
     waits on the device. One split means the kernel writes the output
     itself and no combine runs."""
@@ -244,7 +284,7 @@ def _torch_paged_decode_attention(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-_PAGED_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p,
 ]
 
@@ -286,8 +326,9 @@ def _cuda_paged_decode_attention(
 ):
     """Launch csrc/paged_decode.cu on q's stream. Takes bf16 or fp32 q
     with pools of q's dtype, or int8 pools with f32 scale pools
-    [P, page, kvh]; hd in {64, 128}, n_rep in {1, 2, 4, 8}, any page
-    size; raises on anything else. Lengths are read on the device only
+    [P, page, kvh]; the head dims of :func:`_validate_decode_shapes`,
+    any n_rep (:func:`decode_groups`), any page size; raises on
+    anything else. Lengths are read on the device only
     (no host sync; the split plan covers the table's capacity): one past
     max_pages*page turns that slot's output into NaN, and the kernel
     never reads past the table."""
@@ -310,17 +351,14 @@ def _cuda_paged_decode_attention(
         )
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("impl='cuda' needs int32 tables and lengths")
-    if hd not in (64, 128) or n_rep not in (1, 2, 4, 8):
-        raise ValueError(
-            f"impl='cuda' takes head_dim 64 or 128 and n_rep 1/2/4/8, got "
-            f"head_dim {hd}, n_rep {n_rep}"
-        )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("impl='cuda' needs contiguous inputs")
     _check_kv_layout(q, k_pages, v_pages)
     max_pages = tables.shape[1]
+    rows, groups = decode_groups(n_rep)
     splits, chunk = split_plan(
-        b, plan_kv_heads, max_pages * page, _sm_count(q.device.index)
+        b, plan_kv_heads * groups, max_pages * page,
+        _sm_count(q.device.index)
     )
     out = torch.empty_like(q)
     partial = _split_workspace(q, splits)
@@ -333,7 +371,7 @@ def _cuda_paged_decode_attention(
         v_scale.data_ptr() if kv_int8 else None,
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(),
-        _DTYPE_CODES[q.dtype], kv_int8, b, kvh, n_rep, hd, page,
+        _DTYPE_CODES[q.dtype], kv_int8, b, kvh, n_rep, rows, hd, page,
         max_pages, splits, chunk, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -389,6 +427,7 @@ def paged_decode_attention(
     global _LAST_PAGED_IMPL
     _LAST_PAGED_IMPL = impl
     if impl == "cuda":
+        _validate_decode_shapes(q)
         return _cuda_paged_decode_attention(
             q, k_pages, v_pages, tables, lengths, k_scale, v_scale,
             plan_kv_heads,
@@ -727,7 +766,7 @@ def _torch_decode_attention(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p,
 ]
 
@@ -736,8 +775,9 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale,
                            plan_kv_heads: int):
     """Launch csrc/decode.cu on q's stream. Takes bf16 or fp32 q with a
     cache of q's dtype, or an int8 cache with f32 scales [b, max_seq,
-    kvh]; hd in {64, 128}, n_rep in {1, 2, 4, 8}; 0 <= length <=
-    max_seq (a host int, checked here); raises on anything else."""
+    kvh]; the head dims of :func:`_validate_decode_shapes`, any n_rep;
+    0 <= length <= max_seq (a host int, checked here); raises on
+    anything else."""
     b, h, hd = q.shape
     max_seq, kvh = k.shape[1], k.shape[2]
     n_rep = h // kvh
@@ -754,15 +794,11 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale,
             f"scales {tuple(k_scale.shape)}/{tuple(v_scale.shape)} do not "
             f"match the cache {tuple(k.shape)}"
         )
-    if hd not in (64, 128) or n_rep not in (1, 2, 4, 8):
-        raise ValueError(
-            f"impl='cuda' takes head_dim 64 or 128 and n_rep 1/2/4/8, got "
-            f"head_dim {hd}, n_rep {n_rep}"
-        )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("impl='cuda' needs contiguous inputs")
     _check_kv_layout(q, k, v)
-    splits, chunk = split_plan(b, plan_kv_heads, length,
+    rows, groups = decode_groups(n_rep)
+    splits, chunk = split_plan(b, plan_kv_heads * groups, length,
                                _sm_count(q.device.index))
     out = torch.empty_like(q)
     partial = _split_workspace(q, splits)
@@ -772,8 +808,8 @@ def _cuda_decode_attention(q, k, v, length: int, k_scale, v_scale,
         k_scale.data_ptr() if kv_int8 else None,
         v_scale.data_ptr() if kv_int8 else None,
         out.data_ptr(), None if partial is None else partial.data_ptr(),
-        _DTYPE_CODES[q.dtype], kv_int8, b, kvh, n_rep, hd, max_seq, length,
-        splits, chunk, hd ** -0.5,
+        _DTYPE_CODES[q.dtype], kv_int8, b, kvh, n_rep, rows, hd, max_seq,
+        length, splits, chunk, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(err, "decode_attention")
@@ -829,6 +865,7 @@ def decode_attention(
     global _LAST_DECODE_IMPL
     _LAST_DECODE_IMPL = impl
     if impl == "cuda":
+        _validate_decode_shapes(q)
         if extra_k is not None:
             raise ValueError(
                 "the CUDA decode kernel does not take extra_k/extra_v; "

@@ -8,19 +8,15 @@ Counterpart of ``tpu_dra/workloads/smoke.py``, with its names and keys.
 device when there is none.
 
 ``decode_smoke`` runs the port's ``greedy_generate`` on
-:data:`SMOKE_LLAMA`: TINY_LLAMA with its width raised from 64 to 256, so
-that its head dim is 64. The decode kernels take head dims 64 and 128
-(``csrc/decode_attention.cuh``) and TINY_LLAMA's is 16, which the
-contiguous-decode wrapper refuses on the card. (JAX's ``decode_smoke``
-runs TINY_LLAMA and its XLA decode, since its Pallas decode takes only
-head dims that are a multiple of 64.) On the card the smoke goes through
-``csrc/decode.cu`` and the fused decode MLP; ``config`` and ``params``
-let a caller run another config, or given weights.
+:data:`SMOKE_LLAMA`, which is TINY_LLAMA (head dim 16), as JAX's
+``decode_smoke`` runs it. On the card the smoke goes through
+``csrc/decode.cu`` (every head dim that is a multiple of 16 up to 256)
+and the fused decode MLP; ``config`` and ``params`` let a caller run
+another config, or given weights.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import torch
@@ -29,7 +25,7 @@ import torch.distributed as dist
 from tpu_dra_torch.workloads.device import resolve_device, synchronize
 from tpu_dra_torch.workloads.models.llama import TINY_LLAMA
 
-SMOKE_LLAMA = dataclasses.replace(TINY_LLAMA, dim=256)
+SMOKE_LLAMA = TINY_LLAMA
 
 
 def platform(device: torch.device) -> str:
