@@ -16,7 +16,9 @@ exits non-zero without a result:
    asks for; every instantiation of the wgmma kernels, of the decode
    bodies (decode_split_kernel, decode_combine_kernel in paged_decode.cu
    and decode.cu), of the tensor-core int8 GEMV
-   (int8mm_gemv_sm90.cu, both planes) and of the tensor-core decode MLP
+   (int8mm_gemv_sm90.cu: the mma.sync body at 1 and 2 planes, the
+   wgmma body at 4 planes with 2, 4 and 8 tiles a warp and at 8 with 2
+   and 4) and of the tensor-core decode MLP
    (decode_mlp_sm90.cu: gate/up and down at 1, 2, 4 and 8 planes) must
    spill 0 bytes.
 2b. bootstrap — the slice bootstrap and collective smokes
@@ -59,16 +61,21 @@ exits non-zero without a result:
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
    (4096, 1024), (4096, 128256)}, at M in {17, 129, 2048} for
    4096 x 14336, wq/wo's 4096 x 4096 at M in {1024, 2048}, the
-   lm_head at M = 2048 and M in {2, 13, 16} for 4096 x 14336
+   lm_head at M = 2048, M in {2, 13, 16, 24, 32, 33, 48, 64} for
+   4096 x 14336 and M in {32, 64} at the other four decode shapes
    (INT8MM_PARITY), with an all-zero weight column, each row naming its
-   route (gemv_sm90, the tensor-core GEMV, which every row with M <= 16
-   must take, with its plan; sm90, the wgmma tile, which every bf16 row
-   with M > 16 must take); each row with M <= 16 also holds int8mm.cu's
-   weight-streaming GEMV, which still serves fp32 and the shapes the new
-   one does not take, on the same inputs (zero column, reruns
-   bit-identical); each row with M > 16 also holds int8mm.cu's WMMA tile,
-   which serves the bf16 shapes the wgmma tile does not take, on the
-   same inputs (zero column, reruns bit-identical); the
+   route (gemv_sm90, the tensor-core GEMV, which every row with M <= 64
+   must take, with its plan: 1 or 2 planes of 8 rows on its mma.sync
+   body, 4 or 8 on its wgmma body; sm90, the wgmma tile, which every
+   bf16 row with M > 64 must take); each row with M <= 16 also holds
+   int8mm.cu's weight-streaming GEMV, which still serves fp32 and the
+   shapes the new one does not take, on the same inputs (zero column,
+   reruns bit-identical); each row with 17 <= M <= 64 also holds
+   int8mm_sm90.cu's wgmma tile, which served those rows before the
+   GEMV's wgmma body, launched directly on the same inputs (the same
+   bars); each row with M > 64 also holds int8mm.cu's WMMA tile, which
+   serves the bf16 shapes the wgmma tile does not take, on the same
+   inputs (zero column, reruns bit-identical); the
    contiguous decode, bf16 and int8 caches, b=8, max_seq 1024, lengths
    {1, 63, 64, 65, 129, 255, 256, 257, 1000}, and b=1 with 8192 keys
    (the decode kernels split the keys over CTAs: at fp32 each is held
@@ -121,12 +128,15 @@ exits non-zero without a result:
    bf16 as its yardstick (no PyTorch call takes the int8 cache). The
    int8 matmul's tensor-core GEMV at every decode shape (M = 8), each
    row asserted to take it, with its plan, share of the bound and
-   int8mm.cu's GEMV on the same inputs (old_gemv_ms), and its wgmma tile
-   at each prefill shape (INT8MM_PREFILL_TIMING:
-   every projection at the engine bucket's M = 1024, the lm_head at the
-   generate prefill's M = 2048, and gate/up's 4096 x 14336 at M = 32 and
-   64, which a w8 engine of 17-64 slots decodes through), each row
-   asserted to take the wgmma
+   int8mm.cu's GEMV on the same inputs (old_gemv_ms); the GEMV's wgmma
+   body at a w8 engine's 17-64 decode rows (INT8MM_WIDE_TIMING: gate/up
+   at M = 32 and 64, every other decode shape at M = 32), each row
+   asserted to take it at 4 or 8 planes, with its plan, the wgmma tile
+   it replaced there on the same inputs (sm90_tile_ms), a bf16 matmul on
+   a dequantized copy as the yardstick and share of the bound; and the
+   wgmma tile at each prefill shape (INT8MM_PREFILL_TIMING: every
+   projection at the engine bucket's M = 1024, the lm_head at the
+   generate prefill's M = 2048), each row asserted to take the wgmma
    tile, with the WMMA tile it replaced on the same inputs (its output
    held against the plain version), a bf16 matmul on a dequantized copy
    as the yardstick,
@@ -193,7 +203,7 @@ exits non-zero without a result:
    kv_quant="int8": every request completes, the allocator ends
    leak-free with every pool (scales included) zero; per decode step
    225 int8 matmul launches (7 projections x 32 layers + the lm_head),
-   every launch with M > 16 (the prefill projections) on the wgmma tile
+   every launch with M > 64 (the prefill projections) on the wgmma tile
    and every other on the tensor-core GEMV (int8mm.cu's GEMV never), 32
    paged-decode launches on int8 pools and no fused-MLP launch; a
    profile of its steady decode as for the bf16 engine, with the int8
@@ -222,7 +232,8 @@ exits non-zero without a result:
    tokens (no identity gate: the verify pass runs the plain attention
    and MLP chain, the per-token step the kernels); w8kv8 with the
    n-gram draft on the same requests, every verify-pass matmul (M = 40)
-   on the wgmma tile. The cut took the two 8B bf16 runs from 39.2 and
+   on the tensor-core GEMV's wgmma body (8 planes). The cut took the
+   two 8B bf16 runs from 39.2 and
    42.0 s (8 requests, 32-64 new tokens) to 13.5 and 12.1 s, the phase
    from 136.7 to 91.2 s (NVIDIA H100 80GB HBM3, 700.00 W); the w8kv8 run
    took the same cut when the fabric phase (7f) came.
@@ -340,6 +351,22 @@ exits non-zero without a result:
    (profile_decode); the decode step from one state with all 32 slots
    live, each STEP_VARIANTS variant, in bf16, fp32 and bf16 cut to 2
    layers, held by step_gates (decode_step_wide).
+8d. engine_wide_w8kv8 (on an int8 tree quantized once from phase 8's
+   weights) — engine_wide's config and requests with weight_quant and
+   kv_quant "int8": every request completes with its token count, the
+   allocator ends whole with every pool (scales included) zero; a decode
+   step (M = 32 rows) makes its 225 int8 matmuls on the tensor-core
+   GEMV's wgmma body at 4 planes (a prefill bucket's past 64 rows on the
+   wgmma tile; int8mm.cu's GEMV and WMMA tile never) and 32 paged-decode
+   launches on int8 pools; a profile of steady decode: 225 launches of
+   int8_gemv_sm90_kernel_wgmma<4, *> a step (rounded: the trace can come
+   back a few records short; the launch counters hold the count exactly)
+   and no other int8 matmul kernel, their device ms a step and share,
+   device against host ms,
+   busy share; decode tok/s, TTFT p50, the phase's seconds; the decode
+   step from one state with all 32 slots live, each W8_STEP_VARIANTS
+   variant, in bf16 and bf16 cut to 2 layers, held by step_gates
+   (decode_step_wide_w8kv8).
 8a. engine_sharded — mesh-sharded decode (tpu_dra_torch/workloads/
    parallel/mesh.py). World 1, inside a world-1 NCCL group built by
    bootstrap.rendezvous: the engine phase's requests through
@@ -798,19 +825,27 @@ def int8mm_inputs(Q, gen, m, k, n, dtype=torch.bfloat16, zero_col=None):
     return x, q["kernel_q"], q["scale"]
 
 
-# The int8 matmul's parity rows (M, K, N): decode (M <= 16, the GEMV)
+# The int8 matmul's parity rows (M, K, N): decode (M <= 64, the GEMV)
 # and prefill (the wgmma tile in bf16) at every projection's shape, the
-# tile's edges at M = 17 and 129, wq/wo (4096 x 4096, the 256-row tile
-# at both prefill M) and the generate prefill's M = 2048 with the
-# lm_head over every position; the GEMV at M = 2, 13 and 16 too (one
-# plane of 8 rows of x, two planes, the most rows).
+# tile's edge at M = 129, wq/wo (4096 x 4096, the 256-row tile at both
+# prefill M) and the generate prefill's M = 2048 with the lm_head over
+# every position; the GEMV at M = 2, 13 and 16 too (one plane of 8 rows
+# of x, two planes, the most rows of the mma.sync body), and its wgmma
+# body at M = 17, 24, 32 (4 planes), 33, 48, 64 (8 planes) at gate/up
+# and at M = 32 and 64 at every other decode shape (a w8 engine of
+# 17-64 slots decoding).
 INT8MM_PARITY = tuple(
     (m, k, n)
     for k, n in ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 128256))
     for m in (1, 8, 1024)
 ) + ((17, 4096, 14336), (129, 4096, 14336), (2048, 4096, 14336),
      (1024, 4096, 4096), (2048, 4096, 4096), (2048, 4096, 128256),
-     (2, 4096, 14336), (13, 4096, 14336), (16, 4096, 14336))
+     (2, 4096, 14336), (13, 4096, 14336), (16, 4096, 14336)) + tuple(
+    (m, 4096, 14336) for m in (24, 32, 33, 48, 64)) + tuple(
+    (m, k, n) for k, n in ((4096, 4096), (4096, 1024), (14336, 4096),
+                           (4096, 128256)) for m in (32, 64))
+# The GEMV serves bf16 up to this many rows; the wgmma tile past it.
+GEMV_SM90_MAX_ROWS = 64
 # The prefill timing rows: each projection at the engine bucket's M and
 # the lm_head at the generate prefill's (label, M, K, N).
 INT8MM_PREFILL_TIMING = (
@@ -819,9 +854,17 @@ INT8MM_PREFILL_TIMING = (
     ("int8mm_prefill_wk", 1024, 4096, 1024),  # wk, wv
     ("int8mm_prefill_down", 1024, 14336, 4096),
     ("int8mm_prefill_lm_head", 2048, 4096, 128256),
-    # A w8 engine's decode projections at 17-64 slots take the same tile.
-    ("int8mm_m32", 32, 4096, 14336),
+)
+# The GEMV's wgmma body at a w8 engine's 17-64 decode slots: gate/up at
+# M = 32 and 64 (the rows the prefill tile served before), every other
+# decode shape at M = 32 (label, M, K, N).
+INT8MM_WIDE_TIMING = (
+    ("int8mm_m32", 32, 4096, 14336),  # gate, up
     ("int8mm_m64", 64, 4096, 14336),
+    ("int8mm_m32_wq", 32, 4096, 4096),  # wq, wo
+    ("int8mm_m32_wk", 32, 4096, 1024),  # wk, wv
+    ("int8mm_m32_down", 32, 14336, 4096),
+    ("int8mm_m32_lm_head", 32, 4096, 128256),
 )
 # Kernel names of the int8 matmul, both sources.
 INT8MM_KERNELS = ("int8_matmul_sm90_kernel", "int8_gemv_sm90_kernel",
@@ -844,6 +887,33 @@ def int8mm_wmma(kernels, I8, x, w_q, w_s):
         1, m, k, n, 1, 16, 1, 1, torch.cuda.current_stream().cuda_stream),
         "int8mm wmma")
     return out
+
+
+def int8mm_tile(kernels, I8, x, w_q, w_s):
+    """int8mm_sm90.cu's wgmma tile on x, w_q, w_s, launched directly with
+    the wrapper's rows (not counted in LAUNCHES): it served bf16 at
+    17-64 rows before the GEMV's wgmma body, so parity holds it at those
+    rows and timing sets its time beside the GEMV's."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    kernels.check(kernels.function(
+        "int8mm_sm90.cu", "tpu_int8_matmul_sm90", I8._INT8MM_SM90_ARGTYPES)(
+        x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), out.data_ptr(), m, k,
+        n, I8._sm90_rows(m, n, x.device),
+        torch.cuda.current_stream().cuda_stream), "int8mm tile")
+    return out
+
+
+def int8mm_route_of(m: int) -> str:
+    """The route every bf16 int8 matmul of the path takes at M rows."""
+    return "sm90" if m > GEMV_SM90_MAX_ROWS else "gemv_sm90"
+
+
+def gemv_planes_of(m: int) -> int:
+    """The 8-row planes the GEMV must run M rows at: 1 and 2 on its
+    mma.sync body, 4 (17-32 rows) and 8 (33-64) on its wgmma body."""
+    return next(p for p in (1, 2, 4, 8) if m <= 8 * p)
 
 
 def int8mm_gemv(kernels, I8, x, w_q, w_s):
@@ -893,18 +963,17 @@ class RouteLog:
         self.I8._int8mm_route = self.orig
 
     def check(self, name: str) -> dict:
-        """Every launch with M > 16 took the wgmma tile and every other
+        """Every launch with M > 64 took the wgmma tile and every other
         the tensor-core GEMV (all bf16 here); returns launches by route
-        and the M values seen."""
-        wrong = [(m, r) for m, r in self.calls
-                 if r != ("sm90" if m > 16 else "gemv_sm90")]
+        and every M seen."""
+        wrong = [(m, r) for m, r in self.calls if r != int8mm_route_of(m)]
         if wrong:
             raise AssertionError(f"{name}: int8 matmul routes {wrong[:8]}")
         routes = {}
         for m, r in self.calls:
             routes[r] = routes.get(r, 0) + 1
         return {"launches_by_route": routes,
-                "prefill_m": sorted({m for m, _ in self.calls if m > 16})}
+                "m": sorted({m for m, _ in self.calls})}
 
 
 def int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush) -> dict:
@@ -946,6 +1015,48 @@ def int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush) -> dict:
         row["wmma_over_kernel"] = row["wmma_kernel_ms"] / row["ms"]
         row["plain_over_kernel"] = row["plain_ms"] / row["ms"]
         row["wmma_vs_plain"] = wmma_vs_plain
+        rows[label] = row
+        del x, w_q, w_s, w_bf
+    return rows
+
+
+def int8mm_wide_timing(kernels, I8, Q, gen, sms, rates, flush) -> dict:
+    """The GEMV's wgmma body at a w8 engine's 17-64 decode rows
+    (INT8MM_WIDE_TIMING), each row asserted to take gemv_sm90 at 4 or 8
+    planes: kernel (ms and ms_with_host), the plain version, the wgmma
+    tile it replaced on the same inputs (sm90_tile_ms), a bf16 matmul on
+    a copy dequantized ahead (the yardstick), bound, share of the bound
+    and the plan."""
+    rows = {}
+    for label, m, k, n in INT8MM_WIDE_TIMING:
+        x, w_q, w_s = int8mm_inputs(Q, gen, m, k, n)
+        route = I8._int8mm_route(x, w_q)
+        plan = I8.gemv_sm90_plan(m, k, n, sms)
+        if route != "gemv_sm90" or plan.planes != gemv_planes_of(m):
+            raise AssertionError(f"{label}: route {route}, plan {plan}, "
+                                 f"want gemv_sm90 at 4 or 8 planes")
+        call = functools.partial(I8.int8_matmul, x, w_q, w_s, impl="cuda")
+        w_bf = (w_q.float() * w_s).to(torch.bfloat16)
+        row = {
+            "shape": f"M={m}, K={k}, N={n}, bf16 x, int8 W",
+            "route": route, "plan": plan._asdict(),
+            "ms": time_ms(call, flush),
+            "ms_with_host": time_ms(call, flush, shield=False),
+            "sm90_tile_ms": time_ms(functools.partial(
+                int8mm_tile, kernels, I8, x, w_q, w_s), flush),
+            "plain_ms": time_ms(
+                lambda: I8.int8_matmul(x, w_q, w_s, impl="torch"), flush),
+            "library_ms": None,
+            "dequantized_bf16_matmul_ms": yardstick_ms(lambda: x @ w_bf,
+                                                       flush),
+            **bound(k * n + n * 4 + m * k * 2 + m * n * 2, 2 * m * k * n,
+                    rates),
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["sm90_tile_over_kernel"] = row["sm90_tile_ms"] / row["ms"]
+        if isinstance(row["dequantized_bf16_matmul_ms"], float):
+            row["dequantized_over_kernel"] = (
+                row["dequantized_bf16_matmul_ms"] / row["ms"])
         rows[label] = row
         del x, w_q, w_s, w_bf
     return rows
@@ -1031,14 +1142,16 @@ W8_STEP_VARIANTS = {
 }
 
 
-def step_logits(E, I8, cfg, eng, prompts, variants) -> dict:
-    """Admit ``prompts`` into ``eng`` and step until every slot decodes,
-    then run one ``_decode_step`` from that state once per variant and
-    compare the logits row by row (cosine, worst row): each variant
-    against "torch", and "torch" against "reference". The engine then
-    finishes its requests."""
+def step_logits(E, I8, cfg, eng, prompts, variants,
+                new_tokens: int = 64) -> dict:
+    """Admit ``prompts`` into ``eng`` (``new_tokens`` each) and step until
+    every slot decodes, then run one ``_decode_step`` from that state
+    once per variant and compare the logits row by row (cosine, worst
+    row): each variant against "torch", and "torch" against "reference".
+    The engine then finishes its requests."""
     for i, p in enumerate(prompts):
-        eng.add_request(E.Request(rid=f"cos{i}", prompt=p, max_new_tokens=64))
+        eng.add_request(E.Request(rid=f"cos{i}", prompt=p,
+                                  max_new_tokens=new_tokens))
     while eng._prefilling or eng._queue:
         eng.step()
     if not eng._active.all():
@@ -1089,9 +1202,13 @@ def step_gates(steps_cmp: dict) -> dict:
     (1 - cosine), the two plain versions included, so the bar there is
     relative: every pair with a kernel at most BF16_GAP_RATIO times the
     gap between the plain version and the fp32 reference (PERF.md,
-    parity contract)."""
+    parity contract). The bf16 step is always held; the fp32 and 2-layer
+    arms wherever the caller ran them (engine_wide_w8kv8 runs no fp32
+    arm)."""
     gates = {}
     for name, bar in (("fp32", FP32_COSINE), ("bf16_2_layers", BF16_COSINE)):
+        if name not in steps_cmp:
+            continue
         worst = min(steps_cmp[name]["cosine_min"].values())
         gates[name] = {"worst_cosine": worst, "bar": bar}
         if not (steps_cmp[name]["finite"] and worst > bar):
@@ -1110,16 +1227,18 @@ def step_gates(steps_cmp: dict) -> dict:
     return gates
 
 
-def profile_decode(E, eng, prompts, chunks: int = 2) -> dict:
+def profile_decode(E, eng, prompts, chunks: int = 2,
+                   new_tokens: int = 40) -> dict:
     """Trace ``chunks`` steady decode chunks with torch.profiler once
-    every slot is decoding: device busy share of the host window, CUDA
-    kernel launches per decode step, and the kernels with the most
-    device time. Reports "not measured" where the profiler records no
-    device time."""
+    every slot is decoding (``prompts`` admitted, ``new_tokens`` each):
+    device busy share of the host window, CUDA kernel launches per
+    decode step, and the kernels with the most device time. Reports
+    "not measured" where the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for i, p in enumerate(prompts):
-        eng.add_request(E.Request(rid=f"prof{i}", prompt=p, max_new_tokens=40))
+        eng.add_request(E.Request(rid=f"prof{i}", prompt=p,
+                                  max_new_tokens=new_tokens))
     while eng._prefilling or eng._queue:
         eng.step()
     steps0 = eng.decode_steps
@@ -1239,6 +1358,21 @@ WIDE_PROMPTS = (16, 64, 128)
 WIDE_GEN = (128, 32, 4)  # batch, prompt, new tokens
 
 
+def wide_requests(E, cfg) -> list:
+    """engine_wide's WIDE_REQUESTS seeded requests: prompts of
+    WIDE_PROMPTS tokens, 16-32 new tokens each."""
+    rng = np.random.default_rng(25)
+    return [
+        E.Request(
+            rid=f"w{i}",
+            prompt=rng.integers(1, cfg.vocab_size, int(rng.choice(
+                WIDE_PROMPTS))).astype(np.int32),
+            max_new_tokens=int(rng.integers(16, 33)),
+        )
+        for i in range(WIDE_REQUESTS)
+    ]
+
+
 def engine_wide(E, I8, kernels, cfg, params) -> tuple:
     """The engine at WIDE_SLOTS slots (bf16, the decode MLP at 17-64
     rows on the tensor-core kernel's 4 planes): every request completes
@@ -1255,16 +1389,7 @@ def engine_wide(E, I8, kernels, cfg, params) -> tuple:
     ec = E.EngineConfig(page_size=16, max_slots=WIDE_SLOTS,
                         max_pages_per_seq=16, scan_chunk=8,
                         prefill_chunk=128)
-    rng = np.random.default_rng(25)
-    reqs = [
-        E.Request(
-            rid=f"w{i}",
-            prompt=rng.integers(1, cfg.vocab_size, int(rng.choice(
-                WIDE_PROMPTS))).astype(np.int32),
-            max_new_tokens=int(rng.integers(16, 33)),
-        )
-        for i in range(WIDE_REQUESTS)
-    ]
+    reqs = wide_requests(E, cfg)
     eng, done, launches, wall = serve(E, kernels, cfg, params, ec, reqs)
     steps = eng.decode_steps
     want_mlp = L * (steps + eng.prefill_single_token_buckets)
@@ -1305,6 +1430,103 @@ def engine_wide(E, I8, kernels, cfg, params) -> tuple:
             "decode_steps", "top_kernels", "reason")},
     }
     return report, launches, step, ec, prompts
+
+
+def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec) -> tuple:
+    """engine_wide's config and requests with int8 weights and KV, on an
+    int8 tree quantized ahead (``qparams``): every request completes
+    with its token count, the allocator ends whole with every pool
+    (scales included) zero; a decode step (M = WIDE_SLOTS rows) makes
+    its 7 L + 1 int8 matmuls on the GEMV's wgmma body at 4 planes, none
+    on the wgmma tile, int8mm.cu's GEMV or the WMMA tile (every launch
+    with M > 64, a prefill bucket's, on the tile), and L paged-decode
+    launches on the int8 pools; a profile of steady decode (7 L + 1
+    launches of int8_gemv_sm90_kernel_wgmma<4, *> a step, rounded, and no
+    other int8 matmul kernel; its device ms and share); then the decode
+    step from one state with every slot live, once per W8_STEP_VARIANTS.
+    Returns (report, launches, bf16 step comparison)."""
+    L = cfg.n_layers
+    w8 = dataclasses.replace(ec, weight_quant="int8", kv_quant="int8")
+    reqs = wide_requests(E, cfg)
+    with RouteLog(I8) as log:
+        eng, done, launches, wall = serve(E, kernels, cfg, qparams, w8, reqs)
+    steps = eng.decode_steps
+    mm_per_pass = INT8MM_PER_LAYER * L + 1
+    routes = log.check("engine_wide_w8kv8")
+    decode_calls = sum(1 for m, _ in log.calls if m == WIDE_SLOTS)
+    planes = gemv_planes_of(WIDE_SLOTS)
+    if not (launches["int8mm"] == mm_per_pass * (steps + eng.prefill_buckets)
+            and launches["int8mm_gemv_sm90"]
+            == routes["launches_by_route"].get("gemv_sm90", 0)
+            and launches["int8mm_sm90"]
+            == routes["launches_by_route"].get("sm90", 0)
+            and launches["int8mm_sm90"] + launches["int8mm_gemv_sm90"]
+            == launches["int8mm"]
+            and launches["int8mm_gemv"] == 0
+            and decode_calls >= mm_per_pass * steps > 0 and planes == 4
+            and launches["paged_decode_attention_int8"] == L * steps
+            and launches["paged_decode_attention"] == 0
+            and launches["decode_mlp"] == 0):
+        raise AssertionError(
+            f"engine_wide_w8kv8: launches {launches}, routes {routes}: want "
+            f"{mm_per_pass} int8 matmuls a forward pass ({steps} decode "
+            f"steps at M = {WIDE_SLOTS}, {eng.prefill_buckets} prefill "
+            f"buckets) on gemv_sm90 ({planes} planes) up to 64 rows and "
+            f"sm90 past them, {L} int8 paged launches a step")
+    pools_zero = all(bool((layer[1:] == 0).all())
+                     for _, pool in eng.cache._pools() for layer in pool)
+    if not (eng.cache.quantized and pools_zero):
+        raise AssertionError("engine_wide_w8kv8: freed pages (values, "
+                             "scales) not zero")
+    summary = serve_summary(eng, done, launches, wall)
+    parts = {"serve": wall}
+    # The profile and the step check run what they need: one profiled
+    # chunk (a trace of two took most of the phase's seconds:
+    # part_seconds), every slot decoding through it and through the
+    # compared step.
+    t = time.perf_counter()
+    profile = profile_decode(E, eng, [np.resize(r.prompt, 128)
+                                      for r in reqs], chunks=1,
+                             new_tokens=3 * w8.scan_chunk)
+    parts["profile"] = time.perf_counter() - t
+    if "int8mm_kernels" in profile:
+        # The launch counters above hold the exact count; the trace names
+        # the kernels. Its records of a one-chunk window (about 19,500
+        # kernels) have come back a few short (3 of 1,792 for one
+        # kernel on an H100 80GB HBM3 at 700 W), so its count a step is
+        # held rounded.
+        per_step = {k: v["launches_per_step"]
+                    for k, v in profile["int8mm_kernels"].items()}
+        body = sum(v for k, v in per_step.items()
+                   if f"{GEMV_SM90_WGMMA_KERNEL}<{planes}" in k)
+        if (round(body) != mm_per_pass
+                or abs(profile["int8mm_launches_per_step"] - body) > 1e-6):
+            raise AssertionError(
+                f"engine_wide_w8kv8 profile: int8 matmul kernels a step "
+                f"{per_step}, want {mm_per_pass} of "
+                f"{GEMV_SM90_WGMMA_KERNEL}<{planes}, *> and nothing else")
+    t = time.perf_counter()
+    step = step_logits(E, I8, cfg, eng, [r.prompt for r in reqs],
+                       W8_STEP_VARIANTS, new_tokens=2 * w8.scan_chunk + 2)
+    parts["step_check"] = time.perf_counter() - t
+    report = {
+        "slots": WIDE_SLOTS, **summary, "int8mm_routes": routes,
+        "gemv_planes": planes, "part_seconds": parts,
+        "launches_per_decode_step": {
+            "int8mm_decode_calls": decode_calls / steps,
+            "paged_decode_attention_int8":
+                launches["paged_decode_attention_int8"] / steps},
+        "profile": {k: profile.get(k) for k in (
+            "int8mm_device_ms_per_step", "int8mm_launches_per_step",
+            "int8mm_kernels", "device_ms_per_step", "step_ms", "window_ms",
+            "device_busy_share", "kernel_launches_per_step",
+            "decode_steps", "top_kernels", "reason")},
+    }
+    if isinstance(profile.get("device_ms_per_step"), float):
+        report["profile"]["int8mm_share_of_device_time"] = (
+            profile["int8mm_device_ms_per_step"]
+            / profile["device_ms_per_step"])
+    return report, launches, step
 
 
 def generate_wide(G, kernels, cfg, params) -> tuple:
@@ -1822,16 +2044,20 @@ SM90_SOURCES = {
 }
 
 
-# The decode GEMV's source and its instantiations (1 or 2 planes of 8
-# rows of x).
+# The decode GEMV's source and its instantiations: the mma.sync body at
+# 1 and 2 planes of 8 rows of x, the wgmma body
+# (int8_gemv_sm90_kernel_wgmma<planes, tiles>) at 4 planes with 2, 4 or
+# 8 tiles a warp and at 8 planes with 2 or 4.
 GEMV_SM90_SOURCE = "int8mm_gemv_sm90.cu"
 GEMV_SM90_KERNEL = "int8_gemv_sm90_kernel"
+GEMV_SM90_WGMMA_KERNEL = "int8_gemv_sm90_kernel_wgmma"
+GEMV_SM90_INSTANTIATIONS = 7
 
 
 def gemv_sm90_build(kernels, report) -> dict:
     """Registers and spill bytes of each instantiation of the decode
-    GEMV (both planes); raises unless ptxas reported both and neither
-    spills."""
+    GEMV (every planes and tiles); raises unless ptxas reported all
+    GEMV_SM90_INSTANTIATIONS and none spills."""
     out = {
         short_name(fn): {"registers": p["registers"],
                          "spill_store_bytes": p["spill_stores"],
@@ -1839,9 +2065,9 @@ def gemv_sm90_build(kernels, report) -> dict:
         for fn, p in kernels.ptxas_report(
             report[GEMV_SM90_SOURCE]["log"]).items()
     }
-    if sum(GEMV_SM90_KERNEL in k for k in out) != 2:
+    if sum(GEMV_SM90_KERNEL in k for k in out) != GEMV_SM90_INSTANTIATIONS:
         raise AssertionError(f"{GEMV_SM90_SOURCE}: no ptxas report for "
-                             f"both planes: {sorted(out)}")
+                             f"every instantiation: {sorted(out)}")
     spills = {k: v for k, v in out.items() if v["spill_store_bytes"]}
     if spills:
         raise AssertionError(f"{GEMV_SM90_SOURCE}: instantiations spill: "
@@ -4743,6 +4969,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = kernels.build()
     mlp_build = mlp_sm90_build(kernels, report)
+    gemv_build = gemv_sm90_build(kernels, report)
     emit("build", seconds=time.perf_counter() - t0,
          per_source={k: v["seconds"] for k, v in report.items()},
          ptxas={src: {short_name(fn): [p["registers"], p["smem_bytes"],
@@ -4752,7 +4979,7 @@ def main() -> int:
          ptxas_columns=["registers", "smem_bytes", "spill_store_bytes"],
          sm90=sm90_build(kernels, report),
          decode_body=decode_body_build(kernels, report),
-         gemv_sm90=gemv_sm90_build(kernels, report),
+         gemv_sm90=gemv_build,
          mlp_sm90=mlp_build)
 
     # --- 2b. the slice bootstrap and the collective smokes -------------------
@@ -4869,6 +5096,29 @@ def main() -> int:
             parity[name]["plan"] = I8.gemv_sm90_plan(
                 m, k, n, torch.cuda.get_device_properties(0)
                 .multi_processor_count)._asdict()
+            if parity[name]["plan"]["planes"] != gemv_planes_of(m):
+                raise AssertionError(f"{name}: plan {parity[name]['plan']}")
+        if parity[name]["route"] == "gemv_sm90" and m > 16:
+            # The wgmma tile, which served these rows before the GEMV's
+            # wgmma body, on the same inputs.
+            tile = int8mm_tile(kernels, I8, x, w_q, w_s)
+            tile_again = int8mm_tile(kernels, I8, x, w_q, w_s)
+            torch.cuda.synchronize()
+            parity[name]["sm90_tile"] = {
+                "vs_plain": compare(f"{name} sm90 tile vs plain", tile,
+                                    plain),
+                "vs_reference": compare(f"{name} sm90 tile vs reference",
+                                        tile, ref),
+                "zero_column_exact_zero": bool(torch.all(
+                    tile[:, n // 3] == 0)),
+                "rerun_bit_identical": bool(torch.equal(tile, tile_again)),
+            }
+            if not (parity[name]["sm90_tile"]["zero_column_exact_zero"]
+                    and parity[name]["sm90_tile"]["rerun_bit_identical"]):
+                raise AssertionError(
+                    f"{name} sm90 tile: {parity[name]['sm90_tile']}")
+            del tile, tile_again
+        elif parity[name]["route"] == "gemv_sm90":
             # int8mm.cu's GEMV on the same inputs.
             old = int8mm_gemv(kernels, I8, x, w_q, w_s)
             old_again = int8mm_gemv(kernels, I8, x, w_q, w_s)
@@ -4910,8 +5160,7 @@ def main() -> int:
                 I8.int8_matmul(x.float(), w_q, w_s, impl="torch"))
         if not (parity[name]["zero_column_exact_zero"]
                 and parity[name]["rerun_bit_identical"]
-                and parity[name]["route"]
-                == ("sm90" if m > 16 else "gemv_sm90")):
+                and parity[name]["route"] == int8mm_route_of(m)):
             raise AssertionError(f"{name}: {parity[name]}")
         del x, w_q, w_s, got, plain, ref, again
     for int8 in (False, True):
@@ -5002,6 +5251,7 @@ def main() -> int:
             row["dequantized_over_kernel"] = dense_ms / ms
         del x, w_q, w_s, w_bf
     timing.update(int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush))
+    timing.update(int8mm_wide_timing(kernels, I8, Q, gen, sms, rates, flush))
     for label, int8, b, max_seq, length, n_rep, hd in (
         ("decode_attention", False, 8, 1024, 512, 4, 128),
         ("decode_attention_int8", True, 8, 1024, 512, 4, 128),
@@ -5227,7 +5477,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     steps = eng.decode_steps
     mm_per_pass = INT8MM_PER_LAYER * L + 1
-    # Every launch with M > 16 (the prefill projections) on the wgmma
+    # Every launch with M > 64 (the prefill projections) on the wgmma
     # tile, every other (decode steps, the prefill lm_head over one row
     # a slot) on the tensor-core GEMV; int8mm.cu's GEMV never.
     routes = w8_routes.check("engine w8kv8")
@@ -5245,7 +5495,7 @@ def main() -> int:
         raise AssertionError(
             f"w8kv8 launches {launches}: want {mm_per_pass} int8mm per "
             f"forward pass ({steps} decode steps, {eng.prefill_buckets} "
-            f"prefill buckets), the M > 16 ones on int8mm_sm90 and the "
+            f"prefill buckets), the M > 64 ones on int8mm_sm90 and the "
             f"rest on int8mm_gemv_sm90 {routes}, "
             f"{L} int8 paged per step, no fused MLP"
         )
@@ -5442,7 +5692,7 @@ def main() -> int:
         del e
         torch.cuda.empty_cache()
     # int8 weights and KV: the verify pass's matmuls (M = 8 slots x 5
-    # positions = 40) take the wgmma tile.
+    # positions = 40) take the GEMV's wgmma body (8 planes).
     w8spec = dataclasses.replace(w8, spec_k=4)
     e = E.Engine(cfg, params, w8spec)
     del params
@@ -5455,25 +5705,25 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     routes = spec_routes.check("8B spec w8kv8")
     # Prefill buckets have power-of-two row and chunk counts, so M = 40
-    # is the verify pass alone: every matmul of every pass on the tile.
+    # is the verify pass alone: every matmul of every pass on the GEMV.
     verify_m = w8spec.max_slots * (w8spec.spec_k + 1)
-    verify_sm90 = sum(1 for m, r in spec_routes.calls
-                      if m == verify_m and r == "sm90")
+    verify_gemv = sum(1 for m, r in spec_routes.calls
+                      if m == verify_m and r == "gemv_sm90")
     if not (e.verify_passes > 0
-            and verify_sm90 == mm_per_pass * e.verify_passes
-            and launches["int8mm_sm90"] >= verify_sm90
+            and verify_gemv == mm_per_pass * e.verify_passes
+            and launches["int8mm_gemv_sm90"] >= verify_gemv
             and launches["int8mm_gemv"] == 0
             and launches["paged_decode_attention_int8"] == 0
             and launches["decode_mlp"] == 0):
         raise AssertionError(
-            f"8B spec w8kv8: launches {launches}, {verify_sm90} int8mm_sm90 "
-            f"launches at M = {verify_m}, want {mm_per_pass} a verify pass "
-            f"({e.verify_passes} passes)")
+            f"8B spec w8kv8: launches {launches}, {verify_gemv} "
+            f"int8mm_gemv_sm90 launches at M = {verify_m}, want "
+            f"{mm_per_pass} a verify pass ({e.verify_passes} passes)")
     spec_out["w8kv8_ngram"] = {
         "proposed": e.spec_proposed, "accepted": e.spec_accepted,
         "verify_passes": e.verify_passes, "launches": launches,
         "int8mm_routes": routes,
-        "verify_int8mm_sm90_launches": verify_sm90,
+        "verify_int8mm_gemv_sm90_launches": verify_gemv,
         "decode_tok_s": sum(len(c.tokens) - 1 for c in d.values())
         / e.decode_seconds,
         "non_spec_decode_tok_s": w8_summary["decode_tok_s"],
@@ -5716,6 +5966,11 @@ def main() -> int:
     t0 = time.perf_counter()
     wide, wide_launches, wide_step, wide_ec, wide_prompts = engine_wide(
         E, I8, kernels, cfg, params)
+    # engine_wide_w8kv8's int8 tree, quantized once from these weights
+    # (an engine leaves a tree that is already quantized as it is).
+    t_quant = time.perf_counter()
+    qparams = Q.quantize_params(G.unroll_params(G.as_tree(params)))
+    t_quant = time.perf_counter() - t_quant
     del params
     torch.cuda.empty_cache()
     wide_cmp = {"bf16": wide_step}
@@ -5732,8 +5987,32 @@ def main() -> int:
         torch.cuda.empty_cache()
     emit("engine_wide", nvidia_smi=smi,
          model="LLAMA3_8B widths, 32 layers, bf16, random weights",
-         seconds=time.perf_counter() - t0, **wide)
+         seconds=time.perf_counter() - t0 - t_quant, **wide)
     emit("decode_step_wide", **wide_cmp, gates=step_gates(wide_cmp))
+
+    # --- 8d. the 32-slot engine with int8 weights and KV -------------------
+    t0 = time.perf_counter()
+    wide8, wide8_launches, wide8_step = engine_wide_w8kv8(
+        E, I8, kernels, cfg, qparams, wide_ec)
+    del qparams
+    torch.cuda.empty_cache()
+    wide8_cmp = {"bf16": wide8_step}
+    c = dataclasses.replace(cfg, n_layers=2)
+    e = E.Engine(c, init_params(c, torch.Generator(device="cuda")
+                                .manual_seed(0)),
+                 dataclasses.replace(wide_ec, weight_quant="int8",
+                                     kv_quant="int8"))
+    wide8_cmp["bf16_2_layers"] = step_logits(E, I8, c, e, wide_prompts,
+                                             W8_STEP_VARIANTS)
+    del e
+    torch.cuda.empty_cache()
+    emit("engine_wide_w8kv8", nvidia_smi=smi,
+         model="LLAMA3_8B widths, 32 layers, bf16 activations, int8 "
+               "weights and KV, random weights",
+         seconds=time.perf_counter() - t0 + t_quant,
+         quantize_seconds=t_quant, **wide8)
+    emit("decode_step_wide_w8kv8", **wide8_cmp,
+         gates=step_gates(wide8_cmp))
 
     # --- 8a. sharded decode: world 1 above, world 2 on the one card --------
     t0 = time.perf_counter()
@@ -5816,16 +6095,18 @@ def main() -> int:
          + wide_gen_launches["decode_mlp_sm90"]
          + shapes_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
-        # for M <= 16 (decode) and the wgmma tile for M > 16 (prefill).
+        # for M <= 64 (decode) and the wgmma tile for M > 64 (prefill).
         ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m8_k4096_n14336"], timing["int8mm"],
          w8_launches["int8mm_gemv_sm90"]
+         + wide8_launches["int8mm_gemv_sm90"]
          + bench_launches.get("int8mm_gemv_sm90", 0)),
         ("int8mm_sm90", "tpu_dra_torch/csrc/int8mm_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m1024_k4096_n14336"], timing["int8mm_prefill"],
-         w8_launches["int8mm_sm90"] + bench_launches.get("int8mm_sm90", 0)),
+         w8_launches["int8mm_sm90"] + wide8_launches["int8mm_sm90"]
+         + bench_launches.get("int8mm_sm90", 0)),
         ("decode_attention", "tpu_dra_torch/csrc/decode.cu",
          "tpu_dra/workloads/ops/attention.py:803",
          parity["decode_attention"]["length_1000"],
@@ -5841,6 +6122,7 @@ def main() -> int:
          parity["paged_decode_attention_int8"],
          timing["paged_decode_attention_int8"],
          w8_launches["paged_decode_attention_int8"]
+         + wide8_launches["paged_decode_attention_int8"]
          + bench_launches.get("paged_decode_attention_int8", 0)
          + shapes_launches["paged_decode_attention_int8"]),
     ) + tuple(
@@ -5880,6 +6162,20 @@ def main() -> int:
         })
         if name == "int8mm_gemv_sm90":
             rows[-1]["replaced_kernel_ms"] = t["old_gemv_ms"]
+            rows[-1]["instantiations"] = gemv_build
+            # The wgmma body at a w8 engine's 17-64 decode rows, beside
+            # the tile it replaced there.
+            rows[-1]["wide_rows"] = {
+                label: {f: timing[label][f] for f in (
+                    "shape", "plan", "ms", "ms_with_host", "sm90_tile_ms",
+                    "plain_ms", "dequantized_bf16_matmul_ms", "bound_ms",
+                    "bound_by", "share_of_bound")}
+                for label, *_ in INT8MM_WIDE_TIMING}
+            rows[-1]["wide_parity"] = {
+                f"int8mm_m{m}_k{k}_n{n}": parity[f"int8mm_m{m}_k{k}_n{n}"]
+                for m, k, n in INT8MM_PARITY if 16 < m <= GEMV_SM90_MAX_ROWS}
+            rows[-1]["launches_at_wide_rows"] = {
+                "engine_wide_w8kv8": wide8_launches["int8mm_gemv_sm90"]}
         if name == "decode_mlp":
             rows[-1].update(
                 counter="decode_mlp_sm90",
@@ -5910,9 +6206,10 @@ def main() -> int:
                     "checks", "worst_fp32", "worst_bf16_over_limit")}
         if name.startswith("int8mm"):
             rows[-1]["serves"] = {
-                "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 16 (decode steps, "
-                                    "the engine prefill's lm_head)",
-                "int8mm_sm90": "sm90: bf16 M > 16 (prefill projections, the "
+                "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 64 (decode steps "
+                                    "of up to 64 slots, the spec verify "
+                                    "pass, the engine prefill's lm_head)",
+                "int8mm_sm90": "sm90: bf16 M > 64 (prefill projections, the "
                                "generate lm_head)",
             }[name]
     pick = sampling["timing"]["t0.8_k40"]

@@ -3,7 +3,7 @@
 the prefill tile, and int8mm_gemv_sm90.cu, the decode GEMV) spend their
 time, and what the prefill tile moves end to end, on one NVIDIA GPU.
 
-    python3 int8mm_ablation.py [variants] [gemv] [generate] [prefill]
+    python3 int8mm_ablation.py [variants] [gemv] [wide] [generate] [prefill]
 
 (no argument runs every phase). Phases, one JSON line each after the
 card's nvidia-smi line:
@@ -32,13 +32,31 @@ card's nvidia-smi line:
    plans (GEMV_PLANS: two CTAs an SM, wider column blocks, larger
    clusters) beside the wrapper's; and how many clusters of each size
    the card holds at once (cudaOccupancyMaxActiveClusters).
-3. generate — greedy_generate at Llama-3-8B widths (32 layers, random
+3. wide — the decode GEMV's wgmma body (4 and 8 planes) at
+   M in WIDE_ROWS (17, 32, 48, 64) over every decode (K, N)
+   (GEMV_SHAPES): the wrapper's plan beside the other block widths the
+   planes allow (WIDE_WIDTHS slabs a CTA, each with the cluster the plan
+   rule would give it: 2 slabs or more one 64-column block a slab and a
+   warpgroup, 1 slab two blocks a warp with the warpgroups splitting
+   each stage's steps), int8mm_sm90.cu's tile (the route these rows took
+   before, launched directly with the wrapper's rows) and a bf16 matmul
+   on a dequantized copy (the yardstick). Every variant is timed as
+   chip_smoke.py times a kernel, WIDE_SAMPLES samples each in rotated
+   order (each round starts one variant later), with each one's median,
+   minimum and maximum. Then at gate/up (M = 32 and 64) and down
+   (M = 32), the source built as it is, with each design choice undone
+   (WIDE_VARIANTS: exact text; a changed source raises): no overlap of
+   a stage's conversion with the previous stage's products, a ring of 4
+   or 6 stages instead of 5; and with parts of its step taken out (wrong
+   results, only their times count): no W copies, no int8 -> bf16
+   conversion, no products, the launch alone; the same rotation.
+4. generate — greedy_generate at Llama-3-8B widths (32 layers, random
    weights, b=8, prompt 256, 32 new tokens) with int8 weights and KV:
    its int8 matmuls with M > 16 on the wgmma tile ("sm90") or forced
    onto int8mm.cu's WMMA tile ("wmma", the route before it), in turns
    sm90, wmma, wmma, sm90 after one untimed call of each; wall seconds
    and tok/s of each.
-4. prefill — one w8kv8 engine prefill bucket (8 rows x a 128-token
+5. prefill — one w8kv8 engine prefill bucket (8 rows x a 128-token
    chunk, M = 1024) at the same widths, host ms to a synchronized end,
    the routes in turns as above.
 """
@@ -104,6 +122,52 @@ GEMV_PLANS = {
     "wk_wv": ((1, 4), (2, 8)),
     "down": ((1, 4), (1, 7), (2, 6), (2, 8), (4, 8)),
     "lm_head": ((4, 1), (8, 2), (2, 1)),
+}
+
+
+# The wgmma body (4 and 8 planes): rows, widths (slabs a CTA), samples
+# and its variants (old, new) of int8mm_gemv_sm90.cu.
+WIDE_ROWS = (17, 32, 48, 64)
+WIDE_WIDTHS = (1, 2, 4, 8)
+WIDE_SAMPLES = 10
+WG_W_COPY = ("      cp_async16(stage + w_off[j], valid ? w_src + j * w_rows : "
+             "w, valid);\n")
+WG_PRODUCTS = ("      for (int b = 0; b < TILES; ++b) "
+               "wgmma_w_x<PLANES>(acc[b], a[i][b], bd);\n")
+WG_ENTRY = ("  constexpr int kN = 8 * PLANES;      "
+            "// x's rows, padded: the wgmma's N\n")
+WG_CONVERSION = """        a[i][b][0] = pack_upper_halves(i8_f32_bits(v[i][0][b / 4], b % 4),
+                                       i8_f32_bits(v[i][1][b / 4], b % 4));
+        a[i][b][1] = pack_upper_halves(
+            i8_f32_bits(v[i][0][(kHi + b) / 4], (kHi + b) % 4),
+            i8_f32_bits(v[i][1][(kHi + b) / 4], (kHi + b) % 4));
+        a[i][b][2] = pack_upper_halves(i8_f32_bits(v[i][2][b / 4], b % 4),
+                                       i8_f32_bits(v[i][3][b / 4], b % 4));
+        a[i][b][3] = pack_upper_halves(
+            i8_f32_bits(v[i][2][(kHi + b) / 4], (kHi + b) % 4),
+            i8_f32_bits(v[i][3][(kHi + b) / 4], (kHi + b) % 4));
+"""
+WG_RAW = """        a[i][b][0] = v[i][0][b / 4] ^ v[i][1][b / 4];
+        a[i][b][1] = v[i][0][(kHi + b) / 4] ^ v[i][1][(kHi + b) / 4];
+        a[i][b][2] = v[i][2][b / 4] ^ v[i][3][b / 4];
+        a[i][b][3] = v[i][2][(kHi + b) / 4] ^ v[i][3][(kHi + b) / 4];
+"""
+WG_BUFS = "  constexpr int kBufs = TILES == 2 ? 2 : 1;\n"
+WG_RING = "constexpr int kWgStages = 5;\n"
+WIDE_VARIANTS = {
+    "as_is": [],
+    # Design choices, each a working kernel: no overlap of a stage's
+    # conversion with the previous stage's products at 2 tiles a warp
+    # (one register set), and the ring 4 or 6 stages deep.
+    "no_overlap": [(WG_BUFS, "  constexpr int kBufs = 1;\n")],
+    "ring4": [(WG_RING, "constexpr int kWgStages = 4;\n")],
+    "ring6": [(WG_RING, "constexpr int kWgStages = 6;\n")],
+    "no_w_copy": [(WG_W_COPY, "      (void)valid;\n")],
+    # The words go into the products raw (as bf16 pairs): one xor a
+    # register where the conversion takes about 6 instructions.
+    "no_conversion": [(WG_CONVERSION, WG_RAW)],
+    "no_products": [(WG_PRODUCTS, "      (void)bd;\n")],
+    "launch_only": [(WG_ENTRY, WG_ENTRY + "  if (M > 0) return;\n")],
 }
 
 
@@ -226,6 +290,106 @@ def gemv_phase(C, kernels, Q, I8, rates) -> dict:
     return out
 
 
+def rotated(names: list, rounds: int):
+    """``rounds`` rounds over ``names``, each starting one name later:
+    every name takes every place in the sequence (time_ms samples fall
+    in modes set by their place, PERF.md PR 26)."""
+    for r in range(rounds):
+        for i in range(len(names)):
+            yield names[(r + i) % len(names)]
+
+
+def spread(samples: list) -> dict:
+    return {"median": float(np.median(samples)), "min": min(samples),
+            "max": max(samples), "samples": len(samples)}
+
+
+def wide_plan(I8, m, k, n, sms, warps_n):
+    """(warps_n, cluster, cta_steps, ctas) of the plan rule held to one
+    block width, or None where the planes do not take that width."""
+    planes = I8.gemv_sm90_planes(m)
+    if warps_n not in I8._GEMV_SM90_WIDTHS[planes]:
+        return None
+    saved = I8._GEMV_SM90_WIDTHS[planes]
+    I8._GEMV_SM90_WIDTHS[planes] = (warps_n,)
+    I8.gemv_sm90_plan.cache_clear()
+    try:
+        plan = I8.gemv_sm90_plan(m, k, n, sms)
+    finally:
+        I8._GEMV_SM90_WIDTHS[planes] = saved
+        I8.gemv_sm90_plan.cache_clear()
+    return plan.warps_n, plan.cluster, plan.cta_steps, plan.ctas
+
+
+def wide_phase(C, kernels, Q, I8, rates) -> dict:
+    gemv = kernels.function("int8mm_gemv_sm90.cu", "tpu_int8_gemv_sm90",
+                            I8._INT8_GEMV_SM90_ARGTYPES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, k, n in GEMV_SHAPES:
+        for m in WIDE_ROWS:
+            x, w_q, w_s = C.int8mm_inputs(Q, gen, m, k, n)
+            y = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+            plan = I8.gemv_sm90_plan(m, k, n, sms)
+            calls = {}
+
+            def launch(warps_n, cluster, cta_steps):
+                kernels.check(gemv(x.data_ptr(), w_q.data_ptr(),
+                                   w_s.data_ptr(), y.data_ptr(), m, k, n,
+                                   warps_n, cluster, cta_steps, stream),
+                              "gemv wide")
+
+            plans = {}
+            for warps_n in WIDE_WIDTHS:
+                p = wide_plan(I8, m, k, n, sms, warps_n)
+                if p is None:
+                    continue
+                name = f"{p[0]}x{p[1]}"
+                plans[name] = {"ctas": p[3], "wrapper": p[0] == plan.warps_n
+                               and p[1] == plan.cluster}
+                calls[name] = lambda p=p: launch(*p[:3])
+            calls["sm90_tile"] = lambda: C.int8mm_tile(kernels, I8, x, w_q,
+                                                       w_s)
+            w_bf = (w_q.float() * w_s).to(torch.bfloat16)
+            calls["dequantized_bf16_matmul"] = lambda: x @ w_bf
+            ms = {name: [] for name in calls}
+            for name in rotated(list(calls), WIDE_SAMPLES):
+                ms[name].append(C.time_ms(calls[name], flush))
+            nbytes = k * n + n * 4 + m * k * 2 + m * n * 2
+            b = C.bound(nbytes, 2 * m * k * n, rates)
+            row = {"shape": f"M={m}, K={k}, N={n}",
+                   "plan": plan._asdict(), "plans": plans,
+                   "ms": {name: spread(v) for name, v in ms.items()}, **b}
+            row["share_of_bound"] = {
+                name: b["bound_ms"] / v["median"]
+                for name, v in row["ms"].items()}
+            out[f"{label}_m{m}"] = row
+            del x, w_q, w_s, y, w_bf
+    # The design choices undone and the parts taken out.
+    fns = build_variants(kernels, "int8mm_gemv_sm90.cu", WIDE_VARIANTS,
+                         "tpu_int8_gemv_sm90", 6)
+    for label, m, k, n in (("gate_up", 32, 4096, 14336),
+                           ("gate_up", 64, 4096, 14336),
+                           ("down", 32, 14336, 4096)):
+        x, w_q, w_s = C.int8mm_inputs(Q, gen, m, k, n)
+        y = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+        plan = I8.gemv_sm90_plan(m, k, n, sms)
+        ms = {name: [] for name in fns}
+        for name in rotated(list(fns), WIDE_SAMPLES):
+            ms[name].append(C.time_ms(lambda: kernels.check(fns[name](
+                x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), y.data_ptr(),
+                m, k, n, plan.warps_n, plan.cluster, plan.cta_steps, stream),
+                "gemv wide variant"), flush))
+        out[f"variants_{label}_m{m}"] = {
+            "plan": plan._asdict(),
+            "ms": {name: spread(v) for name, v in ms.items()}}
+        del x, w_q, w_s, y
+    return out
+
+
 class ForceWmma:
     """While active, the int8 matmuls that would take the wgmma tile
     take int8mm.cu's WMMA tile instead."""
@@ -315,8 +479,9 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     rates = C.peaks(torch.cuda.get_device_name(0))
-    phases = sys.argv[1:] or ["variants", "gemv", "generate", "prefill"]
-    unknown = set(phases) - {"variants", "gemv", "generate", "prefill"}
+    every = ["variants", "gemv", "wide", "generate", "prefill"]
+    phases = sys.argv[1:] or every
+    unknown = set(phases) - set(every)
     if unknown:
         print(f"int8mm_ablation: unknown phases {sorted(unknown)}",
               file=sys.stderr)
@@ -326,6 +491,8 @@ def main() -> int:
         C.emit("variants", **variants_phase(C, kernels, Q, rates))
     if "gemv" in phases:
         C.emit("gemv", **gemv_phase(C, kernels, Q, I8, rates))
+    if "wide" in phases:
+        C.emit("wide", **wide_phase(C, kernels, Q, I8, rates))
     if {"generate", "prefill"} & set(phases):
         cfg = LLAMA3_8B
         params = init_params(cfg,

@@ -51,7 +51,7 @@ def _port(x, w_q, scale, impl):
     ).numpy()
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 24, 130])
+@pytest.mark.parametrize("m", [1, 3, 8, 24, 32, 64, 130])
 def test_torch_matches_jax_xla(m):
     x, w_q, scale = _inputs(m, m, 96, 160)
     want = np.asarray(JI._xla_int8_matmul(
@@ -112,9 +112,9 @@ DECODE_KN = [(4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
     (1, 64, 128, torch.bfloat16, 0, 0, "gemv_sm90"),
     (16, 64, 128, torch.bfloat16, 0, 0, "gemv_sm90"),
     (16, 64, 128, torch.float32, 0, 0, "gemv"),
-    (17, 64, 128, torch.bfloat16, 0, 0, "sm90"),
+    (17, 64, 128, torch.bfloat16, 0, 0, "gemv_sm90"),
     (1024, 4096, 14336, torch.bfloat16, 0, 0, "sm90"),
-    (17, 136, 144, torch.bfloat16, 0, 0, "sm90"),
+    (17, 136, 144, torch.bfloat16, 0, 0, "gemv_sm90"),
     (17, 130, 128, torch.bfloat16, 0, 0, "wmma"),
     (17, 64, 300, torch.bfloat16, 0, 0, "wmma"),
     (17, 64, 136, torch.bfloat16, 0, 0, "wmma"),
@@ -133,19 +133,34 @@ DECODE_KN = [(4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
     (8, 4098, 1024, torch.bfloat16, 0, 0, "gemv"),
     (8, 4096, 1024, torch.bfloat16, 2, 0, "gemv"),
     (8, 4096, 1024, torch.bfloat16, 4, 0, "gemv_sm90"),
-    (17, 4096, 14336, torch.bfloat16, 0, 0, "sm90"),
+    (17, 4096, 14336, torch.bfloat16, 0, 0, "gemv_sm90"),
+] + [
+    (m, k, n, torch.bfloat16, 0, 0, "gemv_sm90")
+    for m in (24, 32, 33, 48, 64) for k, n in DECODE_KN
+] + [
+    (65, 4096, 14336, torch.bfloat16, 0, 0, "sm90"),
+    (32, 4096, 14336, torch.float32, 0, 0, "sgemm"),
+    (64, 4096, 14336, torch.bfloat16, 2, 0, "wmma"),
+    (64, 4096, 14336, torch.bfloat16, 4, 0, "gemv_sm90"),
+    (64, 136, 144, torch.bfloat16, 0, 0, "gemv_sm90"),
+    (48, 4098, 1024, torch.bfloat16, 0, 0, "wmma"),
 ], ids=["m1", "m16", "m16_fp32", "m17", "prefill", "ragged_aligned",
         "k130", "n300", "n136", "x_unaligned", "w_unaligned", "m17_fp32",
         "fp32_unaligned"] + [
     f"decode_m{m}_{k}x{n}" for m in (1, 8, 13, 16) for k, n in DECODE_KN
 ] + ["decode_fp32", "decode_fp32_m1", "decode_w_unaligned",
      "decode_n_odd", "decode_k_odd", "decode_x_4byte", "decode_x_8byte",
-     "decode_m17"])
+     "decode_m17"] + [
+    f"wide_m{m}_{k}x{n}" for m in (24, 32, 33, 48, 64) for k, n in DECODE_KN
+] + ["m65", "m32_fp32", "wide_x_4byte", "wide_x_8byte", "wide_ragged",
+     "wide_k_odd"])
 def test_int8mm_route(m, k, n, dtype, x_off, w_off, route):
-    """gemv_sm90 for bf16 with M <= 16, K % 4 == 0, N % 16 == 0, x 8-byte
+    """gemv_sm90 for bf16 with M <= 64, K % 4 == 0, N % 16 == 0, x 8-byte
     and w_q 16-byte aligned; gemv for any other M <= 16; sgemm for fp32
     above; sm90 for bf16 with K % 8 == 0, N % 16 == 0 and x, w_q 16-byte
-    aligned; wmma for the rest."""
+    aligned; wmma for the rest. Since the GEMV's wgmma body, bf16 at
+    17 <= M <= 64 (a w8 engine of 17-64 slots decoding) takes gemv_sm90,
+    the m17 case included."""
     x = _aligned((m, k), dtype, x_off)
     w_q = _aligned((k, n), torch.int8, w_off)
     assert TI._int8mm_route(x, w_q) == route
@@ -164,16 +179,19 @@ def test_sm90_rows_follow_the_grid(monkeypatch, m, n, rows):
 
 # --- the decode GEMV (csrc/int8mm_gemv_sm90.cu) --------------------------
 
-PLAN_SHAPES = [(m, k, n) for m in (1, 8, 13, 16) for k, n in DECODE_KN] + [
-    (m, k, n) for m in (1, 9) for k, n in (
+PLAN_SHAPES = [(m, k, n) for m in (1, 8, 13, 16, 17, 32, 33, 64)
+               for k, n in DECODE_KN] + [
+    (m, k, n) for m in (1, 9, 17, 33) for k, n in (
         (64, 96), (100, 48), (1000, 336), (4100, 1040), (16, 16),
         (4, 2048), (40960, 128), (4096, 1024 * 140))]
 
 
 def _cta_steps_of(plan, steps):
     """The k16 steps of every CTA of a cluster, rank by rank, as the
-    kernel walks them: stage s, warp slot wk of rank r takes step
-    r * cta_steps + warps_k * s + wk while below its rank's end."""
+    kernel walks them: stage s, step slot wk of rank r takes step
+    r * cta_steps + warps_k * s + wk while below its rank's end (at 4
+    and 8 planes slot wk is share wk % shares' step (wk // shares) of
+    the stage: the same set)."""
     out = []
     for rank in range(plan.cluster):
         begin = rank * plan.cta_steps
@@ -192,9 +210,20 @@ def test_gemv_sm90_plan_covers_every_column_and_k_once(m, k, n):
     warps of a rank cover its k16 steps once; the cluster is portable
     (<= 8)."""
     plan = TI.gemv_sm90_plan(m, k, n, 132)
-    assert plan.planes == (1 if m <= 8 else 2)
+    assert plan.planes == next(p for p in (1, 2, 4, 8) if m <= 8 * p)
     assert plan.warps_n * plan.warps_k == 8 and plan.warps_n in (1, 2, 4, 8)
     assert 1 <= plan.cluster <= 8
+    if plan.planes <= 2:
+        assert plan.tiles == 8
+    else:
+        # A warpgroup's 64-column blocks: 2 a warp at one slab (the two
+        # warpgroups split the steps), else one a slab, at most 4 at 8
+        # planes (32 accumulator registers a slab); the warps of each
+        # share of the steps cover the block's columns once.
+        assert plan.tiles == max(2, plan.warps_n)
+        assert plan.tiles <= (8 if plan.planes == 4 else 4)
+        units = 128 * plan.warps_n // (16 * plan.tiles)
+        assert (units, 8 // units) in ((4, 2), (8, 1))
     slabs = -(-n // 128)
     cols = [y * plan.warps_n + sn for y in range(plan.col_ctas)
             for sn in range(plan.warps_n)]
@@ -206,13 +235,18 @@ def test_gemv_sm90_plan_covers_every_column_and_k_once(m, k, n):
     assert [s for r in per_rank for s in r] == list(range(steps))
 
 
-@pytest.mark.parametrize("m", [1, 8, 13, 16])
+@pytest.mark.parametrize("m", [1, 8, 13, 16, 17, 32, 33, 64])
 def test_gemv_sm90_plan_fills_one_wave(m):
     """One wave of at most one CTA an SM (clusters within three
     quarters of the SMs), at least 96 CTAs at gate/up, wq/wo, down and
-    the lm_head and 64 at wk/wv (the old GEMV's grid held 32 there)."""
+    the lm_head and 64 at wk/wv (the old GEMV's grid held 32 there).
+    At 8 planes the lm_head's 1002 slabs take the widest block the
+    planes allow (4 slabs) in two waves of whole CTAs."""
     for k, n in DECODE_KN:
         plan = TI.gemv_sm90_plan(m, k, n, 132)
+        if plan.planes == 8 and n == 128256:
+            assert (plan.warps_n, plan.cluster, plan.ctas) == (4, 1, 251)
+            continue
         assert plan.ctas <= (132 if plan.cluster == 1 else 99), (k, n, plan)
         assert plan.ctas >= (64 if n == 1024 else 96), (k, n, plan)
 
@@ -392,3 +426,260 @@ def test_decode_rows_match_jax(m, dtype):
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     else:
         _bf16_row_bar(got, want)
+
+
+# --- the decode GEMV's wgmma body (4 and 8 planes, 17 <= M <= 64) -------
+
+def _forced_plan(m, k, n, warps_n, cluster):
+    """The wrapper's plan with its block width and cluster replaced, as
+    the kernel takes any such plan (the model runs every width)."""
+    steps = -(-k // 16)
+    cta_steps = -(-steps // cluster)
+    planes = TI.gemv_sm90_planes(m)
+    return TI.GemvPlan(
+        planes=planes, warps_n=warps_n, warps_k=8 // warps_n,
+        cluster=-(-steps // cta_steps), col_ctas=-(-(-(-n // 128)) // warps_n),
+        cta_steps=cta_steps, stages=-(-cta_steps // (8 // warps_n)),
+        tiles=max(2, warps_n))
+
+
+def _wg_w_offset(r, ch, width):
+    """Where 16-byte W chunk ch of stage row r sits (the .cu's w_off)."""
+    return r * width + ((ch ^ (2 * ((r // 2) % 4))) << 4)
+
+
+def _wg_x_offset(m, p, warps_k, kn):
+    """Where x piece p (4 k) of row m sits in the stage, past W (x_off)."""
+    return ((p // 16) * (kn * 128) + m * 128
+            + ((((p % 16) // 2) ^ (m % 8)) << 4) + 8 * (p % 2))
+
+
+def _wg_b_address(j, nn, kk, kn):
+    """The byte the wgmma B descriptor of stage step j reads for x row
+    nn, k kk: start kWBytes-relative block (j // 4) plus 32 (j % 4),
+    8-row groups 1024 bytes apart (sbo), the 128-byte swizzle applied to
+    the address (its bits 4-6 XOR bits 7-9; the block is 1024-aligned)."""
+    logical = (j // 4) * (kn * 128) + nn * 128 + (j % 4) * 32 + 2 * kk
+    return logical ^ (((logical >> 7) & 7) << 4)
+
+
+def _wgmma_model(x, w, plan):
+    """The wgmma body's arithmetic in float64, written out from
+    csrc/int8mm_gemv_sm90.cu: every CTA's ring stages filled by the
+    threads' copies (W chunks and x pieces at their swizzled offsets,
+    zeros past K, M and N), each lane's W words read at its address,
+    A fragments (a0..a3 of tile b from bytes b and TILES + b of rows 2t,
+    2t + 1, 2t + 8, 2t + 9), x^T read through the B descriptor, the PTX
+    m64nNk16 product, the accumulator fragment stored into red, the
+    shares and the cluster's ranks summed in order, scaled columns."""
+    m, k = x.shape
+    n = w.shape[1]
+    kn = 8 * plan.planes
+    tiles = plan.tiles
+    cw = 16 * tiles
+    width = 128 * plan.warps_n
+    warps_k = plan.warps_k
+    units = width // cw
+    shares = 8 // units
+    k_steps = 8 // tiles
+    steps = -(-k // 16)
+    w_bytes = 16 * warps_k * width
+    assert w_bytes == 16384
+    out = np.zeros((m, n))
+    lanes = [(lane // 4, lane % 4) for lane in range(32)]
+    for y in range(plan.col_ctas):
+        col0 = y * width
+        reds = []
+        for rank in range(plan.cluster):
+            begin = rank * plan.cta_steps
+            end = min(steps, begin + plan.cta_steps)
+            k_end = min(k, 16 * end)
+            n_stages = max(0, -(-(end - begin) // warps_k))
+            # acc[warp, b, A row of the warp's 16, x row]
+            acc = np.zeros((8, tiles, 16, kn))
+            for s in range(n_stages):
+                wst = np.zeros(w_bytes, dtype=np.int64)
+                xst = np.zeros(kn * 128 * -(-warps_k // 4) // 2)
+                chunks = width // 16
+                for tid in range(256):
+                    ch = tid % chunks
+                    for j in range(4):
+                        r = tid // chunks + j * (256 // chunks)
+                        row = 16 * (begin + warps_k * s) + r
+                        off = _wg_w_offset(r, ch, width)
+                        if col0 + 16 * ch < n and row < k_end:
+                            seg = np.zeros(16, dtype=np.int64)
+                            cols = w[row, col0 + 16 * ch: col0 + 16 * ch + 16]
+                            seg[:len(cols)] = cols
+                            wst[off: off + 16] = seg
+                for i in range(kn * 4 * warps_k):
+                    mm, p = i // (4 * warps_k), i % (4 * warps_k)
+                    kk = 16 * (begin + warps_k * s) + 4 * p
+                    off = _wg_x_offset(mm, p, warps_k, kn)
+                    assert off % 8 == 0
+                    if mm < m and kk < k_end:
+                        xst[off // 2: off // 2 + 4] = x[mm, kk: kk + 4]
+                for warp in range(8):
+                    u, wk = warp % units, warp // units
+                    for i in range(k_steps):
+                        j = wk + shares * i
+                        bmat = np.zeros((16, kn))
+                        for nn in range(kn):
+                            for kk in range(16):
+                                bmat[kk, nn] = xst[_wg_b_address(
+                                    j, nn, kk, kn) // 2]
+                        a_tiles = np.zeros((tiles, 16, 16))
+                        for g, t in lanes:
+                            colb = u * cw + 2 * tiles * g
+                            base = (2 * t * width
+                                    + (((colb // 16) ^ (2 * t)) << 4)
+                                    + colb % 16)
+                            rows = []
+                            for r in range(4):
+                                addr = base + (16 * j + r % 2
+                                               + 8 * (r // 2)) * width
+                                rows.append(wst[addr: addr + 2 * tiles])
+                            for b in range(tiles):
+                                for h in range(2):
+                                    a_tiles[b, g, 2 * t + h] = rows[h][b]
+                                    a_tiles[b, g + 8, 2 * t + h] = (
+                                        rows[h][tiles + b])
+                                    a_tiles[b, g, 2 * t + 8 + h] = (
+                                        rows[2 + h][b])
+                                    a_tiles[b, g + 8, 2 * t + 8 + h] = (
+                                        rows[2 + h][tiles + b])
+                        for b in range(tiles):
+                            acc[warp, b] += a_tiles[b] @ bmat
+            # red[warp][row][column of its cw]: lane (g, t), element
+            # 4p + e of tile b is A row g + 8 (e // 2), x row
+            # 8p + 2t + e % 2; A row g is column 2 tiles g + b, row g + 8
+            # column 2 tiles g + tiles + b.
+            red = np.zeros((8, kn, cw))
+            for warp in range(8):
+                for g, t in lanes:
+                    for p in range(plan.planes):
+                        for h in range(2):
+                            for c in range(tiles // 2):
+                                for e in range(4):
+                                    yy = 4 * c + e
+                                    b, hi = yy % tiles, yy // tiles
+                                    red[warp, 8 * p + 2 * t + h,
+                                        2 * tiles * g + 4 * c + e] = acc[
+                                        warp, b, g + 8 * hi, 8 * p + 2 * t + h]
+            summed = red[:units].copy()
+            for sh in range(1, shares):
+                summed += red[sh * units: (sh + 1) * units]
+            reds.append(summed)
+        total = reds[0].copy()
+        for r in reds[1:]:
+            total += r
+        for uu in range(units):
+            for c in range(cw):
+                col = col0 + uu * cw + c
+                if col < n:
+                    out[:, col] = total[uu, :m, c]
+    return out
+
+
+WG_MODEL_SHAPES = [(17, 48, 128), (32, 64, 256), (33, 20, 128),
+                   (64, 96, 384)]
+
+
+# (M, K, N, warps_n): the wrapper's plan (None) and every block width
+# the planes allow (8 slabs at 4 planes only).
+WG_MODEL_CASES = [
+    (m, k, n, warps_n) for m, k, n in WG_MODEL_SHAPES
+    for warps_n in (None, 1, 2, 4, 8) if not (m > 32 and warps_n == 8)]
+
+
+@pytest.mark.parametrize("m,k,n,warps_n", WG_MODEL_CASES, ids=[
+    f"m{m}_{k}x{n}_" + ("plan" if w is None else f"{w}slabs")
+    for m, k, n, w in WG_MODEL_CASES])
+def test_gemv_wgmma_maps_compute_x_times_w(m, k, n, warps_n):
+    """The wgmma body's lane, register and shared-memory maps, run in
+    float64 on random integer tiles, give x @ W exactly: under the
+    wrapper's plan and at every block width the planes allow (1 slab:
+    the warpgroups split each stage's steps; 2 and 4: one 64-column
+    block a slab; 8 at 4 planes), K ragged at 20 and 48, two ranks a
+    cluster where K has two k16 steps."""
+    plan = TI.gemv_sm90_plan(m, k, n, 132)
+    if warps_n is not None:
+        plan = _forced_plan(m, k, n, warps_n, min(2, -(-k // 16)))
+    assert plan.planes in (4, 8)
+    rng = np.random.default_rng(m * 1000 + k)
+    x = rng.integers(-8, 9, (m, k)).astype(np.float64)
+    w = rng.integers(-128, 128, (k, n)).astype(np.float64)
+    np.testing.assert_array_equal(_wgmma_model(x, w, plan), x @ w)
+
+
+@pytest.mark.parametrize("warps_n", [1, 2, 4, 8])
+def test_gemv_wgmma_shared_memory_maps(warps_n):
+    """At 4 and 8 planes: each W chunk a thread copies lands where the
+    lanes that need it read (copy and read swizzles agree, every chunk
+    of a stage copied once); a warp's W reads hit every bank once a
+    wavefront (4-byte words: 32 lanes; 8 bytes: 16; 16 bytes: 8); every
+    x piece lands where the B descriptor reads its 4 k, no two pieces
+    overlap, and each block of x is 1024-byte aligned in the stage."""
+    warps_k = 8 // warps_n
+    width = 128 * warps_n
+    chunks = width // 16
+    tiles = max(2, warps_n)
+    cw = 16 * tiles
+    units = width // cw
+    shares = 8 // units
+    written = {}
+    for tid in range(256):
+        for j in range(4):
+            r = tid // chunks + j * (256 // chunks)
+            ch = tid % chunks
+            assert (r, ch) not in written
+            written[(r, ch)] = _wg_w_offset(r, ch, width)
+    assert len(written) == 16 * warps_k * chunks
+    assert len(set(written.values())) == len(written)
+    where = {off + b: (r, 16 * ch + b) for (r, ch), off in written.items()
+             for b in range(16)}
+    lane_bytes = 2 * tiles
+    per_wave = {4: 32, 8: 16, 16: 8}[lane_bytes]
+    for warp in range(8):
+        u, wk = warp % units, warp // units
+        for i in range(8 // tiles):
+            j = wk + shares * i
+            for r in range(4):
+                row = 16 * j + r % 2 + 8 * (r // 2)  # less 2t
+                offs = []
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    colb = u * cw + 2 * tiles * g
+                    addr = ((2 * t + row) * width
+                            + (((colb // 16) ^ (2 * t)) << 4) + colb % 16)
+                    for b in range(lane_bytes):
+                        assert where[addr + b] == (row + 2 * t, colb + b)
+                    offs.append(addr)
+                for wave in range(0, 32, per_wave):
+                    banks = [(o // 4 + q) % 32 for o in offs[wave:
+                                                             wave + per_wave]
+                             for q in range(lane_bytes // 4)]
+                    assert len(set(banks)) == 32
+    for planes in (4, 8):
+        kn = 8 * planes
+        assert (kn * 128) % 1024 == 0 and 16384 % 1024 == 0
+        # A thread's pieces h (i = tid + 256 h) share p and step rows by
+        # 64 / warps_k, a multiple of 8: the .cu's x_off0 + h x_rstep 128.
+        rstep = 64 // warps_k
+        assert rstep % 8 == 0
+        for i in range(kn * 4 * warps_k):
+            tid, h = i % 256, i // 256
+            m0, p0 = tid // (4 * warps_k), tid % (4 * warps_k)
+            assert (i // (4 * warps_k), i % (4 * warps_k)) == (
+                m0 + h * rstep, p0)
+            assert _wg_x_offset(m0 + h * rstep, p0, warps_k, kn) == (
+                _wg_x_offset(m0, p0, warps_k, kn) + h * rstep * 128)
+        seen = set()
+        for i in range(kn * 4 * warps_k):
+            mm, p = i // (4 * warps_k), i % (4 * warps_k)
+            off = _wg_x_offset(mm, p, warps_k, kn)
+            assert off not in seen
+            seen.add(off)
+            for e in range(4):  # piece p holds k 4p .. 4p + 3 of row mm
+                kk = 4 * p + e
+                assert _wg_b_address(kk // 16, mm, kk % 16, kn) == off + 2 * e

@@ -631,10 +631,10 @@ def test_int8mm_kernel_fp32_matches_plain(cuda_device, m, k, n):
 @pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024)])
 def test_int8mm_kernel_bf16_8b_shapes(cuda_device, m, k, n):
     """The wrapper at Llama-3-8B shapes: the tensor-core GEMV at
-    M <= 16, the wgmma tile at M = 1024."""
+    M <= 64, the wgmma tile at M = 1024."""
     x, w_q, w_s = _int8mm(m, m, k, n, torch.bfloat16, cuda_device,
                           zero_col=n // 2)
-    route = "gemv_sm90" if m <= 16 else "sm90"
+    route = "gemv_sm90" if m <= 64 else "sm90"
     assert TI._int8mm_route(x, w_q) == route
     kernels.reset_launches()
     got = TI.int8_matmul(x, w_q, w_s, impl="cuda").float()
@@ -749,7 +749,82 @@ def test_int8mm_gemv_sm90_decode_shapes(cuda_device, m, k, n):
     assert torch.equal(got, again), "reruns must give identical bits"
 
 
-SM90_INT8MM_M = [17, 64, 127, 128, 129, 1024, 2048]
+def _sm90_tile_int8mm(x, w_q, w_s):
+    """int8mm_sm90.cu's tile, launched directly with the wrapper's rows:
+    it served bf16 at 17-64 rows before the GEMV's wgmma body."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    fn = kernels.function("int8mm_sm90.cu", "tpu_int8_matmul_sm90",
+                          TI._INT8MM_SM90_ARGTYPES)
+    kernels.check(fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                     out.data_ptr(), m, k, n, TI._sm90_rows(m, n, x.device),
+                     torch.cuda.current_stream().cuda_stream), "int8mm_sm90")
+    return out
+
+
+@pytest.mark.parametrize("m", [17, 32, 33, 64])
+@pytest.mark.parametrize("k,n", DECODE_KN)
+def test_int8mm_gemv_sm90_wide_rows(cuda_device, m, k, n):
+    """bf16 with 17 <= M <= 64 at every Llama-3-8B decode projection
+    takes the GEMV's wgmma body (4 planes to M = 32, 8 to 64) in one
+    launch: within the per-row bar of the plain version and the fp32
+    reference, the all-zero column exact, reruns bit-identical. At
+    M = 32 the prefill tile it replaced, launched directly on the same
+    inputs, holds the same bar."""
+    w_q, w_s = _decode_weights(k, n)
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    assert TI._int8mm_route(x, w_q) == "gemv_sm90"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert TI.gemv_sm90_plan(m, k, n, sms).planes == (4 if m <= 32 else 8)
+    kernels.reset_launches()
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    assert kernels.LAUNCHES["int8mm_gemv_sm90"] == 1
+    assert kernels.LAUNCHES["int8mm"] == 1
+    assert kernels.LAUNCHES["int8mm_sm90"] == 0
+    again = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference")
+    plain = TI.int8_matmul(x, w_q, w_s, impl="torch")
+    outs = [got]
+    if m == 32:
+        outs.append(_sm90_tile_int8mm(x, w_q, w_s))
+    torch.cuda.synchronize()
+    for out in outs:
+        _assert_bf16_close(out, ref)
+        _assert_bf16_close(out, plain)
+        assert torch.all(out[:, n // 3] == 0), "an all-zero column gives 0"
+    assert torch.equal(got, again), "reruns must give identical bits"
+
+
+@pytest.mark.parametrize("x_off,route", [(2, "wmma"), (0, "gemv_sm90")])
+def test_int8mm_wide_rows_outside_the_contract(cuda_device, x_off, route):
+    """M = 64 with x only 4-byte aligned is outside the GEMV's contract
+    (x 8-byte aligned): it takes the route's WMMA tile, never the wgmma
+    body; aligned, the same values take the GEMV. Both match."""
+    m, k, n = 64, 4096, 1024
+    w_q, w_s = _decode_weights(k, n)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x0 = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+    buf = torch.empty(m * k + 8, dtype=torch.bfloat16, device=cuda_device)
+    skip = (-buf.data_ptr() % 16) // 2 + x_off
+    x = buf[skip: skip + m * k].view(m, k)
+    x.copy_(x0)
+    assert TI._int8mm_route(x, w_q) == route
+    kernels.reset_launches()
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    assert kernels.LAUNCHES["int8mm"] == 1
+    assert kernels.LAUNCHES["int8mm_gemv_sm90"] == int(route == "gemv_sm90")
+    assert kernels.LAUNCHES["int8mm_sm90"] == 0
+    ref = TI.int8_matmul(x0, w_q, w_s, impl="reference")
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    assert torch.all(got[:, n // 3] == 0)
+
+
+# Past the GEMV's 64 rows (bf16 at 17-64 rows takes the GEMV's wgmma
+# body; the tile is held there by test_int8mm_gemv_sm90_wide_rows).
+SM90_INT8MM_M = [65, 100, 127, 128, 129, 1024, 2048]
 SM90_INT8MM_KN = [(64, 128), (136, 144), (4096, 1024), (4096, 4096),
                   (4096, 14336), (14336, 4096)]
 
@@ -757,9 +832,9 @@ SM90_INT8MM_KN = [(64, 128), (136, 144), (4096, 1024), (4096, 4096),
 @pytest.mark.parametrize("m", SM90_INT8MM_M)
 @pytest.mark.parametrize("k,n", SM90_INT8MM_KN)
 def test_int8mm_sm90_bf16_matches_plain(cuda_device, m, k, n):
-    """bf16 with M > 16 takes the wgmma tile (int8mm_sm90.cu), within
+    """bf16 with M > 64 takes the wgmma tile (int8mm_sm90.cu), within
     the per-row bar of the plain version and the fp32 reference; the
-    ragged edges of M (17, 127, 129), K (136) and N (144) included."""
+    ragged edges of M (65, 127, 129), K (136) and N (144) included."""
     x, w_q, w_s = _int8mm(7 * m + k + n, m, k, n, torch.bfloat16,
                           cuda_device, zero_col=n // 3)
     assert TI._int8mm_route(x, w_q) == "sm90"

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
 // (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_sm90.cu,
-// int8mm_sm90.cu): cp.async copies into the 128-byte-swizzled tiles
+// int8mm_sm90.cu, and the wgmma bodies of int8mm_gemv_sm90.cu and
+// decode_mlp_sm90.cu): cp.async copies into the 128-byte-swizzled tiles
 // that wgmma descriptors read, the descriptors, and the wgmma products
 // with their fences. The mma.sync kernels (the decode body in
 // decode_attention.cuh, the int8 GEMV in int8mm_gemv_sm90.cu and the
-// decode MLP in decode_mlp_sm90.cu) share the cp.async copies, the
-// ring's mbarriers, ldmatrix and the m16n8k16 product below.
+// decode MLP in decode_mlp_sm90.cu at 1 and 2 planes) share the
+// cp.async copies, the ring's mbarriers, ldmatrix and the m16n8k16
+// product below.
 //
 // The tile layout: a tile of ROWS rows x HD bf16 columns is HD/64 column
 // blocks of ROWS rows x 128 bytes, each 128-byte-swizzled (16-byte chunk
@@ -298,8 +300,10 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
 }
 
 // d[0:32] += A . B over 16 of K: A is this thread's four packed bf16x2
-// registers of a 64 x 16 tile, B is 16 (k) x 64 (n) of an MN-major
-// shared tile (descriptor b, transpose-B set).
+// registers of a 64 x 16 tile, B is 16 (k) x 64 (n) of a shared tile,
+// by default MN-major (descriptor b, transpose-B set), with TRANS_B = 0
+// K-major (64 rows of n x 16 k).
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
                                                    const uint32_t (&a)[4],
                                                    uint64_t b) {
@@ -310,7 +314,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -319,7 +323,29 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// d[0:16] += A . B over 16 of K: A is this thread's four packed bf16x2
+// registers of a 64 x 16 tile, B is 16 (k) x 32 (n) of a shared tile,
+// by default MN-major, with TRANS_B = 0 K-major (32 rows of n x 16 k).
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
 }
 
 // d += A . B for one 16-row k-step with A in registers and B MN-major,

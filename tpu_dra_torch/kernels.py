@@ -55,7 +55,7 @@ NVCC_FLAGS = (
 # "flash_bwd_dkv" and "flash_bwd_dkv_sm90" (flash_bwd_sm90.cu) for dK/dV;
 # "int8mm" counts every int8 matmul launch, "int8mm_sm90" those of the
 # wgmma tile (int8mm_sm90.cu), "int8mm_gemv_sm90" those of the
-# tensor-core decode GEMV (int8mm_gemv_sm90.cu, bf16 M <= 16) and
+# tensor-core decode GEMV (int8mm_gemv_sm90.cu, bf16 M <= 64) and
 # "int8mm_gemv" those of int8mm.cu's weight-streaming GEMV (fp32 and
 # the shapes int8mm_gemv_sm90.cu does not take, M <= 16);
 # "sample_pick" counts the fused temperature / top-k pick (sample.cu).

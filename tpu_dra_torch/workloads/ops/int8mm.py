@@ -6,15 +6,17 @@ Counterpart of ``tpu_dra/workloads/ops/int8mm.py``:
   ``_kernel``, at every shape. ``_int8mm_route`` picks it before the
   launch, from the shapes, dtype and alignment alone:
 
-  - ``"gemv_sm90"``, bf16 with M <= 16 (decode, M = slot count),
+  - ``"gemv_sm90"``, bf16 with M <= 64 (decode, M = slot count),
     K % 4 == 0, N % 16 == 0, x 8-byte and w_q 16-byte aligned (every
-    decode projection and lm_head): the tensor-core GEMV of
-    ``csrc/int8mm_gemv_sm90.cu``, planned by :func:`gemv_sm90_plan`;
+    decode projection and lm_head of an engine of up to 64 slots): the
+    tensor-core GEMV of ``csrc/int8mm_gemv_sm90.cu`` (mma.sync at
+    M <= 16, wgmma at 17 <= M <= 64), planned by :func:`gemv_sm90_plan`;
   - ``"gemv"``, any other M <= 16 (fp32, odd shapes): the
     weight-streaming kernel of ``csrc/int8mm.cu``;
-  - ``"sm90"``, bf16 with M > 16, K % 8 == 0, N % 16 == 0 and x, w_q
-    16-byte aligned (every prefill projection and the generate
-    lm_head): the wgmma tile of ``csrc/int8mm_sm90.cu``;
+  - ``"sm90"``, bf16 with M > 16 that the GEMV does not take (M > 64,
+    or off its alignment), K % 8 == 0, N % 16 == 0 and x, w_q 16-byte
+    aligned (every prefill projection and the generate lm_head): the
+    wgmma tile of ``csrc/int8mm_sm90.cu``;
   - ``"wmma"``, any other bf16 shape with M > 16: the WMMA tile of
     ``csrc/int8mm.cu``;
   - ``"sgemm"``, fp32 with M > 16: the CUDA-core tile of
@@ -56,8 +58,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The weight-streaming kernel takes up to 16 rows; its K splits aim at
 # this many CTAs per SM, while keeping the fp32 partials' traffic
-# (written once, read once) under an eighth of the weight bytes.
+# (written once, read once) under an eighth of the weight bytes. The
+# tensor-core GEMV takes up to 64 (8 planes of 8 rows).
 _GEMV_MAX_ROWS = 16
+_GEMV_SM90_MAX_ROWS = 64
 _CTAS_PER_SM = 4
 _K_CHUNK = 256  # csrc/int8mm.cu kChunk
 _SM_COUNTS: dict = {}
@@ -73,11 +77,15 @@ _INT8_GEMV_SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
 ]
 
 # The tensor-core decode GEMV (csrc/int8mm_gemv_sm90.cu): CTAs of 8
-# warps, a warp a slab of 128 columns stepping K 16 rows at a time,
-# clusters of at most 8 CTAs (the portable size).
+# warps on blocks of 128-column slabs, stepping K 16 rows at a time,
+# clusters of at most 8 CTAs (the portable size). At 8 planes (wgmma) a
+# warp's accumulators take 32 registers a slab of the CTA's block, so a
+# block is at most 4 slabs there.
 _GEMV_SM90_WARPS = 8
 _GEMV_SM90_COLS = 128
 _GEMV_SM90_MAX_CLUSTER = 8
+_GEMV_SM90_WIDTHS = {1: (1, 2, 4, 8), 2: (1, 2, 4, 8), 4: (1, 2, 4, 8),
+                     8: (1, 2, 4)}
 
 def reference_int8_matmul(x, w_q, scale):
     """fp32 oracle: x @ (w_q * scale), rounded once to x's dtype."""
@@ -121,21 +129,31 @@ def _gemv_plan(m: int, k: int, n: int, w_ptr: int, device) -> tuple:
 
 class GemvPlan(NamedTuple):
     """How the tensor-core GEMV covers x [M, K] times w_q [K, N]: grid
-    (cluster, col_ctas), a cluster's CTAs along K; a CTA's warps_n x
-    warps_k warps, each on one 128-column slab and, in every stage of
-    the CTA's ring, one k16 step."""
+    (cluster, col_ctas), a cluster's CTAs along K; a CTA's block of
+    warps_n 128-column slabs, its ring's stages warps_k k16 steps each.
+    At 1 and 2 planes (mma.sync) warp w takes slab w / warps_k and step
+    w % warps_k of every stage; at 4 and 8 (wgmma) a warp carries
+    ``tiles`` 16-column tiles (its warpgroup's 64-column blocks) over
+    16 tiles columns, the two warpgroups splitting the block's columns
+    (warps_n >= 2) or each stage's steps (warps_n = 1)."""
 
-    planes: int  # 8-row planes of x: 1 for M <= 8, else 2
+    planes: int  # 8-row planes of x: 1, 2, 4, 8 for M <= 8, 16, 32, 64
     warps_n: int  # 128-column slabs a CTA
-    warps_k: int  # warps a slab: k16 steps a stage
+    warps_k: int  # k16 steps a stage
     cluster: int  # CTAs a cluster, splitting K
     col_ctas: int  # clusters
     cta_steps: int  # k16 steps a CTA (rank r: [r * cta_steps, +cta_steps))
     stages: int  # stages a CTA walks
+    tiles: int  # 16-column tiles a warp carries a k16 step
 
     @property
     def ctas(self) -> int:
         return self.cluster * self.col_ctas
+
+
+def gemv_sm90_planes(m: int) -> int:
+    """8-row planes of x the tensor-core GEMV pads M to: 1, 2, 4 or 8."""
+    return next(p for p in (1, 2, 4, 8) if m <= 8 * p or p == 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,13 +169,14 @@ def gemv_sm90_plan(m: int, k: int, n: int, sm_count: int) -> GemvPlan:
     stage). A grid of clusters fits only three quarters of the SMs: a
     cluster's CTAs must share a GPC, and fuller grids doubled CTAs up
     on SMs or left clusters waiting (int8mm_ablation.py, phase gemv).
-    Column blocks beyond one wave take the widest CTAs (8 slabs) and no
-    cluster."""
-    planes = 1 if m <= 8 else 2
+    Column blocks beyond one wave take the widest CTAs the planes allow
+    (8 slabs, 4 at 8 planes) and no cluster."""
+    planes = gemv_sm90_planes(m)
+    widths = _GEMV_SM90_WIDTHS[planes]
     slabs = -(-n // _GEMV_SM90_COLS)
     steps = -(-k // 16)
     best = None
-    for warps_n in (1, 2, 4, 8):
+    for warps_n in widths:
         col_ctas = -(-slabs // warps_n)
         for cluster in range(1, min(_GEMV_SM90_MAX_CLUSTER, steps) + 1):
             cap = sm_count if cluster == 1 else 3 * sm_count // 4
@@ -166,7 +185,7 @@ def gemv_sm90_plan(m: int, k: int, n: int, sm_count: int) -> GemvPlan:
             key = (col_ctas * cluster, cluster == 1, warps_n)
             if best is None or key > best[0]:
                 best = (key, warps_n, cluster)
-    warps_n, cluster = (8, 1) if best is None else best[1:]
+    warps_n, cluster = (widths[-1], 1) if best is None else best[1:]
     cta_steps = -(-steps // cluster)
     cluster = -(-steps // cta_steps)  # no rank without steps
     warps_k = _GEMV_SM90_WARPS // warps_n
@@ -174,21 +193,24 @@ def gemv_sm90_plan(m: int, k: int, n: int, sm_count: int) -> GemvPlan:
         planes=planes, warps_n=warps_n, warps_k=warps_k, cluster=cluster,
         col_ctas=-(-slabs // warps_n), cta_steps=cta_steps,
         stages=-(-cta_steps // warps_k),
+        tiles=8 if planes <= 2 else max(2, warps_n),
     )
 
 
 def _int8mm_route(x, w_q) -> str:
     """The kernel that serves x [M, K] times w_q [K, N] on the card:
-    "gemv_sm90" (bf16, M <= 16, K % 4 == 0, N % 16 == 0, x 8-byte and
-    w_q 16-byte aligned), "gemv" (any other M <= 16), "sgemm" (fp32), "sm90" (bf16 whose 16-byte copies
-    the wgmma tile takes: K % 8 == 0, N % 16 == 0, x and w_q 16-byte
-    aligned) or "wmma" (any other bf16 shape)."""
+    "gemv_sm90" (bf16, M <= 64, K % 4 == 0, N % 16 == 0, x 8-byte and
+    w_q 16-byte aligned), "gemv" (any other M <= 16), "sgemm" (fp32),
+    "sm90" (bf16 whose 16-byte copies the wgmma tile takes: K % 8 == 0,
+    N % 16 == 0, x and w_q 16-byte aligned) or "wmma" (any other bf16
+    shape)."""
     m, k = x.shape
     n = w_q.shape[1]
+    if (m <= _GEMV_SM90_MAX_ROWS and x.dtype == torch.bfloat16
+            and k % 4 == 0 and n % 16 == 0 and x.data_ptr() % 8 == 0
+            and w_q.data_ptr() % 16 == 0):
+        return "gemv_sm90"
     if m <= _GEMV_MAX_ROWS:
-        if (x.dtype == torch.bfloat16 and k % 4 == 0 and n % 16 == 0
-                and x.data_ptr() % 8 == 0 and w_q.data_ptr() % 16 == 0):
-            return "gemv_sm90"
         return "gemv"
     if x.dtype == torch.float32:
         return "sgemm"
