@@ -19,8 +19,8 @@ exits non-zero without a result:
    (int8mm_gemv_sm90.cu: the mma.sync body at 1 and 2 planes, the
    wgmma body at 4 planes with 2, 4 and 8 tiles a warp and at 8 with 2
    and 4) and of the tensor-core decode MLP
-   (decode_mlp_sm90.cu: gate/up and down at 1, 2, 4 and 8 planes) must
-   spill 0 bytes.
+   (decode_mlp_sm90.cu: gate/up and down at 1, 2, 4, 8 and 16 planes)
+   must spill 0 bytes.
 2b. bootstrap — the slice bootstrap and collective smokes
    (tpu_dra_torch/workloads/{bootstrap,smoke,icibandwidth,
    rendezvous_smoke}.py), at most about 60 s: matmul_smoke (bf16
@@ -50,10 +50,11 @@ exits non-zero without a result:
    pools, and a block table whose 8 slots alias the same 12 leading
    pages (a shared prefix) against one where each slot reads private
    copies of them (paged_kv.copy_page): bit-identical; decode MLP with
-   B in {1, 8, 13, 16, 17, 24, 32, 48, 64} (1, 2, 4 and 8 planes of 8
-   rows), each on the tensor-core route (sm90, decode_mlp_sm90.cu, with
-   its plan; reruns bit-identical), and at B in {65, 128} through the
-   wrapper's blocks of 64 rows (each block's plan), and decode_mlp.cu
+   B in {1, 8, 13, 16, 17, 24, 32, 48, 64, 65, 96, 127, 128} (1, 2, 4,
+   8 and 16 planes of 8 rows), each on the tensor-core route (sm90,
+   decode_mlp_sm90.cu, one launch with its plan; reruns bit-identical),
+   and at B in {129, 200} through the wrapper's blocks of 128 rows (a
+   launch a block, each block's plan), and decode_mlp.cu
    (the simt route: fp32) launched directly at fp32 B = 8 and bf16
    B = 32 (whose route is now sm90: the row holds the kernel it
    replaced there) and through the wrapper at fp32 B = 128, against the
@@ -107,9 +108,10 @@ exits non-zero without a result:
    the card could take (bytes over the memory rate vs operations over
    the bf16 peak, whichever is larger). Each kernel also has
    ``ms_with_host``, timed with the wrapper's host time included. The
-   decode MLP at B = 8, 32 and 64 (MLP_TIMING_ROWS) on the tensor-core
-   kernel, with decode_mlp.cu (the kernel it replaced on this route) on
-   the same inputs, each pass's
+   decode MLP at B = 8, 32, 64, 96 and 128 (MLP_TIMING_ROWS) on the
+   tensor-core kernel, with the kernel it replaced on this route on the
+   same inputs (decode_mlp.cu up to 64 rows; at 96 and 128 the blocked
+   route, the kernel launched on each block of 64 rows), each pass's
    device time from torch.profiler, and as the library yardstick a chain
    of PyTorch library calls for the same block (rms_norm, three cuBLAS
    GEMMs, silu, mul, add: a chain, not one call). The MLP's two halves
@@ -334,12 +336,26 @@ exits non-zero without a result:
    step; the w8kv8 prefill's
    225 (M = 2048, the lm_head over every position) all on the wgmma
    tile, the decode steps' all on the tensor-core GEMV.
-8c. generate_wide, engine_wide (run right after phase 8, on its
-   weights) — greedy_generate in bf16 at b = 128 (WIDE_GEN: prompt 32,
-   4 new tokens), past the 64 rows of one launch: it runs, and each
-   decode step launches the decode attention 32 times and the
-   tensor-core MLP 64 times (two blocks of 64 rows a layer); token
-   agreement with the plain bf16 run reported. Then the paged engine at
+8c. generate_wide, engine_wide128, engine_wide (run right after phase
+   8, on its weights) — greedy_generate in bf16 at b = 128 (WIDE_GEN:
+   prompt 32, 4 new tokens): it runs, and each decode step launches the
+   decode attention 32 times and the tensor-core MLP 32 times (one
+   launch of 128 rows at 16 planes a layer); token agreement with the
+   plain bf16 run reported. Then the paged engine at 128 slots (JAX's
+   serve bench at --batch 64: EngineConfig(page_size=16,
+   max_slots=128, max_pages_per_seq=16, scan_chunk=8,
+   prefill_chunk=128)), 128 seeded requests with prompts of 16 or 64
+   tokens and 16 new tokens each (engine_wide128): every request
+   completes, the allocator ends whole, paged decode L a decode step,
+   the MLP L a decode step and a single-token prefill bucket, all on
+   the tensor-core kernel at 16 planes, one row block each; a profile of
+   one steady decode chunk (2 L mlp_sm90_kernel and L rms_kernel
+   launches a step, rounded; no other MLP kernel), decode tok/s, TTFT
+   p50, device and host ms a step, the MLP's share of device time and
+   the arm's part seconds; the decode step from one state with all 128
+   slots live, each STEP_VARIANTS variant, in bf16 and bf16 cut to 2
+   layers, held by step_gates (decode_step_wide128). Then the paged
+   engine at
    32 slots (JAX's serve bench at its default batch of 16:
    EngineConfig(page_size=16, max_slots=32, max_pages_per_seq=16,
    scan_chunk=8, prefill_chunk=128)), 32 seeded requests with prompts
@@ -1529,13 +1545,109 @@ def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec) -> tuple:
     return report, launches, step
 
 
-def generate_wide(G, kernels, cfg, params) -> tuple:
-    """greedy_generate at WIDE_GEN (b = 128 > 64 rows, bf16): it runs,
-    its output has the prompt and ids in range, every decode step
-    launches the decode attention L times and the tensor-core MLP L
-    times a block of 64 rows (2 L a step); token agreement with the
-    plain bf16 run (the plain attention and MLP) is reported, not
-    gated. Returns (report, launches)."""
+# engine_wide128: JAX's serve bench at --batch 64 makes an engine of
+# 2 x 64 = 128 slots (tpu_dra/workloads/enginebench.py
+# equal_memory_engine_config, slots_factor 2): its decode MLP takes 128
+# rows, one launch of the tensor-core kernel at 16 planes a layer.
+WIDE128_SLOTS = 128
+WIDE128_PROMPTS = (16, 64)
+WIDE128_NEW_TOKENS = 16
+
+
+def wide128_requests(E, cfg) -> list:
+    """engine_wide128's WIDE128_SLOTS seeded requests: prompts of
+    WIDE128_PROMPTS tokens, WIDE128_NEW_TOKENS new tokens each."""
+    rng = np.random.default_rng(28)
+    return [
+        E.Request(
+            rid=f"v{i}",
+            prompt=rng.integers(1, cfg.vocab_size, int(rng.choice(
+                WIDE128_PROMPTS))).astype(np.int32),
+            max_new_tokens=WIDE128_NEW_TOKENS,
+        )
+        for i in range(WIDE128_SLOTS)
+    ]
+
+
+def engine_wide128(E, I8, DM, kernels, cfg, params) -> tuple:
+    """The bf16 engine at WIDE128_SLOTS slots (the decode MLP at 128
+    rows: one launch of the tensor-core kernel at 16 planes a layer):
+    every request completes with its token count, the allocator ends
+    whole; a decode step's paged attention L launches and its MLP L
+    calls of the tensor-core kernel, one row block each (every prefill
+    bucket of single-token rows too), decode_mlp.cu and the halves none;
+    a profile of one steady decode chunk (two launches of
+    mlp_sm90_kernel and one of its rms_kernel a layer a step, rounded:
+    the counters hold the exact count; nothing else of the MLP); then
+    the decode step from one state with every slot live, once per
+    STEP_VARIANTS. Returns (report, launches, bf16 step comparison,
+    config, the prompts the step comparison admitted)."""
+    L = cfg.n_layers
+    ec = E.EngineConfig(page_size=16, max_slots=WIDE128_SLOTS,
+                        max_pages_per_seq=16, scan_chunk=8,
+                        prefill_chunk=128)
+    if (len(DM.row_blocks(WIDE128_SLOTS, "sm90")) != 1
+            or DM.planes_of(WIDE128_SLOTS) != 16):
+        raise AssertionError("engine_wide128: 128 rows must be one row "
+                             "block of 16 planes")
+    reqs = wide128_requests(E, cfg)
+    parts = {}
+    t = time.perf_counter()
+    eng, done, launches, wall = serve(E, kernels, cfg, params, ec, reqs)
+    parts["serve"] = time.perf_counter() - t
+    steps = eng.decode_steps
+    want_mlp = L * (steps + eng.prefill_single_token_buckets)
+    other = {k: launches[k] for k in ("decode_mlp_gate_up", "decode_mlp_down",
+                                      "decode_mlp_sm90_gate_up",
+                                      "decode_mlp_sm90_down")}
+    if not (launches["paged_decode_attention"] == L * steps > 0
+            and launches["decode_mlp"] == launches["decode_mlp_sm90"]
+            == want_mlp > 0 and not any(other.values())):
+        raise AssertionError(
+            f"engine_wide128: launches {launches}, want {L * steps} paged "
+            f"decode and {want_mlp} tensor-core MLP launches, no other")
+    summary = serve_summary(eng, done, launches, wall)
+    prompts = [r.prompt for r in reqs]
+    t = time.perf_counter()
+    profile = profile_decode(E, eng, prompts, chunks=1,
+                             new_tokens=3 * ec.scan_chunk)
+    parts["profile"] = time.perf_counter() - t
+    if "mlp_kernels" in profile:
+        per_step = {k: v["launches_per_step"]
+                    for k, v in profile["mlp_kernels"].items()}
+        sm90 = sum(v for k, v in per_step.items() if MLP_SM90_KERNEL in k)
+        rms = sum(v for k, v in per_step.items() if MLP_RMS_KERNEL in k)
+        if (round(sm90) != 2 * L or round(rms) != L
+                or abs(profile["mlp_launches_per_step"] - sm90 - rms) > 1e-6):
+            raise AssertionError(
+                f"engine_wide128 profile: decode MLP kernels a step "
+                f"{per_step}, want {2 * L} {MLP_SM90_KERNEL} and {L} "
+                f"{MLP_RMS_KERNEL} launches and nothing else")
+    t = time.perf_counter()
+    step = step_logits(E, I8, cfg, eng, prompts, STEP_VARIANTS,
+                       new_tokens=2 * ec.scan_chunk + 2)
+    parts["step_check"] = time.perf_counter() - t
+    report = {
+        "slots": WIDE128_SLOTS, **summary, "part_seconds": parts,
+        "launches_per_decode_step": {
+            k: launches[k] / steps for k in (
+                "paged_decode_attention", "decode_mlp", "decode_mlp_sm90")},
+        "profile": {k: profile.get(k) for k in (
+            "mlp_device_ms_per_step", "mlp_share_of_device_time",
+            "mlp_kernels", "device_ms_per_step", "step_ms", "window_ms",
+            "device_busy_share", "kernel_launches_per_step",
+            "decode_steps", "top_kernels", "reason")},
+    }
+    return report, launches, step, ec, prompts
+
+
+def generate_wide(G, DM, kernels, cfg, params) -> tuple:
+    """greedy_generate at WIDE_GEN (b = 128, bf16): it runs, its output
+    has the prompt and ids in range, every decode step launches the
+    decode attention L times and the tensor-core MLP L times a row block
+    of its route (one block of 128 rows at 16 planes: L a step); token
+    agreement with the plain bf16 run (the plain attention and MLP) is
+    reported, not gated. Returns (report, launches)."""
     b, s, new = WIDE_GEN
     L = cfg.n_layers
     prompt = torch.from_numpy(
@@ -1548,7 +1660,10 @@ def generate_wide(G, kernels, cfg, params) -> tuple:
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     steps = new - 1
-    blocks = -(-b // 64)
+    blocks = len(DM.row_blocks(b, "sm90"))
+    if blocks != 1 or DM.planes_of(b) != 16:
+        raise AssertionError(f"generate_wide: b = {b} in {blocks} row "
+                             f"blocks, want one of 16 planes")
     want = {"decode_attention": L * steps,
             "decode_mlp": L * blocks * steps,
             "decode_mlp_sm90": L * blocks * steps}
@@ -1565,7 +1680,7 @@ def generate_wide(G, kernels, cfg, params) -> tuple:
         "batch": b, "prompt": s, "new_tokens": new, "wall_seconds": wall,
         "launches": launches,
         "launches_per_decode_step": {k: v / steps for k, v in want.items()},
-        "row_blocks": blocks,
+        "row_blocks": blocks, "planes": DM.planes_of(b),
         "token_agreement_with_plain": float(
             (out[:, s:] == plain[:, s:]).float().mean()),
     }, launches
@@ -2076,11 +2191,12 @@ def gemv_sm90_build(kernels, report) -> dict:
 
 
 # The tensor-core decode MLP's source and kernel: instantiations for
-# (1, 2, 4 or 8 planes of 8 rows) x (gate/up, down).
+# (1, 2, 4, 8 or 16 planes of 8 rows) x (gate/up, down).
+MLP_SM90_INSTANTIATIONS = 10
 MLP_SM90_SOURCE = "decode_mlp_sm90.cu"
 MLP_SM90_KERNEL = "mlp_sm90_kernel"
 # The decode MLP's kernels by name: the tensor-core kernel's two passes
-# and, at 17-64 rows, its RMS-norm launch; decode_mlp.cu's three
+# and, at 17-128 rows, its RMS-norm launch; decode_mlp.cu's three
 # kernels.
 MLP_RMS_KERNEL = "rms_kernel"
 MLP_KERNELS = (MLP_SM90_KERNEL, MLP_RMS_KERNEL, "gate_up_kernel",
@@ -2090,7 +2206,7 @@ MLP_KERNELS = (MLP_SM90_KERNEL, MLP_RMS_KERNEL, "gate_up_kernel",
 def mlp_sm90_build(kernels, report) -> dict:
     """Registers, static shared memory and spill bytes of each
     instantiation of the tensor-core decode MLP; raises unless ptxas
-    reported all eight and none spills."""
+    reported all MLP_SM90_INSTANTIATIONS and none spills."""
     out = {
         short_name(fn): {"registers": p["registers"],
                          "spill_store_bytes": p["spill_stores"],
@@ -2098,7 +2214,7 @@ def mlp_sm90_build(kernels, report) -> dict:
         for fn, p in kernels.ptxas_report(
             report[MLP_SM90_SOURCE]["log"]).items()
     }
-    if sum(MLP_SM90_KERNEL in k for k in out) != 8:
+    if sum(MLP_SM90_KERNEL in k for k in out) != MLP_SM90_INSTANTIATIONS:
         raise AssertionError(f"{MLP_SM90_SOURCE}: no ptxas report for "
                              f"every instantiation: {sorted(out)}")
     spills = {k: v for k, v in out.items() if v["spill_store_bytes"]}
@@ -2140,18 +2256,37 @@ def mlp_pass_profile(call, flush, reps: int = 20) -> dict:
 
 
 # The decode MLP's parity rows: every plane count of the tensor-core
-# kernel (1, 2, 4, 8 planes of 8 rows), then two blocks of 64 rows (65
-# and 128); and its timing rows: the engine phase's 8 slots, and the 32
-# and 64 rows of wider engines (engine_wide runs 32 slots).
-MLP_PARITY_ROWS = (1, 8, 13, 16, 17, 24, 32, 48, 64, 65, 128)
-MLP_TIMING_ROWS = (8, 32, 64)
+# kernel (1, 2, 4, 8, 16 planes of 8 rows; 65-128 one launch), then two
+# blocks of 128 rows (129 and 200); and its timing rows: the engine
+# phase's 8 slots, the 32 and 64 rows of wider engines (engine_wide runs
+# 32 slots), 96 and 128 (generate_wide and engine_wide128 run 128).
+MLP_PARITY_ROWS = (1, 8, 13, 16, 17, 24, 32, 48, 64, 65, 96, 127, 128, 129,
+                   200)
+MLP_TIMING_ROWS = (8, 32, 64, 96, 128)
+# The most rows one launch took before the 16-plane body: its timing rows
+# past it time that blocked route beside the kernel.
+MLP_OLD_ROW_BLOCK = 64
+
+
+def mlp_blocked(DM, x, scale, ws, out):
+    """The route the 16-plane body replaced past MLP_OLD_ROW_BLOCK rows:
+    the tensor-core kernel launched on each block of that many rows of
+    x into ``out``, each block a full pass over the weights (launches
+    not counted)."""
+    for lo in range(0, x.shape[0], MLP_OLD_ROW_BLOCK):
+        hi = min(x.shape[0], lo + MLP_OLD_ROW_BLOCK)
+        DM._sm90_decode_mlp(x[lo:hi], scale, *ws, 1e-5, out=out[lo:hi])
+    return out
 
 
 def mlp_timing(DM, gen, b, sms, rates, flush) -> dict:
     """The fused decode MLP at B = b, d = 4096, ffn = 14336, bf16, on
     the tensor-core route: kernel ms (L2 evicted; with and without the
-    host's enqueue), decode_mlp.cu on the same inputs (the kernel the
-    tensor-core route replaced at every B up to 64), the plain version, the library chain, each pass's device µs and the
+    host's enqueue), the kernel it replaced on the same inputs
+    (``replaced_kernel_ms``: decode_mlp.cu at every B up to 64; past 64
+    rows the blocked route, this kernel launched on each block of
+    MLP_OLD_ROW_BLOCK rows, each a full pass over the weights), the
+    plain version, the library chain, each pass's device µs and the
     bound (bytes against the bf16 peak's operations)."""
     x, scale, tree = mlp_inputs(gen, b)
     ws = mlp_weights(tree)
@@ -2166,8 +2301,18 @@ def mlp_timing(DM, gen, b, sms, rates, flush) -> dict:
                              impl="cuda")
     ms = time_ms(call, flush)
     host_ms = time_ms(call, flush, shield=False)
-    old_ms = time_ms(lambda: DM._simt_decode_mlp(x, scale, *ws, 1e-5),
-                     flush)
+    if b <= MLP_OLD_ROW_BLOCK:
+        replaced = "decode_mlp.cu"
+        old_ms = time_ms(lambda: DM._simt_decode_mlp(x, scale, *ws, 1e-5),
+                         flush)
+    else:
+        replaced = (f"decode_mlp_sm90.cu in blocks of {MLP_OLD_ROW_BLOCK} "
+                    f"rows")
+        out = torch.empty_like(x)
+        blocked_vs_kernel = compare(f"decode_mlp b={b} blocked vs kernel",
+                                    mlp_blocked(DM, x, scale, ws, out),
+                                    call())
+        old_ms = time_ms(lambda: mlp_blocked(DM, x, scale, ws, out), flush)
     plain_ms = time_ms(
         lambda: DM.decode_mlp(x, scale, tree, 1e-5, impl="torch"), flush)
     library_ms = yardstick_ms(lambda: mlp_library_chain(x, scale, tree),
@@ -2177,6 +2322,9 @@ def mlp_timing(DM, gen, b, sms, rates, flush) -> dict:
         "route": route,
         "plan": mlp_plan_dict(DM.mlp_sm90_plan(b, d, ffn, sms)),
         "ms": ms, "ms_with_host": host_ms, "replaced_kernel_ms": old_ms,
+        "replaced_kernel": replaced,
+        **({} if b <= MLP_OLD_ROW_BLOCK else
+           {"replaced_vs_kernel": blocked_vs_kernel}),
         "plain_ms": plain_ms,
         "library_ms": library_ms if isinstance(library_ms, float) else None,
         "library_note": "a chain of library calls (rms_norm, three cuBLAS "
@@ -5019,16 +5167,21 @@ def main() -> int:
         if route != "sm90":
             raise AssertionError(f"decode_mlp b={b}: route {route}, want "
                                  f"sm90")
+        n0 = kernels.LAUNCHES["decode_mlp_sm90"]
         got = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
+        launched = kernels.LAUNCHES["decode_mlp_sm90"] - n0
         plain = DM.decode_mlp(x, scale, tree, 1e-5, impl="torch")
         ref = DM.decode_mlp(x, scale, tree, 1e-5, impl="reference")
         again = DM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
         torch.cuda.synchronize()
-        blocks = DM.row_blocks(b)
+        blocks = DM.row_blocks(b, "sm90")
+        if launched != len(blocks):
+            raise AssertionError(f"decode_mlp b={b}: {launched} launches, "
+                                 f"want one a block of {blocks}")
         plans = [mlp_plan_dict(DM.mlp_sm90_plan(hi - lo, 4096, 14336, sms))
                  for lo, hi in blocks]
         parity[f"decode_mlp_b{b}"] = {
-            "route": route,
+            "route": route, "launches": launched,
             **({"plan": plans[0]} if len(plans) == 1 else
                {"row_blocks": blocks, "plans": plans}),
             "vs_plain": compare(f"mlp b={b} vs plain", got, plain),
@@ -5052,7 +5205,7 @@ def main() -> int:
         tree = {k: {"kernel": v["kernel"].to(dtype)} for k, v in tree.items()}
         ws = mlp_weights(tree)
         route = DM._decode_mlp_route(x, ws)
-        if b <= DM.ROW_BLOCK:
+        if b <= DM.ROW_BLOCKS["simt"]:
             old = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
             old_again = DM._simt_decode_mlp(x, scale, *ws, 1e-5)
         else:
@@ -5957,12 +6110,28 @@ def main() -> int:
          w8kv8_vs_bf16_token_agreement=float(
              (tokens["bf16"] == tokens["w8kv8"]).float().mean()))
 
-    # --- 8c. wide decode batches: 128 rows, and a 32-slot engine ---------
+    # --- 8c. wide decode batches: 128 rows, a 128- and a 32-slot engine --
     t0 = time.perf_counter()
-    wide_gen, wide_gen_launches = generate_wide(G, kernels, cfg, params)
+    wide_gen, wide_gen_launches = generate_wide(G, DM, kernels, cfg, params)
     emit("generate_wide", nvidia_smi=smi,
          model="LLAMA3_8B widths, 32 layers, bf16, random weights",
          seconds=time.perf_counter() - t0, **wide_gen)
+    t0 = time.perf_counter()
+    w128, w128_launches, w128_step, w128_ec, w128_prompts = engine_wide128(
+        E, I8, DM, kernels, cfg, params)
+    w128_cmp = {"bf16": w128_step}
+    c = dataclasses.replace(cfg, n_layers=2)
+    e = E.Engine(c, init_params(c, torch.Generator(device="cuda")
+                                .manual_seed(0)), w128_ec)
+    w128_cmp["bf16_2_layers"] = step_logits(
+        E, I8, c, e, w128_prompts, STEP_VARIANTS,
+        new_tokens=2 * w128_ec.scan_chunk + 2)
+    del e
+    torch.cuda.empty_cache()
+    emit("engine_wide128", nvidia_smi=smi,
+         model="LLAMA3_8B widths, 32 layers, bf16, random weights",
+         seconds=time.perf_counter() - t0, **w128)
+    emit("decode_step_wide128", **w128_cmp, gates=step_gates(w128_cmp))
     t0 = time.perf_counter()
     wide, wide_launches, wide_step, wide_ec, wide_prompts = engine_wide(
         E, I8, kernels, cfg, params)
@@ -6081,7 +6250,9 @@ def main() -> int:
          + fabric_launches.get("paged_decode_attention", 0)
          + fbench_launches.get("paged_decode_attention", 0)
          + bench_launches.get("paged_decode_attention", 0)
-         + shapes_launches["paged_decode_attention"]),
+         + shapes_launches["paged_decode_attention"]
+         + wide_launches["paged_decode_attention"]
+         + w128_launches["paged_decode_attention"]),
         ("decode_mlp", "tpu_dra_torch/csrc/decode_mlp_sm90.cu",
          "tpu_dra/workloads/ops/decode_mlp.py:102", parity["decode_mlp_b8"],
          timing["decode_mlp"], engine_launches["decode_mlp_sm90"]
@@ -6093,6 +6264,7 @@ def main() -> int:
          + boot_launches["decode_mlp_sm90"]
          + wide_launches["decode_mlp_sm90"]
          + wide_gen_launches["decode_mlp_sm90"]
+         + w128_launches["decode_mlp_sm90"]
          + shapes_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
         # for M <= 64 (decode) and the wgmma tile for M > 64 (prefill).
@@ -6190,6 +6362,7 @@ def main() -> int:
                     for b in MLP_TIMING_ROWS if b != 8},
                 launches_at_wide_batches={
                     "engine_wide": wide_launches["decode_mlp_sm90"],
+                    "engine_wide128": w128_launches["decode_mlp_sm90"],
                     "generate_wide": wide_gen_launches["decode_mlp_sm90"]})
         if "library_note" in t and name.startswith("decode_mlp_"):
             rows[-1]["library_note"] = t["library_note"]

@@ -2,7 +2,8 @@
 """Where the tensor-core decode MLP (tpu_dra_torch/csrc/decode_mlp_sm90.cu)
 spends its time, on one NVIDIA GPU.
 
-    python3 decode_mlp_ablation.py [variants] [plans] [wide] [generate]
+    python3 decode_mlp_ablation.py [variants] [plans] [wide] [wide128]
+                                   [generate]
 
 (no argument runs every phase). Phases, one JSON line each after the
 card's nvidia-smi line, all at Llama-3-8B widths (d = 4096, ffn =
@@ -32,7 +33,14 @@ card's nvidia-smi line, all at Llama-3-8B widths (d = 4096, ffn =
    the library chain on the same inputs, and how many clusters of each
    gate/up configuration the card holds at once; then phase 1's
    variants at B = 32 and B = 64.
-4. generate — greedy_generate (32 layers, random weights, b = 8,
+4. wide128 — the same at B = 96 and B = 128 (16 planes: 64-column
+   CTAs, the two warpgroups splitting the rows) under the wrapper's plan
+   and WIDE128_PLANS, beside the blocked route it replaced (the kernel
+   launched on each block of 64 rows) and the library chain; then the
+   variants at B = 128, with the B operand's piece copies taken out
+   besides (no_b_copy: xn at gate/up, act at down), which says whether
+   the B operand or W's copies set each pass's pace.
+5. generate — greedy_generate (32 layers, random weights, b = 8,
    prompt 256, 32 new tokens, bf16) with the decode MLP on the
    tensor-core route ("sm90") or forced onto decode_mlp.cu ("simt", the
    route before it), in turns sm90, simt, simt, sm90 after one untimed
@@ -81,6 +89,13 @@ WIDE_VARIANTS = {
     "no_products": [(WG_PRODUCTS, WG_PRODUCTS.replace("kMats;", "0;"))],
     "no_epilogue": [(LOOP_END, "  if (a.M > 0) return;\n" + LOOP_END)],
 }
+# At 16 planes (B = 96, 128) also: no copies of the B operand's piece
+# (the ring's W copies run on).
+B_COPY = ("          cp_async16(stage + kWBytes + b_chunk(kWg, kRows, p_row, "
+          "r, p_c),\n                     ok ? p_src + static_cast<size_t>"
+          "(r) * a.K : a.b_in, ok);\n")
+WIDE128_VARIANTS = {**WIDE_VARIANTS,
+                    "no_b_copy": [(B_COPY, "          (void)ok;\n")]}
 # pass: ((width, cluster, slots or None for the wrapper's), ...).
 PLANS = {
     "gate_up": ((128, 1, 3), (128, 1, 4), (128, 1, 5), (64, 1, None),
@@ -94,6 +109,11 @@ WIDE_PLANS = {
     + ((64, 2, None), (64, 4, None)),
     "down": ((64, 1, None), (128, 2, None), (128, 1, None), (64, 4, None),
              (128, 4, None)),
+}
+# The same for B = 96 and 128: 64-column CTAs only.
+WIDE128_PLANS = {
+    "gate_up": ((64, 1, 4), (64, 1, 5), (64, 2, None)),
+    "down": ((64, 1, None), (64, 3, None), (64, 4, None), (64, 2, 3)),
 }
 ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p]
@@ -210,9 +230,14 @@ def plans_phase(C, DM, kernels, batches=(8, 16), plans=None,
         if yardsticks:
             tree = {n: {"kernel": w} for n, w in zip(
                 ("w_gate", "w_up", "w_down"), call.ws)}
-            row["decode_mlp_cu_ms"] = C.time_ms(
-                lambda: DM._simt_decode_mlp(call.x, call.scale, *call.ws,
-                                            1e-5), flush)
+            if b <= C.MLP_OLD_ROW_BLOCK:
+                row["decode_mlp_cu_ms"] = C.time_ms(
+                    lambda: DM._simt_decode_mlp(call.x, call.scale,
+                                                *call.ws, 1e-5), flush)
+            else:
+                row["blocked_64_ms"] = C.time_ms(
+                    lambda: C.mlp_blocked(DM, call.x, call.scale, call.ws,
+                                          call.out), flush)
             row["library_chain_ms"] = C.yardstick_ms(
                 lambda: C.mlp_library_chain(call.x, call.scale, tree), flush)
         for which, options in (plans or PLANS).items():
@@ -312,8 +337,9 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     rates = C.peaks(torch.cuda.get_device_name(0))
-    phases = sys.argv[1:] or ["variants", "plans", "wide", "generate"]
-    unknown = set(phases) - {"variants", "plans", "wide", "generate"}
+    names = ["variants", "plans", "wide", "wide128", "generate"]
+    phases = sys.argv[1:] or names
+    unknown = set(phases) - set(names)
     if unknown:
         print(f"decode_mlp_ablation: unknown phases {sorted(unknown)}",
               file=sys.stderr)
@@ -330,6 +356,12 @@ def main() -> int:
         for b in (32, 64):
             C.emit(f"variants_b{b}", **variants_phase(C, DM, kernels, rates,
                                                       b, fns))
+    if "wide128" in phases:
+        C.emit("wide128", **plans_phase(C, DM, kernels, (96, 128),
+                                        WIDE128_PLANS, yardsticks=True))
+        fns = build_variants(kernels, {**VARIANTS, **WIDE128_VARIANTS})
+        C.emit("variants_b128", **variants_phase(C, DM, kernels, rates, 128,
+                                                 fns))
     if "generate" in phases:
         cfg = LLAMA3_8B
         params = init_params(cfg,

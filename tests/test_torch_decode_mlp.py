@@ -2,8 +2,10 @@
 
 ``torch`` (the twin of ``_xla_decode_mlp``) and ``reference`` (the twin
 of the fp32 oracle) against JAX's xla, reference and Pallas-interpret
-paths at d=256, ffn=512, B in {4, 1, 8, 13, 16, 32, 64, 128} (128: two
-row blocks of the card's launches), fp32 and bf16, on the same
+paths at d=256, ffn=512, B in {4, 1, 8, 13, 16, 32, 64, 96, 128, 200}
+(96 and 128: one launch of the card's tensor-core kernel at 16 planes,
+two blocks of its fp32 kernel; 200: two blocks of 128 rows), fp32 and
+bf16, on the same
 numpy-seeded inputs. The fp32 bar is the one
 tests/test_workloads.py holds the Pallas kernel to: relative error
 below 1e-5. The bf16 bar is 2e-2 of the largest |output|: the plain
@@ -15,8 +17,9 @@ here its plan (``mlp_sm90_plan``), its route (``_decode_mlp_route``), the
 row blocks a call launches (``row_blocks``) and a numpy model of its
 data movement (copies into the swizzled ring, ldmatrix.trans and
 B-fragment lane maps over 1, 2, 4 or 8 planes of rows, the m16n8k16
-product, the warp and cluster reductions) are held to x @ W and to the
-Pallas body.
+product, the wgmma descriptors at 4, 8 and 16 planes with the two
+warpgroups' row halves at 16, the warp and cluster reductions) are
+held to x @ W and to the Pallas body.
 """
 
 import numpy as np
@@ -87,10 +90,10 @@ def _twin_case(seed, b, dtype):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_decode_mlp_matches_jax(monkeypatch, seed):
     """At B = 4, at the tensor-core kernel's row counts 1, 8, 13, 16,
-    32 and 64, and at 128 (two row blocks on the card), fp32 and
-    bf16."""
+    32, 64, 96 and 128, and at 200 (two row blocks on the card), fp32
+    and bf16."""
     monkeypatch.setattr(JA, "_INTERPRET", True)
-    for b in (4, 1, 8, 13, 16, 32, 64, 128):
+    for b in (4, 1, 8, 13, 16, 32, 64, 96, 128, 200):
         for dtype in ("fp32", "bf16"):
             _twin_case(seed, b, dtype)
 
@@ -140,9 +143,10 @@ def test_decode_mlp_bf16_torch_rounds_like_the_op_chain():
 # --- the tensor-core kernel (csrc/decode_mlp_sm90.cu): plan, route and a
 # model of its data movement ------------------------------------------
 
-PLAN_SHAPES = [(b, d, f) for b in (1, 8, 13, 16, 17, 32, 64)
+PLAN_SHAPES = [(b, d, f) for b in (1, 8, 13, 16, 17, 32, 64, 65, 96, 128)
                for d, f in ((4096, 14336), (64, 128))]
-PLANES = {1: 1, 8: 1, 13: 2, 16: 2, 17: 4, 32: 4, 64: 8}
+PLANES = {1: 1, 8: 1, 13: 2, 16: 2, 17: 4, 32: 4, 64: 8, 65: 16, 96: 16,
+          128: 16}
 
 
 def _rank_steps(pp, steps):
@@ -167,20 +171,26 @@ def _rank_steps(pp, steps):
 def test_mlp_sm90_plan_covers_every_column_and_k_once(b, d, ffn):
     """Each pass: every 16-column tile of N belongs to one warp of one
     CTA column, the ranks' K ranges tile [0, ceil(K / 16)) k16 steps in
-    rank order and each warp slot takes its share of every stage once;
-    the ring and xn's rows fit shared memory, and so do the warps' sums
-    that overlay them; a cluster is portable."""
+    rank order and each warp slot takes its share of every stage once
+    (at 16 planes each of the two row groups takes every step of its
+    rows); the ring and xn's rows fit shared memory, and so do the
+    warps' sums that overlay them (at 16 planes a tile's two warps share
+    a slot); a cluster is portable; at most one CTA an SM."""
     plan = TDM.mlp_sm90_plan(b, d, ffn, 132)
     assert plan.planes == PLANES[b] == TDM.planes_of(b)
     for pp, k, n, gate_up in ((plan.gate_up, d, ffn, True),
                               (plan.down, ffn, d, False)):
         assert pp.width in (64, 128) and pp.warps_n == pp.width // 16
-        assert pp.warps_n * pp.warps_k == 8
+        assert pp.row_groups == (2 if plan.planes == 16 else 1)
+        if pp.row_groups == 2:
+            assert pp.width == 64 and pp.warps_k == 1
+        assert pp.warps_n * pp.warps_k * pp.row_groups == 8
         assert pp.rows == 16384 // ((2 if gate_up else 1) * pp.width * 2)
         assert (pp.rows // 16) % pp.warps_k == 0
         assert 1 <= pp.cluster <= 8 and 3 <= pp.slots <= 8
         assert pp.smem <= 232448 - 1024
-        assert pp.smem >= 8 * (2 if gate_up else 1) * 8 * plan.planes * 64
+        assert pp.smem >= (8 // pp.row_groups * (2 if gate_up else 1) * 8
+                           * plan.planes * 64)
         tiles = [y * pp.width + 16 * sn for y in range(pp.col_ctas)
                  for sn in range(pp.warps_n)]
         assert [c for c in tiles if c < n] == list(range(0, n, 16))
@@ -191,25 +201,33 @@ def test_mlp_sm90_plan_covers_every_column_and_k_once(b, d, ffn):
         assert [s for r in per_rank for s in r] == list(range(steps))
 
 
-@pytest.mark.parametrize("b", [1, 8, 13, 16])
+@pytest.mark.parametrize("b", [1, 8, 13, 16, 65, 96, 128])
 def test_mlp_sm90_plan_fills_one_wave(b):
     """At Llama-3-8B widths each pass is one wave of at most one CTA an
     SM (grids of clusters larger than 2 within three quarters of the
     SMs): gate/up on 112 CTAs of 128 columns, down on 128 CTAs of 64
-    columns in clusters of 2, its K split in halves."""
+    columns in clusters of 2, its K split in halves. At 16 planes (65 to
+    128 rows) a CTA is 64 columns, so down keeps its one wave and
+    gate/up takes the fewest CTAs there are, 224 (ffn / 64, no K split:
+    1.7 waves of one CTA an SM)."""
     plan = TDM.mlp_sm90_plan(b, 4096, 14336, 132)
-    for pp in (plan.gate_up, plan.down):
-        assert pp.ctas <= (132 if pp.cluster <= 2 else 99), pp
-    assert plan.gate_up.ctas == 112 and plan.gate_up.cluster == 1
+    assert plan.down.ctas <= 132 and plan.down.cluster <= 2
     assert plan.down.ctas == 128 and plan.down.cluster == 2
+    if plan.planes == 16:
+        assert plan.gate_up.ctas == 224 and plan.gate_up.cluster == 1
+        assert plan.gate_up.width == plan.down.width == 64
+        return
+    assert plan.gate_up.ctas <= 132
+    assert plan.gate_up.ctas == 112 and plan.gate_up.cluster == 1
 
 
 def test_mlp_sm90_plan_refuses_more_rows_than_a_launch_takes():
-    """A plan is one launch's: 1..64 rows; larger batches are planned a
-    row block at a time."""
-    for b in (0, 65, 128):
+    """A plan is one launch's: 1..128 rows; larger batches are planned
+    a row block at a time."""
+    for b in (0, 129, 200):
         with pytest.raises(ValueError, match="rows"):
             TDM.mlp_sm90_plan(b, 4096, 14336, 132)
+    assert TDM.mlp_sm90_plan(128, 4096, 14336, 132).planes == 16
 
 
 def test_mlp_sm90_plan_reads_only_its_arguments(monkeypatch):
@@ -242,6 +260,8 @@ ROUTE_CASES = [
     ("bf16_b32", dict(b=32, d=256, ffn=512), "sm90"),
     ("bf16_b64", dict(b=64, d=256, ffn=512), "sm90"),
     ("bf16_b128_row_blocks", dict(b=128, d=256, ffn=512), "sm90"),
+    ("bf16_b96", dict(b=96, d=256, ffn=512), "sm90"),
+    ("bf16_b200_row_blocks", dict(b=200, d=256, ffn=512), "sm90"),
     ("fp32_b8", dict(b=8, d=256, ffn=512, dtype=torch.float32), "simt"),
     ("fp32_b16", dict(b=16, d=256, ffn=512, dtype=torch.float32), "simt"),
     ("fp32_b32", dict(b=32, d=256, ffn=512, dtype=torch.float32), "simt"),
@@ -256,7 +276,7 @@ ROUTE_CASES = [
 @pytest.mark.parametrize("dims,want", [c[1:] for c in ROUTE_CASES],
                          ids=[c[0] for c in ROUTE_CASES])
 def test_decode_mlp_route(dims, want):
-    """sm90 for bf16 at any B (in blocks of 64 rows), d and ffn
+    """sm90 for bf16 at any B (in blocks of 128 rows), d and ffn
     multiples of 8, x and the weights 16-byte aligned; simt for fp32
     and the rest."""
     x, ws = _route_tensors(**dims)
@@ -274,9 +294,18 @@ def test_decode_mlp_route_needs_contiguous_bf16_weights():
     assert TDM._decode_mlp_route(x, ws) == "simt"
 
 
-ROW_BLOCK_CASES = {1: [(0, 1)], 64: [(0, 64)], 65: [(0, 64), (64, 65)],
-                   128: [(0, 64), (64, 128)],
-                   200: [(0, 64), (64, 128), (128, 192), (192, 200)]}
+# b: the row blocks of each route (sm90: 128 rows a launch, simt: 64).
+ROW_BLOCK_CASES = {
+    1: {"sm90": [(0, 1)], "simt": [(0, 1)]},
+    64: {"sm90": [(0, 64)], "simt": [(0, 64)]},
+    65: {"sm90": [(0, 65)], "simt": [(0, 64), (64, 65)]},
+    96: {"sm90": [(0, 96)], "simt": [(0, 64), (64, 96)]},
+    128: {"sm90": [(0, 128)], "simt": [(0, 64), (64, 128)]},
+    129: {"sm90": [(0, 128), (128, 129)],
+          "simt": [(0, 64), (64, 128), (128, 129)]},
+    200: {"sm90": [(0, 128), (128, 200)],
+          "simt": [(0, 64), (64, 128), (128, 192), (192, 200)]},
+}
 # C entry: argument positions of (x, the output, the batch) and, at the
 # down half, of act.
 _ENTRY_ARGS = {
@@ -301,12 +330,13 @@ def _row_of(ptr, t):
                                          (torch.float32, "simt")])
 def test_decode_mlp_runs_row_blocks_of_64(monkeypatch, b, dtype, route):
     """A call over B rows launches its route's C entry once a block of
-    at most 64 consecutive rows: x, the output and (down half) act at
-    the block's first row, the block's rows as the batch, one launch
-    counted a block. So do the fused block and both halves on a model
-    shard (gate/up writes act block by block, down reads it so). The C
-    entries are stood in for by a recorder on CPU tensors."""
-    assert TDM.row_blocks(b) == ROW_BLOCK_CASES[b]
+    consecutive rows, at most 128 on sm90 (the tensor-core kernel at 16
+    planes) and 64 on simt (decode_mlp.cu): x, the output and (down
+    half) act at the block's first row, the block's rows as the batch,
+    one launch counted a block. So do the fused block and both halves on
+    a model shard (gate/up writes act block by block, down reads it so).
+    The C entries are stood in for by a recorder on CPU tensors."""
+    assert TDM.row_blocks(b, route) == ROW_BLOCK_CASES[b][route]
     x, scale, ws = _inputs(40 + b, b=b, d=64, f=128)
     conv = lambda a: torch.from_numpy(a).to(dtype)  # noqa: E731
     tx, ts, tt = conv(x), conv(scale), _tree(ws, conv)
@@ -327,7 +357,7 @@ def test_decode_mlp_runs_row_blocks_of_64(monkeypatch, b, dtype, route):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
     assert TDM._decode_mlp_route(tx, (wg, wu, wd)) == route
-    blocks = ROW_BLOCK_CASES[b]
+    blocks = ROW_BLOCK_CASES[b][route]
     TDM.kernels.reset_launches()
     out = TDM._cuda_decode_mlp(tx, ts, wg, wu, wd, EPS)
     act = TDM._cuda_gate_up(tx, ts, wg, wu, EPS, wg.shape[1])
@@ -383,10 +413,15 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
     K-major swizzled rows, each warpgroup reads A and B through its
     wgmma descriptors (A: the MN-major W block, transpose-A; B: the
     piece), and its m64nNk16 accumulator fragment lands in each warp's
-    slot of the sums."""
+    slot of the sums; at 16 planes the two warpgroups take one 64-column
+    block, every k16 step and a half of the rows each (B from 64 rows x
+    128 bytes on for the second), and a tile's two warps fill one
+    slot."""
     gate_up = len(mats) == 2
     wg = planes >= 4
     rows_pad = 8 * planes
+    split = pp.row_groups == 2  # the warpgroups split the rows
+    wg_rows = rows_pad // pp.row_groups  # a warpgroup's rows
     rows = pp.rows
     sps = rows // 16
     steps = -(-k // 16)
@@ -419,7 +454,7 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
                             dst = _b_chunk(wg, rows_pad, xs_row, r, c) // 2
                             xs[dst:dst + 8] = operand[r, kk:kk + 8]
             acc = np.zeros((8, len(mats), planes, 16, 8), dtype=acc_dtype)
-            dw = np.zeros((2, len(mats), 64, rows_pad), dtype=acc_dtype)
+            dw = np.zeros((2, len(mats), 64, wg_rows), dtype=acc_dtype)
             for s in range(n_stages):
                 img = np.zeros((w_bytes + rows_pad * p_row) // 2)
                 for j in range(4):  # a thread's W chunks
@@ -457,19 +492,21 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
                 if wg:  # each warpgroup's wgmma products
                     for wgi in range(2):
                         cb, kh = wgi % wg_n, wgi // wg_n
-                        for i in range(4 // len(mats)):
+                        if split:  # block 0, every step, rows of half wgi
+                            cb, kh = 0, 0
+                        for i in range(sps // pp.warps_k):
                             jj = kh + pp.warps_k * i
                             kq = np.arange(16)
                             kr = 16 * jj + kq  # the stage's k rows
                             src, b0 = img, w_bytes  # the stage's piece
                             kk = 16 * jj + kq
-                            nr = np.arange(rows_pad)
+                            nr = wgi * wg_rows * split + np.arange(wg_rows)
                             b_addr = (b0 + (kk[:, None] // 64)
                                       * (rows_pad * 128) + nr[None, :] * 128
                                       + ((((kk[:, None] % 64) // 8)
                                           ^ (nr[None, :] % 8)) << 4)
                                       + (kk[:, None] % 8) * 2) // 2
-                            bmat = src[b_addr]  # 16 x rows_pad
+                            bmat = src[b_addr]  # 16 x wg_rows
                             mc = np.arange(64)
                             for mat in range(len(mats)):
                                 a_addr = (mat * rows * pp.width * 2
@@ -529,16 +566,19 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
             # The epilogue's stores: lane (g, t) c0..c3 at red[w][mat][row]
             # [column] (at wgmma, warp w of warpgroup (cb, kh) holds rows
             # 16 w .. 16 w + 15 of its m64 product: the tile 4 cb + w's
-            # columns, slot (4 cb + w) warps_k + kh), then the warps of a
-            # tile in order.
+            # columns, slot (4 cb + w) warps_k + kh; at 16 planes slot w,
+            # the warpgroup's rows), then the warps of a tile in order.
             rd = np.zeros((8, len(mats), rows_pad, 16), dtype=acc_dtype)
             for warp in range(8):
                 if wg:
                     wgi, w = warp // 4, warp % 4
                     cb, kh = wgi % wg_n, wgi // wg_n
                     slot = (4 * cb + w) * pp.warps_k + kh
-                    rd[slot] = dw[wgi][:, 16 * w:16 * w + 16, :].transpose(
-                        0, 2, 1)
+                    r0_ = 0
+                    if split:
+                        slot, r0_ = w, wgi * wg_rows
+                    rd[slot][:, r0_:r0_ + wg_rows] = dw[wgi][
+                        :, 16 * w:16 * w + 16, :].transpose(0, 2, 1)
                     continue
                 for mat in range(len(mats)):
                     for p in range(planes):
@@ -571,7 +611,8 @@ def _pass_model(pp, planes, mats, operand, m_rows, k, n, acc_dtype):
 MODEL_CASES = [(1, 64, 128, 132), (8, 48, 96, 132), (16, 32, 64, 132),
                (13, 80, 40, 132), (8, 256, 512, 8), (13, 256, 512, 8),
                (17, 80, 40, 132), (32, 48, 96, 132), (64, 80, 40, 132),
-               (64, 208, 72, 132)]
+               (64, 208, 72, 132), (96, 80, 40, 132), (128, 208, 72, 132),
+               (128, 256, 512, 8)]
 
 
 @pytest.mark.parametrize("m,k,n,sms", MODEL_CASES,
@@ -580,8 +621,9 @@ MODEL_CASES = [(1, 64, 128, 132), (8, 48, 96, 132), (16, 32, 64, 132),
 def test_mlp_sm90_fragment_maps_compute_x_times_w(m, k, n, sms):
     """Both passes' lane/register maps, run in float64 on random integer
     tiles under the wrapper's plan (one stage or several, clusters, K
-    ragged at 40, 80 and 208 columns, N ragged at 40 and 72; 1, 2, 4
-    and 8 planes of rows), give x @ W exactly."""
+    ragged at 40, 80 and 208 columns, N ragged at 40 and 72; 1, 2, 4,
+    8 and 16 planes of rows, 96 rows padding 16 planes), give x @ W
+    exactly."""
     rng = np.random.default_rng(m * 1000 + k + sms)
     x = rng.integers(-8, 9, (m, k)).astype(np.float64)
     w0 = rng.integers(-64, 65, (k, n)).astype(np.float64)
@@ -617,7 +659,7 @@ def _kernel_mlp_model(x, scale, wg, wu, wd, eps, plan):
     return _bf16(x32 + s)
 
 
-@pytest.mark.parametrize("b", [1, 8, 13, 16, 32, 64])
+@pytest.mark.parametrize("b", [1, 8, 13, 16, 32, 64, 96, 128])
 def test_mlp_sm90_model_reproduces_the_pallas_body_at_bf16(monkeypatch, b):
     """The kernel's model at bf16 (d = 256, ffn = 512, the wrapper's
     plan on 132 SMs) against the JAX Pallas body in interpret mode

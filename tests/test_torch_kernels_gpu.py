@@ -219,14 +219,17 @@ def _mlp_weights(tree):
     return tuple(tree[n]["kernel"] for n in ("w_gate", "w_up", "w_down"))
 
 
-@pytest.mark.parametrize("b", [1, 8, 13, 16, 17, 32, 64, 65, 128])
+@pytest.mark.parametrize("b", [1, 8, 13, 16, 17, 32, 64, 65, 96, 128, 129,
+                               200])
 def test_decode_mlp_kernel_bf16_8b_shape(cuda_device, b):
     """bf16 at 8B widths takes the tensor-core kernel
-    (decode_mlp_sm90.cu) at every decode row count: 1, 2, 4 or 8 planes
-    of rows up to 64, then blocks of 64 rows, one launch a block."""
+    (decode_mlp_sm90.cu) at every decode row count: 1, 2, 4, 8 or 16
+    planes of rows up to 128 (65-128 in one pass over the weights), then
+    blocks of 128 rows, one launch a block."""
     x, scale, tree = _mlp(b, b, 4096, 14336, torch.bfloat16, cuda_device)
     assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "sm90"
-    blocks = -(-b // 64)
+    blocks = -(-b // 128)
+    assert len(TDM.row_blocks(b, "sm90")) == blocks
     kernels.reset_launches()
     got = TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda").float()
     ref = TDM.decode_mlp(x, scale, tree, 1e-5, impl="reference").float()
@@ -256,6 +259,8 @@ def _column_block(tree, j, m):
     (17, 256, 512, 2, torch.bfloat16, "sm90"),
     (65, 256, 512, 2, torch.bfloat16, "sm90"),
     (65, 256, 512, 2, torch.float32, "simt"),
+    (128, 4096, 14336, 2, torch.bfloat16, "sm90"),
+    (200, 256, 512, 2, torch.bfloat16, "sm90"),
 ])
 def test_decode_mlp_halves_on_a_model_shard(cuda_device, b, d, ffn, m, dtype,
                                             route):
@@ -264,8 +269,8 @@ def test_decode_mlp_halves_on_a_model_shard(cuda_device, b, d, ffn, m, dtype,
     half's act of every column block is those columns of the whole
     gate/up half bit for bit, and the down half over the blocks'
     concatenation is the fused kernel's output bit for bit. Each half
-    counts one launch a block of 64 rows under its own kernel's
-    name."""
+    counts one launch a row block of its route (128 rows on sm90, 64 on
+    simt) under its own kernel's name."""
     x, scale, tree = _mlp(b + d + m, b, d, ffn, dtype, cuda_device)
     blocks = [_column_block(tree, j, m) for j in range(m)]
     assert TDM._gate_up_route(x, blocks[0]["w_gate"]["kernel"],
@@ -278,7 +283,7 @@ def test_decode_mlp_halves_on_a_model_shard(cuda_device, b, d, ffn, m, dtype,
     assert TDM._down_route(x, act, tree["w_down"]["kernel"]) == route
     got = TDM.mlp_down(x, act, tree, impl="cuda")
     prefix = "decode_mlp_sm90" if route == "sm90" else "decode_mlp"
-    n_rows = -(-b // 64)  # blocks of 64 rows
+    n_rows = len(TDM.row_blocks(b, route))
     assert kernels.LAUNCHES[f"{prefix}_gate_up"] == m * n_rows
     assert kernels.LAUNCHES[f"{prefix}_down"] == n_rows
     assert kernels.LAUNCHES["decode_mlp"] == kernels.LAUNCHES[
@@ -390,7 +395,8 @@ def test_decode_mlp_simt_route_serves_fp32_and_wide_batches(
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     else:
         _assert_bf16_close(got, ref)
-    blocks = -(-b // 64)
+    blocks = len(TDM.row_blocks(b, route))
+    assert blocks == -(-b // (64 if route == "simt" else 128))
     assert kernels.LAUNCHES["decode_mlp"] == blocks
     assert kernels.LAUNCHES["decode_mlp_sm90"] == (
         blocks if route == "sm90" else 0)
@@ -477,8 +483,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                                         device=cuda_device), impl="cuda",
     )
     assert torch.isfinite(over[0]).all() and torch.isnan(over[1]).all()
-    # The wrapper takes 65 rows as two blocks; each C entry refuses more
-    # than 64 rows in one call.
+    # The wrapper takes 65 fp32 rows as two blocks; decode_mlp.cu's C
+    # entry refuses more than 64 rows in one call.
     x, scale, tree = _mlp(4, 65, 64, 96, torch.float32, cuda_device)
     kernels.reset_launches()
     TDM.decode_mlp(x, scale, tree, 1e-5, impl="cuda")
@@ -498,7 +504,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         TDM.decode_mlp(x[:4].half(), scale, tree, 1e-5, impl="cuda")
     # The tensor-core route: bf16 operands of another shape or dtype are
     # refused before any launch, and its C entry refuses a plan it does
-    # not take (a cluster of 9), an unaligned pointer or 65 rows.
+    # not take (a cluster of 9), an unaligned pointer or 129 rows.
     x, scale, tree = _mlp(5, 8, 256, 512, torch.bfloat16, cuda_device)
     assert TDM._decode_mlp_route(x, _mlp_weights(tree)) == "sm90"
     kernels.reset_launches()
@@ -522,7 +528,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
             torch.cuda.current_stream().cuda_stream]
     assert fn(*args) == 0
     for i, v in ((12, 9), (11, 96), (14, 9), (0, x.data_ptr() + 2),
-                 (8, 65)):
+                 (8, 129)):
         wrong = list(args)
         wrong[i] = v
         with pytest.raises(RuntimeError, match="cudaError"):

@@ -1,23 +1,24 @@
 // Fused decode MLP block for Hopper (sm_90a), bf16 on the tensor cores:
-//   out = x + down(silu(gate(rms(x))) * up(rms(x)))   for x [B, d], B <= 64.
+//   out = x + down(silu(gate(rms(x))) * up(rms(x)))   for x [B, d], B <= 128.
 //
 // Replaces: tpu_dra/workloads/ops/decode_mlp.py `_decode_mlp_kernel`
 // (:102, wrapper `_pallas_decode_mlp` :155, pallas_call :176) on the
 // route ops/decode_mlp.py `_decode_mlp_route` calls "sm90": bf16,
 // d and ffn multiples of 8, x and the weights contiguous and 16-byte
 // aligned (every bf16 decode step at Llama-3-8B widths). A launch takes
-// 1 <= B <= 64 rows; the wrapper runs larger batches as consecutive
-// blocks of 64 rows, each a full pass over the weights.
+// 1 <= B <= 128 rows, as the Pallas body holds the whole batch in one
+// block; the wrapper runs larger batches as consecutive blocks of 128
+// rows, each a full pass over the weights.
 // decode_mlp.cu keeps fp32 and the other shapes.
 // Numerics are the Pallas body's: xn = bf16(x32 * rsqrt(mean(x32^2) +
 // eps) * scale32); gate and up summed in fp32; act = bf16(silu(g) * u)
 // with silu in fp32; out = bf16(x32 + act . w_down), summed in fp32.
 //
 // What bounds it on an H100: bytes. Every weight byte feeds 2 B flops,
-// so even at B = 64 the 3 d ffn bf16 weights (352 MB at d = 4096,
-// ffn = 14336) take 0.105 ms at 3.35 TB/s against 0.023 ms of tensor
+// so even at B = 128 the 3 d ffn bf16 weights (352 MB at d = 4096,
+// ffn = 14336) take 0.105 ms at 3.35 TB/s against 0.046 ms of tensor
 // work at the bf16 peak. The design reads every weight byte from device
-// memory once for any B <= 64: rows are never tiled over CTAs, every
+// memory once for any B <= 128: rows are never tiled over CTAs, every
 // CTA's products cover all the rows of its columns.
 //   - two launches of one body, gate/up (w_gate and w_up side by side,
 //     K = d, N = ffn) and down (w_down, K = ffn, N = d); the down
@@ -35,8 +36,9 @@
 //     cp.async.mbarrier.arrive) and an "empty" one (every thread has
 //     read it), and `slots - 1` stages stay in flight with no CTA-wide
 //     barrier in the loop;
-//   - the products by the rows' 8-row planes, PLANES = 1, 2, 4 or 8 for
-//     B <= 8, 16, 32, 64, on the tensor cores with fp32 accumulators.
+//   - the products by the rows' 8-row planes, PLANES = 1, 2, 4, 8 or 16
+//     for B <= 8, 16, 32, 64, 128, on the tensor cores with fp32
+//     accumulators.
 //     W^T is the A operand and xn^T (act^T at down) the B operand:
 //       - 1 and 2 planes: mma.sync m16n8k16, W's A fragment (16 columns
 //         x 16 k) straight from the stage by ldmatrix.x4.trans (the 8 x
@@ -49,11 +51,16 @@
 //         memory) and keeps bf16 xn resident, rows padded by 16 bytes;
 //         down streams act's piece of each stage (its k of every row) in
 //         the slot beside w_down's rows;
-//       - 4 and 8 planes: wgmma m64nNk16 (N = 32 or 64 rows), each
+//       - 4, 8 and 16 planes: wgmma m64nNk16 (N = 32 or 64 rows), each
 //         warpgroup one 64-column block of W, read in place through a
 //         descriptor (the MN-major stage block, transpose-A), against
 //         the B operand's piece of the stage in K-major 128-byte-swizzled
-//         rows. Both passes stream that piece: rms_kernel writes xn
+//         rows. At 16 planes the CTA is one 64-column block and its two
+//         warpgroups split the rows, 64 each (an m64n128 accumulator of
+//         gate and up would be 128 floats a thread): each keeps the
+//         8-plane accumulator, takes every k16 step of the stage, and the
+//         stage's W, copied from device memory once, is read twice from
+//         shared memory. Both passes stream that piece: rms_kernel writes xn
 //         [B, d] first (the gate/up launch a programmatic dependent of
 //         it, filling its W stages meanwhile), since xn of 17-64 rows
 //         resident over a K range would force a K split over clusters,
@@ -66,7 +73,8 @@
 //   - the K reduction stays on chip: warp w takes the 16-column tile
 //     w / warps_k (warps_n = width / 16 tiles) and every warps_k-th k16
 //     step of each stage (at wgmma its warpgroup's block and share of
-//     the steps); a thread-block cluster of up to 8 CTAs (the launch's
+//     the steps; at 16 planes tile w % 4 of its warpgroup's rows, every
+//     step); a thread-block cluster of up to 8 CTAs (the launch's
 //     cluster attribute, picked per pass by the plan) splits K further.
 //     The warps of a tile meet in shared memory (over the ring, which
 //     at 8 planes of gate/up needs 64 KB for them) and the CTAs of a
@@ -132,6 +140,11 @@ __host__ __device__ constexpr int stage_rows(bool gate_up, int width) {
 // chunk c of row r at c ^ (r % 8)), each block 1024-byte aligned.
 __host__ __device__ constexpr bool wgmma_planes(int planes) {
   return planes >= 4;
+}
+// At 16 planes the two warpgroups split the rows (64 each) of one
+// 64-column block instead of splitting its columns or its k16 steps.
+__host__ __device__ constexpr bool row_split(int planes) {
+  return planes == 16;
 }
 // Down streams act's piece of each stage into the stage's slot; gate/up
 // keeps xn resident over its K range at mma.sync and, at wgmma, streams
@@ -230,14 +243,18 @@ mlp_sm90_kernel(const Pass a) {
   constexpr int kRows = 8 * PLANES;  // x's rows, padded
   constexpr int kMats = GATE_UP ? 2 : 1;
   constexpr int kChunks = kWBytes / 16 / kThreads;  // a thread's, a stage
-  constexpr int kWarpSteps = 4 / kMats;  // k16 steps a warp takes a stage
   constexpr int kRed = kMats * kRows * 16;  // a warp's sums
   constexpr bool kWg = wgmma_planes(PLANES);
   constexpr bool kStream = streams_b(GATE_UP, PLANES);  // else xn resident
+  constexpr bool kRowSplit = row_split(PLANES);  // width 64 then
+  // Planes of a warpgroup's rows, and the k16 steps a warp takes a stage
+  // (a stage's rows / 16 over the warps of a tile that split K).
+  constexpr int kWgPlanes = kRowSplit ? PLANES / 2 : PLANES;
+  constexpr int kWarpSteps = (kRowSplit ? 8 : 4) / kMats;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[2 * kMaxSlots];  // full, empty
-  __shared__ float ssq[kRows];   // gate/up: the rank's sums of x^2
-  __shared__ float rstd[kRows];
+  __shared__ float ssq[kStream ? 1 : kRows];  // gate/up: the rank's x^2 sums
+  __shared__ float rstd[kStream ? 1 : kRows];
   // wgmma's swizzled operands want a 1024-byte-aligned base.
   const uint32_t raw_base =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -254,10 +271,13 @@ mlp_sm90_kernel(const Pass a) {
   const int warps_k = kWarps / warps_n;
   // The warp's 16-column tile sn and its share wk of the k16 steps. At
   // wgmma a warpgroup takes one 64-column block (width / 64 of them) and
-  // every (2 / blocks)-th step; its warp w the block's tile w.
+  // every (2 / blocks)-th step; its warp w the block's tile w. At 16
+  // planes wk is the warpgroup's half of the rows, and the warps of a
+  // tile's sums (red_k) are one: each holds the whole K of its rows.
   const int sn = kWg ? 4 * ((warp / 4) % (width / 64)) + warp % 4
                      : warp / warps_k;
   const int wk = kWg ? (warp / 4) / (width / 64) : warp % warps_k;
+  const int red_k = kRowSplit ? 1 : warps_k;
   const int rank = blockIdx.x;
   const int cluster = gridDim.x;
   const int rows = stage_rows(GATE_UP, width);
@@ -456,11 +476,11 @@ mlp_sm90_kernel(const Pass a) {
     __syncthreads();  // xn is in place
   }
 
-  float acc[kMats][PLANES][4];
+  float acc[kMats][kWgPlanes][4];
 #pragma unroll
   for (int m = 0; m < kMats; ++m)
 #pragma unroll
-    for (int p = 0; p < PLANES; ++p)
+    for (int p = 0; p < kWgPlanes; ++p)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[m][p][c] = 0.0f;
 
@@ -469,9 +489,11 @@ mlp_sm90_kernel(const Pass a) {
     // each matrix one m64nNk16 over its 64-column block (descriptor: the
     // block's k rows x 128 bytes, 1024 bytes an 8-row group, 2048 a
     // step) against the piece's rows at the step (1024 bytes an 8-row
-    // group, 32 bytes a step inside a 64-k block); then every thread
-    // waits for them and frees the slot.
+    // group, 32 bytes a step inside a 64-k block; at 16 planes from its
+    // half's first row, 64 x 128 bytes on for the second); then every
+    // thread waits for them and frees the slot.
     const uint32_t a_block = (sn / 4) * (rows * 128);
+    const uint32_t b_half = kRowSplit ? wk * (64 * 128) : 0;
     int slot = 0, phase = 0;
     for (int s = 0; s < n_stages; ++s) {
       mbar_wait(full0 + 8 * slot, phase);
@@ -481,13 +503,13 @@ mlp_sm90_kernel(const Pass a) {
       wgmma_fence();
 #pragma unroll
       for (int i = 0; i < kWarpSteps; ++i) {
-        const int j = wk + warps_k * i;  // the stage's k16 step
+        const int j = kRowSplit ? i : wk + warps_k * i;  // the k16 step
         const uint64_t bd = smem_desc(
-            st + kWBytes + (j / 4) * (kRows * 128) + (j % 4) * 32, 16,
-            1024);
+            st + kWBytes + (j / 4) * (kRows * 128) + b_half + (j % 4) * 32,
+            16, 1024);
 #pragma unroll
         for (int m = 0; m < kMats; ++m)
-          wgmma_w_x(reinterpret_cast<float(&)[4 * PLANES]>(acc[m]),
+          wgmma_w_x(reinterpret_cast<float(&)[4 * kWgPlanes]>(acc[m]),
                     smem_desc(st + m * (rows * width * 2) + a_block +
                                   j * 2048,
                               rows * 128, 1024),
@@ -505,7 +527,7 @@ mlp_sm90_kernel(const Pass a) {
     }
 #pragma unroll
     for (int m = 0; m < kMats; ++m)
-      pin(reinterpret_cast<float(&)[4 * PLANES]>(acc[m]));
+      pin(reinterpret_cast<float(&)[4 * kWgPlanes]>(acc[m]));
   } else {
     // ldmatrix: lane l addresses row 8 (q / 2) + l % 8 of a k16 step,
     // 16-byte chunk 2 (sn % 4) + q % 2 of 64-column block sn / 4 (q =
@@ -582,14 +604,16 @@ mlp_sm90_kernel(const Pass a) {
 
   // Warp w's sums at red[w][m][row][column of its tile]: lane (g, t)
   // holds columns g (c0, c1) and g + 8 (c2, c3), rows 8 p + 2 t (c0, c2)
-  // and 8 p + 2 t + 1 (c1, c3).
+  // and 8 p + 2 t + 1 (c1, c3) (at 16 planes of its warpgroup's half,
+  // both halves of a tile in one slot).
   float* red = reinterpret_cast<float*>(smem + (base - raw_base));
-  float* mine = red + (sn * warps_k + wk) * kRed;
+  float* mine = red + (sn * red_k + (kRowSplit ? 0 : wk)) * kRed;
+  const int row0 = kRowSplit ? 64 * wk : 0;
 #pragma unroll
   for (int m = 0; m < kMats; ++m)
 #pragma unroll
-    for (int p = 0; p < PLANES; ++p) {
-      float* r = mine + (m * kRows + 8 * p + 2 * t) * 16 + g;
+    for (int p = 0; p < kWgPlanes; ++p) {
+      float* r = mine + (m * kRows + row0 + 8 * p + 2 * t) * 16 + g;
       r[0] = acc[m][p][0];
       r[16] = acc[m][p][1];
       r[8] = acc[m][p][2];
@@ -598,12 +622,12 @@ mlp_sm90_kernel(const Pass a) {
   __syncthreads();
   // The CTA's sum of each tile, warps in order, into its first warp's
   // slot.
-  if (warps_k > 1) {
+  if (red_k > 1) {
     for (int e = threadIdx.x; e < warps_n * kRed / 4; e += kThreads) {
       float4* p0 = reinterpret_cast<float4*>(red) +
-                   (e / (kRed / 4)) * warps_k * (kRed / 4) + e % (kRed / 4);
+                   (e / (kRed / 4)) * red_k * (kRed / 4) + e % (kRed / 4);
       float4 v = p0[0];
-      for (int i = 1; i < warps_k; ++i) {
+      for (int i = 1; i < red_k; ++i) {
         const float4 w = p0[i * (kRed / 4)];
         v.x += w.x;
         v.y += w.y;
@@ -632,7 +656,7 @@ mlp_sm90_kernel(const Pass a) {
     const int c4 = 4 * (e % 4);
     const int n = col0 + 16 * tile + c4;
     if (n >= a.N) continue;
-    const int off = tile * warps_k * kRed + row * 16 + c4;
+    const int off = tile * red_k * kRed + row * 16 + c4;
     float4 v[kMats];
 #pragma unroll
     for (int m = 0; m < kMats; ++m) {
@@ -667,7 +691,8 @@ mlp_sm90_kernel(const Pass a) {
 }
 
 // xn [M, d] = bf16(x32 * rsqrt(mean(x32^2) + eps) * scale32), one CTA
-// a row, for the wgmma gate/up pass (4 and 8 planes), which streams it.
+// a row, for the wgmma gate/up pass (4, 8 and 16 planes), which streams
+// it.
 // The sum of x^2 in a fixed order: each thread's 8-column chunks in
 // order, then the warps' butterfly, then the warps in order. Lets the
 // gate/up launch start at once, so its W stages stream while xn is
@@ -716,7 +741,8 @@ rms_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // Dynamic shared memory of a pass's CTA: the ring and, at gate/up, xn's
-// rows; at least the warps' sums, which overlay them after the loop.
+// rows; at least the warps' sums, which overlay them after the loop (at
+// 16 planes a tile's two warps share one slot).
 size_t smem_bytes(int planes, bool gate_up, int width, int cta_steps,
                   int slots) {
   const int rows_pad = 8 * planes;
@@ -728,8 +754,9 @@ size_t smem_bytes(int planes, bool gate_up, int width, int cta_steps,
         stages_of(true, width, cta_steps) * stage_rows(true, width);
     bytes += static_cast<size_t>(rows_pad) * (2 * cols + 16) + 2 * cols;
   }
-  const size_t sums =
-      static_cast<size_t>(kWarps) * (gate_up ? 2 : 1) * rows_pad * 16 * 4;
+  const size_t sums = static_cast<size_t>(row_split(planes) ? kWarps / 2
+                                                            : kWarps) *
+                      (gate_up ? 2 : 1) * rows_pad * 16 * 4;
   return (bytes > sums ? bytes : sums) + (wg ? 1024 : 0);
 }
 
@@ -771,9 +798,13 @@ cudaError_t launch_pass(const Pass& p, int cluster, bool pdl,
   return cudaGetLastError();
 }
 
-// 8-row planes of B rows: 1, 2, 4 or 8 (B <= 64).
+// 8-row planes of B rows: 1, 2, 4, 8 or 16 (B <= 128).
 int planes_of(int batch) {
-  return batch <= 8 ? 1 : batch <= 16 ? 2 : batch <= 32 ? 4 : 8;
+  return batch <= 8    ? 1
+         : batch <= 16 ? 2
+         : batch <= 32 ? 4
+         : batch <= 64 ? 8
+                       : 16;
 }
 
 // One pass at p.M's planes; `pdl` as config.
@@ -787,8 +818,10 @@ cudaError_t launch_planes(const Pass& p, int cluster, bool pdl,
       return launch_pass<2, GATE_UP>(p, cluster, pdl, stream);
     case 4:
       return launch_pass<4, GATE_UP>(p, cluster, pdl, stream);
-    default:
+    case 8:
       return launch_pass<8, GATE_UP>(p, cluster, pdl, stream);
+    default:
+      return launch_pass<16, GATE_UP>(p, cluster, pdl, stream);
   }
 }
 
@@ -796,7 +829,7 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The gate/up pass; at 4 and 8 planes first rms_kernel writing xn
+// The gate/up pass; at 4, 8 and 16 planes first rms_kernel writing xn
 // (p.b_in), and the pass a programmatic dependent of it.
 cudaError_t launch_gate_up(const Pass& p, __nv_bfloat16* xn, int cluster,
                            cudaStream_t stream) {
@@ -808,11 +841,12 @@ cudaError_t launch_gate_up(const Pass& p, __nv_bfloat16* xn, int cluster,
   return launch_planes<true>(p, cluster, true, stream);
 }
 
-// A pass's plan is one this kernel takes.
+// A pass's plan is one this kernel takes (at 16 planes 64 columns).
 bool plan_ok(int planes, bool gate_up, int K, int N, int width,
              int cluster, int cta_steps, int slots) {
   const int steps = (K + 15) / 16;
-  return (width == 64 || width == 128) && cluster >= 1 &&
+  return (width == 64 || (width == 128 && !row_split(planes))) &&
+         cluster >= 1 &&
          cluster <= kMaxCluster && cta_steps >= 1 &&
          static_cast<long long>(cluster) * cta_steps >= steps &&
          slots >= 2 && slots <= kMaxSlots &&
@@ -826,11 +860,12 @@ bool plan_ok(int planes, bool gate_up, int K, int N, int width,
 
 // x [batch, d], scale [d], w_gate / w_up [d, ffn], w_down [ffn, d], all
 // bf16 and contiguous; scratch act [batch, ffn] and, at 17 <= batch
-// (4 and 8 planes), xn [batch, d] (rms_kernel writes it, gate/up
-// streams it; null below); out [batch, d]. 1 <= batch <= 64, d % 8 ==
+// (4, 8 and 16 planes), xn [batch, d] (rms_kernel writes it, gate/up
+// streams it; null below); out [batch, d]. 1 <= batch <= 128, d % 8 ==
 // 0, ffn % 8 == 0, x, scale, the weights, act, xn and out 16-byte
 // aligned. The plan of each pass (gate/up: K = d, N = ffn;
-// down: K = ffn, N = d): width (64 or 128 columns a CTA), a cluster of
+// down: K = ffn, N = d): width (64 or 128 columns a CTA; 64 at 16
+// planes), a cluster of
 // `cluster` (1..8) CTAs along K, cta_steps k16 steps a CTA covering
 // ceil(K / 16), and a ring of `slots` (2..8) stages. Returns the
 // cudaError_t of the launches (cudaErrorInvalidValue for a shape,
@@ -846,7 +881,7 @@ extern "C" int tpu_decode_mlp_sm90(
   if (batch == 0) return cudaSuccess;
   const int planes = planes_of(batch);
   const bool ok =
-      batch > 0 && batch <= 64 && d > 0 && d % 8 == 0 && ffn > 0 &&
+      batch > 0 && batch <= 128 && d > 0 && d % 8 == 0 && ffn > 0 &&
       ffn % 8 == 0 && aligned16(x) && aligned16(scale) && aligned16(w_gate) &&
       aligned16(w_up) && aligned16(w_down) && aligned16(act) &&
       aligned16(out) && (!streams_b(true, planes) || aligned16(xn)) &&
@@ -888,7 +923,7 @@ extern "C" int tpu_decode_mlp_sm90_gate_up(
   if (batch == 0) return cudaSuccess;
   const int planes = planes_of(batch);
   const bool ok =
-      batch > 0 && batch <= 64 && d > 0 && d % 8 == 0 && cols > 0 &&
+      batch > 0 && batch <= 128 && d > 0 && d % 8 == 0 && cols > 0 &&
       cols % 8 == 0 && aligned16(x) && aligned16(scale) &&
       aligned16(w_gate) && aligned16(w_up) && aligned16(act) &&
       (!streams_b(true, planes) || aligned16(xn)) &&
@@ -915,7 +950,7 @@ extern "C" int tpu_decode_mlp_sm90_down(
   if (batch == 0) return cudaSuccess;
   const int planes = planes_of(batch);
   const bool ok =
-      batch > 0 && batch <= 64 && d > 0 && d % 8 == 0 && ffn > 0 &&
+      batch > 0 && batch <= 128 && d > 0 && d % 8 == 0 && ffn > 0 &&
       ffn % 8 == 0 && aligned16(x) && aligned16(act) && aligned16(w_down) &&
       aligned16(out) &&
       plan_ok(planes, false, ffn, d, width, cluster, cta_steps, slots);
@@ -937,7 +972,8 @@ extern "C" int tpu_decode_mlp_sm90_max_clusters(int planes, int gate_up,
                                                 int width, int cluster,
                                                 int cta_steps, int slots) {
   using namespace tpu_dra;
-  if (!(planes == 1 || planes == 2 || planes == 4 || planes == 8) ||
+  if (!(planes == 1 || planes == 2 || planes == 4 || planes == 8 ||
+        planes == 16) ||
       !plan_ok(planes, gate_up != 0, 16 * cta_steps * cluster, 1 << 20,
                width, cluster, cta_steps, slots))
     return -1;
@@ -951,7 +987,7 @@ extern "C" int tpu_decode_mlp_sm90_max_clusters(int planes, int gate_up,
       config(p, planes, gate_up != 0, cluster, true, attr);
   int n = -1;
   cudaError_t err = cudaErrorInvalidValue;
-  const void* kernels[4][2] = {
+  const void* kernels[5][2] = {
       {reinterpret_cast<const void*>(mlp_sm90_kernel<1, false>),
        reinterpret_cast<const void*>(mlp_sm90_kernel<1, true>)},
       {reinterpret_cast<const void*>(mlp_sm90_kernel<2, false>),
@@ -959,8 +995,12 @@ extern "C" int tpu_decode_mlp_sm90_max_clusters(int planes, int gate_up,
       {reinterpret_cast<const void*>(mlp_sm90_kernel<4, false>),
        reinterpret_cast<const void*>(mlp_sm90_kernel<4, true>)},
       {reinterpret_cast<const void*>(mlp_sm90_kernel<8, false>),
-       reinterpret_cast<const void*>(mlp_sm90_kernel<8, true>)}};
-  const void* k = kernels[planes == 8 ? 3 : planes / 2][gate_up != 0];
+       reinterpret_cast<const void*>(mlp_sm90_kernel<8, true>)},
+      {reinterpret_cast<const void*>(mlp_sm90_kernel<16, false>),
+       reinterpret_cast<const void*>(mlp_sm90_kernel<16, true>)}};
+  const void* k = kernels[planes == 16  ? 4
+                          : planes == 8 ? 3
+                                        : planes / 2][gate_up != 0];
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kMaxSmem);
   err = cudaOccupancyMaxActiveClusters(&n, k, &cfg);

@@ -13,10 +13,11 @@ Counterpart of ``tpu_dra/workloads/ops/decode_mlp.py``:
     ``csrc/decode_mlp_sm90.cu``, planned by :func:`mlp_sm90_plan` —
     two launches (gate/up with the norm and silu·up, down with the
     residual), weights streamed through an mbarrier ring, the K split
-    reduced on chip, 1, 2, 4 or 8 planes of 8 rows: mma.sync at 1 and 2
-    (xn resident in gate/up), wgmma at 4 and 8 (an RMS-norm launch
-    first, whose xn gate/up streams stage by stage as down streams
-    act);
+    reduced on chip, 1, 2, 4, 8 or 16 planes of 8 rows: mma.sync at 1
+    and 2 (xn resident in gate/up), wgmma at 4, 8 and 16 (an RMS-norm
+    launch first, whose xn gate/up streams stage by stage as down
+    streams act; at 16 the CTA's two warpgroups split the rows of one
+    64-column block);
   - ``"simt"``, everything else (fp32, other shapes):
     ``csrc/decode_mlp.cu`` on CUDA cores — gate/up/act in one launch,
     down as fp32 split partials in a second, the residual reduction in
@@ -24,10 +25,12 @@ Counterpart of ``tpu_dra/workloads/ops/decode_mlp.py``:
     and TF32 would miss the fp32 parity bars the twins hold the port
     to; fp32 is the parity dtype, not a serving one.
 
-  A launch of either kernel takes at most 64 rows (``ROW_BLOCK``): a
-  larger batch runs as consecutive blocks of 64 rows (:func:`row_blocks`),
-  one launch a block, each a full pass over the weights. Within a
-  launch each weight byte is read once, no float atomics;
+  A launch takes at most ``ROW_BLOCKS[route]`` rows: 128 on "sm90"
+  (the Pallas body's one pass over the weights for the whole batch, up
+  to 128 rows), 64 on "simt". A larger batch runs as consecutive blocks
+  of that many rows (:func:`row_blocks`), one launch a block, each a
+  full pass over the weights. Within a launch each weight byte is read
+  once, no float atomics;
 - **torch**: the twin of ``_xla_decode_mlp``, the op chain the decode
   step runs off the card (so CPU parity with the JAX engine holds);
 - **reference**: the twin of the naive fp32 oracle
@@ -207,9 +210,10 @@ class MlpPassPlan(NamedTuple):
     in warps_n 16-column tiles, warps_k warps a tile, each taking every
     warps_k-th k16 step of the stages the CTA walks."""
 
-    width: int  # columns a CTA (64 or 128)
+    width: int  # columns a CTA (64 or 128; 64 at 16 planes)
     warps_n: int  # 16-column tiles a CTA: width / 16
-    warps_k: int  # warps a tile: 8 / warps_n
+    warps_k: int  # warps splitting a tile's K: 8 / (warps_n * row_groups)
+    row_groups: int  # warpgroups splitting the rows: 2 at 16 planes
     cluster: int  # CTAs a cluster, splitting K
     col_ctas: int  # clusters
     cta_steps: int  # k16 steps a CTA (rank r: [r * cta_steps, +cta_steps))
@@ -227,41 +231,48 @@ class MlpPlan(NamedTuple):
     """The tensor-core kernel's two launches: gate/up (K = d, N = ffn)
     and down (K = ffn, N = d)."""
 
-    planes: int  # 8-row planes of x: 1, 2, 4, 8 for B <= 8, 16, 32, 64
+    planes: int  # 8-row planes of x: 1, 2, 4, 8, 16 for B <= 8 ... 128
     gate_up: MlpPassPlan
     down: MlpPassPlan
 
 
-# The most rows a launch of either kernel takes; larger batches run in
-# blocks of this many rows.
-ROW_BLOCK = 64
+# The most rows a launch of each route's kernel takes; larger batches run
+# in blocks of this many rows.
+ROW_BLOCKS = {"sm90": 128, "simt": 64}
 
 
-def row_blocks(b: int) -> list:
+def row_blocks(b: int, route: str) -> list:
     """The row blocks ``[(lo, hi), ...]`` a call over ``b`` rows
-    launches the kernel on: consecutive, at most ``ROW_BLOCK`` rows
-    each, ``ceil(b / ROW_BLOCK)`` of them."""
-    return [(lo, min(b, lo + ROW_BLOCK)) for lo in range(0, b, ROW_BLOCK)]
+    launches ``route``'s kernel on: consecutive, at most
+    ``ROW_BLOCKS[route]`` rows each, as few as that allows."""
+    block = ROW_BLOCKS[route]
+    return [(lo, min(b, lo + block)) for lo in range(0, b, block)]
 
 
 def planes_of(b: int) -> int:
-    """8-row planes of the tensor-core kernel's B operand for b <= 64
-    rows: ceil(b / 8) rounded up to 1, 2, 4 or 8 (csrc/decode_mlp_sm90.cu
-    planes_of)."""
-    return 1 if b <= 8 else 2 if b <= 16 else 4 if b <= 32 else 8
+    """8-row planes of the tensor-core kernel's B operand for b <= 128
+    rows: ceil(b / 8) rounded up to 1, 2, 4, 8 or 16
+    (csrc/decode_mlp_sm90.cu planes_of)."""
+    return next(p for p in (1, 2, 4, 8, 16) if b <= 8 * p)
 
 
 def _mlp_pass(planes: int, k: int, n: int, gate_up: bool, width: int,
               cluster: int) -> "MlpPassPlan | None":
     """The pass at (width, cluster) with the deepest ring that fits
     (csrc/decode_mlp_sm90.cu smem_bytes), or None when not even
-    _SM90_MIN_SLOTS stages fit. The warps' sums overlay the ring and
-    xn after the loop, so the CTA asks for at least their bytes."""
+    _SM90_MIN_SLOTS stages fit or 16 planes meet 128 columns. The warps'
+    sums overlay the ring and xn after the loop, so the CTA asks for at
+    least their bytes."""
     rows_pad = 8 * planes
-    # 4 and 8 planes run wgmma: the B operand streamed in every stage
+    # 4, 8 and 16 planes run wgmma: the B operand streamed in every stage
     # (xn at gate/up too), its rows in swizzled blocks of 64 k (128 bytes
-    # a row a block), and 1024 bytes more to align the base.
+    # a row a block), and 1024 bytes more to align the base. At 16 the
+    # warpgroups split the rows of one 64-column block (an accumulator of
+    # 128 rows a warpgroup would not fit its registers at gate/up).
     wg = planes >= 4
+    row_groups = 2 if planes == 16 else 1
+    if row_groups == 2 and width != 64:
+        return None
     align = 1024 if wg else 0
     rows = _SM90_W_BYTES // ((2 if gate_up else 1) * width * 2)
     steps = -(-k // 16)
@@ -278,9 +289,11 @@ def _mlp_pass(planes: int, k: int, n: int, gate_up: bool, width: int,
                 (_SM90_MAX_SMEM - align - resident) // stage)
     if slots < _SM90_MIN_SLOTS:
         return None
-    sums = 8 * (2 if gate_up else 1) * rows_pad * 16 * 4
+    # A slot of sums a warp, or at 16 planes a tile's two warps' one.
+    sums = 8 // row_groups * (2 if gate_up else 1) * rows_pad * 16 * 4
     return MlpPassPlan(
-        width=width, warps_n=width // 16, warps_k=8 // (width // 16),
+        width=width, warps_n=width // 16,
+        warps_k=8 // (width // 16 * row_groups), row_groups=row_groups,
         cluster=cluster, col_ctas=-(-n // width), cta_steps=cta_steps,
         rows=rows, stages=stages, slots=slots,
         smem=max(slots * stage + resident, sums) + align,
@@ -295,9 +308,10 @@ def _mlp_pass_plan(planes: int, k: int, n: int, gate_up: bool,
     the H100 holds 66 clusters of 2 of these CTAs at once (every SM) but
     only 39 of 3 and 30 of 4 (decode_mlp_ablation.py, phase plans), so
     clusters of 2 may fill the card and larger ones three quarters of
-    it. Where no plan fits one wave (xn of a long d needs a K split),
-    the fewest CTAs that fit shared memory; None when no cluster makes
-    it fit."""
+    it. Where no plan fits one wave (xn of a long d needs a K split;
+    at 16 planes a CTA is 64 columns, so gate/up over ffn = 14336 takes
+    224 of them), the fewest CTAs that fit shared memory; None when no
+    cluster makes it fit."""
     steps = -(-k // 16)
     best = None
     fallback = None
@@ -320,12 +334,12 @@ def _mlp_pass_plan(planes: int, k: int, n: int, gate_up: bool,
 @functools.lru_cache(maxsize=None)
 def mlp_sm90_plan(b: int, d: int, ffn: int, sm_count: int) -> MlpPlan:
     """The tensor-core kernel's plan for one launch over x [b, d]
-    (1 <= b <= 64) and ffn hidden columns, from the shapes and the SM
+    (1 <= b <= 128) and ffn hidden columns, from the shapes and the SM
     count alone (no device value is read). Raises ValueError for a shape
     it does not take."""
-    if not 1 <= b <= ROW_BLOCK:
-        raise ValueError(f"a launch takes 1 <= b <= {ROW_BLOCK} rows, "
-                         f"got {b}")
+    block = ROW_BLOCKS["sm90"]
+    if not 1 <= b <= block:
+        raise ValueError(f"a launch takes 1 <= b <= {block} rows, got {b}")
     planes = planes_of(b)
     gate_up = _mlp_pass_plan(planes, d, ffn, True, sm_count)
     down = _mlp_pass_plan(planes, ffn, d, False, sm_count)
@@ -349,7 +363,7 @@ def shard_gate_up_plan(b: int, d: int, cols: int, ffn: int,
 def _sm90_route(b: int, d: int, ffn: int, tensors) -> str:
     """"sm90" when the tensor-core kernel takes x [b, d] against an ffn
     of ``ffn`` columns with ``tensors`` (x first, then the weights and
-    act it reads), in blocks of at most 64 rows: bf16 throughout,
+    act it reads), in blocks of at most 128 rows: bf16 throughout,
     b >= 1, d % 8 == 0, ffn % 8 == 0, every tensor contiguous and
     16-byte aligned (so is every row block, d being a multiple of 8),
     and a block's xn rows fit shared memory under some K split; else
@@ -361,7 +375,7 @@ def _sm90_route(b: int, d: int, ffn: int, tensors) -> str:
                 for t in tensors)
     ):
         return "simt"
-    planes = planes_of(min(b, ROW_BLOCK))
+    planes = planes_of(min(b, ROW_BLOCKS["sm90"]))
     fits = any(
         _mlp_pass(planes, d, ffn, True, width, _SM90_MAX_CLUSTER)
         is not None for width in _SM90_WIDTHS)
@@ -395,7 +409,7 @@ def _down_route(x, act, wd) -> str:
 
 def _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps, out=None):
     """Launch csrc/decode_mlp_sm90.cu's two passes on x's stream over
-    x [b <= 64, d], with :func:`mlp_sm90_plan`'s plan, into ``out``
+    x [b <= 128, d], with :func:`mlp_sm90_plan`'s plan, into ``out``
     (a new tensor by default); the caller has checked the route."""
     b, d = x.shape
     ffn = wg.shape[1]
@@ -422,7 +436,7 @@ def _sm90_decode_mlp(x, norm_scale, wg, wu, wd, eps, out=None):
 
 
 def _xn_scratch(x, planes: int):
-    """A new xn [b, d] for the wgmma gate/up pass (4 and 8 planes:
+    """A new xn [b, d] for the wgmma gate/up pass (4, 8 and 16 planes:
     rms_kernel writes it, gate/up streams it), else None."""
     return torch.empty_like(x) if planes >= 4 else None
 
@@ -464,8 +478,8 @@ def _simt_vec(x, d: int, n: int, ws) -> int:
 
 def _check_cuda(x, tensors, what: str) -> None:
     """Every tensor on x's CUDA device, bf16 or fp32 of x's dtype,
-    contiguous, and B >= 1 rows (any B: the wrappers launch blocks of
-    at most 64); raises on anything else."""
+    contiguous, and B >= 1 rows (any B: the wrappers launch row blocks);
+    raises on anything else."""
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError(f"{what} needs every input on one CUDA device")
     if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in tensors):
@@ -482,8 +496,8 @@ def _check_cuda(x, tensors, what: str) -> None:
 def _cuda_gate_up(x, norm_scale, wg, wu, eps, ffn: int):
     """Launch the gate/up half on x's stream: act [B, cols] for the
     shard's columns wg/wu [d, cols] of a block ``ffn`` columns wide,
-    one launch a row block (:func:`row_blocks`), each writing its rows
-    of act. The sm90 route is planned as the whole ffn's
+    one launch a row block of its route (:func:`row_blocks`), each
+    writing its rows of act. The sm90 route is planned as the whole ffn's
     (``mlp_sm90_plan(rows, d, ffn)``), so each act column is the fused
     kernel's; raises on inputs the kernels do not take."""
     b, d = x.shape
@@ -507,7 +521,7 @@ def _cuda_gate_up(x, norm_scale, wg, wu, eps, ffn: int):
         fn = kernels.function("decode_mlp_sm90.cu",
                               "tpu_decode_mlp_sm90_gate_up",
                               _SM90_GATE_UP_ARGTYPES)
-        for lo, hi in row_blocks(b):
+        for lo, hi in row_blocks(b, "sm90"):
             gu = shard_gate_up_plan(hi - lo, d, cols, ffn,
                                     _sm_count(x.device))
             xn = _xn_scratch(x[lo:hi], planes_of(hi - lo))
@@ -521,7 +535,7 @@ def _cuda_gate_up(x, norm_scale, wg, wu, eps, ffn: int):
     fn = kernels.function("decode_mlp.cu", "tpu_decode_mlp_gate_up",
                           _GATE_UP_ARGTYPES)
     vec = _simt_vec(x, d, cols, (wg, wu))
-    for lo, hi in row_blocks(b):
+    for lo, hi in row_blocks(b, "simt"):
         err = fn(x[lo:hi].data_ptr(), norm_scale.data_ptr(), wg.data_ptr(),
                  wu.data_ptr(), act[lo:hi].data_ptr(), _DTYPE_CODES[x.dtype],
                  hi - lo, d, cols, vec, float(eps), stream)
@@ -532,10 +546,10 @@ def _cuda_gate_up(x, norm_scale, wg, wu, eps, ffn: int):
 
 def _cuda_down(x, act, wd):
     """Launch the down half on x's stream: x + act · wd over the
-    gathered act [B, ffn], one launch a row block (:func:`row_blocks`)
-    reading its rows of act, with the fused kernel's plan (sm90) or
-    splits (simt), so its output is the fused kernel's; raises on inputs
-    the kernels do not take."""
+    gathered act [B, ffn], one launch a row block of its route
+    (:func:`row_blocks`) reading its rows of act, with the fused
+    kernel's plan (sm90) or splits (simt), so its output is the fused
+    kernel's; raises on inputs the kernels do not take."""
     b, d = x.shape
     ffn = act.shape[1]
     _check_cuda(x, (x, act, wd), "mlp_down")
@@ -549,7 +563,7 @@ def _cuda_down(x, act, wd):
     if _down_route(x, act, wd) == "sm90":
         fn = kernels.function("decode_mlp_sm90.cu", "tpu_decode_mlp_sm90_down",
                               _SM90_DOWN_ARGTYPES)
-        for lo, hi in row_blocks(b):
+        for lo, hi in row_blocks(b, "sm90"):
             dn = mlp_sm90_plan(hi - lo, d, ffn, _sm_count(x.device)).down
             err = fn(x[lo:hi].data_ptr(), act[lo:hi].data_ptr(),
                      wd.data_ptr(), out[lo:hi].data_ptr(), hi - lo, d, ffn,
@@ -559,11 +573,11 @@ def _cuda_down(x, act, wd):
         return out
     vec = _simt_vec(x, d, ffn, (wd,))
     splits = _splits(x.device, d, ffn, vec)
-    partial = torch.empty((splits, min(b, ROW_BLOCK), d), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((splits, min(b, ROW_BLOCKS["simt"]), d),
+                          dtype=torch.float32, device=x.device)
     fn = kernels.function("decode_mlp.cu", "tpu_decode_mlp_down",
                           _DOWN_ARGTYPES)
-    for lo, hi in row_blocks(b):
+    for lo, hi in row_blocks(b, "simt"):
         err = fn(x[lo:hi].data_ptr(), act[lo:hi].data_ptr(), wd.data_ptr(),
                  partial.data_ptr(), out[lo:hi].data_ptr(),
                  _DTYPE_CODES[x.dtype], hi - lo, d, ffn, splits, vec, stream)
@@ -610,8 +624,9 @@ def mlp_down(x, act, mlp: dict, impl: str = "auto"):
 
 def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
     """Launch the route's kernel (csrc/decode_mlp_sm90.cu for "sm90",
-    csrc/decode_mlp.cu for "simt") on x's stream, once a row block
-    (:func:`row_blocks`), each block writing its rows of one output.
+    csrc/decode_mlp.cu for "simt") on x's stream, once a row block of
+    the route (:func:`row_blocks`), each block writing its rows of one
+    output.
     Takes bf16 or fp32 tensors of one dtype, any d and ffn, any B >= 1;
     raises on anything else."""
     b, d = x.shape
@@ -628,10 +643,11 @@ def _cuda_decode_mlp(x, norm_scale, wg, wu, wd, eps):
             f"{tuple(norm_scale.shape)}, w_gate {tuple(wg.shape)}, w_up "
             f"{tuple(wu.shape)}, w_down {tuple(wd.shape)}"
         )
-    sm90 = _decode_mlp_route(x, (wg, wu, wd)) == "sm90"
+    route = _decode_mlp_route(x, (wg, wu, wd))
+    sm90 = route == "sm90"
     launch = _sm90_decode_mlp if sm90 else _simt_decode_mlp
     out = torch.empty_like(x)
-    for lo, hi in row_blocks(b):
+    for lo, hi in row_blocks(b, route):
         launch(x[lo:hi], norm_scale, wg, wu, wd, eps, out=out[lo:hi])
         if sm90:
             kernels.count("decode_mlp_sm90")
