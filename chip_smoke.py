@@ -17,8 +17,8 @@ exits non-zero without a result:
    bodies (decode_split_kernel, decode_combine_kernel in paged_decode.cu
    and decode.cu), of the tensor-core int8 GEMV
    (int8mm_gemv_sm90.cu: the mma.sync body at 1 and 2 planes, the
-   wgmma body at 4 planes with 2, 4 and 8 tiles a warp and at 8 with 2
-   and 4) and of the tensor-core decode MLP
+   wgmma body at 4 planes with 2, 4 and 8 tiles a warp, at 8 with 2
+   and 4 and at 16 with 2) and of the tensor-core decode MLP
    (decode_mlp_sm90.cu: gate/up and down at 1, 2, 4, 8 and 16 planes)
    must spill 0 bytes.
 2b. bootstrap — the slice bootstrap and collective smokes
@@ -62,19 +62,20 @@ exits non-zero without a result:
    M in {1, 8, 1024} for (K, N) in {(4096, 14336), (14336, 4096),
    (4096, 1024), (4096, 128256)}, at M in {17, 129, 2048} for
    4096 x 14336, wq/wo's 4096 x 4096 at M in {1024, 2048}, the
-   lm_head at M = 2048, M in {2, 13, 16, 24, 32, 33, 48, 64} for
-   4096 x 14336 and M in {32, 64} at the other four decode shapes
-   (INT8MM_PARITY), with an all-zero weight column, each row naming its
-   route (gemv_sm90, the tensor-core GEMV, which every row with M <= 64
-   must take, with its plan: 1 or 2 planes of 8 rows on its mma.sync
-   body, 4 or 8 on its wgmma body; sm90, the wgmma tile, which every
-   bf16 row with M > 64 must take); each row with M <= 16 also holds
-   int8mm.cu's weight-streaming GEMV, which still serves fp32 and the
-   shapes the new one does not take, on the same inputs (zero column,
-   reruns bit-identical); each row with 17 <= M <= 64 also holds
-   int8mm_sm90.cu's wgmma tile, which served those rows before the
-   GEMV's wgmma body, launched directly on the same inputs (the same
-   bars); each row with M > 64 also holds int8mm.cu's WMMA tile, which
+   lm_head at M = 2048, M in {2, 13, 16, 24, 32, 33, 48, 64, 65, 96,
+   127, 128} for 4096 x 14336 and M in {32, 64, 128} at the other four
+   decode shapes (INT8MM_PARITY), with an all-zero weight column, each
+   row naming its route (gemv_sm90, the tensor-core GEMV, which every
+   row with M <= 128 must take, with its plan: 1 or 2 planes of 8 rows
+   on its mma.sync body, 4, 8 or 16 on its wgmma body; sm90, the wgmma
+   tile, which every bf16 row with M > 128 must take); each row with
+   M <= 16 also holds int8mm.cu's weight-streaming GEMV, which still
+   serves fp32 and the shapes the new one does not take, on the same
+   inputs (zero column, reruns bit-identical); each row with
+   17 <= M <= 128 also holds int8mm_sm90.cu's wgmma tile, which served
+   those rows before the GEMV's wgmma body, launched directly on the
+   same inputs (the same bars, zero column, reruns bit-identical); each
+   row with M > 128 also holds int8mm.cu's WMMA tile, which
    serves the bf16 shapes the wgmma tile does not take, on the same
    inputs (zero column, reruns bit-identical); the
    contiguous decode, bf16 and int8 caches, b=8, max_seq 1024, lengths
@@ -131,9 +132,10 @@ exits non-zero without a result:
    int8 matmul's tensor-core GEMV at every decode shape (M = 8), each
    row asserted to take it, with its plan, share of the bound and
    int8mm.cu's GEMV on the same inputs (old_gemv_ms); the GEMV's wgmma
-   body at a w8 engine's 17-64 decode rows (INT8MM_WIDE_TIMING: gate/up
-   at M = 32 and 64, every other decode shape at M = 32), each row
-   asserted to take it at 4 or 8 planes, with its plan, the wgmma tile
+   body at a w8 engine's 17-128 decode rows (INT8MM_WIDE_TIMING:
+   gate/up at M = 32, 64, 96 and 128, every other decode shape at
+   M = 32 and 128), each row asserted to take it at 4, 8 or 16 planes,
+   with its plan, the wgmma tile
    it replaced there on the same inputs (sm90_tile_ms), a bf16 matmul on
    a dequantized copy as the yardstick and share of the bound; and the
    wgmma tile at each prefill shape (INT8MM_PREFILL_TIMING: every
@@ -205,12 +207,16 @@ exits non-zero without a result:
    kv_quant="int8": every request completes, the allocator ends
    leak-free with every pool (scales included) zero; per decode step
    225 int8 matmul launches (7 projections x 32 layers + the lm_head),
-   every launch with M > 64 (the prefill projections) on the wgmma tile
+   every launch with M > 128 (the prefill projections) on the wgmma tile
    and every other on the tensor-core GEMV (int8mm.cu's GEMV never), 32
    paged-decode launches on int8 pools and no fused-MLP launch; a
    profile of its steady decode as for the bf16 engine, with the int8
    matmul's device ms and launches a step (225, all the tensor-core
-   GEMV's: one launch a call), and of one prefill bucket (8 rows x a
+   GEMV's: one launch a call; rounded, as the trace can come back a few
+   records short, while the profiled window's own launch counters, set
+   to 0 just before it, are held to the count exactly
+   (hold_window_launches); so are the MLP counts of the engine,
+   engine_wide and engine_wide128 profiles), and of one prefill bucket (8 rows x a
    128-token chunk, M = 1024) by kernel with the int8 matmul's share.
    The one-state
    decode-step check with W8_STEP_VARIANTS, at bf16, fp32 activations
@@ -255,22 +261,24 @@ exits non-zero without a result:
    agreement (first difference, top-2 gap), prefill buckets and
    tokens, TTFT p50, and a fork's launches and ms.
 7e. engine_migrate — evacuation and live KV migration at 8B widths
-   (the engine phase's config and requests, 32 layers, one weight tree
-   for bf16 and one int8 tree for every w8kv8 engine), each arm in bf16
-   and in w8kv8: the handoff (a source engine as a prefill-role replica,
-   a fresh destination as a decode-role one, in Replica._loop's order:
-   grafts between steps, steps, exports of every decoding_rids()) and
-   the whole batch (every decoding sequence exported at the step
-   boundary after the last prefill, imported in slot order into a fresh
-   engine) token-identical to the engine and engine_w8kv8 phases'
-   unmigrated completions (else the first difference and its top-2
-   gap); the handoff's launches read around it (32 paged-decode
+   (the engine phase's config and requests; bf16 at 32 layers, w8kv8
+   cut to MIGRATE_W8_LAYERS (2) layers on one int8 tree for every w8kv8
+   engine), each arm in bf16 and in w8kv8: the handoff (a source engine
+   as a prefill-role replica, a fresh destination as a decode-role one,
+   in Replica._loop's order: grafts between steps, steps, exports of
+   every decoding_rids()) and the whole batch (every decoding sequence
+   exported at the step boundary after the last prefill, imported in
+   slot order into a fresh engine) token-identical to the unmigrated
+   completions (bf16: the engine phase's; w8kv8: one engine's run of
+   the same requests at its depth) (else the first difference and its
+   top-2 gap); the handoff's launches read around it (L paged-decode
    launches a decode step of both engines, and the bf16 MLP's or the
    int8 GEMV's); the evacuation (at the first step boundary where a
    sequence decodes, resumed on a fresh engine as Request(prompt +
    emitted)) reported as token agreement, first difference and top-2
    gap (a re-prefill rounds otherwise than decode-written KV). Each
-   extent's bytes as reckoned (bf16 2 MiB a page, w8kv8 1.03 MiB),
+   extent's bytes as reckoned (bf16 2 MiB a page, w8kv8 1.03 MiB at 32
+   layers, a sixteenth of it at 2),
    serialize and graft ms and GB/s beside a 256 MiB pinned copy each
    way, and the longest sequence's re-prefill alone to its first token
    (the fallback migration replaces). At tiny fp32 on the card, greedy
@@ -367,22 +375,31 @@ exits non-zero without a result:
    (profile_decode); the decode step from one state with all 32 slots
    live, each STEP_VARIANTS variant, in bf16, fp32 and bf16 cut to 2
    layers, held by step_gates (decode_step_wide).
-8d. engine_wide_w8kv8 (on an int8 tree quantized once from phase 8's
-   weights) — engine_wide's config and requests with weight_quant and
-   kv_quant "int8": every request completes with its token count, the
-   allocator ends whole with every pool (scales included) zero; a decode
-   step (M = 32 rows) makes its 225 int8 matmuls on the tensor-core
-   GEMV's wgmma body at 4 planes (a prefill bucket's past 64 rows on the
-   wgmma tile; int8mm.cu's GEMV and WMMA tile never) and 32 paged-decode
-   launches on int8 pools; a profile of steady decode: 225 launches of
+8d. engine_wide_w8kv8, engine_wide128_w8kv8 (on one int8 tree
+   quantized once from phase 8's weights) — engine_wide's config and
+   requests with weight_quant and kv_quant "int8": every request
+   completes with its token count, the allocator ends whole with every
+   pool (scales included) zero; a decode step (M = 32 rows) makes its
+   225 int8 matmuls on the tensor-core GEMV's wgmma body at 4 planes (a
+   prefill bucket's past 128 rows on the wgmma tile; int8mm.cu's GEMV
+   and WMMA tile never) and 32 paged-decode launches on int8 pools; a
+   profile of steady decode: 225 launches of
    int8_gemv_sm90_kernel_wgmma<4, *> a step (rounded: the trace can come
-   back a few records short; the launch counters hold the count exactly)
+   back a few records short; the window's own launch counters are held
+   to the count exactly)
    and no other int8 matmul kernel, their device ms a step and share,
    device against host ms,
    busy share; decode tok/s, TTFT p50, the phase's seconds; the decode
    step from one state with all 32 slots live, each W8_STEP_VARIANTS
    variant, in bf16 and bf16 cut to 2 layers, held by step_gates
-   (decode_step_wide_w8kv8).
+   (decode_step_wide_w8kv8). Then engine_wide128's config and requests
+   (128 slots: JAX's serve bench at --batch 64 with int8 weights) the
+   same way: a decode step (M = 128 rows) makes its 225 int8 matmuls on
+   the GEMV's wgmma body at 16 planes (225 launches of
+   int8_gemv_sm90_kernel_wgmma<16, *> a step in the profile), the same
+   gates and report, and the decode step from one state with all 128
+   slots live in bf16 and bf16 cut to 2 layers under step_gates
+   (decode_step_wide128_w8kv8).
 8a. engine_sharded — mesh-sharded decode (tpu_dra_torch/workloads/
    parallel/mesh.py). World 1, inside a world-1 NCCL group built by
    bootstrap.rendezvous: the engine phase's requests through
@@ -841,15 +858,15 @@ def int8mm_inputs(Q, gen, m, k, n, dtype=torch.bfloat16, zero_col=None):
     return x, q["kernel_q"], q["scale"]
 
 
-# The int8 matmul's parity rows (M, K, N): decode (M <= 64, the GEMV)
+# The int8 matmul's parity rows (M, K, N): decode (M <= 128, the GEMV)
 # and prefill (the wgmma tile in bf16) at every projection's shape, the
 # tile's edge at M = 129, wq/wo (4096 x 4096, the 256-row tile at both
 # prefill M) and the generate prefill's M = 2048 with the lm_head over
 # every position; the GEMV at M = 2, 13 and 16 too (one plane of 8 rows
 # of x, two planes, the most rows of the mma.sync body), and its wgmma
-# body at M = 17, 24, 32 (4 planes), 33, 48, 64 (8 planes) at gate/up
-# and at M = 32 and 64 at every other decode shape (a w8 engine of
-# 17-64 slots decoding).
+# body at M = 17, 24, 32 (4 planes), 33, 48, 64 (8 planes), 65, 96, 127,
+# 128 (16 planes) at gate/up and at M = 32, 64 and 128 at every other
+# decode shape (a w8 engine of 17-128 slots decoding).
 INT8MM_PARITY = tuple(
     (m, k, n)
     for k, n in ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 128256))
@@ -857,11 +874,11 @@ INT8MM_PARITY = tuple(
 ) + ((17, 4096, 14336), (129, 4096, 14336), (2048, 4096, 14336),
      (1024, 4096, 4096), (2048, 4096, 4096), (2048, 4096, 128256),
      (2, 4096, 14336), (13, 4096, 14336), (16, 4096, 14336)) + tuple(
-    (m, 4096, 14336) for m in (24, 32, 33, 48, 64)) + tuple(
+    (m, 4096, 14336) for m in (24, 32, 33, 48, 64, 65, 96, 127, 128)) + tuple(
     (m, k, n) for k, n in ((4096, 4096), (4096, 1024), (14336, 4096),
-                           (4096, 128256)) for m in (32, 64))
+                           (4096, 128256)) for m in (32, 64, 128))
 # The GEMV serves bf16 up to this many rows; the wgmma tile past it.
-GEMV_SM90_MAX_ROWS = 64
+GEMV_SM90_MAX_ROWS = 128
 # The prefill timing rows: each projection at the engine bucket's M and
 # the lm_head at the generate prefill's (label, M, K, N).
 INT8MM_PREFILL_TIMING = (
@@ -871,9 +888,9 @@ INT8MM_PREFILL_TIMING = (
     ("int8mm_prefill_down", 1024, 14336, 4096),
     ("int8mm_prefill_lm_head", 2048, 4096, 128256),
 )
-# The GEMV's wgmma body at a w8 engine's 17-64 decode slots: gate/up at
-# M = 32 and 64 (the rows the prefill tile served before), every other
-# decode shape at M = 32 (label, M, K, N).
+# The GEMV's wgmma body at a w8 engine's 17-128 decode slots: gate/up
+# at M = 32, 64, 96 and 128 (the rows the prefill tile served before),
+# every other decode shape at M = 32 and 128 (label, M, K, N).
 INT8MM_WIDE_TIMING = (
     ("int8mm_m32", 32, 4096, 14336),  # gate, up
     ("int8mm_m64", 64, 4096, 14336),
@@ -881,6 +898,12 @@ INT8MM_WIDE_TIMING = (
     ("int8mm_m32_wk", 32, 4096, 1024),  # wk, wv
     ("int8mm_m32_down", 32, 14336, 4096),
     ("int8mm_m32_lm_head", 32, 4096, 128256),
+    ("int8mm_m96", 96, 4096, 14336),
+    ("int8mm_m128", 128, 4096, 14336),
+    ("int8mm_m128_wq", 128, 4096, 4096),
+    ("int8mm_m128_wk", 128, 4096, 1024),
+    ("int8mm_m128_down", 128, 14336, 4096),
+    ("int8mm_m128_lm_head", 128, 4096, 128256),
 )
 # Kernel names of the int8 matmul, both sources.
 INT8MM_KERNELS = ("int8_matmul_sm90_kernel", "int8_gemv_sm90_kernel",
@@ -908,8 +931,8 @@ def int8mm_wmma(kernels, I8, x, w_q, w_s):
 def int8mm_tile(kernels, I8, x, w_q, w_s):
     """int8mm_sm90.cu's wgmma tile on x, w_q, w_s, launched directly with
     the wrapper's rows (not counted in LAUNCHES): it served bf16 at
-    17-64 rows before the GEMV's wgmma body, so parity holds it at those
-    rows and timing sets its time beside the GEMV's."""
+    17-128 rows before the GEMV's wgmma body, so parity holds it at
+    those rows and timing sets its time beside the GEMV's."""
     m, k = x.shape
     n = w_q.shape[1]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
@@ -928,8 +951,9 @@ def int8mm_route_of(m: int) -> str:
 
 def gemv_planes_of(m: int) -> int:
     """The 8-row planes the GEMV must run M rows at: 1 and 2 on its
-    mma.sync body, 4 (17-32 rows) and 8 (33-64) on its wgmma body."""
-    return next(p for p in (1, 2, 4, 8) if m <= 8 * p)
+    mma.sync body, 4 (17-32 rows), 8 (33-64) and 16 (65-128) on its
+    wgmma body."""
+    return next(p for p in (1, 2, 4, 8, 16) if m <= 8 * p)
 
 
 def int8mm_gemv(kernels, I8, x, w_q, w_s):
@@ -979,7 +1003,7 @@ class RouteLog:
         self.I8._int8mm_route = self.orig
 
     def check(self, name: str) -> dict:
-        """Every launch with M > 64 took the wgmma tile and every other
+        """Every launch with M > 128 took the wgmma tile and every other
         the tensor-core GEMV (all bf16 here); returns launches by route
         and every M seen."""
         wrong = [(m, r) for m, r in self.calls if r != int8mm_route_of(m)]
@@ -1037,9 +1061,9 @@ def int8mm_prefill_timing(kernels, I8, Q, gen, rates, flush) -> dict:
 
 
 def int8mm_wide_timing(kernels, I8, Q, gen, sms, rates, flush) -> dict:
-    """The GEMV's wgmma body at a w8 engine's 17-64 decode rows
-    (INT8MM_WIDE_TIMING), each row asserted to take gemv_sm90 at 4 or 8
-    planes: kernel (ms and ms_with_host), the plain version, the wgmma
+    """The GEMV's wgmma body at a w8 engine's 17-128 decode rows
+    (INT8MM_WIDE_TIMING), each row asserted to take gemv_sm90 at 4, 8 or
+    16 planes: kernel (ms and ms_with_host), the plain version, the wgmma
     tile it replaced on the same inputs (sm90_tile_ms), a bf16 matmul on
     a copy dequantized ahead (the yardstick), bound, share of the bound
     and the plan."""
@@ -1050,7 +1074,7 @@ def int8mm_wide_timing(kernels, I8, Q, gen, sms, rates, flush) -> dict:
         plan = I8.gemv_sm90_plan(m, k, n, sms)
         if route != "gemv_sm90" or plan.planes != gemv_planes_of(m):
             raise AssertionError(f"{label}: route {route}, plan {plan}, "
-                                 f"want gemv_sm90 at 4 or 8 planes")
+                                 f"want gemv_sm90 at 4, 8 or 16 planes")
         call = functools.partial(I8.int8_matmul, x, w_q, w_s, impl="cuda")
         w_bf = (w_q.float() * w_s).to(torch.bfloat16)
         row = {
@@ -1249,8 +1273,13 @@ def profile_decode(E, eng, prompts, chunks: int = 2,
     every slot is decoding (``prompts`` admitted, ``new_tokens`` each):
     device busy share of the host window, CUDA kernel launches per
     decode step, and the kernels with the most device time. Reports
-    "not measured" where the profiler records no device time."""
+    "not measured" where the profiler records no device time. Always
+    reports the window's decode steps and its own launch counters
+    (``launches``: set to 0 just before the window, read just after),
+    which hold_window_launches holds exactly."""
     from torch.profiler import ProfilerActivity, profile
+
+    from tpu_dra_torch import kernels
 
     for i, p in enumerate(prompts):
         eng.add_request(E.Request(rid=f"prof{i}", prompt=p,
@@ -1259,12 +1288,14 @@ def profile_decode(E, eng, prompts, chunks: int = 2,
         eng.step()
     steps0 = eng.decode_steps
     torch.cuda.synchronize()
+    kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(chunks):
             eng.step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
     steps = eng.decode_steps - steps0
     eng.run()
     kernels_ = []
@@ -1276,7 +1307,8 @@ def profile_decode(E, eng, prompts, chunks: int = 2,
     device_ms = sum(k[0] for k in kernels_) / 1e3
     if not kernels_:
         return {"device_busy_share": "not measured",
-                "reason": "profiler recorded no device time"}
+                "reason": "profiler recorded no device time",
+                "decode_steps": steps, "launches": launches}
     kernels_.sort(reverse=True)
     attention = {
         name: {
@@ -1309,6 +1341,7 @@ def profile_decode(E, eng, prompts, chunks: int = 2,
         "device_ms_per_step": device_ms / steps,
         "mlp_share_of_device_time": mlp_ms / (device_ms / steps),
         "decode_steps": steps,
+        "launches": launches,
         "window_ms": window_ms,
         "step_ms": window_ms / steps,
         "device_kernel_ms": device_ms,
@@ -1319,6 +1352,20 @@ def profile_decode(E, eng, prompts, chunks: int = 2,
             for us, n, name in kernels_[:10]
         ],
     }
+
+
+def hold_window_launches(label, profile, per_step: dict) -> None:
+    """The profiled window's own launch counters (profile_decode's
+    ``launches``) must be ``per_step`` (counter: launches a decode step)
+    times its decode steps, exactly. The trace's count a step is held
+    rounded beside it, since a trace can come back a few records short
+    (3 of 1,792 for one kernel on an H100 80GB HBM3 at 700 W)."""
+    steps = profile["decode_steps"]
+    got = {k: profile["launches"][k] for k in per_step}
+    if steps <= 0 or got != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(
+            f"{label}: the profiled window's launches {got} over {steps} "
+            f"decode steps, want {per_step} a step")
 
 
 def serve(E, kernels, cfg, params, ec, reqs, **engine_kw) -> tuple:
@@ -1421,13 +1468,15 @@ def engine_wide(E, I8, kernels, cfg, params) -> tuple:
     summary = serve_summary(eng, done, launches, wall)
     profile = profile_decode(E, eng, [np.resize(r.prompt, 128)
                                       for r in reqs])
+    hold_window_launches("engine_wide profile", profile,
+                         {"decode_mlp": L, "decode_mlp_sm90": L})
     if "mlp_kernels" in profile:
         per_step = {k: v["launches_per_step"]
                     for k, v in profile["mlp_kernels"].items()}
         sm90 = sum(v for k, v in per_step.items() if MLP_SM90_KERNEL in k)
         rms = sum(v for k, v in per_step.items() if MLP_RMS_KERNEL in k)
-        if (sm90 != 2 * L or rms != L
-                or profile["mlp_launches_per_step"] != 3 * L):
+        if (round(sm90) != 2 * L or round(rms) != L
+                or abs(profile["mlp_launches_per_step"] - sm90 - rms) > 1e-6):
             raise AssertionError(
                 f"engine_wide profile: decode MLP kernels a step "
                 f"{per_step}, want {2 * L} {MLP_SM90_KERNEL} and {L} "
@@ -1448,29 +1497,33 @@ def engine_wide(E, I8, kernels, cfg, params) -> tuple:
     return report, launches, step, ec, prompts
 
 
-def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec) -> tuple:
-    """engine_wide's config and requests with int8 weights and KV, on an
-    int8 tree quantized ahead (``qparams``): every request completes
-    with its token count, the allocator ends whole with every pool
-    (scales included) zero; a decode step (M = WIDE_SLOTS rows) makes
-    its 7 L + 1 int8 matmuls on the GEMV's wgmma body at 4 planes, none
-    on the wgmma tile, int8mm.cu's GEMV or the WMMA tile (every launch
-    with M > 64, a prefill bucket's, on the tile), and L paged-decode
-    launches on the int8 pools; a profile of steady decode (7 L + 1
-    launches of int8_gemv_sm90_kernel_wgmma<4, *> a step, rounded, and no
-    other int8 matmul kernel; its device ms and share); then the decode
-    step from one state with every slot live, once per W8_STEP_VARIANTS.
-    Returns (report, launches, bf16 step comparison)."""
+def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec, reqs,
+                      label: str = "engine_wide_w8kv8") -> tuple:
+    """A wide engine's config (``ec``: engine_wide's 32 slots or
+    engine_wide128's 128) and requests (``reqs``) with int8 weights and
+    KV, on an int8 tree quantized ahead (``qparams``): every request
+    completes with its token count, the allocator ends whole with every
+    pool (scales included) zero; a decode step (M = max_slots rows) makes
+    its 7 L + 1 int8 matmuls on the GEMV's wgmma body (4 planes at 32
+    slots, 16 at 128), none on the wgmma tile, int8mm.cu's GEMV or the
+    WMMA tile (every launch with M > 128, a prefill bucket's, on the
+    tile), and L paged-decode launches on the int8 pools; a profile of
+    steady decode (7 L + 1 launches of int8_gemv_sm90_kernel_wgmma<planes,
+    *> a step, rounded, the window's launch counters exactly, and no
+    other int8 matmul kernel; its device ms
+    and share); then the decode step from one state with every slot
+    live, once per W8_STEP_VARIANTS. Returns (report, launches, bf16
+    step comparison)."""
     L = cfg.n_layers
+    slots = ec.max_slots
     w8 = dataclasses.replace(ec, weight_quant="int8", kv_quant="int8")
-    reqs = wide_requests(E, cfg)
     with RouteLog(I8) as log:
         eng, done, launches, wall = serve(E, kernels, cfg, qparams, w8, reqs)
     steps = eng.decode_steps
     mm_per_pass = INT8MM_PER_LAYER * L + 1
-    routes = log.check("engine_wide_w8kv8")
-    decode_calls = sum(1 for m, _ in log.calls if m == WIDE_SLOTS)
-    planes = gemv_planes_of(WIDE_SLOTS)
+    routes = log.check(label)
+    decode_calls = sum(1 for m, _ in log.calls if m == slots)
+    planes = gemv_planes_of(slots)
     if not (launches["int8mm"] == mm_per_pass * (steps + eng.prefill_buckets)
             and launches["int8mm_gemv_sm90"]
             == routes["launches_by_route"].get("gemv_sm90", 0)
@@ -1479,21 +1532,23 @@ def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec) -> tuple:
             and launches["int8mm_sm90"] + launches["int8mm_gemv_sm90"]
             == launches["int8mm"]
             and launches["int8mm_gemv"] == 0
-            and decode_calls >= mm_per_pass * steps > 0 and planes == 4
+            and decode_calls >= mm_per_pass * steps > 0
+            and planes == {WIDE_SLOTS: 4, WIDE128_SLOTS: 16}[slots]
             and launches["paged_decode_attention_int8"] == L * steps
             and launches["paged_decode_attention"] == 0
             and launches["decode_mlp"] == 0):
         raise AssertionError(
-            f"engine_wide_w8kv8: launches {launches}, routes {routes}: want "
+            f"{label}: launches {launches}, routes {routes}: want "
             f"{mm_per_pass} int8 matmuls a forward pass ({steps} decode "
-            f"steps at M = {WIDE_SLOTS}, {eng.prefill_buckets} prefill "
-            f"buckets) on gemv_sm90 ({planes} planes) up to 64 rows and "
-            f"sm90 past them, {L} int8 paged launches a step")
+            f"steps at M = {slots}, {eng.prefill_buckets} prefill "
+            f"buckets) on gemv_sm90 ({planes} planes) up to "
+            f"{GEMV_SM90_MAX_ROWS} rows and sm90 past them, {L} int8 paged "
+            f"launches a step")
     pools_zero = all(bool((layer[1:] == 0).all())
                      for _, pool in eng.cache._pools() for layer in pool)
     if not (eng.cache.quantized and pools_zero):
-        raise AssertionError("engine_wide_w8kv8: freed pages (values, "
-                             "scales) not zero")
+        raise AssertionError(f"{label}: freed pages (values, scales) not "
+                             f"zero")
     summary = serve_summary(eng, done, launches, wall)
     parts = {"serve": wall}
     # The profile and the step check run what they need: one profiled
@@ -1505,12 +1560,10 @@ def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec) -> tuple:
                                       for r in reqs], chunks=1,
                              new_tokens=3 * w8.scan_chunk)
     parts["profile"] = time.perf_counter() - t
+    hold_window_launches(f"{label} profile", profile,
+                         {"int8mm": mm_per_pass,
+                          "int8mm_gemv_sm90": mm_per_pass})
     if "int8mm_kernels" in profile:
-        # The launch counters above hold the exact count; the trace names
-        # the kernels. Its records of a one-chunk window (about 19,500
-        # kernels) have come back a few short (3 of 1,792 for one
-        # kernel on an H100 80GB HBM3 at 700 W), so its count a step is
-        # held rounded.
         per_step = {k: v["launches_per_step"]
                     for k, v in profile["int8mm_kernels"].items()}
         body = sum(v for k, v in per_step.items()
@@ -1518,7 +1571,7 @@ def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec) -> tuple:
         if (round(body) != mm_per_pass
                 or abs(profile["int8mm_launches_per_step"] - body) > 1e-6):
             raise AssertionError(
-                f"engine_wide_w8kv8 profile: int8 matmul kernels a step "
+                f"{label} profile: int8 matmul kernels a step "
                 f"{per_step}, want {mm_per_pass} of "
                 f"{GEMV_SM90_WGMMA_KERNEL}<{planes}, *> and nothing else")
     t = time.perf_counter()
@@ -1526,7 +1579,7 @@ def engine_wide_w8kv8(E, I8, kernels, cfg, qparams, ec) -> tuple:
                        W8_STEP_VARIANTS, new_tokens=2 * w8.scan_chunk + 2)
     parts["step_check"] = time.perf_counter() - t
     report = {
-        "slots": WIDE_SLOTS, **summary, "int8mm_routes": routes,
+        "slots": slots, **summary, "int8mm_routes": routes,
         "gemv_planes": planes, "part_seconds": parts,
         "launches_per_decode_step": {
             "int8mm_decode_calls": decode_calls / steps,
@@ -1578,7 +1631,8 @@ def engine_wide128(E, I8, DM, kernels, cfg, params) -> tuple:
     bucket of single-token rows too), decode_mlp.cu and the halves none;
     a profile of one steady decode chunk (two launches of
     mlp_sm90_kernel and one of its rms_kernel a layer a step, rounded:
-    the counters hold the exact count; nothing else of the MLP); then
+    the window's own counters hold the exact count; nothing else of the
+    MLP); then
     the decode step from one state with every slot live, once per
     STEP_VARIANTS. Returns (report, launches, bf16 step comparison,
     config, the prompts the step comparison admitted)."""
@@ -1612,6 +1666,8 @@ def engine_wide128(E, I8, DM, kernels, cfg, params) -> tuple:
     profile = profile_decode(E, eng, prompts, chunks=1,
                              new_tokens=3 * ec.scan_chunk)
     parts["profile"] = time.perf_counter() - t
+    hold_window_launches("engine_wide128 profile", profile,
+                         {"decode_mlp": L, "decode_mlp_sm90": L})
     if "mlp_kernels" in profile:
         per_step = {k: v["launches_per_step"]
                     for k, v in profile["mlp_kernels"].items()}
@@ -2162,11 +2218,11 @@ SM90_SOURCES = {
 # The decode GEMV's source and its instantiations: the mma.sync body at
 # 1 and 2 planes of 8 rows of x, the wgmma body
 # (int8_gemv_sm90_kernel_wgmma<planes, tiles>) at 4 planes with 2, 4 or
-# 8 tiles a warp and at 8 planes with 2 or 4.
+# 8 tiles a warp, at 8 planes with 2 or 4 and at 16 planes with 2.
 GEMV_SM90_SOURCE = "int8mm_gemv_sm90.cu"
 GEMV_SM90_KERNEL = "int8_gemv_sm90_kernel"
 GEMV_SM90_WGMMA_KERNEL = "int8_gemv_sm90_kernel_wgmma"
-GEMV_SM90_INSTANTIATIONS = 7
+GEMV_SM90_INSTANTIATIONS = 8
 
 
 def gemv_sm90_build(kernels, report) -> dict:
@@ -3422,6 +3478,12 @@ def reprefill_ttft(E, cfg, params, ec, prompt) -> dict:
     settle(eng)
     return {"context": len(prompt), "ttft_s": c.ttft_s, "wall_s": wall,
             "prefill_buckets": eng.prefill_buckets}
+
+
+# engine_migrate's w8kv8 arms run at this depth (its bf16 arms at 32
+# layers): at 32 layers they took 25.5-34.9 s of the phase, at 2 layers
+# 1.8 s (an H100 80GB HBM3 at 700 W; the phase 41.5-57.7 s, then 19.7 s).
+MIGRATE_W8_LAYERS = 2
 
 
 def migrate_phase(E, G, kernels, cfg, params, ec, reqs, want, label,
@@ -5569,11 +5631,14 @@ def main() -> int:
     emit("profile", **profile)
     # The MLP of every steady decode step: the tensor-core kernel's two
     # passes, one launch each a layer, and none of decode_mlp.cu's.
+    hold_window_launches("profile", profile,
+                         {"decode_mlp": L, "decode_mlp_sm90": L})
     if "mlp_kernels" in profile:
         per_step = {k: v["launches_per_step"]
                     for k, v in profile["mlp_kernels"].items()}
         sm90 = sum(v for k, v in per_step.items() if MLP_SM90_KERNEL in k)
-        if sm90 != 2 * L or profile["mlp_launches_per_step"] != 2 * L:
+        if (round(sm90) != 2 * L
+                or abs(profile["mlp_launches_per_step"] - sm90) > 1e-6):
             raise AssertionError(
                 f"profile: decode MLP kernels a step {per_step}, want "
                 f"{2 * L} {MLP_SM90_KERNEL} launches and nothing else")
@@ -5625,12 +5690,11 @@ def main() -> int:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     with RouteLog(I8) as w8_routes:
         eng, done, launches, wall = serve(E, kernels, cfg, params, w8, reqs)
-    w8_done = dict(done)  # the profile below adds its own requests
     del params  # the engine holds the quantized tree only
     torch.cuda.empty_cache()
     steps = eng.decode_steps
     mm_per_pass = INT8MM_PER_LAYER * L + 1
-    # Every launch with M > 64 (the prefill projections) on the wgmma
+    # Every launch with M > 128 (the prefill projections) on the wgmma
     # tile, every other (decode steps, the prefill lm_head over one row
     # a slot) on the tensor-core GEMV; int8mm.cu's GEMV never.
     routes = w8_routes.check("engine w8kv8")
@@ -5648,7 +5712,8 @@ def main() -> int:
         raise AssertionError(
             f"w8kv8 launches {launches}: want {mm_per_pass} int8mm per "
             f"forward pass ({steps} decode steps, {eng.prefill_buckets} "
-            f"prefill buckets), the M > 64 ones on int8mm_sm90 and the "
+            f"prefill buckets), the M > {GEMV_SM90_MAX_ROWS} ones on "
+            f"int8mm_sm90 and the "
             f"rest on int8mm_gemv_sm90 {routes}, "
             f"{L} int8 paged per step, no fused MLP"
         )
@@ -5674,13 +5739,17 @@ def main() -> int:
     emit("profile_w8kv8", **w8_profile)
     # One launch a GEMV call: the steady decode steps run the
     # tensor-core GEMV only, 225 a step, and no second kernel.
+    hold_window_launches("profile_w8kv8", w8_profile,
+                         {"int8mm": mm_per_pass,
+                          "int8mm_gemv_sm90": mm_per_pass})
     if "int8mm_kernels" in w8_profile:
         gemv = [k for k in w8_profile["int8mm_kernels"]
                 if GEMV_SM90_KERNEL in k]
         per_step = sum(w8_profile["int8mm_kernels"][k]["launches_per_step"]
                        for k in gemv)
-        if (per_step != mm_per_pass
-                or w8_profile["int8mm_launches_per_step"] != mm_per_pass):
+        if (round(per_step) != mm_per_pass
+                or abs(w8_profile["int8mm_launches_per_step"] - per_step)
+                > 1e-6):
             raise AssertionError(
                 f"profile_w8kv8: int8mm kernels a step "
                 f"{w8_profile['int8mm_kernels']}, want {mm_per_pass} "
@@ -5996,15 +6065,23 @@ def main() -> int:
     # Bytes a page: K and V (and in int8 their f32 scales) of every layer.
     kv_row = cfg.n_kv_heads * cfg.head_dim
     page_bf16 = 2 * L * ec.page_size * kv_row * 2
-    page_w8 = 2 * L * ec.page_size * (kv_row + 4 * cfg.n_kv_heads)
     migrate["bf16"] = migrate_phase(E, G, kernels, cfg, params, ec, reqs,
                                     greedy_done, "bf16", page_bf16)
-    # One int8 tree for every w8kv8 engine: an engine leaves a tree
-    # that is already quantized as it is.
-    params = Q.quantize_params(G.unroll_params(G.as_tree(params)))
+    del params
     torch.cuda.empty_cache()
-    migrate["w8kv8"] = migrate_phase(E, G, kernels, cfg, params, w8, reqs,
-                                     w8_done, "w8kv8", page_w8)
+    # The w8kv8 arms at MIGRATE_W8_LAYERS layers (ROADMAP Order 7's cut:
+    # their gates scale with L), against one engine's unmigrated run of
+    # the same requests at that depth. One int8 tree for every w8kv8
+    # engine: an engine leaves a tree that is already quantized as it is.
+    c_w8 = dataclasses.replace(cfg, n_layers=MIGRATE_W8_LAYERS)
+    params = Q.quantize_params(G.unroll_params(G.as_tree(init_params(
+        c_w8, torch.Generator(device="cuda").manual_seed(0)))))
+    _, w8_want, _, _ = serve(E, kernels, c_w8, params, w8, reqs)
+    page_w8 = (2 * MIGRATE_W8_LAYERS * ec.page_size
+               * (kv_row + 4 * cfg.n_kv_heads))
+    migrate["w8kv8"] = migrate_phase(E, G, kernels, c_w8, params, w8, reqs,
+                                     w8_want, "w8kv8", page_w8)
+    migrate["w8kv8"]["layers"] = MIGRATE_W8_LAYERS
     del params
     torch.cuda.empty_cache()
     tec = E.EngineConfig(page_size=4, max_slots=3, max_pages_per_seq=12,
@@ -6014,7 +6091,8 @@ def main() -> int:
                             dataclasses.replace(tec, **kw))
         for label, kw in (("greedy", {}), ("sampled", sampled))}
     emit("engine_migrate",
-         model="LLAMA3_8B widths, 32 layers, random weights; tiny fp32",
+         model="LLAMA3_8B widths, random weights (bf16 32 layers, w8kv8 "
+               f"{MIGRATE_W8_LAYERS}); tiny fp32",
          nvidia_smi=smi, seconds=time.perf_counter() - t_migrate, **migrate)
 
     # --- 7f. the serving tier: the port's Router over replica threads --------
@@ -6159,11 +6237,10 @@ def main() -> int:
          seconds=time.perf_counter() - t0 - t_quant, **wide)
     emit("decode_step_wide", **wide_cmp, gates=step_gates(wide_cmp))
 
-    # --- 8d. the 32-slot engine with int8 weights and KV -------------------
+    # --- 8d. the 32- and 128-slot engines with int8 weights and KV ---------
     t0 = time.perf_counter()
     wide8, wide8_launches, wide8_step = engine_wide_w8kv8(
-        E, I8, kernels, cfg, qparams, wide_ec)
-    del qparams
+        E, I8, kernels, cfg, qparams, wide_ec, wide_requests(E, cfg))
     torch.cuda.empty_cache()
     wide8_cmp = {"bf16": wide8_step}
     c = dataclasses.replace(cfg, n_layers=2)
@@ -6182,6 +6259,29 @@ def main() -> int:
          quantize_seconds=t_quant, **wide8)
     emit("decode_step_wide_w8kv8", **wide8_cmp,
          gates=step_gates(wide8_cmp))
+    t0 = time.perf_counter()
+    w128_8, w128_8_launches, w128_8_step = engine_wide_w8kv8(
+        E, I8, kernels, cfg, qparams, w128_ec, wide128_requests(E, cfg),
+        "engine_wide128_w8kv8")
+    del qparams
+    torch.cuda.empty_cache()
+    w128_8_cmp = {"bf16": w128_8_step}
+    c = dataclasses.replace(cfg, n_layers=2)
+    e = E.Engine(c, init_params(c, torch.Generator(device="cuda")
+                                .manual_seed(0)),
+                 dataclasses.replace(w128_ec, weight_quant="int8",
+                                     kv_quant="int8"))
+    w128_8_cmp["bf16_2_layers"] = step_logits(
+        E, I8, c, e, w128_prompts, W8_STEP_VARIANTS,
+        new_tokens=2 * w128_ec.scan_chunk + 2)
+    del e
+    torch.cuda.empty_cache()
+    emit("engine_wide128_w8kv8", nvidia_smi=smi,
+         model="LLAMA3_8B widths, 32 layers, bf16 activations, int8 "
+               "weights and KV, random weights",
+         seconds=time.perf_counter() - t0, **w128_8)
+    emit("decode_step_wide128_w8kv8", **w128_8_cmp,
+         gates=step_gates(w128_8_cmp))
 
     # --- 8a. sharded decode: world 1 above, world 2 on the one card --------
     t0 = time.perf_counter()
@@ -6267,17 +6367,19 @@ def main() -> int:
          + w128_launches["decode_mlp_sm90"]
          + shapes_launches["decode_mlp_sm90"]),
         # The int8 matmul's two routes on the path: the tensor-core GEMV
-        # for M <= 64 (decode) and the wgmma tile for M > 64 (prefill).
+        # for M <= 128 (decode) and the wgmma tile for M > 128 (prefill).
         ("int8mm_gemv_sm90", "tpu_dra_torch/csrc/int8mm_gemv_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m8_k4096_n14336"], timing["int8mm"],
          w8_launches["int8mm_gemv_sm90"]
          + wide8_launches["int8mm_gemv_sm90"]
+         + w128_8_launches["int8mm_gemv_sm90"]
          + bench_launches.get("int8mm_gemv_sm90", 0)),
         ("int8mm_sm90", "tpu_dra_torch/csrc/int8mm_sm90.cu",
          "tpu_dra/workloads/ops/int8mm.py:47",
          parity["int8mm_m1024_k4096_n14336"], timing["int8mm_prefill"],
          w8_launches["int8mm_sm90"] + wide8_launches["int8mm_sm90"]
+         + w128_8_launches["int8mm_sm90"]
          + bench_launches.get("int8mm_sm90", 0)),
         ("decode_attention", "tpu_dra_torch/csrc/decode.cu",
          "tpu_dra/workloads/ops/attention.py:803",
@@ -6295,6 +6397,7 @@ def main() -> int:
          timing["paged_decode_attention_int8"],
          w8_launches["paged_decode_attention_int8"]
          + wide8_launches["paged_decode_attention_int8"]
+         + w128_8_launches["paged_decode_attention_int8"]
          + bench_launches.get("paged_decode_attention_int8", 0)
          + shapes_launches["paged_decode_attention_int8"]),
     ) + tuple(
@@ -6335,7 +6438,7 @@ def main() -> int:
         if name == "int8mm_gemv_sm90":
             rows[-1]["replaced_kernel_ms"] = t["old_gemv_ms"]
             rows[-1]["instantiations"] = gemv_build
-            # The wgmma body at a w8 engine's 17-64 decode rows, beside
+            # The wgmma body at a w8 engine's 17-128 decode rows, beside
             # the tile it replaced there.
             rows[-1]["wide_rows"] = {
                 label: {f: timing[label][f] for f in (
@@ -6347,7 +6450,8 @@ def main() -> int:
                 f"int8mm_m{m}_k{k}_n{n}": parity[f"int8mm_m{m}_k{k}_n{n}"]
                 for m, k, n in INT8MM_PARITY if 16 < m <= GEMV_SM90_MAX_ROWS}
             rows[-1]["launches_at_wide_rows"] = {
-                "engine_wide_w8kv8": wide8_launches["int8mm_gemv_sm90"]}
+                "engine_wide_w8kv8": wide8_launches["int8mm_gemv_sm90"],
+                "engine_wide128_w8kv8": w128_8_launches["int8mm_gemv_sm90"]}
         if name == "decode_mlp":
             rows[-1].update(
                 counter="decode_mlp_sm90",
@@ -6379,11 +6483,12 @@ def main() -> int:
                     "checks", "worst_fp32", "worst_bf16_over_limit")}
         if name.startswith("int8mm"):
             rows[-1]["serves"] = {
-                "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 64 (decode steps "
-                                    "of up to 64 slots, the spec verify "
-                                    "pass, the engine prefill's lm_head)",
-                "int8mm_sm90": "sm90: bf16 M > 64 (prefill projections, the "
-                               "generate lm_head)",
+                "int8mm_gemv_sm90": "gemv_sm90: bf16 M <= 128 (decode "
+                                    "steps of up to 128 slots, the spec "
+                                    "verify pass, the engine prefill's "
+                                    "lm_head)",
+                "int8mm_sm90": "sm90: bf16 M > 128 (prefill projections, "
+                               "the generate lm_head)",
             }[name]
     pick = sampling["timing"]["t0.8_k40"]
     pick_cases = sampling["cases"]

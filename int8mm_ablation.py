@@ -3,7 +3,8 @@
 the prefill tile, and int8mm_gemv_sm90.cu, the decode GEMV) spend their
 time, and what the prefill tile moves end to end, on one NVIDIA GPU.
 
-    python3 int8mm_ablation.py [variants] [gemv] [wide] [generate] [prefill]
+    python3 int8mm_ablation.py [variants] [gemv] [wide] [wide128]
+                               [generate] [prefill]
 
 (no argument runs every phase). Phases, one JSON line each after the
 card's nvidia-smi line:
@@ -47,9 +48,24 @@ card's nvidia-smi line:
    (M = 32), the source built as it is, with each design choice undone
    (WIDE_VARIANTS: exact text; a changed source raises): no overlap of
    a stage's conversion with the previous stage's products, a ring of 4
-   or 6 stages instead of 5; and with parts of its step taken out (wrong
-   results, only their times count): no W copies, no int8 -> bf16
-   conversion, no products, the launch alone; the same rotation.
+   or 6 stages instead of 5; and with parts of its step taken out
+   (wrong results, only their times count): no W copies, no int8 ->
+   bf16 conversion, no products, the launch alone; the same rotation.
+   Each variant's registers and spills are in the line.
+3b. wide128 — the wgmma body at 16 planes, M in WIDE128_ROWS (96, 128),
+   over every decode (K, N): the wrapper's plan beside the other block
+   width 16 planes allow (1 or 2 slabs, each with the plan rule's
+   cluster) and WIDE128_PLANS (other clusters, the cap on clustered
+   grids lifted or a second wave), int8mm_sm90.cu's tile (the route
+   these rows took before, launched directly with the wrapper's rows)
+   and the yardstick, WIDE_SAMPLES rotated samples each. Then at
+   WIDE128_VARIANT_ROWS the source built as it is, with a design choice
+   undone (WIDE128_VARIANTS: two register sets of A fragments at 16
+   planes; a ring of 3 stages instead of 4) and with parts taken out
+   (wrong results, only their times count): no W copies, no x copies,
+   no int8 -> bf16 conversion, no products, no epilogue (each warp
+   leaves once its products retire: no sums through shared memory, no
+   cluster sum, no output), the launch alone; the same rotation.
 4. generate — greedy_generate at Llama-3-8B widths (32 layers, random
    weights, b=8, prompt 256, 32 new tokens) with int8 weights and KV:
    its int8 matmuls with M > 16 on the wgmma tile ("sm90") or forced
@@ -152,7 +168,7 @@ WG_RAW = """        a[i][b][0] = v[i][0][b / 4] ^ v[i][1][b / 4];
         a[i][b][2] = v[i][2][b / 4] ^ v[i][3][b / 4];
         a[i][b][3] = v[i][2][(kHi + b) / 4] ^ v[i][3][(kHi + b) / 4];
 """
-WG_BUFS = "  constexpr int kBufs = TILES == 2 ? 2 : 1;\n"
+WG_BUFS = "  constexpr int kBufs = TILES == 2 && PLANES < 16 ? 2 : 1;\n"
 WG_RING = "constexpr int kWgStages = 5;\n"
 WIDE_VARIANTS = {
     "as_is": [],
@@ -169,13 +185,54 @@ WIDE_VARIANTS = {
     "no_products": [(WG_PRODUCTS, "      (void)bd;\n")],
     "launch_only": [(WG_ENTRY, WG_ENTRY + "  if (M > 0) return;\n")],
 }
+WIDE_VARIANT_ROWS = (("gate_up", 32, 4096, 14336),
+                     ("gate_up", 64, 4096, 14336),
+                     ("down", 32, 14336, 4096))
+
+
+# The wgmma body at 16 planes (65-128 rows): rows, other plans (slabs a
+# CTA, cluster) and variants (old, new) of int8mm_gemv_sm90.cu.
+WIDE128_ROWS = (96, 128)
+WIDE128_PLANS = {
+    "gate_up": ((2, 2), (1, 2)),
+    "wq_wo": ((1, 4), (2, 8)),
+    "wk_wv": ((2, 8), (1, 4)),
+    "down": ((1, 4), (2, 8)),
+    "lm_head": ((1, 1),),
+}
+WG_X_COPY = """      cp_async8(stage + x_off0 + h * x_rstep * 128,
+                valid ? x_src + static_cast<size_t>(h * x_rstep) * K : x,
+                valid);
+"""
+WG_RING16 = "  return planes == 16 ? 4 : kWgStages;\n"
+WG_EPILOGUE = "\n  // Warp w's sums at red[w][row][column of its kCw]"
+WIDE128_VARIANTS = {
+    "as_is": [],
+    # Design choices, each a working kernel: two register sets of A
+    # fragments at 16 planes (the next stage converted while a stage's
+    # products run, as at 4 and 8) and a ring of 3 stages.
+    "overlap": [(WG_BUFS, "  constexpr int kBufs = TILES == 2 ? 2 : 1;\n")],
+    "ring3": [(WG_RING16, "  return planes == 16 ? 3 : kWgStages;\n")],
+    "no_w_copy": [(WG_W_COPY, "      (void)valid;\n")],
+    "no_x_copy": [(WG_X_COPY, "      (void)valid;\n")],
+    "no_conversion": [(WG_CONVERSION, WG_RAW)],
+    "no_products": [(WG_PRODUCTS, "      (void)bd;\n")],
+    "no_epilogue": [(WG_EPILOGUE, "\n  if (M > 0) return;" + WG_EPILOGUE)],
+    "launch_only": [(WG_ENTRY, WG_ENTRY + "  if (M > 0) return;\n")],
+}
+WIDE128_VARIANT_ROWS = (("gate_up", 96, 4096, 14336),
+                        ("gate_up", 128, 4096, 14336),
+                        ("down", 128, 14336, 4096),
+                        ("wk_wv", 128, 4096, 1024))
 
 
 def build_variants(kernels, source="int8mm_sm90.cu", variants=VARIANTS,
-                   entry="tpu_int8_matmul_sm90", n_ints=4) -> dict:
+                   entry="tpu_int8_matmul_sm90", n_ints=4,
+                   logs=None) -> dict:
     """Each variant's C entry (``entry`` of ``source``, whose arguments
     are 4 pointers, ``n_ints`` ints and the stream), built into
-    build/int8mm_ablation/."""
+    build/int8mm_ablation/; ``logs``, if given, receives each variant's
+    nvcc output (the ptxas report)."""
     out_dir = os.path.join(REPO, "build", "int8mm_ablation")
     os.makedirs(out_dir, exist_ok=True)
     src = open(os.path.join(kernels.CSRC, source)).read()
@@ -199,6 +256,8 @@ def build_variants(kernels, source="int8mm_sm90.cu", variants=VARIANTS,
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
+        if logs is not None:
+            logs[name] = log
         lib = ctypes.CDLL(os.path.join(out_dir, f"{stem}_{name}.so"))
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [
@@ -321,7 +380,21 @@ def wide_plan(I8, m, k, n, sms, warps_n):
     return plan.warps_n, plan.cluster, plan.cta_steps, plan.ctas
 
 
-def wide_phase(C, kernels, Q, I8, rates) -> dict:
+def timed_rows(C, flush, calls: dict) -> dict:
+    """WIDE_SAMPLES rotated samples of each call's time_ms, as spreads."""
+    ms = {name: [] for name in calls}
+    for name in rotated(list(calls), WIDE_SAMPLES):
+        ms[name].append(C.time_ms(calls[name], flush))
+    return {name: spread(v) for name, v in ms.items()}
+
+
+def wide_phase(C, kernels, Q, I8, rates, rows, widths, extra_plans,
+               variants, variant_rows) -> dict:
+    """The wgmma body at ``rows``, over every decode (K, N): the
+    wrapper's plan beside the plan rule held to each of ``widths`` and
+    ``extra_plans[label]`` ((slabs a CTA, cluster) pairs), the tile and
+    the yardstick; then ``variants`` of the source at ``variant_rows``,
+    with each variant's registers and spills."""
     gemv = kernels.function("int8mm_gemv_sm90.cu", "tpu_int8_gemv_sm90",
                             I8._INT8_GEMV_SM90_ARGTYPES)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -330,11 +403,13 @@ def wide_phase(C, kernels, Q, I8, rates) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for label, k, n in GEMV_SHAPES:
-        for m in WIDE_ROWS:
+        for m in rows:
             x, w_q, w_s = C.int8mm_inputs(Q, gen, m, k, n)
             y = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
             plan = I8.gemv_sm90_plan(m, k, n, sms)
-            calls = {}
+            if plan.planes < 4:
+                raise AssertionError(f"{label} M={m}: plan {plan} is not "
+                                     f"the wgmma body's")
 
             def launch(warps_n, cluster, cta_steps):
                 kernels.check(gemv(x.data_ptr(), w_q.data_ptr(),
@@ -342,12 +417,19 @@ def wide_phase(C, kernels, Q, I8, rates) -> dict:
                                    warps_n, cluster, cta_steps, stream),
                               "gemv wide")
 
-            plans = {}
-            for warps_n in WIDE_WIDTHS:
-                p = wide_plan(I8, m, k, n, sms, warps_n)
-                if p is None:
-                    continue
+            steps = -(-k // 16)
+            slabs = -(-n // 128)
+            candidates = [wide_plan(I8, m, k, n, sms, w) for w in widths]
+            for warps_n, cluster in extra_plans.get(label, ()):
+                cta_steps = -(-steps // cluster)
+                clusters = -(-steps // cta_steps)
+                candidates.append((warps_n, clusters, cta_steps,
+                                   clusters * -(-slabs // warps_n)))
+            plans, calls = {}, {}
+            for p in filter(None, candidates):
                 name = f"{p[0]}x{p[1]}"
+                if name in plans:
+                    continue
                 plans[name] = {"ctas": p[3], "wrapper": p[0] == plan.warps_n
                                and p[1] == plan.cluster}
                 calls[name] = lambda p=p: launch(*p[:3])
@@ -355,37 +437,37 @@ def wide_phase(C, kernels, Q, I8, rates) -> dict:
                                                        w_s)
             w_bf = (w_q.float() * w_s).to(torch.bfloat16)
             calls["dequantized_bf16_matmul"] = lambda: x @ w_bf
-            ms = {name: [] for name in calls}
-            for name in rotated(list(calls), WIDE_SAMPLES):
-                ms[name].append(C.time_ms(calls[name], flush))
-            nbytes = k * n + n * 4 + m * k * 2 + m * n * 2
-            b = C.bound(nbytes, 2 * m * k * n, rates)
-            row = {"shape": f"M={m}, K={k}, N={n}",
-                   "plan": plan._asdict(), "plans": plans,
-                   "ms": {name: spread(v) for name, v in ms.items()}, **b}
+            b = C.bound(k * n + n * 4 + m * k * 2 + m * n * 2, 2 * m * k * n,
+                        rates)
+            row = {"shape": f"M={m}, K={k}, N={n}", "plan": plan._asdict(),
+                   "plans": plans, "ms": timed_rows(C, flush, calls), **b}
             row["share_of_bound"] = {
                 name: b["bound_ms"] / v["median"]
                 for name, v in row["ms"].items()}
             out[f"{label}_m{m}"] = row
             del x, w_q, w_s, y, w_bf
     # The design choices undone and the parts taken out.
-    fns = build_variants(kernels, "int8mm_gemv_sm90.cu", WIDE_VARIANTS,
-                         "tpu_int8_gemv_sm90", 6)
-    for label, m, k, n in (("gate_up", 32, 4096, 14336),
-                           ("gate_up", 64, 4096, 14336),
-                           ("down", 32, 14336, 4096)):
+    logs = {}
+    fns = build_variants(kernels, "int8mm_gemv_sm90.cu", variants,
+                         "tpu_int8_gemv_sm90", 6, logs)
+    out["variant_builds"] = {
+        name: {C.short_name(fn): {f: rep[f] for f in ("registers",
+                                                      "spill_stores")}
+               for fn, rep in kernels.ptxas_report(log).items()
+               if "wgmma" in fn}
+        for name, log in logs.items()}
+    for label, m, k, n in variant_rows:
         x, w_q, w_s = C.int8mm_inputs(Q, gen, m, k, n)
         y = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
         plan = I8.gemv_sm90_plan(m, k, n, sms)
-        ms = {name: [] for name in fns}
-        for name in rotated(list(fns), WIDE_SAMPLES):
-            ms[name].append(C.time_ms(lambda: kernels.check(fns[name](
+        calls = {
+            name: (lambda fn=fn: kernels.check(fn(
                 x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(), y.data_ptr(),
                 m, k, n, plan.warps_n, plan.cluster, plan.cta_steps, stream),
-                "gemv wide variant"), flush))
+                "gemv wide variant"))
+            for name, fn in fns.items()}
         out[f"variants_{label}_m{m}"] = {
-            "plan": plan._asdict(),
-            "ms": {name: spread(v) for name, v in ms.items()}}
+            "plan": plan._asdict(), "ms": timed_rows(C, flush, calls)}
         del x, w_q, w_s, y
     return out
 
@@ -479,7 +561,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     rates = C.peaks(torch.cuda.get_device_name(0))
-    every = ["variants", "gemv", "wide", "generate", "prefill"]
+    every = ["variants", "gemv", "wide", "wide128", "generate", "prefill"]
     phases = sys.argv[1:] or every
     unknown = set(phases) - set(every)
     if unknown:
@@ -492,7 +574,13 @@ def main() -> int:
     if "gemv" in phases:
         C.emit("gemv", **gemv_phase(C, kernels, Q, I8, rates))
     if "wide" in phases:
-        C.emit("wide", **wide_phase(C, kernels, Q, I8, rates))
+        C.emit("wide", **wide_phase(C, kernels, Q, I8, rates, WIDE_ROWS,
+                                    WIDE_WIDTHS, {}, WIDE_VARIANTS,
+                                    WIDE_VARIANT_ROWS))
+    if "wide128" in phases:
+        C.emit("wide128", **wide_phase(
+            C, kernels, Q, I8, rates, WIDE128_ROWS, (1, 2), WIDE128_PLANS,
+            WIDE128_VARIANTS, WIDE128_VARIANT_ROWS))
     if {"generate", "prefill"} & set(phases):
         cfg = LLAMA3_8B
         params = init_params(cfg,

@@ -51,7 +51,7 @@ def _port(x, w_q, scale, impl):
     ).numpy()
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 24, 32, 64, 130])
+@pytest.mark.parametrize("m", [1, 3, 8, 24, 32, 64, 96, 128, 130])
 def test_torch_matches_jax_xla(m):
     x, w_q, scale = _inputs(m, m, 96, 160)
     want = np.asarray(JI._xla_int8_matmul(
@@ -138,12 +138,20 @@ DECODE_KN = [(4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
     (m, k, n, torch.bfloat16, 0, 0, "gemv_sm90")
     for m in (24, 32, 33, 48, 64) for k, n in DECODE_KN
 ] + [
-    (65, 4096, 14336, torch.bfloat16, 0, 0, "sm90"),
+    (65, 4096, 14336, torch.bfloat16, 0, 0, "gemv_sm90"),
     (32, 4096, 14336, torch.float32, 0, 0, "sgemm"),
     (64, 4096, 14336, torch.bfloat16, 2, 0, "wmma"),
     (64, 4096, 14336, torch.bfloat16, 4, 0, "gemv_sm90"),
     (64, 136, 144, torch.bfloat16, 0, 0, "gemv_sm90"),
     (48, 4098, 1024, torch.bfloat16, 0, 0, "wmma"),
+] + [
+    (m, k, n, torch.bfloat16, 0, 0, "gemv_sm90")
+    for m in (96, 128) for k, n in DECODE_KN
+] + [
+    (129, 4096, 14336, torch.bfloat16, 0, 0, "sm90"),
+    (129, 4096, 1024, torch.bfloat16, 0, 0, "sm90"),
+    (96, 4096, 14336, torch.bfloat16, 2, 0, "wmma"),
+    (128, 4096, 14336, torch.float32, 0, 0, "sgemm"),
 ], ids=["m1", "m16", "m16_fp32", "m17", "prefill", "ragged_aligned",
         "k130", "n300", "n136", "x_unaligned", "w_unaligned", "m17_fp32",
         "fp32_unaligned"] + [
@@ -153,14 +161,16 @@ DECODE_KN = [(4096, 14336), (4096, 4096), (4096, 1024), (14336, 4096),
      "decode_m17"] + [
     f"wide_m{m}_{k}x{n}" for m in (24, 32, 33, 48, 64) for k, n in DECODE_KN
 ] + ["m65", "m32_fp32", "wide_x_4byte", "wide_x_8byte", "wide_ragged",
-     "wide_k_odd"])
+     "wide_k_odd"] + [
+    f"wide128_m{m}_{k}x{n}" for m in (96, 128) for k, n in DECODE_KN
+] + ["m129", "m129_wk", "wide128_x_4byte", "m128_fp32"])
 def test_int8mm_route(m, k, n, dtype, x_off, w_off, route):
-    """gemv_sm90 for bf16 with M <= 64, K % 4 == 0, N % 16 == 0, x 8-byte
-    and w_q 16-byte aligned; gemv for any other M <= 16; sgemm for fp32
-    above; sm90 for bf16 with K % 8 == 0, N % 16 == 0 and x, w_q 16-byte
-    aligned; wmma for the rest. Since the GEMV's wgmma body, bf16 at
-    17 <= M <= 64 (a w8 engine of 17-64 slots decoding) takes gemv_sm90,
-    the m17 case included."""
+    """gemv_sm90 for bf16 with M <= 128, K % 4 == 0, N % 16 == 0, x
+    8-byte and w_q 16-byte aligned; gemv for any other M <= 16; sgemm
+    for fp32 above; sm90 for bf16 with K % 8 == 0, N % 16 == 0 and x,
+    w_q 16-byte aligned; wmma for the rest. Since the GEMV's wgmma body,
+    bf16 at 17 <= M <= 128 (a w8 engine of 17-128 slots decoding) takes
+    gemv_sm90, the m17 and m65 cases included; M = 129 takes the tile."""
     x = _aligned((m, k), dtype, x_off)
     w_q = _aligned((k, n), torch.int8, w_off)
     assert TI._int8mm_route(x, w_q) == route
@@ -179,7 +189,8 @@ def test_sm90_rows_follow_the_grid(monkeypatch, m, n, rows):
 
 # --- the decode GEMV (csrc/int8mm_gemv_sm90.cu) --------------------------
 
-PLAN_SHAPES = [(m, k, n) for m in (1, 8, 13, 16, 17, 32, 33, 64)
+PLAN_SHAPES = [(m, k, n) for m in (1, 8, 13, 16, 17, 32, 33, 64, 65, 96,
+                                    128)
                for k, n in DECODE_KN] + [
     (m, k, n) for m in (1, 9, 17, 33) for k, n in (
         (64, 96), (100, 48), (1000, 336), (4100, 1040), (16, 16),
@@ -210,7 +221,7 @@ def test_gemv_sm90_plan_covers_every_column_and_k_once(m, k, n):
     warps of a rank cover its k16 steps once; the cluster is portable
     (<= 8)."""
     plan = TI.gemv_sm90_plan(m, k, n, 132)
-    assert plan.planes == next(p for p in (1, 2, 4, 8) if m <= 8 * p)
+    assert plan.planes == next(p for p in (1, 2, 4, 8, 16) if m <= 8 * p)
     assert plan.warps_n * plan.warps_k == 8 and plan.warps_n in (1, 2, 4, 8)
     assert 1 <= plan.cluster <= 8
     if plan.planes <= 2:
@@ -218,10 +229,11 @@ def test_gemv_sm90_plan_covers_every_column_and_k_once(m, k, n):
     else:
         # A warpgroup's 64-column blocks: 2 a warp at one slab (the two
         # warpgroups split the steps), else one a slab, at most 4 at 8
-        # planes (32 accumulator registers a slab); the warps of each
-        # share of the steps cover the block's columns once.
+        # planes (32 accumulator registers a slab) and 2 at 16 (64); the
+        # warps of each share of the steps cover the block's columns
+        # once.
         assert plan.tiles == max(2, plan.warps_n)
-        assert plan.tiles <= (8 if plan.planes == 4 else 4)
+        assert plan.tiles <= {4: 8, 8: 4, 16: 2}[plan.planes]
         units = 128 * plan.warps_n // (16 * plan.tiles)
         assert (units, 8 // units) in ((4, 2), (8, 1))
     slabs = -(-n // 128)
@@ -235,18 +247,27 @@ def test_gemv_sm90_plan_covers_every_column_and_k_once(m, k, n):
     assert [s for r in per_rank for s in r] == list(range(steps))
 
 
-@pytest.mark.parametrize("m", [1, 8, 13, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("m", [1, 8, 13, 16, 17, 32, 33, 64, 65, 96, 128])
 def test_gemv_sm90_plan_fills_one_wave(m):
     """One wave of at most one CTA an SM (clusters within three
     quarters of the SMs), at least 96 CTAs at gate/up, wq/wo, down and
     the lm_head and 64 at wk/wv (the old GEMV's grid held 32 there).
     At 8 planes the lm_head's 1002 slabs take the widest block the
-    planes allow (4 slabs) in two waves of whole CTAs."""
+    planes allow (4 slabs) in two waves of whole CTAs, at 16 planes (2
+    slabs) in four. At 16 planes gate/up takes 112 one-slab CTAs, down
+    and wq/wo 16 two-slab columns in clusters of 6, wk/wv 8 one-slab
+    columns in clusters of 8."""
     for k, n in DECODE_KN:
         plan = TI.gemv_sm90_plan(m, k, n, 132)
-        if plan.planes == 8 and n == 128256:
-            assert (plan.warps_n, plan.cluster, plan.ctas) == (4, 1, 251)
+        if plan.planes >= 8 and n == 128256:
+            want = (4, 1, 251) if plan.planes == 8 else (2, 1, 501)
+            assert (plan.warps_n, plan.cluster, plan.ctas) == want
             continue
+        if plan.planes == 16:
+            assert (plan.warps_n, plan.cluster, plan.ctas) == {
+                (4096, 14336): (1, 1, 112), (4096, 4096): (2, 6, 96),
+                (4096, 1024): (1, 8, 64), (14336, 4096): (2, 6, 96),
+            }[(k, n)]
         assert plan.ctas <= (132 if plan.cluster == 1 else 99), (k, n, plan)
         assert plan.ctas >= (64 if n == 1024 else 96), (k, n, plan)
 
@@ -428,7 +449,7 @@ def test_decode_rows_match_jax(m, dtype):
         _bf16_row_bar(got, want)
 
 
-# --- the decode GEMV's wgmma body (4 and 8 planes, 17 <= M <= 64) -------
+# --- the decode GEMV's wgmma body (4, 8, 16 planes, 17 <= M <= 128) -----
 
 def _forced_plan(m, k, n, warps_n, cluster):
     """The wrapper's plan with its block width and cluster replaced, as
@@ -582,14 +603,15 @@ def _wgmma_model(x, w, plan):
 
 
 WG_MODEL_SHAPES = [(17, 48, 128), (32, 64, 256), (33, 20, 128),
-                   (64, 96, 384)]
+                   (64, 96, 384), (65, 20, 128), (128, 40, 256)]
 
 
 # (M, K, N, warps_n): the wrapper's plan (None) and every block width
-# the planes allow (8 slabs at 4 planes only).
+# the planes allow (8 slabs at 4 planes only, 1 and 2 at 16).
 WG_MODEL_CASES = [
     (m, k, n, warps_n) for m, k, n in WG_MODEL_SHAPES
-    for warps_n in (None, 1, 2, 4, 8) if not (m > 32 and warps_n == 8)]
+    for warps_n in (None, 1, 2, 4, 8)
+    if not (m > 32 and warps_n == 8) and not (m > 64 and warps_n == 4)]
 
 
 @pytest.mark.parametrize("m,k,n,warps_n", WG_MODEL_CASES, ids=[
@@ -600,12 +622,13 @@ def test_gemv_wgmma_maps_compute_x_times_w(m, k, n, warps_n):
     float64 on random integer tiles, give x @ W exactly: under the
     wrapper's plan and at every block width the planes allow (1 slab:
     the warpgroups split each stage's steps; 2 and 4: one 64-column
-    block a slab; 8 at 4 planes), K ragged at 20 and 48, two ranks a
-    cluster where K has two k16 steps."""
+    block a slab; 8 at 4 planes; 1 and 2 at 16 planes, M = 65 and 128),
+    K ragged at 20, 40 and 48, two ranks a cluster where K has two k16
+    steps or more."""
     plan = TI.gemv_sm90_plan(m, k, n, 132)
     if warps_n is not None:
         plan = _forced_plan(m, k, n, warps_n, min(2, -(-k // 16)))
-    assert plan.planes in (4, 8)
+    assert plan.planes in (4, 8, 16)
     rng = np.random.default_rng(m * 1000 + k)
     x = rng.integers(-8, 9, (m, k)).astype(np.float64)
     w = rng.integers(-128, 128, (k, n)).astype(np.float64)
@@ -660,9 +683,20 @@ def test_gemv_wgmma_shared_memory_maps(warps_n):
                                                              wave + per_wave]
                              for q in range(lane_bytes // 4)]
                     assert len(set(banks)) == 32
-    for planes in (4, 8):
+    for planes in (4, 8, 16):
+        if planes == 16 and warps_n > 2:
+            continue
         kn = 8 * planes
         assert (kn * 128) % 1024 == 0 and 16384 % 1024 == 0
+        # The CTA's shared memory (smem_bytes): 1 KB to align the ring,
+        # then the ring (5 stages, 4 at 16 planes: wg_ring) or the warps'
+        # sums, whichever is larger, within the 227 KB less the static
+        # barriers' 1 KB that a CTA may ask for.
+        if warps_n in TI._GEMV_SM90_WIDTHS[planes]:
+            stage = 16384 + kn * 128 * -(-warps_k // 4)
+            ring = (4 if planes == 16 else 5) * stage
+            sums = 8 * kn * cw * 4
+            assert 1024 + max(ring, sums) <= 232448 - 1024
         # A thread's pieces h (i = tid + 256 h) share p and step rows by
         # 64 / warps_k, a multiple of 8: the .cu's x_off0 + h x_rstep 128.
         rstep = 64 // warps_k

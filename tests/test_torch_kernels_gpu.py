@@ -535,6 +535,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
             kernels.check(fn(*wrong), "decode_mlp_sm90")
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["decode_mlp_sm90"] == 0
+    # The int8 GEMV's C entry takes 128 rows (16 planes) and refuses 129
+    # (the wrapper sends those to int8mm_sm90.cu's tile).
+    x8, w_q, w_s = _int8mm(6, 129, 64, 128, torch.bfloat16, cuda_device)
+    out = torch.empty(129, 128, dtype=torch.bfloat16, device=cuda_device)
+    gemv = kernels.function("int8mm_gemv_sm90.cu", "tpu_int8_gemv_sm90",
+                            TI._INT8_GEMV_SM90_ARGTYPES)
+    for rows, ok in ((128, True), (129, False)):
+        err = gemv(x8.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                   out.data_ptr(), rows, 64, 128, 1, 1, 4,
+                   torch.cuda.current_stream().cuda_stream)
+        assert (err == 0) == ok, (rows, err)
+    torch.cuda.synchronize()
 
 
 def test_tiny_engine_on_the_card_matches_the_cpu_engine(cuda_device):
@@ -637,10 +649,10 @@ def test_int8mm_kernel_fp32_matches_plain(cuda_device, m, k, n):
 @pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (4096, 1024)])
 def test_int8mm_kernel_bf16_8b_shapes(cuda_device, m, k, n):
     """The wrapper at Llama-3-8B shapes: the tensor-core GEMV at
-    M <= 64, the wgmma tile at M = 1024."""
+    M <= 128, the wgmma tile at M = 1024."""
     x, w_q, w_s = _int8mm(m, m, k, n, torch.bfloat16, cuda_device,
                           zero_col=n // 2)
-    route = "gemv_sm90" if m <= 64 else "sm90"
+    route = "gemv_sm90" if m <= 128 else "sm90"
     assert TI._int8mm_route(x, w_q) == route
     kernels.reset_launches()
     got = TI.int8_matmul(x, w_q, w_s, impl="cuda").float()
@@ -757,7 +769,7 @@ def test_int8mm_gemv_sm90_decode_shapes(cuda_device, m, k, n):
 
 def _sm90_tile_int8mm(x, w_q, w_s):
     """int8mm_sm90.cu's tile, launched directly with the wrapper's rows:
-    it served bf16 at 17-64 rows before the GEMV's wgmma body."""
+    it served bf16 at 17-128 rows before the GEMV's wgmma body."""
     m, k = x.shape
     n = w_q.shape[1]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
@@ -769,21 +781,22 @@ def _sm90_tile_int8mm(x, w_q, w_s):
     return out
 
 
-@pytest.mark.parametrize("m", [17, 32, 33, 64])
+@pytest.mark.parametrize("m", [17, 32, 33, 64, 65, 96, 127, 128])
 @pytest.mark.parametrize("k,n", DECODE_KN)
 def test_int8mm_gemv_sm90_wide_rows(cuda_device, m, k, n):
-    """bf16 with 17 <= M <= 64 at every Llama-3-8B decode projection
-    takes the GEMV's wgmma body (4 planes to M = 32, 8 to 64) in one
-    launch: within the per-row bar of the plain version and the fp32
-    reference, the all-zero column exact, reruns bit-identical. At
-    M = 32 the prefill tile it replaced, launched directly on the same
-    inputs, holds the same bar."""
+    """bf16 with 17 <= M <= 128 at every Llama-3-8B decode projection
+    takes the GEMV's wgmma body (4 planes to M = 32, 8 to 64, 16 to 128)
+    in one launch: within the per-row bar of the plain version and the
+    fp32 reference, the all-zero column exact, reruns bit-identical. At
+    M = 32 and 128 the prefill tile it replaced, launched directly on
+    the same inputs, holds the same bar."""
     w_q, w_s = _decode_weights(k, n)
     g = torch.Generator(device="cuda").manual_seed(m)
     x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
     assert TI._int8mm_route(x, w_q) == "gemv_sm90"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert TI.gemv_sm90_plan(m, k, n, sms).planes == (4 if m <= 32 else 8)
+    assert TI.gemv_sm90_plan(m, k, n, sms).planes == (
+        4 if m <= 32 else 8 if m <= 64 else 16)
     kernels.reset_launches()
     got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
     assert kernels.LAUNCHES["int8mm_gemv_sm90"] == 1
@@ -793,8 +806,60 @@ def test_int8mm_gemv_sm90_wide_rows(cuda_device, m, k, n):
     ref = TI.int8_matmul(x, w_q, w_s, impl="reference")
     plain = TI.int8_matmul(x, w_q, w_s, impl="torch")
     outs = [got]
-    if m == 32:
+    if m in (32, 128):
         outs.append(_sm90_tile_int8mm(x, w_q, w_s))
+    torch.cuda.synchronize()
+    for out in outs:
+        _assert_bf16_close(out, ref)
+        _assert_bf16_close(out, plain)
+        assert torch.all(out[:, n // 3] == 0), "an all-zero column gives 0"
+    assert torch.equal(got, again), "reruns must give identical bits"
+
+
+def _gemv_sm90_direct(x, w_q, w_s, warps_n, cluster):
+    """int8mm_gemv_sm90.cu launched through its C entry with warps_n
+    slabs a CTA and a cluster of `cluster` CTAs along K."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    steps = -(-k // 16)
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    fn = kernels.function("int8mm_gemv_sm90.cu", "tpu_int8_gemv_sm90",
+                          TI._INT8_GEMV_SM90_ARGTYPES)
+    kernels.check(fn(x.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+                     out.data_ptr(), m, k, n, warps_n, cluster,
+                     -(-steps // cluster),
+                     torch.cuda.current_stream().cuda_stream),
+                  "int8mm_gemv_sm90")
+    return out
+
+
+@pytest.mark.parametrize("m", [65, 100, 127, 128])
+@pytest.mark.parametrize("k,n", [(64, 128), (136, 144), (4100, 1040)])
+def test_int8mm_gemv_sm90_ragged_wide_rows(cuda_device, m, k, n):
+    """bf16 with 65 <= M <= 128 at shapes off the 16-row, 128-column
+    grid (K % 16 = 8 or 4: a K tail; N = 144 or 1040: a partial slab)
+    takes the GEMV's wgmma body at 16 planes in one launch, within the
+    per-row bar of the plain version and the fp32 reference, the
+    all-zero column exact, reruns bit-identical. Launched directly at
+    one and two slabs a CTA, alone and in a cluster along K, it holds
+    the same bar."""
+    x, w_q, w_s = _int8mm(7 * m + k + n, m, k, n, torch.bfloat16,
+                          cuda_device, zero_col=n // 3)
+    assert TI._int8mm_route(x, w_q) == "gemv_sm90"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert TI.gemv_sm90_plan(m, k, n, sms).planes == 16
+    kernels.reset_launches()
+    got = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    assert kernels.LAUNCHES["int8mm_gemv_sm90"] == 1
+    assert kernels.LAUNCHES["int8mm"] == 1
+    assert kernels.LAUNCHES["int8mm_sm90"] == 0
+    again = TI.int8_matmul(x, w_q, w_s, impl="cuda")
+    steps = -(-k // 16)
+    outs = [got] + [_gemv_sm90_direct(x, w_q, w_s, warps_n, cluster)
+                    for warps_n, cluster in ((1, 1), (2, 1),
+                                             (2, min(8, steps)))]
+    ref = TI.int8_matmul(x, w_q, w_s, impl="reference")
+    plain = TI.int8_matmul(x, w_q, w_s, impl="torch")
     torch.cuda.synchronize()
     for out in outs:
         _assert_bf16_close(out, ref)
@@ -828,9 +893,11 @@ def test_int8mm_wide_rows_outside_the_contract(cuda_device, x_off, route):
     assert torch.all(got[:, n // 3] == 0)
 
 
-# Past the GEMV's 64 rows (bf16 at 17-64 rows takes the GEMV's wgmma
-# body; the tile is held there by test_int8mm_gemv_sm90_wide_rows).
-SM90_INT8MM_M = [65, 100, 127, 128, 129, 1024, 2048]
+# Past the GEMV's 128 rows (bf16 at 17-128 rows takes the GEMV's wgmma
+# body, held at these ragged shapes by
+# test_int8mm_gemv_sm90_ragged_wide_rows; the tile is held there by
+# test_int8mm_gemv_sm90_wide_rows).
+SM90_INT8MM_M = [129, 200, 255, 256, 257, 1024, 2048]
 SM90_INT8MM_KN = [(64, 128), (136, 144), (4096, 1024), (4096, 4096),
                   (4096, 14336), (14336, 4096)]
 
@@ -838,9 +905,10 @@ SM90_INT8MM_KN = [(64, 128), (136, 144), (4096, 1024), (4096, 4096),
 @pytest.mark.parametrize("m", SM90_INT8MM_M)
 @pytest.mark.parametrize("k,n", SM90_INT8MM_KN)
 def test_int8mm_sm90_bf16_matches_plain(cuda_device, m, k, n):
-    """bf16 with M > 64 takes the wgmma tile (int8mm_sm90.cu), within
+    """bf16 with M > 128 takes the wgmma tile (int8mm_sm90.cu), within
     the per-row bar of the plain version and the fp32 reference; the
-    ragged edges of M (65, 127, 129), K (136) and N (144) included."""
+    ragged edges of M (129, 200, 255, 257), K (136) and N (144)
+    included."""
     x, w_q, w_s = _int8mm(7 * m + k + n, m, k, n, torch.bfloat16,
                           cuda_device, zero_col=n // 3)
     assert TI._int8mm_route(x, w_q) == "sm90"

@@ -1,14 +1,14 @@
 // Weight-only int8 matmul for Hopper (sm_90a), the decode GEMV:
 //   out[m, n] = bf16((sum_k f32(x[m, k]) * f32(w_q[k, n])) * scale[n])
-// for bf16 x [M, K] with M <= 64 (M = the decode step's slot count),
+// for bf16 x [M, K] with M <= 128 (M = the decode step's slot count),
 // int8 w_q [K, N] row-major and a per-column f32 scale [N]. The wrapper
 // (ops/int8mm.py `_int8mm_route`, "gemv_sm90") sends it bf16 with
-// M <= 64, K % 4 == 0, N % 16 == 0, x 8-byte and w_q 16-byte aligned:
+// M <= 128, K % 4 == 0, N % 16 == 0, x 8-byte and w_q 16-byte aligned:
 // every decode projection and lm_head at Llama-3-8B widths of an engine
-// of up to 64 slots (and the spec verify pass's 40 rows). int8mm.cu's
+// of up to 128 slots (and the spec verify pass's 40 rows). int8mm.cu's
 // gemv_kernel keeps fp32 and the M <= 16 shapes this kernel does not
-// take; int8mm_sm90.cu's tile, which served 17 <= M <= 64 before the
-// wgmma body below, keeps M > 64.
+// take; int8mm_sm90.cu's tile, which served 17 <= M <= 128 before the
+// wgmma body below, keeps M > 128.
 //
 // Replaces: tpu_dra/workloads/ops/int8mm.py `_kernel` (:47, wrapper
 // `_pallas_int8_matmul` :68, pallas_call :76) at decode shapes. Numerics
@@ -17,10 +17,11 @@
 // finished sum once, one rounding.
 //
 // What bounds it on an H100: bytes. Every weight byte feeds 2 M flops,
-// at most 128 at M = 64, where 295 (989 TFLOP/s over 3.35 TB/s) would
+// at most 256 at M = 128, where 295 (989 TFLOP/s over 3.35 TB/s) would
 // make it compute-bound: at M = 8 the K N int8 bytes take 0.0176 ms at
 // gate/up (4096 x 14336) against ~1 us of tensor work, at M = 64 about
-// 0.018 against 7.6 us. The design:
+// 0.018 against 7.6 us, at M = 128 0.0189 against 15.2 us (near the
+// ridge: the products must overlap the copies). The design:
 //   - the products run on the tensor cores with fp32 accumulators. The
 //     int8 weights are converted to bf16 in registers (common.cuh: a
 //     byte permute and an add a byte, a permute packs two), about 3
@@ -30,15 +31,23 @@
 //       - 1 and 2 planes of 8 rows (M <= 16): mma.sync m16n8k16, A = 16
 //         columns x 16 k, B = 16 k x 8 rows of x; one mma a 256-byte
 //         piece of W (two, one a plane, for 9 <= M <= 16);
-//       - 4 and 8 planes (17 <= M <= 64): wgmma m64nNk16, N = 32 or 64
-//         rows of x, A from registers (the .rs form: a warp's fragment
-//         is an m16n8k16 A fragment, warp w of the warpgroup rows
-//         16 w .. 16 w + 15), B = x^T through a shared-memory
+//       - 4, 8 and 16 planes (17 <= M <= 128): wgmma m64nNk16, N = 32,
+//         64 or 128 rows of x, A from registers (the .rs form: a warp's
+//         fragment is an m16n8k16 A fragment, warp w of the warpgroup
+//         rows 16 w .. 16 w + 15), B = x^T through a shared-memory
 //         descriptor. mma.sync cannot go there: its accumulators would
 //         take 128 or 256 registers a thread and the warps' sums 256 KB;
 //         a wgmma's take N / 2 a 64-column block, and a warp carries
 //         TILES = max(2, slabs a CTA) 16-column tiles a k16 step (its
-//         warpgroup's blocks), at most 4 at 8 planes (128 registers);
+//         warpgroup's blocks), at most 4 at 8 planes (128 registers) and
+//         2 at 16 (128 registers: a CTA of 1 or 2 slabs). At 16 planes
+//         the conversion is done once a W byte (W is the register
+//         operand, so a row split between the warpgroups, as the bf16
+//         decode MLP has, would convert each byte twice), one register
+//         set of A fragments (a second set, as at 4 and 8 planes, fits
+//         beside the 128 accumulators only at the 255-register limit
+//         and was slower: int8mm_ablation.py wide128) and a ring of 4
+//         stages (a stage's x piece is 32 KB at one slab);
 //   - at 1 and 2 planes the contraction order is free, so x and W take
 //     the same permutation of k: for lane (g = lane / 4, t = lane % 4),
 //     fragment k 2t, 2t+1, 2t+8, 2t+9 of a k16 step are the physical
@@ -46,7 +55,7 @@
 //     columns 16 g .. 16 g + 15 of its warp's 128-column slab; byte j
 //     and byte 8 + j give rows g and g + 8 of the A fragment of tile j
 //     (j < 8), and the B fragment of x row g is the 8 bytes
-//     x[g][4t .. 4t+3]. At 4 and 8 planes x's k order is the
+//     x[g][4t .. 4t+3]. At 4, 8 and 16 planes x's k order is the
 //     descriptor's (K-major, 128-byte-swizzled blocks of 64 k), so W
 //     keeps it: the lane reads 2 TILES bytes of rows 2t, 2t+1, 2t+8 and
 //     2t+9, bytes b and TILES + b giving rows g and g + 8 of tile b; W
@@ -60,12 +69,14 @@
 //     has read it; at wgmma, once its warpgroup's products of the slot
 //     have retired), keeps 3 stages (48 KB of W) in flight a CTA with no
 //     CTA-wide barrier in the loop. The x pieces of a stage ride in the
-//     same slot. (Warps that each copied and read back only their own
-//     16-byte pieces, with no barrier at all, streamed W markedly slower
-//     on the H100 in exploratory builds);
+//     same slot; the wgmma body's ring (5 stages, 4 at 16 planes) issues
+//     its next stage while a stage's products run. (Warps that each
+//     copied and read back only their own 16-byte pieces, with no
+//     barrier at all, streamed W markedly slower on the H100 in
+//     exploratory builds);
 //   - one launch, the K split reduced on chip: a CTA's warps cover its
 //     block's columns and each stage's k16 steps (at 1 and 2 planes
-//     warps_n slabs x 8 / warps_n steps; at 4 and 8 each warp 16 TILES
+//     warps_n slabs x 8 / warps_n steps; at 4-16 each warp 16 TILES
 //     columns, the two warpgroups splitting the columns or, at one
 //     slab, the steps), and a thread-block cluster of up to 8 CTAs (the
 //     launch's cluster attribute, since the plan picks its size per
@@ -343,9 +354,9 @@ int8_gemv_sm90_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------
-// 4 and 8 planes (17 <= M <= 64): the wgmma body.
+// 4, 8 and 16 planes (17 <= M <= 128): the wgmma body.
 
-// 16-column tiles a warp carries a k16 step at 4 and 8 planes (its
+// 16-column tiles a warp carries a k16 step at 4-16 planes (its
 // warpgroup's 64-column blocks): as many as the CTA's slabs, at least 2.
 // A warp then covers 16 TILES columns, 2 TILES bytes of each W row a
 // lane, and a warpgroup 64 TILES: at 2 slabs or more the two
@@ -354,7 +365,7 @@ int8_gemv_sm90_kernel(const __nv_bfloat16* __restrict__ x,
 __host__ __device__ constexpr int wg_tiles(int warps_n) {
   return warps_n < 2 ? 2 : warps_n;
 }
-// The x piece of a stage at 4 and 8 planes: the wgmma B operand, 8
+// The x piece of a stage at 4, 8 and 16 planes: the wgmma B operand, 8
 // PLANES rows of the stage's k, K-major in 128-byte-swizzled blocks of
 // 64 k (row m's 128 bytes at m * 128, 16-byte chunk c at c ^ (m % 8)),
 // one block a 4 k16 steps (a stage of fewer steps fills part of one).
@@ -364,10 +375,15 @@ __host__ __device__ constexpr int wg_x_bytes(int planes, int warps_k) {
 __host__ __device__ constexpr int wg_stage_bytes(int planes, int warps_k) {
   return kWBytes + wg_x_bytes(planes, warps_k);
 }
-// The wgmma body's ring depth: at 2 tiles a warp a stage is released
-// after the next one's conversion, so one more slot keeps 3 stages in
-// flight.
+// The wgmma body's ring depth. Stage s + ring - 1 is issued while stage
+// s's products run, into the slot stage s - 1 freed, so ring - 1 stages
+// are in flight behind the one being read.
 constexpr int kWgStages = 5;
+// At 16 planes a one-slab stage is 48 KB (16 KB of W, 32 KB of x): 4
+// stages (192 KB) fit a CTA's shared memory, 5 do not.
+__host__ __device__ constexpr int wg_ring(int planes) {
+  return planes == 16 ? 4 : kWgStages;
+}
 
 // 4 N bytes of shared memory at addr into words v (N = 1, 2 or 4).
 template <int N>
@@ -394,8 +410,10 @@ __device__ __forceinline__ void wgmma_w_x(float (&d)[4 * PLANES],
                                           uint64_t b) {
   if constexpr (PLANES == 4)
     wgmma_rs_m64n32k16<0>(d, a, b);
-  else
+  else if constexpr (PLANES == 8)
     wgmma_rs_m64n64k16<0>(d, a, b);
+  else
+    wgmma_rs_m64n128k16<0>(d, a, b);
 }
 
 // The same grid and plan as int8_gemv_sm90_kernel. Warp w covers the
@@ -417,17 +435,19 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
   constexpr int kSteps = 8 / TILES;   // k16 steps a warp takes a stage
   constexpr int kPieces = kN / 8;     // a thread's x pieces, at most
   // A fragments' register sets: at 2 tiles a warp (32 registers a set)
-  // the next stage's are built while a stage's products run.
-  constexpr int kBufs = TILES == 2 ? 2 : 1;
+  // the next stage's are built while a stage's products run, but for
+  // 16 planes (128 accumulators).
+  constexpr int kBufs = TILES == 2 && PLANES < 16 ? 2 : 1;
+  constexpr int kRing = wg_ring(PLANES);
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[2 * kWgStages];  // full, empty
+  __shared__ __align__(8) uint64_t bars[2 * kRing];  // full, empty
   // The swizzled B operand wants a 1024-byte-aligned base.
   const uint32_t raw_base =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t base = (raw_base + 1023u) & ~1023u;
   const uint32_t full0 =
       static_cast<uint32_t>(__cvta_generic_to_shared(bars));
-  const uint32_t empty0 = full0 + 8 * kWgStages;
+  const uint32_t empty0 = full0 + 8 * kRing;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -449,7 +469,7 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < kWgStages; ++i) {
+    for (int i = 0; i < kRing; ++i) {
       mbar_init(full0 + 8 * i, kThreads);
       mbar_init(empty0 + 8 * i, kThreads);
     }
@@ -494,8 +514,8 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
   const __nv_bfloat16* x_src = x + static_cast<size_t>(x_m0) * K + x_k;
   auto issue = [&](int s) {
     if (s >= n_stages) return;
-    const int slot = s % kWgStages;
-    if (s >= kWgStages) mbar_wait(empty0 + 8 * slot, (s / kWgStages - 1) & 1);
+    const int slot = s % kRing;
+    if (s >= kRing) mbar_wait(empty0 + 8 * slot, (s / kRing - 1) & 1);
     const uint32_t stage = base + slot * sbytes;
 #pragma unroll
     for (int j = 0; j < kCopies; ++j) {
@@ -517,7 +537,7 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
     x_k += 16 * warps_k;
     mbar_arrive_on_copies(full0 + 8 * slot);
   };
-  for (int s = 0; s < kWgStages - 1; ++s) issue(s);
+  for (int s = 0; s < kRing - 1; ++s) issue(s);
 
   // acc[b]: the m64nN accumulator of tile b. Lane (g, t) of warp w4 in
   // its warpgroup holds rows 16 w4 + g (elements 4p, 4p + 1) and
@@ -541,8 +561,8 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
   // byte b, a1 the same of byte TILES + b (A row g + 8), a2 and a3 those
   // of rows 2t + 8, 2t + 9.
   auto load = [&](int s, uint32_t (&a)[kSteps][TILES][4]) {
-    const int slot = s % kWgStages;
-    mbar_wait(full0 + 8 * slot, (s / kWgStages) & 1);
+    const int slot = s % kRing;
+    mbar_wait(full0 + 8 * slot, (s / kRing) & 1);
     fence_proxy_async();  // the stage's cp.async bytes, read by wgmma
     const uint32_t st = base + slot * sbytes;
     uint32_t v[kSteps][4][kWords];
@@ -577,7 +597,7 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
   };
   // Stage s's products, one wgmma a step and tile, one commit group.
   auto products = [&](int s, const uint32_t (&a)[kSteps][TILES][4]) {
-    const uint32_t st = base + (s % kWgStages) * sbytes;
+    const uint32_t st = base + (s % kRing) * sbytes;
     __syncwarp();  // wgmma wants the warp converged
     wgmma_fence();
 #pragma unroll
@@ -590,18 +610,20 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
     }
     wgmma_commit();
   };
-  // Every thread frees stage s once its warpgroup's products of it have
-  // retired (they read its x), then issues the stage that takes the
-  // slot after it.
-  auto release = [&](int s) {
-    mbar_arrive(empty0 + 8 * (s % kWgStages));
-    issue(s + kWgStages - 1);
-  };
+  // Stage s + kRing - 1 takes the slot that stage s - 1 freed and is
+  // issued while stage s's products run: at 16 planes the products take
+  // about the copies' time, and copies issued once they retired left
+  // the tensor cores idle (int8mm_ablation.py wide128); at 4 and 8
+  // planes the order is neutral. Every thread frees stage s once its
+  // warpgroup's products of it have retired (they read its x).
+  auto issue_next = [&](int s) { issue(s + kRing - 1); };
+  auto release = [&](int s) { mbar_arrive(empty0 + 8 * (s % kRing)); };
   uint32_t a[kBufs][kSteps][TILES][4];
   if constexpr (kBufs == 1) {
     for (int s = 0; s < n_stages; ++s) {
       load(s, a[0]);
       products(s, a[0]);
+      issue_next(s);
       wgmma_wait<0>();
       release(s);
     }
@@ -611,11 +633,13 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
     if (n_stages > 0) load(0, a[0]);
     for (int s = 0; s < n_stages; s += 2) {
       products(s, a[0]);
+      issue_next(s);
       if (s + 1 < n_stages) load(s + 1, a[1]);
       wgmma_wait<0>();
       release(s);
       if (s + 1 < n_stages) {
         products(s + 1, a[1]);
+        issue_next(s + 1);
         if (s + 2 < n_stages) load(s + 2, a[0]);
         wgmma_wait<0>();
         release(s + 1);
@@ -696,12 +720,13 @@ int8_gemv_sm90_kernel_wgmma(const __nv_bfloat16* __restrict__ x,
 }
 
 // Dynamic shared memory of a CTA: the ring, which holds the warps' sums
-// after the loop (at 4 and 8 planes with 1 KB to align its base).
+// after the loop (at 4, 8 and 16 planes with 1 KB to align its base).
 size_t smem_bytes(int planes, int warps_n) {
   const int warps_k = kWarps / warps_n;
   if (planes >= 4) {
     const size_t ring =
-        static_cast<size_t>(kWgStages) * wg_stage_bytes(planes, warps_k);
+        static_cast<size_t>(wg_ring(planes)) *
+        wg_stage_bytes(planes, warps_k);
     const size_t red =
         static_cast<size_t>(kWarps) * 8 * planes * 16 * wg_tiles(warps_n) * 4;
     return 1024 + (ring > red ? ring : red);
@@ -733,8 +758,8 @@ using Kernel = void (*)(const __nv_bfloat16*, const int8_t*, const float*,
                         __nv_bfloat16*, int, int, int, int, int);
 
 // The kernel of (planes, warps_n): the mma.sync body at 1 and 2 planes,
-// the wgmma body at 4 (any slabs) and 8 (at most 4 slabs); null for
-// anything else.
+// the wgmma body at 4 (any slabs), 8 (at most 4 slabs) and 16 (at most
+// 2); null for anything else.
 Kernel kernel_of(int planes, int warps_n) {
   const int tiles = wg_tiles(warps_n);
   switch (planes) {
@@ -748,6 +773,8 @@ Kernel kernel_of(int planes, int warps_n) {
       return tiles == 2 ? int8_gemv_sm90_kernel_wgmma<8, 2>
              : tiles == 4 ? int8_gemv_sm90_kernel_wgmma<8, 4>
                           : nullptr;
+    case 16:
+      return tiles == 2 ? int8_gemv_sm90_kernel_wgmma<16, 2> : nullptr;
     default: return nullptr;
   }
 }
@@ -775,12 +802,13 @@ cudaError_t launch(Kernel kernel, int planes, const void* x, const void* w_q,
 }  // namespace tpu_dra
 
 // x [M, K] bf16, w_q [K, N] int8, scale [N] f32, out [M, N] bf16, all
-// contiguous; 1 <= M <= 64, K % 4 == 0, N % 16 == 0, x 8-byte and w_q
+// contiguous; 1 <= M <= 128, K % 4 == 0, N % 16 == 0, x 8-byte and w_q
 // 16-byte aligned. The plan: warps_n (1, 2, 4 or 8; at most 4 for
-// 33 <= M <= 64) slabs a CTA, a cluster of `cluster` (1..8) CTAs along
-// K and cta_steps k16 steps a CTA, covering ceil(K / 16) steps. Returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for a shape,
-// alignment or plan it does not take).
+// 33 <= M <= 64, at most 2 for 65 <= M <= 128) slabs a CTA, a cluster
+// of `cluster` (1..8) CTAs along K and cta_steps k16 steps a CTA,
+// covering ceil(K / 16) steps. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a shape, alignment or plan it does not
+// take).
 extern "C" int tpu_int8_gemv_sm90(const void* x, const void* w_q,
                                   const void* scale, void* out, int M, int K,
                                   int N, int warps_n, int cluster,
@@ -788,9 +816,10 @@ extern "C" int tpu_int8_gemv_sm90(const void* x, const void* w_q,
   using namespace tpu_dra;
   if (M == 0 || N == 0) return cudaSuccess;
   const int steps = (K + 15) / 16;
-  const int planes = M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8;
+  const int planes =
+      M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : M <= 64 ? 8 : 16;
   const bool ok =
-      M > 0 && M <= 64 && K > 0 && K % 4 == 0 && N > 0 && N % 16 == 0 &&
+      M > 0 && M <= 128 && K > 0 && K % 4 == 0 && N > 0 && N % 16 == 0 &&
       reinterpret_cast<uintptr_t>(x) % 8 == 0 &&
       reinterpret_cast<uintptr_t>(w_q) % 16 == 0 &&
       (warps_n == 1 || warps_n == 2 || warps_n == 4 || warps_n == 8) &&

@@ -265,8 +265,10 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a,
 }
 
 // d[0:64] += A . B over 16 of K: A is this thread's four packed bf16x2
-// registers of a 64 x 16 tile, B is 16 (k) x 128 (n) of an MN-major
-// shared tile (descriptor b, transpose-B set).
+// registers of a 64 x 16 tile, B is 16 (k) x 128 (n) of a shared tile,
+// by default MN-major (descriptor b, transpose-B set), with TRANS_B = 0
+// K-major (128 rows of n x 16 k).
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
                                                    const uint32_t (&a)[4],
                                                    uint64_t b) {
@@ -281,7 +283,7 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -296,7 +298,8 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
 }
 
 // d[0:32] += A . B over 16 of K: A is this thread's four packed bf16x2

@@ -6,14 +6,15 @@ Counterpart of ``tpu_dra/workloads/ops/int8mm.py``:
   ``_kernel``, at every shape. ``_int8mm_route`` picks it before the
   launch, from the shapes, dtype and alignment alone:
 
-  - ``"gemv_sm90"``, bf16 with M <= 64 (decode, M = slot count),
+  - ``"gemv_sm90"``, bf16 with M <= 128 (decode, M = slot count),
     K % 4 == 0, N % 16 == 0, x 8-byte and w_q 16-byte aligned (every
-    decode projection and lm_head of an engine of up to 64 slots): the
+    decode projection and lm_head of an engine of up to 128 slots): the
     tensor-core GEMV of ``csrc/int8mm_gemv_sm90.cu`` (mma.sync at
-    M <= 16, wgmma at 17 <= M <= 64), planned by :func:`gemv_sm90_plan`;
+    M <= 16, wgmma at 17 <= M <= 128: 4, 8 or 16 planes of 8 rows),
+    planned by :func:`gemv_sm90_plan`;
   - ``"gemv"``, any other M <= 16 (fp32, odd shapes): the
     weight-streaming kernel of ``csrc/int8mm.cu``;
-  - ``"sm90"``, bf16 with M > 16 that the GEMV does not take (M > 64,
+  - ``"sm90"``, bf16 with M > 16 that the GEMV does not take (M > 128,
     or off its alignment), K % 8 == 0, N % 16 == 0 and x, w_q 16-byte
     aligned (every prefill projection and the generate lm_head): the
     wgmma tile of ``csrc/int8mm_sm90.cu``;
@@ -59,9 +60,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The weight-streaming kernel takes up to 16 rows; its K splits aim at
 # this many CTAs per SM, while keeping the fp32 partials' traffic
 # (written once, read once) under an eighth of the weight bytes. The
-# tensor-core GEMV takes up to 64 (8 planes of 8 rows).
+# tensor-core GEMV takes up to 128 (16 planes of 8 rows).
 _GEMV_MAX_ROWS = 16
-_GEMV_SM90_MAX_ROWS = 64
+_GEMV_SM90_MAX_ROWS = 128
 _CTAS_PER_SM = 4
 _K_CHUNK = 256  # csrc/int8mm.cu kChunk
 _SM_COUNTS: dict = {}
@@ -80,12 +81,13 @@ _INT8_GEMV_SM90_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
 # warps on blocks of 128-column slabs, stepping K 16 rows at a time,
 # clusters of at most 8 CTAs (the portable size). At 8 planes (wgmma) a
 # warp's accumulators take 32 registers a slab of the CTA's block, so a
-# block is at most 4 slabs there.
+# block is at most 4 slabs there; at 16 planes 64 a slab, at least 2
+# tiles a warp, so at most 2 slabs.
 _GEMV_SM90_WARPS = 8
 _GEMV_SM90_COLS = 128
 _GEMV_SM90_MAX_CLUSTER = 8
 _GEMV_SM90_WIDTHS = {1: (1, 2, 4, 8), 2: (1, 2, 4, 8), 4: (1, 2, 4, 8),
-                     8: (1, 2, 4)}
+                     8: (1, 2, 4), 16: (1, 2)}
 
 def reference_int8_matmul(x, w_q, scale):
     """fp32 oracle: x @ (w_q * scale), rounded once to x's dtype."""
@@ -132,12 +134,12 @@ class GemvPlan(NamedTuple):
     (cluster, col_ctas), a cluster's CTAs along K; a CTA's block of
     warps_n 128-column slabs, its ring's stages warps_k k16 steps each.
     At 1 and 2 planes (mma.sync) warp w takes slab w / warps_k and step
-    w % warps_k of every stage; at 4 and 8 (wgmma) a warp carries
+    w % warps_k of every stage; at 4, 8 and 16 (wgmma) a warp carries
     ``tiles`` 16-column tiles (its warpgroup's 64-column blocks) over
     16 tiles columns, the two warpgroups splitting the block's columns
     (warps_n >= 2) or each stage's steps (warps_n = 1)."""
 
-    planes: int  # 8-row planes of x: 1, 2, 4, 8 for M <= 8, 16, 32, 64
+    planes: int  # 8-row planes of x: 1, 2, 4, 8, 16 for M <= 8 ... 128
     warps_n: int  # 128-column slabs a CTA
     warps_k: int  # k16 steps a stage
     cluster: int  # CTAs a cluster, splitting K
@@ -152,8 +154,9 @@ class GemvPlan(NamedTuple):
 
 
 def gemv_sm90_planes(m: int) -> int:
-    """8-row planes of x the tensor-core GEMV pads M to: 1, 2, 4 or 8."""
-    return next(p for p in (1, 2, 4, 8) if m <= 8 * p or p == 8)
+    """8-row planes of x the tensor-core GEMV pads M to: 1, 2, 4, 8 or
+    16."""
+    return next(p for p in (1, 2, 4, 8, 16) if m <= 8 * p or p == 16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,7 +173,7 @@ def gemv_sm90_plan(m: int, k: int, n: int, sm_count: int) -> GemvPlan:
     cluster's CTAs must share a GPC, and fuller grids doubled CTAs up
     on SMs or left clusters waiting (int8mm_ablation.py, phase gemv).
     Column blocks beyond one wave take the widest CTAs the planes allow
-    (8 slabs, 4 at 8 planes) and no cluster."""
+    (8 slabs, 4 at 8 planes, 2 at 16) and no cluster."""
     planes = gemv_sm90_planes(m)
     widths = _GEMV_SM90_WIDTHS[planes]
     slabs = -(-n // _GEMV_SM90_COLS)
@@ -199,7 +202,7 @@ def gemv_sm90_plan(m: int, k: int, n: int, sm_count: int) -> GemvPlan:
 
 def _int8mm_route(x, w_q) -> str:
     """The kernel that serves x [M, K] times w_q [K, N] on the card:
-    "gemv_sm90" (bf16, M <= 64, K % 4 == 0, N % 16 == 0, x 8-byte and
+    "gemv_sm90" (bf16, M <= 128, K % 4 == 0, N % 16 == 0, x 8-byte and
     w_q 16-byte aligned), "gemv" (any other M <= 16), "sgemm" (fp32),
     "sm90" (bf16 whose 16-byte copies the wgmma tile takes: K % 8 == 0,
     N % 16 == 0, x and w_q 16-byte aligned) or "wmma" (any other bf16
